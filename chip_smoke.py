@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py                 # on a machine with an H100
+    python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
+        --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
+
+The second form rehearses phases 2-4 on the CPU at a tiny size, through the
+kernels' plain versions; a run on the card never takes that path.
+
+Phases, in order; any failure raises and the script exits non-zero:
+  1. device: name, count, power limit, versions; build both kernels from
+     src/repro_torch/kernels/csrc and print their ptxas reports;
+  2. each kernel against its plain PyTorch version on the card: B1 (one
+     pass of Algorithm 1 for a bank) and B2 (fused bank predict, all three
+     epilogues);
+  3. the main path at a deployment's size: a 200-class x 3-point C-grid
+     bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
+     10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
+     -> BankServer.from_checkpoint -> ragged serving -> swap_bank, with the
+     kernels' launch counts read around it;
+  4. kernel times at the main path's shapes against their bounds, printed
+     as one JSON line {"kernels": [...]}.
+The last line is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+F32_PEAK = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+RTOL_W, ATOL_W = 2e-4, 2e-5  # the repo's engine tolerance: f32 sums reordered
+TIE_REL = 1e-5  # ids are compared where the top-two gap exceeds this * max|score|
+
+
+def score_atol(want):
+    """Absolute tolerance for margins: the engine's atol scaled by the size of
+    the scores, since the f32 summation-order error of a D-long dot product
+    grows with its terms (the reference's Gram tolerances scale the same way)."""
+    return ATOL_W * max(1.0, want.abs().max().item())
+
+
+def make_blobs(n, n_classes, d, seed, proto_seed=0):
+    """Unit-norm class blobs; a fixed proto_seed shares the classes between
+    the training and held-out draws."""
+    proto = (np.random.default_rng(proto_seed).normal(size=(n_classes, d)) * 3).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_classes, size=n)
+    X = (rng.normal(size=(n, d)) + proto[labels]).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    return X, labels
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def time_ms(fn, dev, reps, warmup=1):
+    """Mean milliseconds per call: CUDA events on the card, the host clock
+    on the CPU."""
+    for _ in range(warmup):
+        fn()
+    sync(dev)
+    if dev.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_close(name, got, want, rtol, atol):
+    got, want = got.float().cpu(), want.float().cpu()
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        err = (got - want).abs().max().item()
+        raise AssertionError(f"{name}: max |err| {err:.3e} beyond rtol={rtol}, atol={atol}")
+    return (got - want).abs().max().item()
+
+
+def separated(scores_sorted, rel):
+    """(…, k) mask of sorted positions whose value is more than rel * max|s|
+    from both neighbours: where an id is decided by the values, not a tie."""
+    tol = rel * scores_sorted.abs().max()
+    gaps = scores_sorted[..., :-1] - scores_sorted[..., 1:]
+    above = torch.cat([torch.full_like(gaps[..., :1], torch.inf), gaps], dim=-1)
+    below = torch.cat([gaps, torch.full_like(gaps[..., :1], torch.inf)], dim=-1)
+    return torch.minimum(above, below) > tol
+
+
+def compare_ids(name, got, want, sorted_scores, k):
+    """Ids equal wherever the plain scores separate them; near-ties counted."""
+    sep = separated(sorted_scores, TIE_REL)[..., :k]
+    if got.ndim < sep.ndim:  # one id per row (the ovr epilogue)
+        sep = sep[..., 0]
+    bad = ((got.cpu() != want.cpu()) & sep.cpu()).sum().item()
+    ties = (~sep).sum().item()
+    print(f"  {name}: {bad} separated id mismatches, {ties} near-ties of {sep.numel()}")
+    if bad:
+        raise AssertionError(f"{name}: {bad} ids differ where the scores are separated")
+
+
+# ----------------------------------------------------------------------------
+
+
+def phase_device(dev):
+    from repro_torch.kernels import _build
+
+    if dev.type == "cuda":
+        print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    if dev.type != "cuda":
+        return
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
+          f"(per source: {json.dumps({k: round(v, 1) for k, v in _build.build_seconds.items()})})")
+    for name in _build.SOURCES:
+        print(f"ptxas [{name}]:\n{_build.ptxas_report(name)}")
+
+
+def scan_inputs(rng, b, n, d, dev, *, bp, ragged_n=0, sign0=True, start=None):
+    """Padded inputs of B1's wrapper: b live models padded to bp lanes."""
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    Y = np.where(rng.random((bp, n)) < 0.5, 1.0, -1.0).astype(np.float32)
+    if sign0:
+        Y[:, rng.random(n) < 0.05] = 0.0  # padding rows of the stream
+        Y[rng.random((bp, n)) < 0.02] = 0.0  # rows inert for one model only
+    Y[b:] = 0.0
+    cs = np.geomspace(0.5, 100.0, bp).astype(np.float32)
+    live = np.arange(bp) < b
+    if start is None:
+        W0 = (Y[:, :1] * X[:1]).astype(np.float32)
+        r0, xi20, m0 = np.zeros(bp, np.float32), 1.0 / cs, np.ones(bp, np.int32)
+    else:
+        W0, r0, xi20, m0 = (t.cpu().numpy() for t in start)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    return dict(
+        X=t(X), Y=t(Y), W0=t(W0), r0=t(np.where(live, r0, np.inf)), xi20=t(xi20),
+        c_inv=t(np.where(live, 1.0 / cs, 1.0)), m0=t(m0, torch.int32),
+        gain=t(np.where(live, 1.0 / cs, 1.0)), n_valid=n - ragged_n,
+    )
+
+
+def phase_kernels(dev, args, rng):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
+    from repro_torch.kernels.streamsvm_scan import streamsvm_scan_many, streamsvm_scan_many_plain
+
+    b, n, d = args.check_b, args.check_n, args.d
+    print(f"[2] B1 against its plain version: B={b}, N={n}, D={d}")
+    cases = [
+        ("f32", dict(bp=-(-b // 8) * 8), torch.float32),
+        ("bf16", dict(bp=-(-b // 8) * 8), torch.bfloat16),
+        ("ragged B and N", dict(bp=-(-(b - 3) // 8) * 8, ragged_n=37), torch.float32),
+    ]
+    prev = None
+    for label, kw, sdt in cases + [("continue from balls", None, torch.float32)]:
+        if kw is None:  # continue from the f32 case's state, on a fresh stream
+            kw = dict(bp=prev[0].shape[0], start=prev)
+        bb = b - 3 if "ragged" in label else b
+        inp = scan_inputs(rng, bb, n, d, dev, **kw)
+        X, Y = inp.pop("X").to(sdt), inp.pop("Y").to(sdt)
+        args_ = (X, Y, *(inp[k] for k in ("W0", "r0", "xi20", "c_inv", "m0", "gain")))
+        got = streamsvm_scan_many(*args_, n_valid=inp["n_valid"], block_n=256)
+        want = streamsvm_scan_many_plain(*args_, n_valid=inp["n_valid"], block_n=256)
+        sync(dev)
+        err = check_close(f"B1 {label} w", got[0][:bb], want[0][:bb], RTOL_W, ATOL_W)
+        check_close(f"B1 {label} r", got[1][:bb], want[1][:bb], 1e-4, 0.0)
+        check_close(f"B1 {label} xi2", got[2][:bb], want[2][:bb], 1e-3, 1e-6)
+        if not torch.equal(got[3].cpu(), want[3].cpu()):
+            diff = (got[3] != want[3]).nonzero().flatten().tolist()
+            raise AssertionError(f"B1 {label}: m differs at models {diff}")
+        print(f"  {label}: w max|err| {err:.3e}, m equal (sum {int(got[3][:bb].sum())})")
+        if label == "f32":
+            prev = got
+
+    # The bank's tiling must not change a bit of the result.
+    Xn = rng.normal(size=(n, d)).astype(np.float32)
+    Yn = np.where(rng.random((b, n)) < 0.5, 1.0, -1.0).astype(np.float32)
+    cs = np.geomspace(0.5, 100.0, b).astype(np.float32)
+    fits = [
+        ops.streamsvm_fit_many(Xn, Yn, cs, b_tile=bt, block_n=256, device=dev)
+        for bt in (8, 16, 64)
+    ]
+    for bt, f in zip((16, 64), fits[1:]):
+        for leaf, x, y in zip("w r xi2 m".split(), fits[0], f):
+            if not torch.equal(x, y):
+                raise AssertionError(f"B1 b_tile=8 and b_tile={bt} differ in {leaf}")
+    print("  b_tile 8 / 16 / 64: bit-identical")
+
+    q, bq = args.check_q, args.classes * 3
+    print(f"[2] B2 against its plain version: Q={q} (ragged), B={bq}, D={d}")
+    Q = torch.as_tensor(rng.normal(size=(q, d)).astype(np.float32), device=dev)
+    W = torch.as_tensor(rng.normal(size=(bq, d)).astype(np.float32), device=dev)
+    qb = 256
+    Qp = ops._pad_to(Q, qb, 0)
+    nc_pad, _, _ = ops.ovr_group_tiling(bq, args.classes, None)
+    if nc_pad != args.classes:
+        raise ValueError("the B2 check needs a class count that is a multiple of 8")
+    bias = torch.zeros(bq, device=dev)
+    full = (Qp @ W.T).sort(dim=1, descending=True).values
+    for ep, kw in (
+        ("scores", {}),
+        ("ovr", dict(nc_pad=nc_pad, b_tile=nc_pad)),
+        ("topk", dict(k=5)),
+    ):
+        got = predict_bank_fused(Qp, W, bias, epilogue=ep, q_block=qb, **kw)
+        want = predict_bank_plain(Qp, W, bias, epilogue=ep, q_block=qb, **kw)
+        sync(dev)
+        if ep == "scores":
+            err = check_close("B2 scores", got[:q], want[:q], RTOL_W, score_atol(want[:q]))
+            print(f"  scores: max|err| {err:.3e}")
+            continue
+        if ep == "ovr":
+            ids_g, val_g = got
+            ids_w, val_w = want
+            grp = (Qp @ W.T).reshape(Qp.shape[0], -1, nc_pad).sort(dim=-1, descending=True).values
+            compare_ids("ovr ids", ids_g[:q], ids_w[:q], grp[:q], 1)
+        else:
+            val_g, ids_g = got
+            val_w, ids_w = want
+            compare_ids("topk ids", ids_g[:q], ids_w[:q], full[:q], 5)
+        err = check_close(f"B2 {ep} values", val_g[:q], val_w[:q], RTOL_W, score_atol(val_w[:q]))
+        print(f"  {ep}: values max|err| {err:.3e}")
+
+
+def phase_main_path(dev, args):
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import fit_chunked_many, ovr_signs, predict_c_grid
+    from repro_torch.kernels.predict import predict_bank_fused
+    from repro_torch.kernels.streamsvm_scan import streamsvm_scan_many
+    from repro_torch.serve import BankServer
+
+    n_classes, c_pts, d = args.classes, (1.0, 10.0, 100.0), args.d
+    print(f"[3] main path: {n_classes} classes x C {c_pts} = {n_classes * len(c_pts)} "
+          f"models, D={d}, {args.n_train} training rows, {args.n_test} held-out rows")
+    Xtr, ytr = make_blobs(args.n_train, n_classes, d, seed=args.seed)
+    Xte, yte = make_blobs(args.n_test, n_classes, d, seed=args.seed + 1)
+    cs = np.repeat(np.asarray(c_pts, np.float32), n_classes)
+    Y = np.tile(ovr_signs(ytr, n_classes, device="cpu").numpy(), (len(c_pts), 1))
+    chunks = [
+        (Xtr[lo : lo + args.chunk], Y[:, lo : lo + args.chunk])
+        for lo in range(0, len(Xtr), args.chunk)
+    ]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    streamsvm_scan_many.launches = 0
+    predict_bank_fused.launches = 0
+
+    sync(dev)
+    t0 = time.perf_counter()
+    result = fit_chunked_many(chunks, cs, b_tile=64, device=dev)
+    sync(dev)
+    t_fit = time.perf_counter() - t0
+    bank = result.ball
+    for name, leaf in zip("w r xi2".split(), bank[:3]):
+        if not torch.isfinite(leaf).all():
+            raise AssertionError(f"trained bank has non-finite {name}")
+
+    with tempfile.TemporaryDirectory() as td:
+        ckpt.save(td, bank, meta={"position": result.position, "n_classes": n_classes})
+        server = BankServer.from_checkpoint(
+            td, epilogue="ovr", q_block=256, b_tile=200, device=dev
+        )
+    rng = np.random.default_rng(args.seed + 7)
+    reqs, lo = [], 0
+    while lo < len(Xte):  # ragged client batches, FIFO-packed into slots
+        m = int(rng.integers(1, 200))
+        reqs.append(server.submit(Xte[lo : lo + m]))
+        lo += m
+    t0 = time.perf_counter()
+    stats = server.run()
+    sync(dev)
+    t_serve = time.perf_counter() - t0
+    cls = torch.as_tensor(np.concatenate([r.result[0] for r in reqs]))
+    margin = torch.as_tensor(np.concatenate([r.result[1] for r in reqs]))
+
+    # Hot swap with requests queued: 256 rows score on the old bank, the
+    # last 64 on the new one.
+    more = [(Xte[:500], np.tile(ovr_signs(yte[:500], n_classes, device="cpu").numpy(), (len(c_pts), 1)))]
+    result2 = fit_chunked_many(more, cs, resume=result, b_tile=64)
+    swap_reqs = [server.submit(Xte[lo : lo + 64]) for lo in range(0, 320, 64)]
+    server.step()
+    queued = server.pending_rows()
+    server.swap_bank(result2.ball)
+    server.run()
+    sync(dev)
+    launches = {
+        "streamsvm_scan": streamsvm_scan_many.launches,
+        "predict_bank": predict_bank_fused.launches,
+    }
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+    print(f"  fit: {result.position} rows x {bank.w.shape[0]} models in {t_fit:.3f} s")
+    print(f"  serve: {len(Xte)} queries in {stats.steps} steps, {t_serve:.3f} s, "
+          f"{len(Xte) / t_serve:.0f} queries/s, slot utilisation {stats.utilization:.4f}")
+    for g, cval in enumerate(c_pts):
+        print(f"  C={cval:g}: held-out accuracy {float((cls[:, g].numpy() == yte).mean()):.4f}")
+    print(f"  max_memory_allocated: {peak} bytes")
+    print(f"  launches on the main path: {launches}")
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+
+    # Served ids against the direct readout on the card's plain path.
+    rcls, rmargin = predict_c_grid(bank, torch.as_tensor(Xte, device=dev), n_classes)
+    scores = (torch.as_tensor(Xte, device=dev) @ bank.w.T).reshape(len(Xte), -1, n_classes)
+    grp = scores.sort(dim=-1, descending=True).values
+    compare_ids("served ovr ids vs predict_c_grid", cls, rcls, grp, 1)
+    check_close("served margins vs predict_c_grid", margin, rmargin, RTOL_W, score_atol(rmargin))
+    if queued != 64 or server.stats.bank_swaps != 1 or not all(r.done for r in swap_reqs):
+        raise AssertionError(f"swap_bank lost requests: {queued} queued, stats {server.stats}")
+    new_cls, _ = predict_c_grid(result2.ball, torch.as_tensor(Xte[256:320], device=dev), n_classes)
+    new_s = (torch.as_tensor(Xte[256:320], device=dev) @ result2.ball.w.T).reshape(64, -1, n_classes)
+    compare_ids("rows scored after the swap vs the new bank", torch.as_tensor(swap_reqs[4].result[0]),
+                new_cls, new_s.sort(dim=-1, descending=True).values, 1)
+    return dict(chunk=chunks[0], cs=cs, bank=bank, launches=launches)
+
+
+def phase_times(dev, args, main):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
+    from repro_torch.kernels.streamsvm_scan import streamsvm_scan_many, streamsvm_scan_many_plain
+
+    reps = 1 if dev.type == "cpu" else args.reps
+    # B1 at the main path's first call: one chunk, the bank seeded from row 0.
+    X, Y = (torch.as_tensor(a, device=dev) for a in main["chunk"])
+    b, d = Y.shape[0], X.shape[1]
+    bp = -(-b // 64) * 64
+    cs = torch.as_tensor(main["cs"], device=dev)
+    live = torch.arange(bp, device=dev) < b
+    n = X.shape[0] - 1
+    Xp = ops._pad_to(X[1:], 256, 0)
+    Yp = ops._pad_to(ops._pad_to(Y[:, 1:], 256, 1), bp, 0)
+    pad = lambda v: ops._pad_to(v, bp, 0)
+    args1 = (
+        Xp, Yp, pad(Y[:, :1] * X[:1]), torch.where(live, pad(torch.zeros(b, device=dev)), torch.inf),
+        pad(1.0 / cs), torch.where(live, pad(1.0 / cs), 1.0),
+        pad(torch.ones(b, dtype=torch.int32, device=dev)), torch.where(live, pad(1.0 / cs), 1.0),
+    )
+    got = streamsvm_scan_many(*args1, n_valid=n)
+    want = streamsvm_scan_many_plain(*args1, n_valid=n)
+    sync(dev)
+    err1 = check_close("B1 at the main-path shape, w", got[0][:b], want[0][:b], RTOL_W, ATOL_W)
+    if not torch.equal(got[3].cpu(), want[3].cpu()):
+        raise AssertionError("B1 at the main-path shape: m differs from the plain version")
+    ms1 = time_ms(lambda: streamsvm_scan_many(*args1, n_valid=n), dev, reps)
+    plain1 = time_ms(lambda: streamsvm_scan_many_plain(*args1, n_valid=n), dev, 1, warmup=0)
+    flops1 = 4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32
+    bytes1 = 4.0 * (n * d + b * n + 2 * b * d + 6 * b)
+    # B2 at the main path's server step: 256 query slots against the bank.
+    W = main["bank"].w
+    Q = torch.as_tensor(make_blobs(256, args.classes, d, seed=args.seed + 3)[0], device=dev)
+    nc = args.classes
+    bias = torch.zeros(W.shape[0], device=dev)
+    kw = dict(epilogue="ovr", q_block=256, b_tile=200 if 200 % nc == 0 else nc, nc_pad=nc)
+    got2 = predict_bank_fused(Q, W, bias, **kw)
+    want2 = predict_bank_plain(Q, W, bias, **kw)
+    err2 = check_close("B2 at the main-path shape, margins", got2[1], want2[1], RTOL_W,
+                       score_atol(want2[1]))
+    ms2 = time_ms(lambda: predict_bank_fused(Q, W, bias, **kw), dev, 50 * reps)
+    plain2 = time_ms(lambda: predict_bank_plain(Q, W, bias, **kw), dev, 50 * reps)
+    flops2 = 2.0 * Q.shape[0] * W.shape[0] * d
+    bytes2 = 4.0 * (Q.shape[0] * d + W.shape[0] * (d + 1) + 2 * Q.shape[0] * (W.shape[0] // nc))
+
+    def row(name, src, replaces, launches, err, ms, plain, flops, nbytes, lib, shape):
+        t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib, "shape": shape,
+        }
+
+    kernels = [
+        row("streamsvm_scan", "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
+            "src/repro/kernels/streamsvm_scan.py:800", main["launches"]["streamsvm_scan"],
+            err1, ms1, plain1, flops1, bytes1, None,
+            f"N={n} D={d} B={b} (bank padded to {bp}) f32"),
+        row("predict_bank", "src/repro_torch/kernels/csrc/predict.cu",
+            "src/repro/kernels/predict.py:321", main["launches"]["predict_bank"],
+            err2, ms2, plain2, flops2, bytes2, None,
+            f"Q=256 B={W.shape[0]} D={d} ovr n_classes={nc} f32"),
+    ]
+    # The scores epilogue against the library product, at the held-out size.
+    Qs = torch.as_tensor(make_blobs(args.n_test, args.classes, d, seed=args.seed + 4)[0], device=dev)
+    Qsp = ops._pad_to(Qs, 256, 0)
+    ms_s = time_ms(lambda: predict_bank_fused(Qsp, W, bias, epilogue="scores", q_block=256), dev, 5 * reps)
+    lib_s = time_ms(lambda: torch.matmul(Qs, W.T), dev, 5 * reps)
+    bound_s = max(2.0 * len(Qs) * W.shape[0] * d / F32_PEAK,
+                  4.0 * (len(Qs) * d + W.shape[0] * d + len(Qs) * W.shape[0]) / HBM_BYTES_PER_S) * 1e3
+    print(f"  B2 scores at Q={len(Qs)}: kernel {ms_s:.4f} ms, torch.matmul {lib_s:.4f} ms, "
+          f"bound {bound_s:.4f} ms (operations)")
+    return kernels
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-train", type=int, default=60_000)
+    ap.add_argument("--n-test", type=int, default=10_000)
+    ap.add_argument("--d", type=int, default=784)
+    ap.add_argument("--classes", type=int, default=200)
+    ap.add_argument("--chunk", type=int, default=8192)
+    ap.add_argument("--check-n", type=int, default=2048)
+    ap.add_argument("--check-b", type=int, default=64)
+    ap.add_argument("--check-q", type=int, default=1000)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: torch.cuda.is_available() is false; nothing was run")
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    dev = torch.device(args.device)
+    rng = np.random.default_rng(args.seed)
+    t_start = time.perf_counter()
+    print("[1] device")
+    phase_device(dev)
+    smi = None
+    if dev.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            check=True, capture_output=True, text=True, timeout=60,
+        ).stdout.strip()
+    phase_kernels(dev, args, rng)
+    main_out = phase_main_path(dev, args)
+    print("[4] kernel times at the main path's shapes")
+    kernels = phase_times(dev, args, main_out)
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    if smi is not None:
+        print(smi)
+    platform = "gpu" if dev.type == "cuda" else "cpu"
+    kind = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    print(json.dumps({"ok": True, "device": {"platform": platform, "kind": kind, "count": count}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,51 @@
+"""Core StreamSVM library of the port: ball algebra, the bank, multiclass
+and C-grid fitting, the streaming driver and the readouts."""
+from .meb import (
+    Ball,
+    center_distance,
+    enclose_point,
+    fold_banks,
+    fold_merge,
+    make_ball,
+    merge_balls,
+    merge_banks,
+    nonfinite_rows,
+    point_distance,
+    stack_banks,
+)
+from .multiball import bank_stack, bank_take, fit_bank
+from .multiclass import fit_c_grid, fit_ovr, ovr_signs, predict_c_grid, predict_ovr
+from .streamsvm import (
+    StreamCheckpoint,
+    accuracy,
+    decision_function,
+    fit_chunked_many,
+    predict,
+)
+
+__all__ = [
+    "Ball",
+    "StreamCheckpoint",
+    "accuracy",
+    "bank_stack",
+    "bank_take",
+    "center_distance",
+    "decision_function",
+    "enclose_point",
+    "fit_bank",
+    "fit_c_grid",
+    "fit_chunked_many",
+    "fit_ovr",
+    "fold_banks",
+    "fold_merge",
+    "make_ball",
+    "merge_balls",
+    "merge_banks",
+    "nonfinite_rows",
+    "ovr_signs",
+    "point_distance",
+    "predict",
+    "predict_c_grid",
+    "predict_ovr",
+    "stack_banks",
+]

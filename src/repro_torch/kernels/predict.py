@@ -1,0 +1,146 @@
+"""B2: score queries against a bank with a fused epilogue.
+
+The port of the TPU kernel ``repro/kernels/predict.py::_kernel``
+(``predict_bank_pallas``, with ``_first_argmax``). The kernel is CUDA C++
+for Hopper, in ``csrc/predict.cu``; its header says how it is laid out and
+what bounds it.
+
+``predict_bank_fused`` dispatches on the device of ``Q``: a CPU tensor runs
+``predict_bank_plain``, a CUDA tensor launches the kernel, or raises. Both
+take what ``ops.predict_bank`` prepares: Q padded to a whole number of
+``q_block`` rows, the bank padded to whole ``b_tile`` tiles (for "ovr", to
+whole groups of ``nc_pad`` class lanes) and a (B,) additive lane bias that
+is 0 for live lanes and ``NEG_MASK`` for padding.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# Large-but-finite lane mask: padded bank lanes carry this additive bias so
+# every real margin beats them (finite so bias + margin never becomes NaN).
+NEG_MASK = -3.0e38
+
+_EPILOGUES = {"scores": 0, "ovr": 1, "topk": 2}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("predict")
+    lib.predict_bank.argtypes = [_P, _P, _P] + [_I] * 7 + [_P, _P, _I, _P]
+    lib.predict_bank.restype = ctypes.c_int
+    return lib
+
+
+def _check_args(Q, W, bias, epilogue, q_block, b_tile, nc_pad, k):
+    qn, d = Q.shape
+    bp, dw = W.shape
+    if dw != d:
+        raise ValueError(
+            f"queries and bank must share the feature axis: got Q.shape="
+            f"{tuple(Q.shape)}, W.shape={tuple(W.shape)}"
+        )
+    if bias.shape != (bp,):
+        raise ValueError(
+            f"bias must be (B,) matching the bank: got bias.shape="
+            f"{tuple(bias.shape)}, W.shape={tuple(W.shape)}"
+        )
+    if qn % q_block != 0:
+        raise ValueError(
+            f"Q={qn} must be a multiple of q_block={q_block} (pad the "
+            "queries; ops.predict_bank does this)"
+        )
+    if bp % b_tile != 0:
+        raise ValueError(
+            f"B={bp} must be a multiple of b_tile={b_tile} (pad the bank; "
+            "ops.predict_bank does this)"
+        )
+    if epilogue == "ovr":
+        if nc_pad is None or b_tile % nc_pad != 0:
+            raise ValueError(
+                f"epilogue='ovr' needs nc_pad dividing b_tile: got "
+                f"nc_pad={nc_pad}, b_tile={b_tile}"
+            )
+    elif epilogue == "topk":
+        if k is None or not 1 <= k <= bp:
+            raise ValueError(f"epilogue='topk' needs 1 <= k <= B, got k={k}, B={bp}")
+    elif epilogue != "scores":
+        raise ValueError(
+            f"unknown epilogue {epilogue!r}; expected 'scores', 'ovr' or 'topk'"
+        )
+
+
+def predict_bank_plain(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=None,
+                       nc_pad=None, k=None):
+    """Plain PyTorch version of B2: one f32 product, then the epilogue.
+
+    "scores" -> (Qn, Bp) f32 (no bias); "ovr" -> ((Qn, Bp/nc_pad) int32
+    class lanes, f32 margins), first argmax per group; "topk" -> ((Qn, k)
+    f32, (Qn, k) int32), descending, ties to the lowest lane.
+    """
+    b_tile = W.shape[0] if b_tile is None else b_tile
+    _check_args(Q, W, bias, epilogue, q_block, b_tile, nc_pad, k)
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 margins
+    s = Q.float() @ W.float().T
+    if epilogue == "scores":
+        return s
+    s = s + bias.float()[None, :]
+    if epilogue == "ovr":
+        grouped = s.reshape(s.shape[0], -1, nc_pad)
+        arg = torch.argmax(grouped, dim=-1)  # the first maximum of each group
+        return arg.to(torch.int32), grouped.amax(dim=-1)
+    vals, ids = torch.sort(s, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), ids[:, :k].to(torch.int32)
+
+
+def predict_bank_fused(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=None,
+                       nc_pad=None, k=None):
+    """B2 on the device of ``Q``: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor. Same arguments and results as
+    ``predict_bank_plain``; Q is f32 or bf16, W and bias f32."""
+    if Q.device.type == "cpu":
+        return predict_bank_plain(
+            Q, W, bias, epilogue=epilogue, q_block=q_block, b_tile=b_tile,
+            nc_pad=nc_pad, k=k,
+        )
+    if Q.device.type != "cuda":
+        raise ValueError(f"predict_bank_fused runs on cuda or cpu, not {Q.device}")
+    b_tile = W.shape[0] if b_tile is None else b_tile
+    _check_args(Q, W, bias, epilogue, q_block, b_tile, nc_pad, k)
+    if Q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"Q must be float32 or bfloat16: got {Q.dtype}")
+    lib = _lib()
+    if epilogue == "topk" and k > lib.predict_bank_max_k():
+        raise ValueError(
+            f"the topk kernel keeps k <= {lib.predict_bank_max_k()} entries per "
+            f"query in shared memory: got k={k}"
+        )
+    dev = Q.device
+    qn, d = Q.shape
+    bp = W.shape[0]
+    Q = Q.contiguous()
+    W = W.to(dev, torch.float32).contiguous()
+    bias = bias.to(dev, torch.float32).contiguous()
+    cols = {"scores": bp, "ovr": bp // nc_pad if nc_pad else 0, "topk": k}[epilogue]
+    out_f = torch.empty((qn, cols), device=dev, dtype=torch.float32)
+    out_i = torch.empty((qn, cols) if epilogue != "scores" else (1,), device=dev,
+                        dtype=torch.int32)
+    err = lib.predict_bank(
+        Q.data_ptr(), W.data_ptr(), bias.data_ptr(), qn, bp, d,
+        _EPILOGUES[epilogue], int(nc_pad or 0), int(k or 0), int(b_tile),
+        out_f.data_ptr(), out_i.data_ptr(), int(Q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "predict_bank")
+    predict_bank_fused.launches += 1
+    if epilogue == "scores":
+        return out_f
+    if epilogue == "ovr":
+        return out_i, out_f
+    return out_f, out_i
+
+
+predict_bank_fused.launches = 0  # kernel launches, read by chip_smoke.py
