@@ -5,21 +5,33 @@
     python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
         --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
 
-The second form rehearses phases 2-4 on the CPU at a tiny size, through the
-kernels' plain versions; a run on the card never takes that path.
+The second form rehearses phases 2-5 on the CPU at a tiny size, through the
+kernels' plain versions; a run on the card never takes that path (add
+--fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
+phase 4 too).
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. device: name, count, power limit, versions; build both kernels from
+  1. device: name, count, power limit, versions; build every kernel from
      src/repro_torch/kernels/csrc and print their ptxas reports;
   2. each kernel against its plain PyTorch version on the card: B1 (one
-     pass of Algorithm 1 for a bank) and B2 (fused bank predict, all three
-     epilogues);
+     pass of Algorithm 1 for a bank), B2 (fused bank predict, all three
+     epilogues), B4 (Algorithm 1 for one model) and B3 (the fused
+     Algorithm 2 for a bank);
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
      -> BankServer.from_checkpoint -> ragged serving -> swap_bank, with the
      kernels' launch counts read around it;
-  4. kernel times at the main path's shapes against their bounds, printed
+  4. the paper's algorithms at full width, with the launch counts read
+     around the phase: (a) Fig 3's configuration (mnist89, D = 784, 11,800
+     training rows, C = 10, L in 1, 2, 5, 10, 20, 50 over --fig3-runs
+     permutations; fit for L = 1 through B4, fit_lookahead through B3), each
+     fit of the first permutation held against the plain version; (b) the
+     600-model bank of phase 3 trained with Algorithm 2 (lookahead 10) in
+     one fit_bank pass through B3, checkpointed, restored and served through
+     B2; (c) fit_chunked(lookahead=10) (the qp engine) and
+     kernels.streamsvm_fit at Fig 3's size, timed;
+  5. kernel times at the main path's shapes against their bounds, printed
      as one JSON line {"kernels": [...]}.
 The last line is {"ok": true, "device": {...}}.
 """
@@ -159,6 +171,103 @@ def scan_inputs(rng, b, n, d, dev, *, bp, ragged_n=0, sign0=True, start=None):
     )
 
 
+def check_m(name, got, want):
+    if not torch.equal(got.cpu(), want.cpu()):
+        diff = (got.cpu() != want.cpu()).nonzero().flatten().tolist()
+        raise AssertionError(f"{name}: m differs from the plain version at {diff}")
+
+
+def check_state(name, got, want, live=None):
+    """(w, r, xi2, m) of a kernel against its plain version: floats within
+    the engine tolerance, m equal. Returns the w max|err|."""
+    if live is not None:
+        got, want = [x[:live] for x in got], [x[:live] for x in want]
+    err = check_close(f"{name} w", got[0], want[0], RTOL_W, ATOL_W)
+    check_close(f"{name} r", got[1], want[1], 1e-4, 0.0)
+    check_close(f"{name} xi2", got[2], want[2], 1e-3, 1e-6)
+    check_m(name, got[3], want[3])
+    return err
+
+
+def check_single(dev, args, rng):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.streamsvm_scan import streamsvm_scan, streamsvm_scan_plain
+
+    n, d = args.check_n, args.d
+    print(f"[2] B4 against its plain version: N={n} (ragged), D={d}")
+    start = None
+    for label in ("ragged N, a zero row, sign-0 rows", "continue from the ball"):
+        X = rng.normal(size=(n, d)).astype(np.float32)
+        X /= np.linalg.norm(X, axis=1, keepdims=True)
+        X[n // 3] = 0.0  # a zero feature row is a real point
+        y = np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+        y[rng.random(n) < 0.05] = 0.0
+        if start is None:
+            y[0] = 1.0
+            start = (torch.as_tensor(y[0] * X[0], device=dev), 0.0, 0.1, 1)
+        Xp = ops._pad_to(torch.as_tensor(X, device=dev), 256, 0)
+        yp = ops._pad_to(torch.as_tensor(y, device=dev), 256, 0)
+        kw = dict(n_valid=n - 37, block_n=256)
+        w0, r0, xi20, m0 = start
+        got = streamsvm_scan(Xp, yp, w0, r0, xi20, 0.1, m0, 0.1, **kw)
+        want = streamsvm_scan_plain(Xp, yp, w0, r0, xi20, 0.1, m0, 0.1, **kw)
+        sync(dev)
+        err = check_state(f"B4 {label}", got, want)
+        print(f"  {label}: w max|err| {err:.3e}, m equal ({int(got[3])})")
+        start = got
+
+
+def check_lookahead(dev, args, rng):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.streamsvm_scan import (
+        streamsvm_scan_lookahead_many,
+        streamsvm_scan_lookahead_many_plain,
+    )
+
+    b, n, d = args.check_b, args.check_n, args.d
+    mix = (1, 2, 3, 5, 8, 16, 10, 4, 1, 16)  # per-model windows, cycled
+    print(f"[2] B3 against its plain version: B={b}, N={n}, D={d}, L per model {mix}")
+    cases = [
+        ("f32", dict(bp=-(-b // 8) * 8), torch.float32),
+        ("bf16", dict(bp=-(-b // 8) * 8), torch.bfloat16),
+        ("ragged B and N", dict(bp=-(-(b - 3) // 8) * 8, ragged_n=37), torch.float32),
+    ]
+    prev = None
+    for label, kw, sdt in cases + [("continue from balls", None, torch.float32)]:
+        if kw is None:
+            kw = dict(bp=prev[0].shape[0], start=prev)
+        bb = b - 3 if "ragged" in label else b
+        inp = scan_inputs(rng, bb, n, d, dev, **kw)
+        X, Y = inp.pop("X").to(sdt), inp.pop("Y").to(sdt)
+        bp = Y.shape[0]
+        L = torch.tensor([mix[i % len(mix)] if i < bb else 1 for i in range(bp)],
+                         dtype=torch.int32, device=dev)
+        args_ = (X, Y, *(inp[k] for k in ("W0", "r0", "xi20", "c_inv", "m0", "gain")))
+        kw2 = dict(lookahead=L, lookahead_max=max(mix), n_valid=inp["n_valid"], block_n=256)
+        got = streamsvm_scan_lookahead_many(*args_, **kw2)
+        want = streamsvm_scan_lookahead_many_plain(*args_, **kw2)
+        sync(dev)
+        err = check_state(f"B3 {label}", got, want, live=bb)
+        print(f"  {label}: w max|err| {err:.3e}, m equal (sum {int(got[3][:bb].sum())})")
+        if label == "f32":
+            prev = got
+
+    Xn = rng.normal(size=(n, d)).astype(np.float32)
+    Yn = np.where(rng.random((b, n)) < 0.5, 1.0, -1.0).astype(np.float32)
+    cs = np.geomspace(0.5, 100.0, b).astype(np.float32)
+    ls = tuple(mix[i % len(mix)] for i in range(b))
+    fits = [
+        ops.streamsvm_fit_many(Xn, Yn, cs, variant="lookahead", lookahead=ls, b_tile=bt,
+                               block_n=256, device=dev)
+        for bt in (8, 16, 64)
+    ]
+    for bt, f in zip((16, 64), fits[1:]):
+        for leaf, x, y in zip("w r xi2 m".split(), fits[0], f):
+            if not torch.equal(x, y):
+                raise AssertionError(f"B3 b_tile=8 and b_tile={bt} differ in {leaf}")
+    print("  b_tile 8 / 16 / 64: bit-identical")
+
+
 def phase_kernels(dev, args, rng):
     from repro_torch.kernels import ops
     from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
@@ -205,6 +314,9 @@ def phase_kernels(dev, args, rng):
             if not torch.equal(x, y):
                 raise AssertionError(f"B1 b_tile=8 and b_tile={bt} differ in {leaf}")
     print("  b_tile 8 / 16 / 64: bit-identical")
+
+    check_single(dev, args, rng)
+    check_lookahead(dev, args, rng)
 
     q, bq = args.check_q, args.classes * 3
     print(f"[2] B2 against its plain version: Q={q} (ragged), B={bq}, D={d}")
@@ -312,8 +424,9 @@ def phase_main_path(dev, args):
     print(f"  fit: {result.position} rows x {bank.w.shape[0]} models in {t_fit:.3f} s")
     print(f"  serve: {len(Xte)} queries in {stats.steps} steps, {t_serve:.3f} s, "
           f"{len(Xte) / t_serve:.0f} queries/s, slot utilisation {stats.utilization:.4f}")
-    for g, cval in enumerate(c_pts):
-        print(f"  C={cval:g}: held-out accuracy {float((cls[:, g].numpy() == yte).mean()):.4f}")
+    acc1 = [float((cls[:, g].numpy() == yte).mean()) for g in range(len(c_pts))]
+    for cval, acc in zip(c_pts, acc1):
+        print(f"  C={cval:g}: held-out accuracy {acc:.4f}")
     print(f"  max_memory_allocated: {peak} bytes")
     print(f"  launches on the main path: {launches}")
     if dev.type == "cuda" and min(launches.values()) < 1:
@@ -331,13 +444,143 @@ def phase_main_path(dev, args):
     new_s = (torch.as_tensor(Xte[256:320], device=dev) @ result2.ball.w.T).reshape(64, -1, n_classes)
     compare_ids("rows scored after the swap vs the new bank", torch.as_tensor(swap_reqs[4].result[0]),
                 new_cls, new_s.sort(dim=-1, descending=True).values, 1)
-    return dict(chunk=chunks[0], cs=cs, bank=bank, launches=launches)
+    return dict(chunk=chunks[0], cs=cs, bank=bank, launches=launches, acc=acc1,
+                data=(Xtr, Y, Xte, yte))
 
 
-def phase_times(dev, args, main):
+def serve_ovr(dev, bank, Xte, n_classes):
+    """Checkpoint ``bank``, restore it into a BankServer (ovr epilogue) and
+    serve the held-out rows in ragged requests; returns the served
+    ``(class ids, margins)`` and the server's stats."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.serve import BankServer
+
+    with tempfile.TemporaryDirectory() as td:
+        ckpt.save(td, bank, meta={"n_classes": n_classes})
+        server = BankServer.from_checkpoint(td, epilogue="ovr", q_block=256, b_tile=200, device=dev)
+    rng = np.random.default_rng(11)
+    reqs, lo = [], 0
+    while lo < len(Xte):
+        m = int(rng.integers(1, 200))
+        reqs.append(server.submit(Xte[lo : lo + m]))
+        lo += m
+    stats = server.run()
+    cls = torch.as_tensor(np.concatenate([r.result[0] for r in reqs]))
+    margin = torch.as_tensor(np.concatenate([r.result[1] for r in reqs]))
+    return cls, margin, stats
+
+
+def phase_algorithms(dev, args, main):
+    """The paper's Algorithms 1 and 2 at full width (phase 4)."""
+    from repro_torch.core import fit, fit_bank, fit_chunked, fit_lookahead, predict_c_grid
+    from repro_torch.data import chunk_stream, mnist89_like, permuted, preprocess_for
+    from repro_torch.kernels import streamsvm_fit
+    from repro_torch.kernels.predict import predict_bank_fused
+    from repro_torch.kernels.streamsvm_scan import streamsvm_scan, streamsvm_scan_lookahead_many
+
+    counters = (predict_bank_fused, streamsvm_scan_lookahead_many, streamsvm_scan)
+    for f in counters:
+        f.launches = 0
+    Xtr, ytr, Xte, yte = mnist89_like(seed=args.seed)
+    Xtr, ytr, Xte, yte = Xtr[: args.fig3_n_train], ytr[: args.fig3_n_train], \
+        Xte[: args.fig3_n_test], yte[: args.fig3_n_test]
+    Xtr, Xte = preprocess_for("mnist89", Xtr, Xte)
+    C, Ls = 10.0, (1, 2, 5, 10, 20, 50)
+    print(f"[4a] Fig 3: mnist89, D={Xtr.shape[1]}, {len(Xtr)} training rows, {len(Xte)} "
+          f"held-out rows, C={C:g}, L in {Ls}, {args.fig3_runs} permutations")
+    Xte_t = torch.as_tensor(Xte, device=dev)
+    fig3 = []
+    for L in Ls:
+        accs, ms, secs = [], [], []
+        for run in range(args.fig3_runs):
+            Xp, yp = permuted(Xtr, ytr, seed=args.seed * 7777 + run)
+            Xd, yd = torch.as_tensor(Xp, device=dev), torch.as_tensor(yp, device=dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            ball = fit(Xd, yd, C) if L <= 1 else fit_lookahead(Xd, yd, C, L)
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+            if not all(torch.isfinite(v).all() for v in ball[:3]):
+                raise AssertionError(f"Fig 3 L={L} run {run}: non-finite ball")
+            accs.append(float((torch.sign(Xte_t @ ball.w).cpu().numpy() == yte).mean()) * 100)
+            ms.append(int(ball.m))
+            if run == 0 and dev.type == "cuda":  # the kernel against its plain version
+                Xc, yc = torch.as_tensor(Xp), torch.as_tensor(yp)
+                want = fit(Xc, yc, C) if L <= 1 else fit_lookahead(Xc, yc, C, L)
+                check_state(f"Fig 3 L={L} against the plain version", ball, want)
+        fig3.append(dict(L=L, mean=float(np.mean(accs)), std=float(np.std(accs)),
+                         m=float(np.mean(ms)), s=float(np.mean(secs))))
+        print(f"  L={L}: held-out accuracy {np.mean(accs):.2f} +- {np.std(accs):.3f} %, "
+              f"m {np.mean(ms):.1f}, {np.mean(secs) * 1e3:.1f} ms per fit"
+              + (" (first permutation equal to the plain version)" if dev.type == "cuda" else ""))
+
+    n_classes, c_pts = args.classes, (1.0, 10.0, 100.0)
+    X6, Y6, X6te, y6te = main["data"]
+    print(f"[4b] Algorithm 2 bank: {n_classes} classes x C {c_pts} = {Y6.shape[0]} models, "
+          f"lookahead 10, one fit_bank pass over {len(X6)} rows")
+    Xd, Yd = torch.as_tensor(X6, device=dev), torch.as_tensor(Y6, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    bank = fit_bank(Xd, Yd, torch.as_tensor(main["cs"], device=dev), variant="lookahead",
+                    lookahead=10, b_tile=64)
+    sync(dev)
+    t_fit = time.perf_counter() - t0
+    for name, leaf in zip("w r xi2".split(), bank[:3]):
+        if not torch.isfinite(leaf).all():
+            raise AssertionError(f"the lookahead bank has non-finite {name}")
+    t0 = time.perf_counter()
+    cls, margin, stats = serve_ovr(dev, bank, X6te, n_classes)
+    sync(dev)
+    t_serve = time.perf_counter() - t0
+    print(f"  fit: {len(X6)} rows x {bank.w.shape[0]} models in {t_fit:.3f} s; m mean "
+          f"{bank.m.float().mean().item():.1f}; served {len(X6te)} queries in {stats.steps} "
+          f"steps, {t_serve:.3f} s")
+    for g, cval in enumerate(c_pts):
+        acc = float((cls[:, g].numpy() == y6te).mean())
+        print(f"  C={cval:g}: held-out accuracy {acc:.4f} (Algorithm 1 bank: {main['acc'][g]:.4f})")
+    rcls, rmargin = predict_c_grid(bank, torch.as_tensor(X6te, device=dev), n_classes)
+    scores = (torch.as_tensor(X6te, device=dev) @ bank.w.T).reshape(len(X6te), -1, n_classes)
+    compare_ids("served lookahead-bank ids vs predict_c_grid", cls, rcls,
+                scores.sort(dim=-1, descending=True).values, 1)
+    check_close("served lookahead-bank margins", margin, rmargin, RTOL_W, score_atol(rmargin))
+
+    print(f"[4c] fit_chunked(lookahead=10, qp engine, {args.qp_iters} BC steps) and "
+          f"kernels.streamsvm_fit at Fig 3's size")
+    Xp, yp = permuted(Xtr, ytr, seed=args.seed * 7777)
+    sync(dev)
+    t0 = time.perf_counter()
+    ck = fit_chunked(chunk_stream(Xp, yp, 4096), C, lookahead=10, qp_iters=args.qp_iters,
+                     device=dev)
+    sync(dev)
+    t_qp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kb = streamsvm_fit(torch.as_tensor(Xp, device=dev), torch.as_tensor(yp, device=dev), C)
+    sync(dev)
+    t_kb = time.perf_counter() - t0
+    for name, ball in (("fit_chunked", ck.ball), ("streamsvm_fit", kb)):
+        acc = float((torch.sign(Xte_t @ ball.w).cpu().numpy() == yte).mean()) * 100
+        if not torch.isfinite(ball.w).all():
+            raise AssertionError(f"{name}: non-finite w")
+        print(f"  {name}: held-out accuracy {acc:.2f} %, m {int(ball.m)}")
+    print(f"  fit_chunked {t_qp:.3f} s over {ck.position} rows; streamsvm_fit {t_kb * 1e3:.1f} ms")
+    launches = {f.__name__: f.launches for f in counters}
+    print(f"  launches in phase 4: {launches}")
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of phase 4 was never launched: {launches}")
+    return dict(launches=launches, fig3=(Xp, yp), bank=bank)
+
+
+def phase_times(dev, args, main, algos):
     from repro_torch.kernels import ops
     from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
-    from repro_torch.kernels.streamsvm_scan import streamsvm_scan_many, streamsvm_scan_many_plain
+    from repro_torch.kernels.streamsvm_scan import (
+        streamsvm_scan,
+        streamsvm_scan_lookahead_many,
+        streamsvm_scan_lookahead_many_plain,
+        streamsvm_scan_many,
+        streamsvm_scan_many_plain,
+        streamsvm_scan_plain,
+    )
 
     reps = 1 if dev.type == "cpu" else args.reps
     # B1 at the main path's first call: one chunk, the bank seeded from row 0.
@@ -365,6 +608,39 @@ def phase_times(dev, args, main):
     plain1 = time_ms(lambda: streamsvm_scan_many_plain(*args1, n_valid=n), dev, 1, warmup=0)
     flops1 = 4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32
     bytes1 = 4.0 * (n * d + b * n + 2 * b * d + 6 * b)
+    # B3 at the same shapes: the first chunk with a 10-row window per model.
+    L3 = torch.where(live, 10, 1).to(torch.int32)
+    kw3 = dict(lookahead=L3, lookahead_max=10, n_valid=n)
+    got3 = streamsvm_scan_lookahead_many(*args1, **kw3)
+    sync(dev)
+    t0 = time.perf_counter()
+    want3 = streamsvm_scan_lookahead_many_plain(*args1, **kw3)
+    sync(dev)
+    plain3 = (time.perf_counter() - t0) * 1e3
+    err3 = check_state("B3 at the main-path shape", got3, want3, live=b)
+    ms3 = time_ms(lambda: streamsvm_scan_lookahead_many(*args1, **kw3), dev, reps)
+    pushes = float((got3[3][:b] - 1).sum())
+    # B1's work plus, for every pushed row, its copy into the window and at
+    # least one distance in a flush (this run's pushes).
+    flops3 = flops1 + 3.0 * d * pushes
+    bytes3 = bytes1
+    # B4 at Fig 3's shapes: one model over the permuted training stream.
+    Xf, yf = (torch.as_tensor(a, device=dev) for a in algos["fig3"])
+    n4 = Xf.shape[0] - 1
+    Xf4, yf4 = ops._pad_to(Xf[1:], 256, 0), ops._pad_to(yf[1:], 256, 0)
+    args4 = (Xf4, yf4, yf[0] * Xf[0], 0.0, 0.1, 0.1, 1, 0.1)
+    got4 = streamsvm_scan(*args4, n_valid=n4)
+    sync(dev)
+    t0 = time.perf_counter()
+    want4 = streamsvm_scan_plain(*args4, n_valid=n4)
+    sync(dev)
+    plain4 = (time.perf_counter() - t0) * 1e3
+    err4 = check_state("B4 at the Fig 3 shape", got4, want4)
+    ms4 = time_ms(lambda: streamsvm_scan(*args4, n_valid=n4), dev, 10 * reps)
+    d4 = Xf.shape[1]
+    # g = <w, y x> per row, the 32-row block Gram, and the AXPY per update.
+    flops4 = 2.0 * n4 * d4 + 2.0 * n4 * 32 * d4 + 3.0 * d4 * float(got4[3] - 1)
+    bytes4 = 4.0 * (n4 * d4 + n4 + 2 * d4 + 6)
     # B2 at the main path's server step: 256 query slots against the bank.
     W = main["bank"].w
     Q = torch.as_tensor(make_blobs(256, args.classes, d, seed=args.seed + 3)[0], device=dev)
@@ -399,6 +675,14 @@ def phase_times(dev, args, main):
             "src/repro/kernels/predict.py:321", main["launches"]["predict_bank"],
             err2, ms2, plain2, flops2, bytes2, None,
             f"Q=256 B={W.shape[0]} D={d} ovr n_classes={nc} f32"),
+        row("streamsvm_scan_lookahead", "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
+            "src/repro/kernels/streamsvm_scan.py:800",
+            algos["launches"]["streamsvm_scan_lookahead_many"], err3, ms3, plain3, flops3,
+            bytes3, None, f"N={n} D={d} B={b} (bank padded to {bp}) L=10 f32, {pushes:.0f} pushes"),
+        row("streamsvm_single", "src/repro_torch/kernels/csrc/streamsvm_single.cu",
+            "src/repro/kernels/streamsvm_scan.py:639", algos["launches"]["streamsvm_scan"],
+            err4, ms4, plain4, flops4, bytes4, None,
+            f"N={n4} D={d4} one model f32, {int(got4[3]) - 1} updates"),
     ]
     # The scores epilogue against the library product, at the held-out size.
     Qs = torch.as_tensor(make_blobs(args.n_test, args.classes, d, seed=args.seed + 4)[0], device=dev)
@@ -425,6 +709,10 @@ def main(argv=None):
     ap.add_argument("--check-b", type=int, default=64)
     ap.add_argument("--check-q", type=int, default=1000)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--fig3-runs", type=int, default=20, help="permutations per L (Fig 3)")
+    ap.add_argument("--fig3-n-train", type=int, default=11_800)
+    ap.add_argument("--fig3-n-test", type=int, default=1_983)
+    ap.add_argument("--qp-iters", type=int, default=128, help="BC steps per qp flush")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; nothing was run")
@@ -444,8 +732,9 @@ def main(argv=None):
         ).stdout.strip()
     phase_kernels(dev, args, rng)
     main_out = phase_main_path(dev, args)
-    print("[4] kernel times at the main path's shapes")
-    kernels = phase_times(dev, args, main_out)
+    algos = phase_algorithms(dev, args, main_out)
+    print("[5] kernel times at the main path's shapes")
+    kernels = phase_times(dev, args, main_out, algos)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if smi is not None:

@@ -1,5 +1,6 @@
-"""Core StreamSVM library of the port: ball algebra, the bank, multiclass
-and C-grid fitting, the streaming driver and the readouts."""
+"""Core StreamSVM library of the port: ball algebra, Algorithms 1 and 2
+for one model and for a bank, multiclass and C-grid fitting, the streaming
+drivers and the readouts."""
 from .meb import (
     Ball,
     center_distance,
@@ -15,11 +16,18 @@ from .meb import (
 )
 from .multiball import bank_stack, bank_take, fit_bank
 from .multiclass import fit_c_grid, fit_ovr, ovr_signs, predict_c_grid, predict_ovr
+from .qp import solve_meb_ball_points
 from .streamsvm import (
     StreamCheckpoint,
     accuracy,
     decision_function,
+    fit,
+    fit_ball,
+    fit_chunked,
     fit_chunked_many,
+    fit_lookahead,
+    fit_lookahead_ball,
+    init_ball,
     predict,
 )
 
@@ -32,12 +40,18 @@ __all__ = [
     "center_distance",
     "decision_function",
     "enclose_point",
+    "fit",
+    "fit_ball",
     "fit_bank",
     "fit_c_grid",
+    "fit_chunked",
     "fit_chunked_many",
+    "fit_lookahead",
+    "fit_lookahead_ball",
     "fit_ovr",
     "fold_banks",
     "fold_merge",
+    "init_ball",
     "make_ball",
     "merge_balls",
     "merge_banks",
@@ -47,5 +61,6 @@ __all__ = [
     "predict",
     "predict_c_grid",
     "predict_ovr",
+    "solve_meb_ball_points",
     "stack_banks",
 ]

@@ -1,10 +1,12 @@
-"""The bank of models: B independent Algorithm-1 fits over one stream.
+"""The bank of models: B independent fits over one stream.
 
 A *bank* is a stacked ``Ball`` with leading axis B, where every model
-(classes x C-grid x variants) runs its own Algorithm 1 and kernel B1
-(``kernels.ops.streamsvm_fit_many``) reads each stream tile once for all B
-models. The paper's Sec 4.3 multi-ball classifier (``fit_multiball``) is
-not ported yet.
+(classes x C-grid x variants) runs its own Algorithm 1 — kernel B1 — or,
+with ``variant="lookahead"|"lookahead-paper"``, its own fused Algorithm 2
+with a per-model L-row window — kernel B3; either kernel reads each stream
+tile once for all B models (``kernels.ops.streamsvm_fit_many``). The
+paper's Sec 4.3 multi-ball classifier (``fit_multiball``) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ def fit_bank(
     shard_axis="data",
     device=None,
 ) -> Ball:
-    """One-pass fit of a bank of B models through kernel B1.
+    """One-pass fit of a bank of B models through kernel B1 (Algorithm 1)
+    or B3 (the lookahead variants, Algorithm 2).
 
     X: (N, D) shared stream; Y: (B, N) per-model label signs; cs: scalar or
     (B,) per-model C. Continues from ``balls`` (stacked Ball) when given.

@@ -1,14 +1,16 @@
 """The port's kernels: hand-written CUDA C++ for Hopper, each beside its
 plain PyTorch version.
 
-streamsvm_scan — B1, one pass of Algorithm 1 for a bank of models over a
-                 shared stream (csrc/streamsvm_scan.cu)
+streamsvm_scan — B1 and B3, one pass of Algorithm 1 / the fused
+                 Algorithm 2 (lookahead) for a bank of models over a shared
+                 stream (csrc/streamsvm_scan.cu); B4, Algorithm 1 for one
+                 model (csrc/streamsvm_single.cu)
 predict        — B2, queries x bank margins with the fused scores / ovr /
                  topk epilogues (csrc/predict.cu)
 
 ops.py carries the public wrappers (padding, bank tiling, dtype policy);
 _build.py compiles csrc/ with nvcc at first use.
 """
-from .ops import predict_bank, streamsvm_fit_many
+from .ops import predict_bank, streamsvm_fit, streamsvm_fit_many
 
-__all__ = ["predict_bank", "streamsvm_fit_many"]
+__all__ = ["predict_bank", "streamsvm_fit", "streamsvm_fit_many"]

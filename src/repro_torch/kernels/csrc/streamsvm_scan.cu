@@ -31,6 +31,23 @@
 // f32 rate, but this simple kernel is held back by the dependent per-row
 // chain (a shuffle, a sqrt and a divide per row) and by shared-memory
 // operand traffic in the D loops. Both are left for a later change.
+//
+// B3, the fused Algorithm 2 (lookahead_kernel below), replaces the
+// lookahead branch of the same _block_update with _bank_flush. It shares
+// the Gram pre-pass and the layout: one warp per model, the h pass of each
+// block staged as in B1. A violating row (Gram-form d >= r, valid, sign
+// != 0) is pushed, as y_j x_j, into slot cnt of the model's L-row window in
+// global memory (m counts at push). When the window holds L rows the warp
+// flushes it farthest-first: the direct distance to every remaining point,
+// the farthest absorbed (lowest slot on ties) if it lies on or outside the
+// ball, else the whole window dropped; each absorb updates w in place and
+// corrects g for the block's remaining rows, g_k <- (1-s) g_k +
+// s y_k <p, x_k>. w changes in the middle of a block, so there is no
+// deferred update on this path: the next block's staging reads the flushed
+// rows after the block-end barrier. |w|^2 is recomputed as sum w^2 after a
+// flush, and the partial windows are flushed once after the call's last
+// row. Extra work over B1: ~L^2 D / 2 flops per flush for the distances
+// and D flops per absorbed point and remaining row for g.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -174,6 +191,187 @@ scan_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   }
 }
 
+constexpr int LMAX = 1024;  // largest window: 32 mask words of 32 slots
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+// Farthest-first flush of one model's window by its warp (lane t). win
+// holds cnt signed rows of length d (written by this kernel, so it is not
+// read through the read-only cache); rm is the warp's 32-word mask of the
+// slots still in the window. When k_lo < k_hi, lane t in [k_lo, k_hi)
+// corrects g (its row's <w, y_t x_t>) for every absorbed point.
+template <typename T>
+__device__ void flush_window(float* __restrict__ w, const float* win,
+                             int cnt, unsigned* rm, float& r, float& xi2,
+                             float cinv, float gain, float& g, float ys,
+                             const T* __restrict__ X, long row0, int k_lo,
+                             int k_hi, int d, int t) {
+  {
+    const int lo = 32 * t;
+    rm[t] = cnt <= lo ? 0u : (cnt - lo >= 32 ? FULL : (1u << (cnt - lo)) - 1u);
+  }
+  __syncwarp();
+  for (int step = 0; step < cnt; ++step) {
+    float best = __int_as_float(0xff800000);  // -inf
+    int far = -1;
+    for (int i = 0; i < cnt; ++i) {
+      if (!((rm[i >> 5] >> (i & 31)) & 1u)) continue;
+      const float* p = win + (long)i * d;
+      float acc = 0.f;
+      for (int c = t; c < d; c += 32) {
+        const float e = w[c] - p[c];
+        acc = fmaf(e, e, acc);
+      }
+      acc = warp_sum(acc);
+      const float bd = sqrtf(fmaxf(acc + xi2 + cinv, 1e-12f));
+      if (bd > best) {  // strict: the lowest slot wins a tie
+        best = bd;
+        far = i;
+      }
+    }
+    // Empty, or the farthest point is enclosed and so is the rest: done.
+    if (far < 0 || !(best >= r)) break;
+    const float s = 0.5f * (1.0f - r / best);
+    const float one_s = 1.0f - s;
+    const float* p = win + (long)far * d;
+    for (int c = t; c < d; c += 32) w[c] = one_s * w[c] + s * p[c];
+    r = r + 0.5f * (best - r);
+    xi2 = xi2 * one_s * one_s + s * s * gain;
+    if (t >= k_lo && t < k_hi) {
+      const long base = (row0 + t) * d;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      int c = 0;
+      for (; c + 4 <= d; c += 4) {
+        a0 = fmaf(p[c], ld(X, base + c), a0);
+        a1 = fmaf(p[c + 1], ld(X, base + c + 1), a1);
+        a2 = fmaf(p[c + 2], ld(X, base + c + 2), a2);
+        a3 = fmaf(p[c + 3], ld(X, base + c + 3), a3);
+      }
+      for (; c < d; ++c) a0 = fmaf(p[c], ld(X, base + c), a0);
+      g = one_s * g + s * (ys * ((a0 + a1) + (a2 + a3)));
+    }
+    __syncwarp();
+    if (t == 0) rm[far >> 5] &= ~(1u << (far & 31));
+    __syncwarp();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+lookahead_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                 const float* __restrict__ G, float* __restrict__ W,
+                 float* __restrict__ R, float* __restrict__ XI2,
+                 int* __restrict__ M, const float* __restrict__ CINV,
+                 const float* __restrict__ GAIN, const int* __restrict__ LA,
+                 float* __restrict__ BUF, int n, int n_valid, int d, int l_max) {
+  __shared__ float xs[BN][DC + 1];
+  __shared__ float ws[LANES][DC + 1];
+  __shared__ float gs[BN][BN + 1];
+  __shared__ unsigned rmask[LANES][32];
+  const int tid = threadIdx.x;
+  const int wl = tid >> 5;  // model within the CTA
+  const int t = tid & 31;   // row within the block
+  const long lane0 = (long)blockIdx.x * LANES;
+  const long lane = lane0 + wl;
+  float* w = W + lane * d;
+  float* win = BUF + lane * (long)l_max * d;
+
+  float wsq = 0.f;
+  for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+  wsq = warp_sum(wsq);
+
+  float r = R[lane], xi2 = XI2[lane];
+  const float cinv = CINV[lane], gain = GAIN[lane];
+  const int L = LA[lane];
+  int m = M[lane];
+  int cnt = 0;  // rows in the window
+
+  const int nblocks = (n + BN - 1) / BN;
+  for (int blk = 0; blk < nblocks; ++blk) {
+    const long row0 = (long)blk * BN;
+    const long row = row0 + t;
+
+    // h = <w, x_row>, summed over D in ascending order (as in B1).
+    float h = 0.f;
+    for (int d0 = 0; d0 < d; d0 += DC) {
+      for (int e = tid; e < BN * DC; e += THREADS) {
+        const int j = e / DC, c = e % DC;
+        const int col = d0 + c;
+        xs[j][c] = (row0 + j < n && col < d) ? ld(X, (row0 + j) * d + col) : 0.f;
+      }
+      for (int e = tid; e < LANES * DC; e += THREADS) {
+        const int l = e / DC, c = e % DC;
+        const int col = d0 + c;
+        ws[l][c] = col < d ? W[(lane0 + l) * d + col] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < DC; ++c) h = fmaf(ws[wl][c], xs[t][c], h);
+      __syncthreads();
+    }
+    for (int e = tid; e < BN * BN; e += THREADS)
+      gs[e / BN][e % BN] = G[row0 * BN + e];
+    const float ys = row < n ? ld(Y, lane * n + row) : 0.f;
+    __syncthreads();
+
+    float g = ys * h;
+    const int left = n - (int)row0;
+    const int kmax = left < BN ? left : BN;
+    for (int j = 0; j < BN; ++j) {
+      const float gj = __shfl_sync(FULL, g, j);
+      const float yj = __shfl_sync(FULL, ys, j);
+      const float gjj = gs[j][j];
+      const float d2 = wsq - 2.0f * gj + gjj + xi2 + cinv;
+      const float dist = sqrtf(fmaxf(d2, 1e-12f));
+      // Uniform across the warp: every lane holds the model's scalars.
+      if (!(dist >= r && row0 + j < n_valid && yj != 0.0f)) continue;
+      float* p = win + (long)cnt * d;
+      for (int c = t; c < d; c += 32) p[c] = yj * ld(X, (row0 + j) * d + c);
+      __syncwarp();
+      cnt += 1;
+      m += 1;  // counted at push
+      if (cnt >= L) {
+        flush_window(w, win, cnt, rmask[wl], r, xi2, cinv, gain, g, ys, X,
+                     row0, j + 1, kmax, d, t);
+        cnt = 0;
+        wsq = 0.f;
+        for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+        wsq = warp_sum(wsq);
+      }
+    }
+    __syncthreads();  // flushed w rows are read by every warp next block
+  }
+  if (cnt > 0) {  // the partial window, after the call's last row
+    float g = 0.f;
+    flush_window(w, win, cnt, rmask[wl], r, xi2, cinv, gain, g, 0.f, X, 0,
+                 0, 0, d, t);
+  }
+  if (t == 0) {
+    R[lane] = r;
+    XI2[lane] = xi2;
+    M[lane] = m;
+  }
+}
+
+template <typename T>
+int launch_lookahead(const void* X, const void* Y, void* G, void* W, void* R,
+                     void* XI2, void* M, const void* CINV, const void* GAIN,
+                     const void* LA, void* BUF, int n, int n_valid, int d,
+                     int bp, int l_max, cudaStream_t s) {
+  const int nblocks = (n + BN - 1) / BN;
+  block_gram_kernel<T><<<nblocks, THREADS, 0, s>>>((const T*)X, (float*)G, n, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lookahead_kernel<T><<<bp / LANES, THREADS, 0, s>>>(
+      (const T*)X, (const T*)Y, (const float*)G, (float*)W, (float*)R,
+      (float*)XI2, (int*)M, (const float*)CINV, (const float*)GAIN,
+      (const int*)LA, (float*)BUF, n, n_valid, d, l_max);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* X, const void* Y, void* G, void* W, void* R, void* XI2,
            void* M, const void* CINV, const void* GAIN, int n, int n_valid,
@@ -211,5 +409,25 @@ int streamsvm_scan_many(const void* X, const void* Y, void* G, void* W,
     return launch<__nv_bfloat16>(X, Y, G, W, R, XI2, M, CINV, GAIN, n, n_valid, d, bp, s);
   return launch<float>(X, Y, G, W, R, XI2, M, CINV, GAIN, n, n_valid, d, bp, s);
 }
+
+// B3: as streamsvm_scan_many, plus LA (bp,) int32 per-model windows and
+// BUF, scratch for the windows of bp * l_max * d floats. 1 <= l_max <= LMAX.
+int streamsvm_scan_lookahead(const void* X, const void* Y, void* G, void* W,
+                             void* R, void* XI2, void* M, const void* CINV,
+                             const void* GAIN, const void* LA, void* BUF, int n,
+                             int n_valid, int d, int bp, int l_max, int bf16,
+                             void* stream) {
+  if (n <= 0 || d <= 0 || bp <= 0 || bp % LANES != 0 || l_max < 1 || l_max > LMAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch_lookahead<__nv_bfloat16>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA,
+                                           BUF, n, n_valid, d, bp, l_max, s);
+  return launch_lookahead<float>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                 n_valid, d, bp, l_max, s);
+}
+
+// Largest lookahead window B3 takes.
+int streamsvm_scan_lookahead_max() { return LMAX; }
 
 }  // extern "C"

@@ -4,8 +4,9 @@ These are the entry points the rest of the port uses. They keep the JAX
 package's padding, seeding and state packing (``repro/kernels/ops.py``), so
 the two agree model for model; the 128-lane padding of D is a TPU tiling
 rule and is not kept. Each runs on the device its inputs name (see
-``repro_torch._device``): B1 and B2 launch on a CUDA tensor and run their
-plain versions on a CPU tensor.
+``repro_torch._device``): the kernels (B1 and B3 for a bank, B4 for one
+model, B2 to predict) launch on a CUDA tensor and run their plain versions
+on a CPU tensor.
 
 Dtype policy
 ------------
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from .._device import as_tensor, pick_device
 from ..core.meb import Ball
 from .predict import NEG_MASK, predict_bank_fused
-from .streamsvm_scan import streamsvm_scan_many
+from .streamsvm_scan import streamsvm_scan, streamsvm_scan_many
 
 _STREAM_DTYPES = {
     None: torch.float32,
@@ -96,6 +97,49 @@ def _vec(v, b: int, device, dtype=torch.float32) -> torch.Tensor:
     return as_tensor(v, device, dtype).broadcast_to((b,))
 
 
+def fit_single(X, y, start: Ball, c_inv, gain, *, block_n: int = 256) -> Ball:
+    """Continue Algorithm 1 for one model from ``start`` over ``(X, y)``
+    through kernel B4, on the device of ``X``. ``c_inv`` is 1/C and ``gain``
+    the slack gain; N is padded to a multiple of ``block_n`` with inert
+    sign-0 rows. Returns a Ball of 0-d scalars (m int32)."""
+    dev = X.device
+    n = X.shape[0]
+    w0 = as_tensor(start.w, dev, torch.float32)
+    r0, xi20 = as_tensor(start.r, dev, torch.float32), as_tensor(start.xi2, dev, torch.float32)
+    m0 = as_tensor(start.m, dev, torch.int32)
+    if n == 0:  # nothing to stream: the starting state is the answer
+        return Ball(w=w0.clone(), r=r0.reshape(()).clone(), xi2=xi20.reshape(()).clone(),
+                    m=m0.reshape(()).clone())
+    Xp = _pad_to(X.float(), block_n, 0)
+    yp = _pad_to(y.float(), block_n, 0)
+    w, r, xi2, m = streamsvm_scan(Xp, yp, w0, r0, xi20, c_inv, m0, gain, n_valid=n, block_n=block_n)
+    return Ball(w=w, r=r, xi2=xi2, m=m)
+
+
+def streamsvm_fit(X, y, c, ball: Ball | None = None, *, block_n: int = 256, device=None) -> Ball:
+    """One-pass Algorithm 1 for one model through kernel B4.
+
+    X: (N, D); y: (N,) label signs (0: inert row). Starts from ``ball`` if
+    given, else from the first example (w = y_0 x_0, r = 0, xi2 = 1/C,
+    m = 1: the exact variant) and streams the rest. Returns a Ball of 0-d
+    scalars on the device of the inputs.
+    """
+    dev = pick_device(device, X, y, None if ball is None else ball.w)
+    X, y = as_tensor(X, dev, torch.float32), as_tensor(y, dev, torch.float32)
+    n, _ = X.shape
+    if y.shape != (n,):
+        raise ValueError(
+            f"y must be (N,) labels matching X: got y.shape={tuple(y.shape)}, "
+            f"X.shape={tuple(X.shape)}"
+        )
+    c_inv = 1.0 / as_tensor(c, dev, torch.float32)
+    if ball is None:
+        one = torch.ones((), dtype=torch.int32, device=dev)
+        ball = Ball(w=y[0] * X[0], r=torch.zeros_like(c_inv), xi2=c_inv, m=one)
+        X, y = X[1:], y[1:]
+    return fit_single(X, y, ball, c_inv, c_inv, block_n=block_n)
+
+
 def streamsvm_fit_many(
     X,
     Y,
@@ -110,28 +154,33 @@ def streamsvm_fit_many(
     bank_resident: str = "auto",
     device=None,
 ) -> Ball:
-    """One-pass Algorithm 1 for a bank of B models through kernel B1.
+    """One-pass Algorithm 1 or 2 for a bank of B models through kernel B1
+    or B3: one read of the stream.
 
     X: (N, D) shared stream; Y: (B, N) per-model label signs in {-1, +1}
     (classes x C-grid flatten onto B). A sign of 0 makes a row inert for
     that model. cs: scalar or (B,) per-model C. Starts from ``balls`` (a
     Ball stacked on a leading B axis) when given; otherwise row 0 seeds
     every model (``w0 = Y[:, 0] X[0]``, r0 = 0, xi2_0 = gain, m0 = 1) and
-    the stream starts at row 1. ``variant``: "exact" (slack gain 1/C) or
-    "paper-listing" (gain 1). ``b_tile`` pads the bank to whole tiles of a
-    multiple of 8 models; the result does not depend on it.
-    ``stream_dtype="bf16"`` rounds the streamed X/Y only. Returns a stacked
-    Ball on the device of the inputs.
+    the stream starts at row 1. ``variant``: "exact" / "paper-listing" run
+    Algorithm 1 (B1) with slack gain 1/C / 1; "lookahead" /
+    "lookahead-paper" run the fused Algorithm 2 (B3) with the same gains and
+    per-model windows given by ``lookahead`` (an int, or a length-B tuple of
+    ints; default 1), flushed farthest-first when full and after the last
+    row. ``b_tile`` pads the bank to whole tiles of a multiple of 8 models;
+    the result does not depend on it. ``stream_dtype="bf16"`` rounds the
+    streamed X/Y only. Returns a stacked Ball on the device of the inputs.
     """
-    if variant in ("lookahead", "lookahead-paper") or lookahead is not None:
-        raise NotImplementedError(
-            f"variant={variant!r}, lookahead={lookahead!r}: fused Algorithm 2 "
-            "is kernel B3, not ported yet: ROADMAP A8"
-        )
-    if variant not in ("exact", "paper-listing"):
+    if variant not in ("exact", "paper-listing", "lookahead", "lookahead-paper"):
         raise ValueError(
             f"unknown variant {variant!r}; expected 'exact', 'paper-listing', "
             "'lookahead' or 'lookahead-paper'"
+        )
+    is_lookahead = variant in ("lookahead", "lookahead-paper")
+    if not is_lookahead and lookahead is not None:
+        raise ValueError(
+            f"lookahead={lookahead!r} requires variant='lookahead' or "
+            f"'lookahead-paper' (got variant={variant!r})"
         )
     _check_resident(bank_resident)
     dev = pick_device(device, X, Y, None if balls is None else balls.w)
@@ -146,7 +195,17 @@ def streamsvm_fit_many(
     sdt = _resolve_stream_dtype(stream_dtype)
     cs = _vec(cs, b, dev)
     c_inv = 1.0 / cs
-    gain = torch.ones_like(c_inv) if variant == "paper-listing" else c_inv
+    gain = torch.ones_like(c_inv) if variant in ("paper-listing", "lookahead-paper") else c_inv
+    if is_lookahead:
+        lookahead = 1 if lookahead is None else lookahead
+        if isinstance(lookahead, int):
+            lookahead = (lookahead,) * b
+        lookahead = tuple(int(l) for l in lookahead)
+        if len(lookahead) != b or min(lookahead) < 1:
+            raise ValueError(
+                f"lookahead must be an int >= 1 or a length-B tuple of them: "
+                f"got {lookahead} for B={b}"
+            )
     if balls is None:
         w0 = Y[:, 0:1] * X[0][None, :]
         r0 = torch.zeros((b,), dtype=torch.float32, device=dev)
@@ -163,7 +222,8 @@ def streamsvm_fit_many(
             m=_vec(m0, b, dev, torch.int32).clone(),
         )
     # Pad models to whole bank tiles; padded lanes carry sign 0, C = 1,
-    # gain 1 and r = +inf, so they never violate, and are sliced off below.
+    # gain 1, L = 1 and r = +inf, so they never violate (or buffer), and
+    # are sliced off below.
     bt, _ = bank_tiling(b, b_tile)
     bp = -(-b // bt) * bt
     live = torch.arange(bp, device=dev) < b
@@ -182,6 +242,11 @@ def streamsvm_fit_many(
         torch.where(live, pad1(gain), 1.0),
         n_valid=n,
         block_n=block_n,
+        lookahead=(
+            torch.tensor(lookahead + (1,) * (bp - b), dtype=torch.int32, device=dev)
+            if is_lookahead else None
+        ),
+        lookahead_max=max(lookahead) if is_lookahead else None,
     )
     return Ball(w=W[:b], r=r[:b], xi2=xi2[:b], m=m[:b])
 

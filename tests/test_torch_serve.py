@@ -181,10 +181,13 @@ def test_fit_ovr_and_c_grid_match_the_bank(flows):
     ball = type(grid)(*(x[1] for x in grid))
     acc = accuracy(ball, Xtr, y).item()
     assert acc == pytest.approx(float((predict(ball, Xtr).numpy() == y).mean()))
-    with pytest.raises(NotImplementedError, match="A8"):
-        fit_ovr(Xtr, ytr, N_CLASSES, 1.0, lookahead=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        fit_c_grid(Xtr, y, [1.0], engine="scan", device="cpu")
+    # Algorithm 2 (kernel B3) and the per-model scan engine (kernel B4) run
+    # the same classes: the L = 1 lookahead bank is Algorithm 1's bank.
+    la = fit_ovr(Xtr, ytr, N_CLASSES, 10.0, lookahead=4, device="cpu")
+    assert la.w.shape == ovr.w.shape and (predict_ovr(la, Xtr).numpy() == ytr).mean() > 0.5
+    scan = fit_c_grid(Xtr, y, np.asarray(C_PTS, np.float32), engine="scan", device="cpu")
+    torch.testing.assert_close(scan.w, grid.w, rtol=2e-4, atol=2e-5)
+    assert torch.equal(scan.m, grid.m)
 
 
 def test_unported_banks_and_checkpoints_raise(tmp_path):

@@ -160,8 +160,8 @@ def test_kernel_wrapper_runs_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(variant="lookahead"), "A8"),
-    (dict(variant="lookahead-paper", lookahead=3), "A8"),
+    (dict(variant="lookahead", mesh=object()), "A10"),
+    (dict(variant="lookahead-paper", lookahead=3, bank_resident="hbm"), "B6"),
     (dict(bank_resident="hbm"), "B6"),
     (dict(mesh=object()), "A10"),
 ])
