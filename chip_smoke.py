@@ -28,8 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      permutations; fit for L = 1 through B4, fit_lookahead through B3), each
      fit of the first permutation held against the plain version; (b) the
      600-model bank of phase 3 trained with Algorithm 2 (lookahead 10) in
-     one fit_bank pass through B3, checkpointed, restored and served through
-     B2; (c) fit_chunked(lookahead=10) (the qp engine) and
+     one fit_bank pass through B3, held against the plain version on the
+     same inputs, checkpointed, restored and served through B2; (c) fit_chunked(lookahead=10) (the qp engine) and
      kernels.streamsvm_fit at Fig 3's size, timed;
   5. kernel times at the main path's shapes against their bounds, printed
      as one JSON line {"kernels": [...]}.
@@ -470,13 +470,35 @@ def serve_ovr(dev, bank, Xte, n_classes):
     return cls, margin, stats
 
 
+def seeded_bank_inputs(X, Y, cs, bp):
+    """The padded inputs ``ops.streamsvm_fit_many`` hands B1 or B3 for a bank
+    seeded from row 0 (block_n 256, the bank padded to ``bp`` lanes):
+    ``(args, n_valid, live)``."""
+    from repro_torch.kernels import ops
+
+    b, dev = Y.shape[0], X.device
+    live = torch.arange(bp, device=dev) < b
+    pad = lambda v: ops._pad_to(v, bp, 0)
+    c_inv = torch.where(live, pad(1.0 / cs), 1.0)
+    args = (
+        ops._pad_to(X[1:], 256, 0), ops._pad_to(ops._pad_to(Y[:, 1:], 256, 1), bp, 0),
+        pad(Y[:, :1] * X[:1]), torch.where(live, pad(torch.zeros(b, device=dev)), torch.inf),
+        pad(1.0 / cs), c_inv, pad(torch.ones(b, dtype=torch.int32, device=dev)), c_inv,
+    )
+    return args, X.shape[0] - 1, live
+
+
 def phase_algorithms(dev, args, main):
     """The paper's Algorithms 1 and 2 at full width (phase 4)."""
     from repro_torch.core import fit, fit_bank, fit_chunked, fit_lookahead, predict_c_grid
     from repro_torch.data import chunk_stream, mnist89_like, permuted, preprocess_for
     from repro_torch.kernels import streamsvm_fit
     from repro_torch.kernels.predict import predict_bank_fused
-    from repro_torch.kernels.streamsvm_scan import streamsvm_scan, streamsvm_scan_lookahead_many
+    from repro_torch.kernels.streamsvm_scan import (
+        streamsvm_scan,
+        streamsvm_scan_lookahead_many,
+        streamsvm_scan_lookahead_many_plain,
+    )
 
     counters = (predict_bank_fused, streamsvm_scan_lookahead_many, streamsvm_scan)
     for f in counters:
@@ -519,15 +541,28 @@ def phase_algorithms(dev, args, main):
     print(f"[4b] Algorithm 2 bank: {n_classes} classes x C {c_pts} = {Y6.shape[0]} models, "
           f"lookahead 10, one fit_bank pass over {len(X6)} rows")
     Xd, Yd = torch.as_tensor(X6, device=dev), torch.as_tensor(Y6, device=dev)
+    cs6 = torch.as_tensor(main["cs"], device=dev)
     sync(dev)
     t0 = time.perf_counter()
-    bank = fit_bank(Xd, Yd, torch.as_tensor(main["cs"], device=dev), variant="lookahead",
-                    lookahead=10, b_tile=64)
+    bank = fit_bank(Xd, Yd, cs6, variant="lookahead", lookahead=10, b_tile=64)
     sync(dev)
     t_fit = time.perf_counter() - t0
     for name, leaf in zip("w r xi2".split(), bank[:3]):
         if not torch.isfinite(leaf).all():
             raise AssertionError(f"the lookahead bank has non-finite {name}")
+    # The bank's one B3 launch against the plain version on the inputs
+    # fit_bank gave it: the whole stream, windows carried across every block
+    # and the partial windows flushed after the last row.
+    b6 = Yd.shape[0]
+    in3, n3, live3 = seeded_bank_inputs(Xd, Yd, cs6, -(-b6 // 64) * 64)
+    kw3 = dict(lookahead=torch.where(live3, 10, 1).to(torch.int32), lookahead_max=10, n_valid=n3)
+    t0 = time.perf_counter()
+    want3 = streamsvm_scan_lookahead_many_plain(*in3, **kw3)
+    sync(dev)
+    plain3 = (time.perf_counter() - t0) * 1e3
+    err3 = check_state("the lookahead bank against the plain version", bank, want3, live=b6)
+    print(f"  the bank's B3 launch equals the plain version over {n3} rows: w max|err| "
+          f"{err3:.3e}, m equal (plain version {plain3 / 1e3:.1f} s)")
     t0 = time.perf_counter()
     cls, margin, stats = serve_ovr(dev, bank, X6te, n_classes)
     sync(dev)
@@ -567,7 +602,8 @@ def phase_algorithms(dev, args, main):
     print(f"  launches in phase 4: {launches}")
     if dev.type == "cuda" and min(launches.values()) < 1:
         raise AssertionError(f"a kernel of phase 4 was never launched: {launches}")
-    return dict(launches=launches, fig3=(Xp, yp), bank=bank)
+    b3 = dict(inputs=in3, kw=kw3, err=err3, plain_ms=plain3, pushes=float((bank.m - 1).sum()))
+    return dict(launches=launches, fig3=(Xp, yp), bank=bank, b3=b3)
 
 
 def phase_times(dev, args, main, algos):
@@ -576,7 +612,6 @@ def phase_times(dev, args, main, algos):
     from repro_torch.kernels.streamsvm_scan import (
         streamsvm_scan,
         streamsvm_scan_lookahead_many,
-        streamsvm_scan_lookahead_many_plain,
         streamsvm_scan_many,
         streamsvm_scan_many_plain,
         streamsvm_scan_plain,
@@ -587,17 +622,7 @@ def phase_times(dev, args, main, algos):
     X, Y = (torch.as_tensor(a, device=dev) for a in main["chunk"])
     b, d = Y.shape[0], X.shape[1]
     bp = -(-b // 64) * 64
-    cs = torch.as_tensor(main["cs"], device=dev)
-    live = torch.arange(bp, device=dev) < b
-    n = X.shape[0] - 1
-    Xp = ops._pad_to(X[1:], 256, 0)
-    Yp = ops._pad_to(ops._pad_to(Y[:, 1:], 256, 1), bp, 0)
-    pad = lambda v: ops._pad_to(v, bp, 0)
-    args1 = (
-        Xp, Yp, pad(Y[:, :1] * X[:1]), torch.where(live, pad(torch.zeros(b, device=dev)), torch.inf),
-        pad(1.0 / cs), torch.where(live, pad(1.0 / cs), 1.0),
-        pad(torch.ones(b, dtype=torch.int32, device=dev)), torch.where(live, pad(1.0 / cs), 1.0),
-    )
+    args1, n, _ = seeded_bank_inputs(X, Y, torch.as_tensor(main["cs"], device=dev), bp)
     got = streamsvm_scan_many(*args1, n_valid=n)
     want = streamsvm_scan_many_plain(*args1, n_valid=n)
     sync(dev)
@@ -608,22 +633,18 @@ def phase_times(dev, args, main, algos):
     plain1 = time_ms(lambda: streamsvm_scan_many_plain(*args1, n_valid=n), dev, 1, warmup=0)
     flops1 = 4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32
     bytes1 = 4.0 * (n * d + b * n + 2 * b * d + 6 * b)
-    # B3 at the same shapes: the first chunk with a 10-row window per model.
-    L3 = torch.where(live, 10, 1).to(torch.int32)
-    kw3 = dict(lookahead=L3, lookahead_max=10, n_valid=n)
-    got3 = streamsvm_scan_lookahead_many(*args1, **kw3)
-    sync(dev)
-    t0 = time.perf_counter()
-    want3 = streamsvm_scan_lookahead_many_plain(*args1, **kw3)
-    sync(dev)
-    plain3 = (time.perf_counter() - t0) * 1e3
-    err3 = check_state("B3 at the main-path shape", got3, want3, live=b)
-    ms3 = time_ms(lambda: streamsvm_scan_lookahead_many(*args1, **kw3), dev, reps)
-    pushes = float((got3[3][:b] - 1).sum())
-    # B1's work plus, for every pushed row, its copy into the window and at
-    # least one distance in a flush (this run's pushes).
-    flops3 = flops1 + 3.0 * d * pushes
-    bytes3 = bytes1
+    # B3 at its main-path launch (phase 4b): the whole stream, 10-row windows,
+    # held against the plain version there.
+    b3 = algos["b3"]
+    in3, kw3, pushes = b3["inputs"], b3["kw"], b3["pushes"]
+    n3 = kw3["n_valid"]
+    ms3 = time_ms(lambda: streamsvm_scan_lookahead_many(*in3, **kw3), dev, reps)
+    # B3's own work: h = <w, x_k> for every model and row and each row's
+    # |x_k|^2 (the Gram's diagonal is all a distance needs; there is no
+    # deferred update and g changes only in a flush), plus, for every pushed
+    # row, at least one distance in a flush (this run's pushes).
+    flops3 = 2.0 * b * n3 * d + 2.0 * n3 * d + 3.0 * d * pushes
+    bytes3 = 4.0 * (n3 * d + b * n3 + 2 * b * d + 6 * b)
     # B4 at Fig 3's shapes: one model over the permuted training stream.
     Xf, yf = (torch.as_tensor(a, device=dev) for a in algos["fig3"])
     n4 = Xf.shape[0] - 1
@@ -677,8 +698,9 @@ def phase_times(dev, args, main, algos):
             f"Q=256 B={W.shape[0]} D={d} ovr n_classes={nc} f32"),
         row("streamsvm_scan_lookahead", "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
             "src/repro/kernels/streamsvm_scan.py:800",
-            algos["launches"]["streamsvm_scan_lookahead_many"], err3, ms3, plain3, flops3,
-            bytes3, None, f"N={n} D={d} B={b} (bank padded to {bp}) L=10 f32, {pushes:.0f} pushes"),
+            algos["launches"]["streamsvm_scan_lookahead_many"], b3["err"], ms3, b3["plain_ms"],
+            flops3, bytes3, None,
+            f"N={n3} D={d} B={b} (bank padded to {bp}) L=10 f32, {pushes:.0f} pushes"),
         row("streamsvm_single", "src/repro_torch/kernels/csrc/streamsvm_single.cu",
             "src/repro/kernels/streamsvm_scan.py:639", algos["launches"]["streamsvm_scan"],
             err4, ms4, plain4, flops4, bytes4, None,

@@ -82,23 +82,13 @@ def _grouped(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cat([a[i : i + LANE_GROUP] @ b for i in range(0, a.shape[0], LANE_GROUP)])
 
 
-def streamsvm_scan_many_plain(
-    X, Y, W0, r0, xi20, c_inv, m0, gain, *, n_valid, block_n=256, lookahead=None,
-    lookahead_max=None,
-):
+def streamsvm_scan_many_plain(X, Y, W0, r0, xi20, c_inv, m0, gain, *, n_valid, block_n=256):
     """Plain PyTorch version of B1: the TPU kernel's blocked algorithm.
 
     Per block of ``block_n`` rows: the block Gram, ``g = ys * (W X^T)``, the
     row-by-row update of every model at once, and the deferred
-    ``W <- decay * W + (alpha * ys) X``. Returns ``(W, r, xi2, m)``. With
-    ``lookahead`` it is B3's plain version instead
-    (``streamsvm_scan_lookahead_many_plain``).
+    ``W <- decay * W + (alpha * ys) X``. Returns ``(W, r, xi2, m)``.
     """
-    if lookahead is not None:
-        return streamsvm_scan_lookahead_many_plain(
-            X, Y, W0, r0, xi20, c_inv, m0, gain, lookahead=lookahead,
-            lookahead_max=lookahead_max, n_valid=n_valid, block_n=block_n,
-        )
     _check_args(X, Y, W0, r0, xi20, c_inv, m0, gain, block_n)
     torch.backends.cuda.matmul.allow_tf32 = False  # TF32 flips d >= r decisions
     n = min(int(n_valid), X.shape[0])

@@ -181,8 +181,9 @@ def test_fit_ovr_and_c_grid_match_the_bank(flows):
     ball = type(grid)(*(x[1] for x in grid))
     acc = accuracy(ball, Xtr, y).item()
     assert acc == pytest.approx(float((predict(ball, Xtr).numpy() == y).mean()))
-    # Algorithm 2 (kernel B3) and the per-model scan engine (kernel B4) run
-    # the same classes: the L = 1 lookahead bank is Algorithm 1's bank.
+    # fit_ovr(lookahead=4) runs Algorithm 2 (kernel B3's path) at the bank's
+    # shape and separates the training classes; the per-model scan engine
+    # (kernel B4's path) gives the one-pass grid's bank, m exact.
     la = fit_ovr(Xtr, ytr, N_CLASSES, 10.0, lookahead=4, device="cpu")
     assert la.w.shape == ovr.w.shape and (predict_ovr(la, Xtr).numpy() == ytr).mean() > 0.5
     scan = fit_c_grid(Xtr, y, np.asarray(C_PTS, np.float32), engine="scan", device="cpu")
