@@ -5,10 +5,11 @@
     python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
         --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
 
-The second form rehearses phases 2-5 on the CPU at a tiny size, through the
+The second form rehearses phases 2-6 on the CPU at a tiny size, through the
 kernels' plain versions; a run on the card never takes that path (add
 --fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
-phase 4 too).
+phase 4 too, and --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
+the kernelized bank).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: name, count, power limit, versions; build every kernel from
@@ -16,7 +17,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. each kernel against its plain PyTorch version on the card: B1 (one
      pass of Algorithm 1 for a bank), B2 (fused bank predict, all three
      epilogues), B4 (Algorithm 1 for one model) and B3 (the fused
-     Algorithm 2 for a bank);
+     Algorithm 2 for a bank); B5 (the Gram block, with its row-norms
+     kernel) on a small ragged case and at the kernelized bank's K_cs shape,
+     and R1 (the core-set row recursion) with B5 over the first
+     --kb-check-tiles tiles of phase 6b's pass, for both evictions, at
+     S = --coreset and at --kb-evict-coreset (whose buffers fill and evict);
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
@@ -31,8 +36,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      one fit_bank pass through B3, held against the plain version on the
      same inputs, checkpointed, restored and served through B2; (c) fit_chunked(lookahead=10) (the qp engine) and
      kernels.streamsvm_fit at Fig 3's size, timed;
-  5. kernel times at the main path's shapes against their bounds, printed
-     as one JSON line {"kernels": [...]}.
+  6. the kernelized bank (paper Sec 4.2): (a) examples/kernel_bank.py's flow
+     on two rings (linear and RBF, both evictions, s_tile, checkpoint,
+     ragged serving, hot swap); (b) at full width, phase 3's stream and
+     bank layout (600 models, D = 784, 60,000 rows) trained with RBF
+     (gamma 1, S = --coreset, block_n 256) in one pass per eviction through
+     B5 and R1, checkpointed with save_kernel_bank and served (ovr) through
+     BankServer, with the launch counts read around it;
+  5. (printed last) kernel times at the main path's shapes against their
+     bounds, printed as one JSON line {"kernels": [...]}.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -126,6 +138,109 @@ def compare_ids(name, got, want, sorted_scores, k):
     print(f"  {name}: {bad} separated id mismatches, {ties} near-ties of {sep.numel()}")
     if bad:
         raise AssertionError(f"{name}: {bad} ids differ where the scores are separated")
+
+
+KB_GAMMA = 1.0  # phase 6b's RBF bandwidth on unit-norm rows
+
+
+def gram_tol(A, B, epilogue, gamma):
+    """Per-element bound on two f32 evaluations of a D-long dot product:
+    each errs by at most about D u sum|a_d b_d| <= D u |a| |b| (u = 2^-24),
+    so they differ by at most 2 (D + 1) u |a_i| |b_j|; the RBF map is
+    gamma-Lipschitz in d^2 = ... - 2<a, b>, plus 1e-6 for exp's rounding."""
+    d = A.shape[1]
+    na, nb = A.float().norm(dim=1), B.float().norm(dim=1)
+    lin = (2.0 * (d + 1) * 2.0**-24) * na[:, None] * nb[None, :]
+    return lin if epilogue == "linear" else (2.0 * gamma) * lin + 1e-6
+
+
+def check_gram(name, got, want, A, B, epilogue, gamma):
+    err = (got - want).abs()
+    bad = int((err > gram_tol(A, B, epilogue, gamma)).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} elements beyond 2 (D+1) u |a||b| (max |err| "
+                             f"{err.max().item():.3e})")
+    return err.max().item()
+
+
+def check_kernel_state(name, got, want):
+    """A kernel bank's state against the plain path's: idx, m and the
+    gathered points equal, the floats within the engine's tolerance.
+    Returns the largest float difference."""
+    for leaf in ("idx", "m", "points"):
+        a, b = getattr(got, leaf).cpu(), getattr(want, leaf).cpu()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {leaf} differs from the plain path at "
+                                 f"{int((a != b).sum())} entries")
+    return max(check_close(f"{name} {leaf}", getattr(got, leaf), getattr(want, leaf), 1e-4, 1e-5)
+               for leaf in ("coef", "q", "r", "xi2"))
+
+
+def kb_stream(args):
+    """Phase 6b's stream: phase 3's blobs with its 600-model C-grid signs."""
+    from repro_torch.core import ovr_signs
+
+    c_pts = (1.0, 10.0, 100.0)
+    Xtr, ytr = make_blobs(args.n_train, args.classes, args.d, seed=args.seed)
+    Xte, yte = make_blobs(args.n_test, args.classes, args.d, seed=args.seed + 1)
+    Y = np.tile(ovr_signs(ytr, args.classes, device="cpu").numpy(), (len(c_pts), 1))
+    cs = np.repeat(np.asarray(c_pts, np.float32), args.classes)
+    return dict(X=Xtr, Y=Y, cs=cs, Xte=Xte, yte=yte, c_pts=c_pts)
+
+
+def rows_inputs(dev, kb, state, t, farthest):
+    """R1's inputs at tile ``t`` of phase 6b's pass from the bank ``state``
+    reached before it, built as fit_kernel_bank builds them."""
+    from repro_torch.core.kernel_bank import _buffer_gram
+    from repro_torch.kernels.gram import gram_fused, row_norms
+
+    bn = 256
+    A = torch.as_tensor(kb["X"][t * bn : (t + 1) * bn], device=dev)
+    y = torch.as_tensor(kb["Y"][:, t * bn : (t + 1) * bn], device=dev).contiguous()
+    b, s, d = state.points.shape
+    P = state.points.reshape(b * s, d)
+    an = row_norms(A)
+    k_cs = gram_fused(A, P, an, row_norms(P), KB_GAMMA, epilogue="rbf").reshape(bn, b, s)
+    k_tt = gram_fused(A, A, an, an, KB_GAMMA, epilogue="rbf")
+    kbb = _buffer_gram(state.points, "rbf", KB_GAMMA).contiguous() if farthest else None
+    c_inv = 1.0 / torch.as_tensor(kb["cs"], device=dev)
+    st = [x.clone() for x in (state.idx, state.coef, state.q, state.r, state.xi2, state.m)]
+    return dict(args=(k_cs, k_tt, y), state=st, c_inv=c_inv, kbb=kbb, base=t * bn, n_valid=bn)
+
+
+def run_rows(fn, inp):
+    """One R1 call on fresh copies of the state; returns the new state."""
+    st = [x.clone() for x in inp["state"]]
+    kbb = None if inp["kbb"] is None else inp["kbb"].clone()
+    fn(*inp["args"], *st, inp["c_inv"], inp["c_inv"], base=inp["base"], n_valid=inp["n_valid"],
+       kbb=kbb)
+    return st
+
+
+def time_rows_ms(fn, inp, dev, reps):
+    """Mean ms of one R1 launch (CUDA events around the launch alone; the
+    state is copied fresh before each), after one warm-up."""
+    out = []
+    for i in range(reps + 1):
+        st = [x.clone() for x in inp["state"]]
+        kbb = None if inp["kbb"] is None else inp["kbb"].clone()
+        call = lambda: fn(*inp["args"], *st, inp["c_inv"], inp["c_inv"], base=inp["base"],
+                          n_valid=inp["n_valid"], kbb=kbb)
+        sync(dev)
+        if dev.type == "cuda":
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            call()
+            e1.record()
+            e1.synchronize()
+            ms = e0.elapsed_time(e1)
+        else:
+            t0 = time.perf_counter()
+            call()
+            ms = (time.perf_counter() - t0) * 1e3
+        if i:
+            out.append(ms)
+    return float(np.mean(out))
 
 
 # ----------------------------------------------------------------------------
@@ -352,6 +467,69 @@ def phase_kernels(dev, args, rng):
             compare_ids("topk ids", ids_g[:q], ids_w[:q], full[:q], 5)
         err = check_close(f"B2 {ep} values", val_g[:q], val_w[:q], RTOL_W, score_atol(val_w[:q]))
         print(f"  {ep}: values max|err| {err:.3e}")
+
+
+def check_kernel_bank(dev, args, rng, kb):
+    """Phase 2's B5 and R1 checks: B5 and its row norms on small ragged
+    cases, then the engine's kernel path over the first --kb-check-tiles
+    tiles of phase 6b's pass against its plain path (both evictions), then
+    B5 at the full K_cs shape those tiles reach."""
+    from repro_torch.core.kernel_bank import _fit_kernel_bank
+    from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
+
+    print("[2] B5 against its plain version: ragged M, N, D; f32 and bf16 A; linear and rbf")
+    worst = 0.0
+    for m, n, d in ((37, 130, 33), (65, 1, 7), (200, 321, 784)):
+        for dt in (torch.float32, torch.bfloat16):
+            A = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32), device=dev).to(dt)
+            B = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=dev)
+            an, bn = row_norms(A), row_norms(B)
+            if not (torch.equal(an, row_norms_plain(A)) and torch.equal(bn, row_norms_plain(B))):
+                raise AssertionError(f"row norms differ from the plain version at {(m, d)}")
+            for ep in ("linear", "rbf"):
+                got = gram_fused(A, B, an, bn, 0.1, epilogue=ep)
+                want = gram_plain(A, B, an, bn, 0.1, epilogue=ep)
+                sync(dev)
+                worst = max(worst, check_gram(f"B5 {ep} {m}x{n}x{d} {dt}", got, want, A.float(),
+                                              B, ep, 0.1))
+    print(f"  within 2 (D+1) u |a||b| everywhere (max |err| {worst:.3e}); row norms equal")
+
+    tiles, bn = args.kb_check_tiles, 256
+    b, d = kb["Y"].shape[0], args.d
+    Xd = torch.as_tensor(kb["X"][: (tiles + 1) * bn], device=dev)
+    Yd = torch.as_tensor(kb["Y"][:, : (tiles + 1) * bn], device=dev)
+    csd = torch.as_tensor(kb["cs"], device=dev)
+    out = {}
+    # S = --coreset is phase 6b's pass; the smaller --kb-evict-coreset fills
+    # the buffers within these tiles, so both eviction policies run.
+    for s in (args.coreset, args.kb_evict_coreset):
+        print(f"[2] R1 and B5 on phase 6b's stream: the first {tiles} tiles ({tiles * bn} rows), "
+              f"B={b}, S={s}, D={d}, rbf gamma {KB_GAMMA}, against the plain path")
+        for ev in ("smallest-coef", "farthest-point"):
+            kw = dict(kernel="rbf", coreset_size=s, eviction=ev, variant="exact", block_n=bn,
+                      s_tile=None, stream_dtype=None, max_tiles=tiles)
+            got = _fit_kernel_bank(Xd, Yd, csd, KB_GAMMA, **kw)
+            t0 = time.perf_counter()
+            want = _fit_kernel_bank(Xd, Yd, csd, KB_GAMMA, plain=True, **kw)
+            sync(dev)
+            err = check_kernel_state(f"R1+B5 S={s} {ev}", got, want)
+            filled = int((got.idx >= 0).sum())
+            print(f"  {ev}: idx, m and points equal (sum m {int(got.m.sum())}, {filled} slots "
+                  f"filled, {int(got.m.sum()) - filled} evictions), floats max|err| {err:.3e}; "
+                  f"plain path {time.perf_counter() - t0:.1f} s")
+            if s == args.coreset:
+                out[ev] = dict(state=got, err=err)
+    A = Xd[tiles * bn : (tiles + 1) * bn]
+    P = out["smallest-coef"]["state"].points.reshape(-1, d)
+    an, pn = row_norms(A), row_norms(P)
+    got = gram_fused(A, P, an, pn, KB_GAMMA, epilogue="rbf")
+    want = gram_plain(A, P, an, pn, KB_GAMMA, epilogue="rbf")
+    sync(dev)
+    err = check_gram("B5 at the K_cs shape", got, want, A, P, "rbf", KB_GAMMA)
+    print(f"  B5 at the K_cs shape ({bn} x {P.shape[0]} x {d}, rbf): max |err| {err:.3e}, "
+          f"bit-equal: {bool(torch.equal(got, want))}")
+    out["kcs"] = dict(A=A, P=P, err=err)
+    return out
 
 
 def phase_main_path(dev, args):
@@ -606,7 +784,179 @@ def phase_algorithms(dev, args, main):
     return dict(launches=launches, fig3=(Xp, yp), bank=bank, b3=b3)
 
 
-def phase_times(dev, args, main, algos):
+def make_rings(n, d, seed):
+    """examples/kernel_bank.py's two rings: inner ring +1, outer ring -1,
+    the other dimensions noise."""
+    rng = np.random.default_rng(seed)
+    y = np.where(rng.uniform(size=n) < 0.5, 1.0, -1.0).astype(np.float32)
+    radius = np.where(y > 0, 1.0, 2.5)
+    theta = rng.uniform(0, 2 * np.pi, size=n)
+    X = rng.normal(scale=0.1, size=(n, d)).astype(np.float32)
+    X[:, 0] += (radius * np.cos(theta)).astype(np.float32)
+    X[:, 1] += (radius * np.sin(theta)).astype(np.float32)
+    return X, y
+
+
+def phase_rings(dev, args):
+    """Phase 6a: the torch twin of examples/kernel_bank.py's flow."""
+    from repro_torch.core import fit_kernel_bank, kernel_bank_decision, save_kernel_bank
+    from repro_torch.serve import BankServer
+
+    c_pts, d, s, gamma = (0.5, 5.0, 50.0), 8, 64, 2.0
+    Xtr, ytr = make_rings(1200, d, seed=0)
+    Xte, yte = make_rings(400, d, seed=1)
+    Y = np.tile(ytr[None, :], (len(c_pts), 1))
+    cs = np.asarray(c_pts, np.float32)
+    Xte_d = torch.as_tensor(Xte, device=dev)
+    print(f"[6a] two rings: {len(Xtr)} training / {len(Xte)} held-out rows, D={d}, C {c_pts}, "
+          f"S={s}, gamma {gamma}, block_n 128")
+    kw = dict(gamma=gamma, coreset_size=s, block_n=128, device=dev)
+
+    def acc(bank, kernel):
+        sc = kernel_bank_decision(bank, Xte_d, kernel=kernel, gamma=gamma).cpu().numpy()
+        return [float(np.mean(np.sign(c) == yte)) for c in sc.T]
+
+    banks = {}
+    for kernel in ("linear", "rbf"):
+        sync(dev)
+        t0 = time.perf_counter()
+        banks[kernel] = fit_kernel_bank(Xtr, Y, cs, kernel=kernel, **kw)
+        sync(dev)
+        accs = acc(banks[kernel], kernel)
+        print(f"  {kernel}: one pass in {(time.perf_counter() - t0) * 1e3:.1f} ms, m max "
+              f"{int(banks[kernel].m.max())}; held-out accuracy "
+              + ", ".join(f"C={c:g}: {a:.4f}" for c, a in zip(c_pts, accs)))
+    best = max(acc(banks["rbf"], "rbf"))
+    if not best > 0.9:
+        raise AssertionError(f"the RBF bank should separate the rings: best accuracy {best}")
+    fp = fit_kernel_bank(Xtr, Y, cs, kernel="rbf", eviction="farthest-point", **kw)
+    print(f"  eviction: smallest-coef {best:.4f}, farthest-point {max(acc(fp, 'rbf')):.4f}")
+    tiled = fit_kernel_bank(Xtr, Y, cs, kernel="rbf", s_tile=16, **kw)
+    for name, a, b in zip(tiled._fields, banks["rbf"], tiled):
+        if not torch.equal(a, b):
+            raise AssertionError(f"s_tile=16 changed {name}")
+    print("  s_tile=16: bit-identical (7 of 7 leaves)")
+
+    bank = banks["rbf"]
+    with tempfile.TemporaryDirectory() as td:
+        save_kernel_bank(td, bank, kernel="rbf", gamma=gamma)
+        server = BankServer.from_checkpoint(td, q_block=128, device=dev)
+    rng = np.random.default_rng(args.seed + 5)
+    reqs, lo = [], 0
+    while lo < len(Xte):
+        m = int(rng.integers(1, 90))
+        reqs.append(server.submit(Xte[lo : lo + m]))
+        lo += m
+    server.run()
+    steps = server.stats.steps
+    served = np.concatenate([r.result for r in reqs])
+    direct = kernel_bank_decision(bank, Xte_d, kernel="rbf", gamma=gamma).cpu().numpy()
+    if not np.array_equal(served, direct):
+        raise AssertionError("served kernel scores differ from kernel_bank_decision")
+    swap = [server.submit(Xte[lo : lo + 50]) for lo in range(0, 200, 50)]
+    server.step()  # 128 rows on the old bank
+    queued = server.pending_rows()
+    server.swap_bank(fp, kernel="rbf", gamma=gamma)
+    server.run()
+    after = kernel_bank_decision(fp, Xte_d[128:200], kernel="rbf", gamma=gamma).cpu().numpy()
+    got = np.concatenate([swap[2].result[28:], swap[3].result])
+    if queued != 72 or not all(r.done for r in swap) or not np.array_equal(got, after) \
+            or not np.array_equal(swap[0].result, direct[:50]):
+        raise AssertionError(f"swap_bank lost or misscored requests: {queued} queued")
+    print(f"  save_kernel_bank -> BankServer.from_checkpoint(q_block=128): {len(reqs)} ragged "
+          f"requests in {steps} steps, scores bit-equal to kernel_bank_decision; "
+          f"swap_bank kept {queued} queued rows, scored on the new bank bit for bit")
+
+
+def phase_kernel_bank(dev, args, kb, main):
+    """Phase 6b: the 600-model RBF bank at full width through B5 and R1."""
+    from repro_torch.core import fit_kernel_bank, kernel_bank_decision, save_kernel_bank
+    from repro_torch.kernels.gram import gram_fused, row_norms
+    from repro_torch.kernels.kernel_bank import kernel_bank_rows
+    from repro_torch.serve import BankServer
+
+    b, n_classes, s = kb["Y"].shape[0], args.classes, args.coreset
+    print(f"[6b] kernelized bank: {b} models (phase 3's layout), D={args.d}, {len(kb['X'])} "
+          f"training rows, rbf gamma {KB_GAMMA}, S={s}, block_n 256, s_tile None")
+    Xd = torch.as_tensor(kb["X"], device=dev)
+    Yd = torch.as_tensor(kb["Y"], device=dev)
+    csd = torch.as_tensor(kb["cs"], device=dev)
+    Xte_d = torch.as_tensor(kb["Xte"], device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    counters = (gram_fused, row_norms, kernel_bank_rows)
+    for f in counters:
+        f.launches = 0
+    banks, fit_s, rows_launches = {}, {}, {}
+    for ev in ("smallest-coef", "farthest-point"):
+        r0 = kernel_bank_rows.launches
+        sync(dev)
+        t0 = time.perf_counter()
+        banks[ev] = fit_kernel_bank(Xd, Yd, csd, kernel="rbf", gamma=KB_GAMMA, coreset_size=s,
+                                    eviction=ev, block_n=256)
+        sync(dev)
+        fit_s[ev] = time.perf_counter() - t0
+        rows_launches[ev] = kernel_bank_rows.launches - r0
+        bank = banks[ev]
+        for name in ("coef", "q", "r", "xi2", "points"):
+            if not torch.isfinite(getattr(bank, name)).all():
+                raise AssertionError(f"{ev} kernel bank has non-finite {name}")
+        kept = (bank.idx >= 0).sum(1).float()
+        print(f"  {ev}: one pass in {fit_s[ev]:.3f} s; core vectors kept per model mean "
+              f"{kept.mean().item():.1f} (min {int(kept.min())}), m mean "
+              f"{bank.m.float().mean().item():.1f} (max {int(bank.m.max())}), "
+              f"{int(bank.m.sum() - kept.sum())} evictions")
+    train_launches = {f.__name__: f.launches for f in counters}
+
+    bank = banks["smallest-coef"]
+    with tempfile.TemporaryDirectory() as td:
+        save_kernel_bank(td, bank, kernel="rbf", gamma=KB_GAMMA, meta={"n_classes": n_classes})
+        server = BankServer.from_checkpoint(td, epilogue="ovr", q_block=256, device=dev)
+    rng = np.random.default_rng(args.seed + 9)
+    reqs, lo = [], 0
+    while lo < len(kb["Xte"]):
+        m = int(rng.integers(1, 200))
+        reqs.append(server.submit(kb["Xte"][lo : lo + m]))
+        lo += m
+    sync(dev)
+    t0 = time.perf_counter()
+    stats = server.run()
+    sync(dev)
+    t_serve = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    cls = torch.as_tensor(np.concatenate([r.result[0] for r in reqs]))
+    print(f"  serve (ovr, q_block 256): {len(kb['Xte'])} queries in {stats.steps} steps, "
+          f"{t_serve:.3f} s, {len(kb['Xte']) / t_serve:.0f} queries/s")
+    print(f"  max_memory_allocated: {peak} bytes")
+    print(f"  launches: training passes {train_launches}; with serving {launches}")
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the kernelized bank was never launched: {launches}")
+    print(f"  the pass's first {args.kb_check_tiles} tiles equal the plain path (phase 2: "
+          "the same inputs, both evictions)")
+
+    yte = kb["yte"]
+    accs = {}
+    for ev, bk in banks.items():
+        sc = kernel_bank_decision(bk, Xte_d, kernel="rbf", gamma=KB_GAMMA)
+        grouped = sc.reshape(len(yte), -1, n_classes)
+        pred = grouped.argmax(-1).cpu().numpy()
+        accs[ev] = [float((pred[:, g] == yte).mean()) for g in range(grouped.shape[1])]
+        if ev == "smallest-coef":
+            compare_ids("served kernel-bank ids vs kernel_bank_decision", cls,
+                        torch.as_tensor(pred), grouped.sort(dim=-1, descending=True).values.cpu(), 1)
+            if not torch.equal(cls, torch.as_tensor(pred, dtype=torch.int32)):
+                raise AssertionError("served ids differ from the direct readout")
+    for g, c in enumerate(kb["c_pts"]):
+        print(f"  C={c:g}: held-out accuracy smallest-coef {accs['smallest-coef'][g]:.4f}, "
+              f"farthest-point {accs['farthest-point'][g]:.4f} (linear bank, phase 3: "
+              f"{main['acc'][g]:.4f})")
+    return dict(banks=banks, fit_s=fit_s, train_launches=train_launches, launches=launches,
+                rows_launches=rows_launches, serve_launches=launches["gram_fused"]
+                - train_launches["gram_fused"])
+
+
+def phase_times(dev, args, main, algos, kb, kbc, kbres):
     from repro_torch.kernels import ops
     from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
     from repro_torch.kernels.streamsvm_scan import (
@@ -715,7 +1065,109 @@ def phase_times(dev, args, main, algos):
                   4.0 * (len(Qs) * d + W.shape[0] * d + len(Qs) * W.shape[0]) / HBM_BYTES_PER_S) * 1e3
     print(f"  B2 scores at Q={len(Qs)}: kernel {ms_s:.4f} ms, torch.matmul {lib_s:.4f} ms, "
           f"bound {bound_s:.4f} ms (operations)")
+    kernels += kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, args.kb_check_tiles)
     return kernels
+
+
+def kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, t):
+    """Phase 5's rows for B5 (K_cs launch, served step at Q = --n-test, the
+    row norms) and R1 (one tile per eviction)."""
+    from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
+    from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the yardstick in full f32
+    out = []
+    gsrc, gref = "src/repro_torch/kernels/csrc/gram.cu", "src/repro/kernels/gram.py:83"
+
+    def gram_row(name, A, P, launches, what):
+        m, dd = A.shape
+        n = P.shape[0]
+        an, pn = row_norms(A), row_norms(P)
+        call = lambda: gram_fused(A, P, an, pn, KB_GAMMA, epilogue="rbf")
+        got = call()
+        sync(dev)
+        t0 = time.perf_counter()
+        want = gram_plain(A, P, an, pn, KB_GAMMA, epilogue="rbf")
+        sync(dev)
+        plain = (time.perf_counter() - t0) * 1e3
+        err = check_gram(name, got, want, A, P, "rbf", KB_GAMMA)
+        del got, want
+        ms = time_ms(call, dev, reps)
+        lib = time_ms(lambda: torch.matmul(A, P.T), dev, reps)
+        # 2 M N D for the products and sums, 6 M N for the RBF epilogue
+        flops = 2.0 * m * n * dd + 6.0 * m * n
+        nbytes = 4.0 * (m * dd + n * dd + m + n + m * n)
+        r = row(name, gsrc, gref, launches, err, ms, plain, flops, nbytes, lib,
+                f"{what}: M={m} N={n} D={dd} rbf f32 (library_ms: torch.matmul, the linear "
+                "Gram without the RBF epilogue; no one call computes the RBF Gram)")
+        print(f"  {name} ({what}): kernel {ms:.4f} ms, plain {plain:.1f} ms, torch.matmul "
+              f"{lib:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        return r
+
+    bank = kbres["banks"]["smallest-coef"]
+    b, s, d = bank.points.shape
+    P = bank.points.reshape(b * s, d)
+    A = kbc["kcs"]["A"]
+    out.append(gram_row("gram", A, P, kbres["train_launches"]["gram_fused"],
+                        "the K_cs launch of a training tile"))
+    Q = torch.as_tensor(kb["Xte"], device=dev)
+    out.append(gram_row("gram_serve", Q, P, kbres["serve_launches"],
+                        f"serving Q={Q.shape[0]} queries at once"))
+    del Q
+
+    X = torch.as_tensor(kb["X"], device=dev)
+    got = row_norms(X)
+    sync(dev)
+    t0 = time.perf_counter()
+    want = row_norms_plain(X)
+    sync(dev)
+    plain = (time.perf_counter() - t0) * 1e3
+    err = check_close("row norms", got, want, 0.0, 0.0)
+    ms = time_ms(lambda: row_norms(X), dev, reps)
+    lib = time_ms(lambda: (X * X).sum(1), dev, reps)
+    n, dd = X.shape
+    r = row("gram_row_norms", gsrc, "src/repro/kernels/gram.py:77",
+            kbres["launches"]["row_norms"], err, ms, plain, 2.0 * n * dd, 4.0 * (n * dd + n),
+            lib, f"N={n} D={dd} f32 (library_ms: (X * X).sum(1), another summation order)")
+    out.append(r)
+    print(f"  gram_row_norms: kernel {ms:.4f} ms, plain {plain:.1f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    del X
+
+    for ev in ("smallest-coef", "farthest-point"):
+        far = ev == "farthest-point"
+        inp = rows_inputs(dev, kb, kbc[ev]["state"], t, far)
+        got = run_rows(kernel_bank_rows, inp)
+        sync(dev)
+        t0 = time.perf_counter()
+        want = run_rows(kernel_bank_rows_plain, inp)
+        sync(dev)
+        plain = (time.perf_counter() - t0) * 1e3
+        for leaf, i in (("idx", 0), ("m", 5)):
+            if not torch.equal(got[i], want[i]):
+                raise AssertionError(f"R1 {ev} at tile {t}: {leaf} differs from the plain version")
+        err = max(check_close(f"R1 {ev} at tile {t}", g, w, 1e-4, 1e-5)
+                  for g, w in zip(got[1:5], want[1:5]))
+        ms = time_rows_ms(kernel_bank_rows, inp, dev, 5 * reps)
+        k_cs, k_tt, y = inp["args"]
+        bn = k_tt.shape[0]
+        live_rows = float((y != 0).sum())  # (model, row) pairs that reach g and d^2
+        absorbed = float((got[5] - inp["state"][5]).sum())
+        # g (2S) and ~12 scalar operations per live pair; per absorb the
+        # (1-s) scaling and the slot choice (S, or 2 S^2 + 4 S for
+        # farthest-point's scores); kbb's row and column writes.
+        flops = live_rows * (2 * s + 12) + absorbed * (2 * s + (2 * s * s + 4 * s if far else s))
+        nbytes = 4.0 * (bn * b * s + bn * bn + b * bn + 2 * b + 2 * (2 * b * s + 4 * b)
+                        + (2 * b * s * s if far else 0))
+        r = row(f"kernel_bank_rows[{ev}]", "src/repro_torch/kernels/csrc/kernel_bank.cu",
+                "src/repro/core/kernel_bank.py:251 (row_body, a lax.scan: no pl.pallas_call)",
+                kbres["rows_launches"][ev], err, ms, plain, flops, nbytes, None,
+                f"one tile: block_n={bn} B={b} S={s}, tile {t} of the pass, {absorbed:.0f} "
+                f"absorbs of {live_rows:.0f} live (model, row) pairs")
+        out.append(r)
+        print(f"  R1 {ev}: kernel {ms:.4f} ms per tile, plain {plain:.1f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); idx and m equal")
+    return out
 
 
 def main(argv=None):
@@ -735,6 +1187,11 @@ def main(argv=None):
     ap.add_argument("--fig3-n-train", type=int, default=11_800)
     ap.add_argument("--fig3-n-test", type=int, default=1_983)
     ap.add_argument("--qp-iters", type=int, default=128, help="BC steps per qp flush")
+    ap.add_argument("--coreset", type=int, default=64, help="S of the kernelized bank (6b)")
+    ap.add_argument("--kb-check-tiles", type=int, default=8,
+                    help="tiles of phase 6b's pass held against the plain path")
+    ap.add_argument("--kb-evict-coreset", type=int, default=16,
+                    help="a smaller S for the phase-2 check, small enough to evict")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; nothing was run")
@@ -752,11 +1209,15 @@ def main(argv=None):
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             check=True, capture_output=True, text=True, timeout=60,
         ).stdout.strip()
+    kb = kb_stream(args)
     phase_kernels(dev, args, rng)
+    kbc = check_kernel_bank(dev, args, rng, kb)
     main_out = phase_main_path(dev, args)
     algos = phase_algorithms(dev, args, main_out)
+    phase_rings(dev, args)
+    kbres = phase_kernel_bank(dev, args, kb, main_out)
     print("[5] kernel times at the main path's shapes")
-    kernels = phase_times(dev, args, main_out, algos)
+    kernels = phase_times(dev, args, main_out, algos, kb, kbc, kbres)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if smi is not None:

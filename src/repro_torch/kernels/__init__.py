@@ -7,10 +7,14 @@ streamsvm_scan — B1 and B3, one pass of Algorithm 1 / the fused
                  model (csrc/streamsvm_single.cu)
 predict        — B2, queries x bank margins with the fused scores / ovr /
                  topk epilogues (csrc/predict.cu)
+gram           — B5, a Gram block with the linear / RBF epilogue fused
+                 (csrc/gram.cu)
+kernel_bank    — R1, the kernelized bank's core-set row recursion over a
+                 stream tile (csrc/kernel_bank.cu)
 
 ops.py carries the public wrappers (padding, bank tiling, dtype policy);
 _build.py compiles csrc/ with nvcc at first use.
 """
-from .ops import predict_bank, streamsvm_fit, streamsvm_fit_many
+from .ops import gram, predict_bank, predict_kernel_bank, streamsvm_fit, streamsvm_fit_many
 
-__all__ = ["predict_bank", "streamsvm_fit", "streamsvm_fit_many"]
+__all__ = ["gram", "predict_bank", "predict_kernel_bank", "streamsvm_fit", "streamsvm_fit_many"]

@@ -1,0 +1,151 @@
+"""R1: the kernelized bank's core-set row recursion over one stream tile.
+
+The port of ``row_body`` in ``repro/core/kernel_bank.py`` (a ``lax.scan``
+over a tile's rows there, no Pallas kernel). The kernel is CUDA C++ for
+Hopper, in ``csrc/kernel_bank.cu``; its header says how it is laid out and
+what bounds it.
+
+``kernel_bank_rows`` dispatches on the device of ``k_cs``: a CPU tensor runs
+``kernel_bank_rows_plain``, a CUDA tensor launches the kernel, or raises.
+Both advance the state tensors in place from the tile's Gram blocks:
+
+  k_cs  (block_n, B, S)  k(tile row i, core-set slot (b, s)) at tile entry
+  k_tt  (block_n, block_n)  k(tile row, tile row); its diagonal is k(x, x)
+  y     (B, block_n)  the tile's signs (0: inert for that model)
+  idx (B, S) int32, coef (B, S), q, r, xi2 (B,), m (B,) int32: the state
+  kbb   (B, S, S) the buffer Gram at tile entry, for "farthest-point" only
+        (None selects "smallest-coef"); updated in place too.
+
+Rows at or past ``n_valid`` are inert; ``base`` is the stream index of the
+tile's row 0. Sums over slots are ``gram.tree_sum`` trees in both versions,
+and each operation is rounded on its own, so on the same K blocks the kernel
+and the plain version agree bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .gram import tree_sum
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("kernel_bank")
+    lib.kernel_bank_rows.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.kernel_bank_rows.restype = ctypes.c_int
+    lib.kernel_bank_max_s.restype = ctypes.c_int
+    return lib
+
+
+def _check_args(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, kbb):
+    bn, b, s = k_cs.shape
+    if k_tt.shape != (bn, bn) or y.shape != (b, bn):
+        raise ValueError(
+            f"k_tt must be (block_n, block_n) and y (B, block_n) for k_cs of shape "
+            f"(block_n, B, S)={tuple(k_cs.shape)}: got k_tt.shape={tuple(k_tt.shape)}, "
+            f"y.shape={tuple(y.shape)}"
+        )
+    for name, v, shape in (("idx", idx, (b, s)), ("coef", coef, (b, s)), ("q", q, (b,)),
+                           ("r", r, (b,)), ("xi2", xi2, (b,)), ("m", m, (b,)),
+                           ("c_inv", c_inv, (b,)), ("gain", gain, (b,))):
+        if v.shape != shape:
+            raise ValueError(f"{name} must be {shape}: got {tuple(v.shape)}")
+    if kbb is not None and kbb.shape != (b, s, s):
+        raise ValueError(f"kbb must be (B, S, S)={(b, s, s)}: got {tuple(kbb.shape)}")
+
+
+def kernel_bank_rows_plain(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, *,
+                           base: int, n_valid: int, kbb=None) -> None:
+    """Plain PyTorch version of R1: ``row_body`` row by row, every model at
+    once, with the reference's wheres, clamp and first-minimum argmins."""
+    _check_args(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, kbb)
+    bn, b, s_size = k_cs.shape
+    farthest = kbb is not None
+    ix, cf, qq, rr, xx, mm = (t.clone() for t in (idx, coef, q, r, xi2, m))
+    kb = kbb.clone() if farthest else None
+    intile = torch.full_like(ix, -1)
+    kdiag = torch.diagonal(k_tt)
+    slots = torch.arange(s_size, device=k_cs.device)
+    for i in range(bn):
+        kv = torch.where(intile >= 0, k_tt[torch.clamp(intile, min=0), i], k_cs[i])
+        g = tree_sum(cf * kv)
+        yn = y[:, i]
+        ok = (yn != 0) & (i < n_valid)
+        seed = (mm == 0) & ok
+        d2 = qq - 2.0 * yn * g + kdiag[i] + xx + c_inv
+        dist = torch.sqrt(torch.clamp(d2, min=1e-12))
+        upd = ~seed & ok & (dist >= rr)
+        act = seed | upd
+        s = torch.where(seed, 1.0, torch.where(upd, 0.5 * (1.0 - rr / dist), 0.0))
+        if farthest:
+            gs = tree_sum(kb * cf[:, None, :])
+            score = torch.where(
+                ix >= 0,
+                qq[:, None] - 2.0 * torch.sign(cf) * gs + torch.diagonal(kb, dim1=1, dim2=2),
+                -torch.inf,
+            )  # squared center->point distance; evict the closest
+            slot = torch.argmin(score, dim=1)
+        else:
+            slot = torch.argmin(torch.abs(cf), dim=1)
+        hit = (slots[None, :] == slot[:, None]) & act[:, None]
+        if farthest:
+            kb = torch.where(hit[:, :, None], kv[:, None, :], kb)
+            kb = torch.where(hit[:, None, :], kv[:, :, None], kb)
+            kb = torch.where(hit[:, :, None] & hit[:, None, :], kdiag[i], kb)
+        om = 1.0 - s
+        cf = cf * om[:, None]
+        cf = torch.where(hit, (s * yn)[:, None], cf)
+        ix = torch.where(hit, base + i, ix)
+        intile = torch.where(hit, i, intile)
+        qq = om * om * qq + 2.0 * s * om * yn * g + s * s * kdiag[i]
+        rr = rr + torch.where(upd, 0.5 * (dist - rr), 0.0)
+        xx = xx * (om * om) + s * s * gain
+        mm = mm + act.to(torch.int32)
+    for dst, src in zip((idx, coef, q, r, xi2, m), (ix, cf, qq, rr, xx, mm)):
+        dst.copy_(src)
+    if farthest:
+        kbb.copy_(kb)
+
+
+def kernel_bank_rows(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, *,
+                     base: int, n_valid: int, kbb=None) -> None:
+    """R1 on the device of ``k_cs``: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor. Arguments as in the module docstring;
+    the state (and ``kbb``) is advanced in place."""
+    if k_cs.device.type == "cpu":
+        return kernel_bank_rows_plain(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain,
+                                      base=base, n_valid=n_valid, kbb=kbb)
+    if k_cs.device.type != "cuda":
+        raise ValueError(f"kernel_bank_rows runs on cuda or cpu, not {k_cs.device}")
+    _check_args(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, kbb)
+    bn, b, s_size = k_cs.shape
+    lib = _lib()
+    if s_size > lib.kernel_bank_max_s():
+        raise ValueError(
+            f"the R1 kernel holds at most S={lib.kernel_bank_max_s()} core-set slots "
+            f"per model in registers: got coreset_size={s_size}"
+        )
+    floats = (k_cs, k_tt, y, c_inv, gain, coef, q, r, xi2) + ((kbb,) if kbb is not None else ())
+    for t in floats:
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != k_cs.device:
+            raise ValueError("R1 takes contiguous float32 tensors on one device")
+    for t in (idx, m):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != k_cs.device:
+            raise ValueError("R1 takes contiguous int32 idx and m on the device of k_cs")
+    dev = k_cs.device
+    err = lib.kernel_bank_rows(
+        k_cs.data_ptr(), k_tt.data_ptr(), y.data_ptr(), c_inv.data_ptr(), gain.data_ptr(),
+        idx.data_ptr(), coef.data_ptr(), q.data_ptr(), r.data_ptr(), xi2.data_ptr(),
+        m.data_ptr(), kbb.data_ptr() if kbb is not None else None,
+        b, s_size, bn, int(min(n_valid, bn)), int(base),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "kernel_bank_rows")
+    kernel_bank_rows.launches += 1
+
+
+kernel_bank_rows.launches = 0  # kernel launches, read by chip_smoke.py

@@ -2,11 +2,12 @@
 
 These are the entry points the rest of the port uses. They keep the JAX
 package's padding, seeding and state packing (``repro/kernels/ops.py``), so
-the two agree model for model; the 128-lane padding of D is a TPU tiling
-rule and is not kept. Each runs on the device its inputs name (see
+the two agree model for model; the 128-lane padding of D (and the Gram's
+(8, 128)-aligned tiles and 512-column D padding) are TPU tiling rules and
+are not kept. Each runs on the device its inputs name (see
 ``repro_torch._device``): the kernels (B1 and B3 for a bank, B4 for one
-model, B2 to predict) launch on a CUDA tensor and run their plain versions
-on a CPU tensor.
+model, B2 to predict, B5 for a Gram block) launch on a CUDA tensor and run
+their plain versions on a CPU tensor.
 
 Dtype policy
 ------------
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from .._device import as_tensor, pick_device
 from ..core.meb import Ball
+from .gram import gram_fused, row_norms, tree_sum
 from .predict import NEG_MASK, predict_bank_fused
 from .streamsvm_scan import streamsvm_scan, streamsvm_scan_many
 
@@ -331,3 +333,109 @@ def predict_bank(
     scores = predict_bank_fused(Xp, Wp, bias, epilogue="scores", q_block=q_block, b_tile=bt)
     return scores[:q, :b]
 
+
+
+def gram(A, B, *, epilogue: str = "linear", gamma=1.0, bm: int = 256, bn: int = 256,
+         bk: int = 512, device=None):
+    """Kernel matrix K[i, j] = k(a_i, b_j) through kernel B5: "linear" or
+    "rbf" (exp(-gamma max(|a|^2 + |b|^2 - 2<a, b>, 0))). (M, N) f32.
+
+    A may be bf16 (a rounded stream tile; the kernel upcasts it); B is taken
+    in f32. ``bm``/``bn``/``bk`` keep the reference's signature: they are
+    the TPU's block shape, and the card's kernel tiles its own way, each
+    element one f32 sum over d in ascending order whatever the tiling, so
+    they change no bit of the result. The row norms are ``row_norms``.
+    """
+    for name, v in (("bm", bm), ("bn", bn), ("bk", bk)):
+        if int(v) < 1:
+            raise ValueError(f"{name} must be >= 1, got {v}")
+    dev = pick_device(device, A, B)
+    A = as_tensor(A, dev)
+    if A.dtype != torch.bfloat16:
+        A = A.float()
+    B = as_tensor(B, dev, torch.float32)
+    if B.ndim != 2 or A.ndim != 2 or B.shape[1] != A.shape[1]:
+        raise ValueError(
+            f"A and B must share the feature axis: got A.shape={tuple(A.shape)}, "
+            f"B.shape={tuple(B.shape)}"
+        )
+    return gram_fused(A, B, row_norms(A), row_norms(B), float(gamma), epilogue=epilogue)
+
+
+def predict_kernel_bank(
+    X,
+    points,
+    coef,
+    *,
+    kernel: str = "rbf",
+    gamma=1.0,
+    epilogue: str = "scores",
+    n_classes: int | None = None,
+    k: int | None = None,
+    q_block: int = 256,
+    stream_dtype=None,
+    device=None,
+):
+    """Score (Q, D) queries against a kernelized bank's stored core sets.
+
+    ``points`` is the bank's (B, S, D) core-set buffer and ``coef`` its
+    (B, S) signed coefficients (free slots hold 0). One B5 launch evaluates
+    k(queries, every model's core set) as a (Q, B*S) block; the readout is
+    then ``scores[q, b] = sum_s coef[b, s] k(x_q, points[b, s])``, summed
+    by ``tree_sum`` so a query's scores do not depend on the other queries
+    of the call (served scores equal ``kernel_bank_decision`` bit for bit).
+
+      "scores"          -> (Q, B) f32 margins
+      "ovr", n_classes= -> ((Q, G) int32, (Q, G) f32) per C-grid group,
+                           G = B // n_classes, class-major
+      "topk", k=        -> ((Q, k) f32, (Q, k) int32) descending, ties to
+                           the lowest model id
+
+    q_block: the server's microbatch height (the Gram takes every row at
+    once here). stream_dtype: "bf16" rounds the queries; the core sets and
+    coefficients stay f32.
+    """
+    dev = pick_device(device, X, points, coef)
+    X = as_tensor(X, dev)
+    points, coef = as_tensor(points, dev, torch.float32), as_tensor(coef, dev, torch.float32)
+    q, d = X.shape
+    b, s, dp = points.shape
+    if dp != d:
+        raise ValueError(
+            f"queries and core-set points must share the feature axis: got "
+            f"X.shape={tuple(X.shape)}, points.shape={tuple(points.shape)}"
+        )
+    if coef.shape != (b, s):
+        raise ValueError(
+            f"coef must be (B, S) matching points: got coef.shape="
+            f"{tuple(coef.shape)}, points.shape={tuple(points.shape)}"
+        )
+    if kernel not in ("linear", "rbf"):
+        raise ValueError(f"unknown kernel {kernel!r}; expected 'linear' or 'rbf'")
+    if epilogue not in ("scores", "ovr", "topk"):
+        raise ValueError(
+            f"unknown epilogue {epilogue!r}; expected 'scores', 'ovr' or 'topk'"
+        )
+    if epilogue != "ovr" and n_classes is not None:
+        raise ValueError(
+            f"n_classes={n_classes} requires epilogue='ovr' (got epilogue={epilogue!r})"
+        )
+    if epilogue != "topk" and k is not None:
+        raise ValueError(f"k={k} requires epilogue='topk' (got epilogue={epilogue!r})")
+    if epilogue == "ovr" and (n_classes is None or n_classes < 1 or b % n_classes):
+        raise ValueError(
+            f"epilogue='ovr' needs n_classes >= 1 dividing B: got "
+            f"n_classes={n_classes}, B={b}"
+        )
+    if epilogue == "topk" and (k is None or not (1 <= k <= b)):
+        raise ValueError(f"epilogue='topk' needs 1 <= k <= B: got k={k}, B={b}")
+    Xq = X.float().to(_resolve_stream_dtype(stream_dtype))
+    K = gram(Xq, points.reshape(b * s, d), epilogue=kernel, gamma=gamma, bm=q_block)
+    scores = tree_sum(K.reshape(q, b, s) * coef)
+    if epilogue == "scores":
+        return scores
+    if epilogue == "ovr":
+        grouped = scores.reshape(q, b // n_classes, n_classes)
+        return torch.argmax(grouped, dim=-1).to(torch.int32), grouped.amax(dim=-1)
+    vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), ids[:, :k].to(torch.int32)

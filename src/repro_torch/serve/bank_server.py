@@ -7,15 +7,20 @@ ones share a step, so slots go idle only in the final partial batch.
 ``ServerStats`` counts busy and idle row slots.
 
 Train -> serve: ``BankServer.from_checkpoint`` loads the stacked-Ball bank
-a ``fit_chunked_many`` checkpoint callback saved with ``ckpt.save``, taking
-``n_classes`` from the checkpoint meta when serving OVR.
+a ``fit_chunked_many`` checkpoint callback saved with ``ckpt.save``, or the
+7-leaf KernelBank ``save_kernel_bank`` saved (``meta["bank_kind"] ==
+"kernel"``, with the kernel and gamma in the meta), taking ``n_classes``
+from the meta when serving OVR.
+
+Kernel mode: a ``KernelBank`` (its (B, S, D) core-set ``points`` and (B, S)
+``coef``) is scored through ``kernels.ops.predict_kernel_bank`` (kernel
+B5) with the ``kernel=`` and ``gamma=`` it was trained with.
 
 Hot swap: ``swap_bank`` replaces the bank between steps without dropping
 queued requests; rows already scored keep their results, every row scored
 after the swap sees the new bank.
 
-This is the linear server. Kernelized banks and live-loop checkpoints wait
-for their slices (ROADMAP A9, A11).
+Live-loop checkpoints wait for their slice (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -26,8 +31,9 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, pick_device
-from ..core.meb import Ball
-from ..kernels.ops import _check_resident, predict_bank
+from ..core.kernel_bank import KernelBank
+from ..core.meb import Ball, _is_kernel_bank
+from ..kernels.ops import _check_resident, predict_bank, predict_kernel_bank
 
 
 @dataclasses.dataclass
@@ -63,20 +69,17 @@ class ServerStats:
         return self.slot_busy_rows / tot if tot else 0.0
 
 
-def _refuse_kernel_bank(bank) -> None:
-    if hasattr(bank, "points") and hasattr(bank, "coef"):
-        raise NotImplementedError(
-            "serving a KernelBank is kernel B5's slice, not ported yet: ROADMAP A9"
-        )
-
-
 class BankServer:
-    """Serve a trained (B, D) bank: microbatch, score through B2, hot-swap.
+    """Serve a trained bank: microbatch, score, hot-swap.
 
-    bank: a stacked ``Ball`` or a (B, D) weight array. epilogue / n_classes
-    / k / q_block / b_tile / stream_dtype: the serving configuration, see
-    ``kernels.ops.predict_bank``. ``device``: where the bank lives and the
-    queries are scored (None: where a tensor bank lives, else CUDA).
+    bank: a stacked ``Ball`` or a (B, D) weight array, scored through B2;
+    or a ``KernelBank``, scored through ``predict_kernel_bank`` (B5), which
+    needs ``kernel=`` ("linear"/"rbf") and ``gamma=`` as the bank was
+    trained (``from_checkpoint`` takes them from the meta). epilogue /
+    n_classes / k / q_block / b_tile / stream_dtype: the serving
+    configuration, see ``kernels.ops.predict_bank`` (a kernel bank ignores
+    ``b_tile`` and ``bank_resident``). ``device``: where the bank lives and
+    the queries are scored (None: where a tensor bank lives, else CUDA).
     """
 
     def __init__(
@@ -91,18 +94,35 @@ class BankServer:
         stream_dtype=None,
         bank_resident: str = "auto",
         kernel: Optional[str] = None,
+        gamma: float = 1.0,
         device=None,
     ):
-        _refuse_kernel_bank(bank)
-        if kernel is not None:
-            raise NotImplementedError(
-                f"kernel={kernel!r}: kernelized serving is not ported yet: ROADMAP A9"
-            )
         _check_resident(bank_resident)
-        w = bank.w if hasattr(bank, "w") else bank
-        self.device = pick_device(device, w)
-        self._w = self._bank_weights(bank)
-        b, d = self._w.shape
+        if _is_kernel_bank(bank):
+            if kernel is None:
+                raise ValueError(
+                    "serving a KernelBank needs kernel='linear' or 'rbf' "
+                    "(the kernel the bank was trained with); pass it "
+                    "explicitly or use from_checkpoint, which restores it "
+                    "from the checkpoint meta"
+                )
+            self.device = pick_device(device, bank.points)
+            self._w = None
+            self._points, self._coef = self._kernel_bank_arrays(bank)
+            b, _, d = self._points.shape
+        else:
+            if kernel is not None:
+                raise ValueError(
+                    f"kernel={kernel!r} only applies to a KernelBank; this "
+                    "bank is a linear (B, D) weight bank"
+                )
+            w = bank.w if hasattr(bank, "w") else bank
+            self.device = pick_device(device, w)
+            self._w = self._bank_weights(bank)
+            self._points = self._coef = None
+            b, d = self._w.shape
+        self.kernel = kernel
+        self.gamma = float(gamma)
         self._b, self._d = b, d
         if epilogue not in ("scores", "ovr", "topk"):
             raise ValueError(
@@ -129,6 +149,16 @@ class BankServer:
 
     # -- bank management ----------------------------------------------------
 
+    def _kernel_bank_arrays(self, bank) -> Tuple[torch.Tensor, torch.Tensor]:
+        points = as_tensor(bank.points, self.device, torch.float32)
+        coef = as_tensor(bank.coef, self.device, torch.float32)
+        if points.ndim != 3 or tuple(coef.shape) != tuple(points.shape[:2]):
+            raise ValueError(
+                f"KernelBank needs (B, S, D) points with (B, S) coef: got "
+                f"points.shape={tuple(points.shape)}, coef.shape={tuple(coef.shape)}"
+            )
+        return points, coef
+
     def _bank_weights(self, bank) -> torch.Tensor:
         w = bank.w if hasattr(bank, "w") else bank
         w = as_tensor(w, self.device, torch.float32)
@@ -141,17 +171,55 @@ class BankServer:
 
     @property
     def bank_shape(self) -> Tuple[int, ...]:
+        if self._w is None:
+            return tuple(self._points.shape)
         return tuple(self._w.shape)
 
-    def swap_bank(self, bank, *, kernel: Optional[str] = None) -> None:
+    def swap_bank(self, bank, *, kernel: Optional[str] = None, gamma=None) -> None:
         """Replace the served bank between steps; queued requests survive.
 
-        The new bank must have the served (B, D) shape.
+        The new bank must have the served shape: (B, D) weights for a linear
+        server, (B, S, D) core sets for a kernel server (a linear bank cannot
+        swap into a kernel server or the other way round). ``kernel`` /
+        ``gamma``: optionally declare the config the incoming bank was trained
+        with; a mismatch with the server's raises.
         """
-        _refuse_kernel_bank(bank)
-        if kernel is not None:
-            raise NotImplementedError(
-                f"kernel={kernel!r}: kernelized serving is not ported yet: ROADMAP A9"
+        if kernel is not None and kernel != self.kernel:
+            raise ValueError(
+                f"hot-swap bank was trained with kernel={kernel!r}; this "
+                f"server is configured kernel={self.kernel!r} "
+                f"(gamma={self.gamma}) — scoring under a different kernel "
+                "serves silent garbage; start a BankServer matching the "
+                "bank's kernel config"
+            )
+        if gamma is not None and self.kernel is not None and float(gamma) != self.gamma:
+            raise ValueError(
+                f"hot-swap bank was trained with gamma={float(gamma)}; this "
+                f"server is configured kernel={self.kernel!r} with "
+                f"gamma={self.gamma} — scoring under a different gamma "
+                "serves silent garbage; start a BankServer matching the "
+                "bank's kernel config"
+            )
+        if self._w is None:
+            if not _is_kernel_bank(bank):
+                raise ValueError(
+                    "this server serves a KernelBank; hot-swap needs another "
+                    "KernelBank of the same (B, S, D) shape"
+                )
+            points, coef = self._kernel_bank_arrays(bank)
+            if points.shape != self._points.shape:
+                raise ValueError(
+                    f"hot-swap core-set shape {tuple(points.shape)} != "
+                    f"served shape {tuple(self._points.shape)}; start a new "
+                    "BankServer to change shape"
+                )
+            self._points, self._coef = points, coef
+            self.stats.bank_swaps += 1
+            return
+        if _is_kernel_bank(bank):
+            raise ValueError(
+                "this server serves a linear (B, D) bank; a KernelBank "
+                "needs its own BankServer(kernel=...)"
             )
         w = self._bank_weights(bank)
         if w.shape != self._w.shape:
@@ -164,9 +232,11 @@ class BankServer:
 
     @classmethod
     def from_checkpoint(cls, path: str, **kwargs) -> "BankServer":
-        """Serve the stacked-Ball bank a trainer checkpoint saved at ``path``
-        (a ``ckpt.save`` directory with the 4 leaves w, r, xi2, m).
-        ``meta["n_classes"]`` fills in OVR serving unless given."""
+        """Serve the bank a trainer checkpoint saved at ``path``: the stacked
+        Ball (a ``ckpt.save`` directory with the 4 leaves w, r, xi2, m), or,
+        when ``meta["bank_kind"] == "kernel"``, the 7-leaf KernelBank of
+        ``save_kernel_bank``, with ``kernel``/``gamma`` from the meta unless
+        given. ``meta["n_classes"]`` fills in OVR serving unless given."""
         from ..checkpoint import ckpt
 
         manifest = ckpt.load_manifest(path)
@@ -177,19 +247,25 @@ class BankServer:
                 f"checkpoint at {path!r} is a live-loop checkpoint (meta live_k): "
                 "serving it is not ported yet: ROADMAP A11"
             )
+        dev = pick_device(kwargs.get("device"))
         if meta.get("bank_kind") == "kernel":
-            raise NotImplementedError(
-                f"checkpoint at {path!r} holds a KernelBank: kernelized serving "
-                "is not ported yet: ROADMAP A9"
-            )
-        if len(shapes) != 4:
+            if len(shapes) != len(KernelBank._fields):
+                raise ValueError(
+                    f"kernel-bank checkpoint at {path!r} has {len(shapes)} "
+                    f"leaves; expected the {len(KernelBank._fields)}-leaf "
+                    "KernelBank a save_kernel_bank checkpoint carries"
+                )
+            target = KernelBank(*ckpt.zeros_like_manifest(manifest, device=dev))
+            kwargs.setdefault("kernel", meta.get("kernel"))
+            kwargs.setdefault("gamma", float(meta.get("gamma", 1.0)))
+        elif len(shapes) != 4:
             raise ValueError(
                 f"checkpoint at {path!r} has {len(shapes)} leaves; expected "
                 "the 4-leaf stacked Ball (w, r, xi2, m) a fit_chunked_many "
                 "checkpoint carries"
             )
-        dev = pick_device(kwargs.get("device"))
-        target = Ball(*ckpt.zeros_like_manifest(manifest, device=dev))
+        else:
+            target = Ball(*ckpt.zeros_like_manifest(manifest, device=dev))
         bank = ckpt.restore(path, target)
         if (
             kwargs.get("epilogue") == "ovr"
@@ -233,8 +309,9 @@ class BankServer:
         return sum(r.queries.shape[0] - r.rows_scored for r in self._queue)
 
     def step(self) -> int:
-        """Pack up to q_block queued rows, run ONE B2 launch, scatter the
-        results back. Returns the number of rows scored."""
+        """Pack up to q_block queued rows, score them in one launch (B2, or
+        B5 for a kernel bank), scatter the results back. Returns the number
+        of rows scored."""
         if not self._queue:
             return 0
         buf = np.zeros((self.q_block, self._d), np.float32)
@@ -249,17 +326,25 @@ class BankServer:
             segments.append((req, off, take, filled))
             filled += take
             qi += 1
-        out = predict_bank(
-            torch.from_numpy(buf).to(self.device),
-            self._w,
-            epilogue=self.epilogue,
-            n_classes=self.n_classes,
-            k=self.k,
-            q_block=self.q_block,
-            b_tile=self.b_tile,
-            stream_dtype=self.stream_dtype,
-            bank_resident=self.bank_resident,
-        )
+        queries = torch.from_numpy(buf).to(self.device)
+        if self._w is None:
+            out = predict_kernel_bank(
+                queries, self._points, self._coef, kernel=self.kernel, gamma=self.gamma,
+                epilogue=self.epilogue, n_classes=self.n_classes, k=self.k,
+                q_block=self.q_block, stream_dtype=self.stream_dtype,
+            )
+        else:
+            out = predict_bank(
+                queries,
+                self._w,
+                epilogue=self.epilogue,
+                n_classes=self.n_classes,
+                k=self.k,
+                q_block=self.q_block,
+                b_tile=self.b_tile,
+                stream_dtype=self.stream_dtype,
+                bank_resident=self.bank_resident,
+            )
         parts = (out,) if self.epilogue == "scores" else out
         parts = tuple(p.cpu().numpy() for p in parts)
         finished = 0

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1-B4) against their plain versions, on the card.
+"""The port's CUDA kernels (B1-B5, R1) against their plain versions, on the card.
 
 Marked ``gpu``: each test needs a CUDA card and skips without one. Whether
 there is a card is decided inside the fixture, so every pytest worker
@@ -8,14 +8,19 @@ collects the same tests. On the card:
 
 Tolerances are the repo's engine tolerance (f32 sums in another order);
 core-vector counts and ids are exact, and the bank's tiling changes no bit.
+B5 is held to 2 (D + 1) 2^-24 |a_i| |b_j| per element (twice gamma that,
+plus 1e-6, under the RBF map), the bound on two f32 evaluations of a D-long
+dot product; R1's slots and counts are exact.
 This file imports no JAX: the machine with the card has none.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import fit, fit_lookahead
+from repro_torch.core import fit, fit_kernel_bank, fit_lookahead
 from repro_torch.kernels import ops
+from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
+from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
 from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
 from repro_torch.kernels.streamsvm_scan import (
     streamsvm_scan,
@@ -182,3 +187,127 @@ def test_fit_lookahead_on_the_card_matches_the_cpu(cuda):
     y = np.sign(rng.normal(size=400)).astype(np.float32)
     _assert_ball_close(fit_lookahead(X, y, 10.0, 8, device=cuda),
                        fit_lookahead(X, y, 10.0, 8, device="cpu"))
+
+
+def _gram_tol(A, B, epilogue, gamma):
+    d = A.shape[1]
+    na, nb = A.double().norm(dim=1), B.double().norm(dim=1)
+    lin = 2.0 * (d + 1) * 2.0**-24 * na[:, None] * nb[None, :]
+    return lin if epilogue == "linear" else 2.0 * gamma * lin + 1e-6
+
+
+@pytest.mark.parametrize("m,n,d", [(256, 1000, 784), (37, 130, 33), (65, 63, 7), (1, 5, 1)])
+@pytest.mark.parametrize("epilogue", ["linear", "rbf"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_kernel_matches_plain(cuda, m, n, d, epilogue, dtype):
+    rng = np.random.default_rng(m + n + d)
+    A = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32), device=cuda).to(dtype)
+    B = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda)
+    an, bn = row_norms(A), row_norms(B)
+    assert torch.equal(an, row_norms_plain(A)) and torch.equal(bn, row_norms_plain(B))
+    before = gram_fused.launches
+    got = gram_fused(A, B, an, bn, 0.05, epilogue=epilogue)
+    assert gram_fused.launches == before + 1
+    want = gram_plain(A, B, an, bn, 0.05, epilogue=epilogue)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= _gram_tol(A.float(), B, epilogue, 0.05)).all()), err.max().item()
+
+
+def test_gram_kernel_chunks_are_bit_exact(cuda):
+    rng = np.random.default_rng(1)
+    A = torch.as_tensor(rng.normal(size=(256, 784)).astype(np.float32), device=cuda)
+    B = torch.as_tensor(rng.normal(size=(640, 784)).astype(np.float32), device=cuda)
+    an, bn = row_norms(A), row_norms(B)
+    whole = gram_fused(A, B, an, bn, 0.01, epilogue="rbf")
+    parts = torch.cat([gram_fused(A, B[lo:lo + 100], an, bn[lo:lo + 100], 0.01, epilogue="rbf")
+                       for lo in range(0, 640, 100)], dim=1)
+    assert torch.equal(whole, parts)
+    assert torch.equal(gram_fused(A[7:90], B, an[7:90], bn, 0.01, epilogue="rbf"), whole[7:90])
+    K = gram_fused(A, A, an, an, 0.01, epilogue="rbf")
+    assert torch.equal(torch.diagonal(K), torch.ones(256, device=cuda))
+
+
+def _tile_inputs(cuda, b, s, bn, d, seed, farthest):
+    """One mid-stream tile's inputs: a bank state from a fit over earlier rows,
+    and the tile's Gram blocks, as fit_kernel_bank builds them."""
+    rng = np.random.default_rng(seed)
+    n0 = 3 * bn
+    X = rng.normal(size=(n0 + bn, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    Y = np.sign(rng.normal(size=(b, n0 + bn))).astype(np.float32)
+    Y[Y == 0] = 1.0
+    Y[rng.random((b, n0 + bn)) < 0.1] = 0.0
+    Y[:, 0] = 1.0
+    cs = np.exp(rng.uniform(-1, 3, size=b)).astype(np.float32)
+    ev = "farthest-point" if farthest else "smallest-coef"
+    kb = fit_kernel_bank(X[:n0], Y[:, :n0], cs, coreset_size=s, eviction=ev, block_n=bn,
+                         device=cuda)
+    Xd = torch.as_tensor(X, device=cuda)
+    xt = Xd[n0:]
+    xc = kb.points.to(cuda)
+    k_cs = gram_fused(xt, xc.reshape(b * s, d), row_norms(xt), row_norms(xc.reshape(b * s, d)),
+                      1.0, epilogue="rbf").reshape(bn, b, s)
+    k_tt = gram_fused(xt, xt, row_norms(xt), row_norms(xt), 1.0, epilogue="rbf")
+    kbb = None
+    if farthest:
+        acc = torch.bmm(xc, xc.transpose(1, 2))
+        n2 = (xc * xc).sum(-1)
+        kbb = torch.exp(-torch.clamp(n2[:, :, None] + n2[:, None, :] - 2 * acc, min=0.0))
+    state = [t.to(cuda) for t in (kb.idx, kb.coef, kb.q, kb.r, kb.xi2, kb.m)]
+    c_inv = 1.0 / torch.as_tensor(cs, device=cuda)
+    y = torch.as_tensor(Y[:, n0:], device=cuda).contiguous()
+    return k_cs, k_tt, y, state, c_inv, kbb, n0
+
+
+@pytest.mark.parametrize("farthest", [False, True])
+@pytest.mark.parametrize("b,s,bn,d", [
+    (600, 64, 256, 784), (600, 12, 256, 784), (13, 8, 32, 20), (5, 100, 64, 9),
+])
+def test_rows_kernel_matches_plain(cuda, farthest, b, s, bn, d):
+    k_cs, k_tt, y, state, c_inv, kbb, n0 = _tile_inputs(cuda, b, s, bn, d, b + s, farthest)
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    kbb_g = kbb.clone() if farthest else None
+    kbb_w = kbb.clone() if farthest else None
+    before = kernel_bank_rows.launches
+    kernel_bank_rows(k_cs, k_tt, y, *got, c_inv, c_inv, base=n0, n_valid=bn - 3, kbb=kbb_g)
+    assert kernel_bank_rows.launches == before + 1
+    kernel_bank_rows_plain(k_cs, k_tt, y, *want, c_inv, c_inv, base=n0, n_valid=bn - 3, kbb=kbb_w)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[5], want[5])  # idx, m
+    for g, w in zip(got[1:5], want[1:5]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_rows_kernel_refuses_a_core_set_beyond_its_registers(cuda):
+    k_cs = torch.zeros(4, 1, 129, device=cuda)
+    st = [torch.full((1, 129), -1, dtype=torch.int32, device=cuda),
+          torch.zeros(1, 129, device=cuda)] + [torch.zeros(1, device=cuda)] * 3 + \
+         [torch.zeros(1, dtype=torch.int32, device=cuda)]
+    with pytest.raises(ValueError, match="at most S=128"):
+        kernel_bank_rows(k_cs, torch.zeros(4, 4, device=cuda), torch.ones(1, 4, device=cuda),
+                         *st, torch.ones(1, device=cuda), torch.ones(1, device=cuda),
+                         base=0, n_valid=4)
+
+
+@pytest.mark.parametrize("eviction", ["smallest-coef", "farthest-point"])
+@pytest.mark.parametrize("stream_dtype", [None, "bf16"])
+def test_fit_kernel_bank_on_the_card_matches_the_cpu(cuda, eviction, stream_dtype):
+    rng = np.random.default_rng(5)
+    b, n, d = 12, 700, 40
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    Y = np.sign(rng.normal(size=(b, n))).astype(np.float32)
+    Y[Y == 0] = 1.0
+    cs = np.exp(rng.uniform(-1, 3, size=b)).astype(np.float32)
+    kw = dict(coreset_size=16, eviction=eviction, block_n=128, stream_dtype=stream_dtype)
+    got = fit_kernel_bank(X, Y, cs, device=cuda, **kw)
+    want = fit_kernel_bank(X, Y, cs, device="cpu", **kw)
+    assert torch.equal(got.idx.cpu(), want.idx) and torch.equal(got.m.cpu(), want.m)
+    assert torch.equal(got.points.cpu(), want.points)
+    for name in ("coef", "q", "r", "xi2"):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(want, name),
+                                   rtol=1e-4, atol=1e-5)
+    tiled = fit_kernel_bank(X, Y, cs, device=cuda, s_tile=5, **kw)
+    for a, b_ in zip(got, tiled):
+        assert torch.equal(a, b_)

@@ -137,7 +137,7 @@ def test_errors():
     class KernelBankLike:
         points = coef = None
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="merge_kernel_banks"):
         meb.merge_banks(banks[0], KernelBankLike())
 
 

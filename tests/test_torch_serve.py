@@ -195,16 +195,20 @@ def test_unported_banks_and_checkpoints_raise(tmp_path):
     class KernelBankLike:
         points = coef = None
 
-    with pytest.raises(NotImplementedError, match="A9"):
+    # Kernel banks are served now (tests/test_torch_kernel_bank.py); what is
+    # still refused names its ROADMAP item or the argument that is missing.
+    with pytest.raises(ValueError, match="kernel="):
         BankServer(KernelBankLike(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="only applies to a KernelBank"):
         BankServer(torch.zeros(4, 3), kernel="rbf")
     with pytest.raises(NotImplementedError, match="B6"):
         BankServer(torch.zeros(4, 3), bank_resident="hbm")
-    for meta, what in (({"live_k": 2}, "A11"), ({"bank_kind": "kernel"}, "A9")):
-        ckpt.save(str(tmp_path), (torch.zeros(2),), meta=meta)
-        with pytest.raises(NotImplementedError, match=what):
-            BankServer.from_checkpoint(str(tmp_path), device="cpu")
+    ckpt.save(str(tmp_path), (torch.zeros(2),), meta={"live_k": 2})
+    with pytest.raises(NotImplementedError, match="A11"):
+        BankServer.from_checkpoint(str(tmp_path), device="cpu")
+    ckpt.save(str(tmp_path), (torch.zeros(2),), meta={"bank_kind": "kernel"})
+    with pytest.raises(ValueError, match="7-leaf"):
+        BankServer.from_checkpoint(str(tmp_path), device="cpu")
     ckpt.save(str(tmp_path), (torch.zeros(2),), meta={})
     with pytest.raises(ValueError, match="4-leaf"):
         BankServer.from_checkpoint(str(tmp_path), device="cpu")
