@@ -191,7 +191,7 @@ def kb_stream(args):
 def rows_inputs(dev, kb, state, t, farthest):
     """R1's inputs at tile ``t`` of phase 6b's pass from the bank ``state``
     reached before it, built as fit_kernel_bank builds them."""
-    from repro_torch.core.kernel_bank import _buffer_gram
+    from repro_torch.core.meb import _pair_gram
     from repro_torch.kernels.gram import gram_fused, row_norms
 
     bn = 256
@@ -202,7 +202,7 @@ def rows_inputs(dev, kb, state, t, farthest):
     an = row_norms(A)
     k_cs = gram_fused(A, P, an, row_norms(P), KB_GAMMA, epilogue="rbf").reshape(bn, b, s)
     k_tt = gram_fused(A, A, an, an, KB_GAMMA, epilogue="rbf")
-    kbb = _buffer_gram(state.points, "rbf", KB_GAMMA).contiguous() if farthest else None
+    kbb = _pair_gram(state.points, state.points, "rbf", KB_GAMMA).contiguous() if farthest else None
     c_inv = 1.0 / torch.as_tensor(kb["cs"], device=dev)
     st = [x.clone() for x in (state.idx, state.coef, state.q, state.r, state.xi2, state.m)]
     return dict(args=(k_cs, k_tt, y), state=st, c_inv=c_inv, kbb=kbb, base=t * bn, n_valid=bn)
@@ -496,8 +496,8 @@ def check_kernel_bank(dev, args, rng, kb):
 
     tiles, bn = args.kb_check_tiles, 256
     b, d = kb["Y"].shape[0], args.d
-    Xd = torch.as_tensor(kb["X"][: (tiles + 1) * bn], device=dev)
-    Yd = torch.as_tensor(kb["Y"][:, : (tiles + 1) * bn], device=dev)
+    Xd = torch.as_tensor(kb["X"][: tiles * bn], device=dev)
+    Yd = torch.as_tensor(kb["Y"][:, : tiles * bn], device=dev)
     csd = torch.as_tensor(kb["cs"], device=dev)
     out = {}
     # S = --coreset is phase 6b's pass; the smaller --kb-evict-coreset fills
@@ -507,7 +507,7 @@ def check_kernel_bank(dev, args, rng, kb):
               f"B={b}, S={s}, D={d}, rbf gamma {KB_GAMMA}, against the plain path")
         for ev in ("smallest-coef", "farthest-point"):
             kw = dict(kernel="rbf", coreset_size=s, eviction=ev, variant="exact", block_n=bn,
-                      s_tile=None, stream_dtype=None, max_tiles=tiles)
+                      s_tile=None, stream_dtype=None)
             got = _fit_kernel_bank(Xd, Yd, csd, KB_GAMMA, **kw)
             t0 = time.perf_counter()
             want = _fit_kernel_bank(Xd, Yd, csd, KB_GAMMA, plain=True, **kw)
@@ -519,7 +519,7 @@ def check_kernel_bank(dev, args, rng, kb):
                   f"plain path {time.perf_counter() - t0:.1f} s")
             if s == args.coreset:
                 out[ev] = dict(state=got, err=err)
-    A = Xd[tiles * bn : (tiles + 1) * bn]
+    A = torch.as_tensor(kb["X"][tiles * bn : (tiles + 1) * bn], device=dev)
     P = out["smallest-coef"]["state"].points.reshape(-1, d)
     an, pn = row_norms(A), row_norms(P)
     got = gram_fused(A, P, an, pn, KB_GAMMA, epilogue="rbf")

@@ -17,8 +17,8 @@ sequence (``repro/core/kernel_bank.py``):
   2. K_cs = k(tile, core sets)  (block_n, B, S): kernel B5, one launch per
      ``s_tile`` chunk of the S axis (bit-exact with one launch);
   3. K_tt = k(tile, tile)  (block_n, block_n): kernel B5;
-  4. for "farthest-point", the (B, S, S) buffer Gram (a batched product and
-     the RBF map, as the reference's einsum);
+  4. for "farthest-point", the (B, S, S) buffer Gram (``meb._pair_gram``, a
+     batched product and the RBF map, as the reference's einsum);
   5. the row recursion over the tile: kernel R1 (``kernels.kernel_bank``).
 
 A row inserted mid-tile reads its kernel values against later rows from
@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .._device import as_tensor, pick_device
+from .meb import _pair_gram
 
 _KERNELS = ("linear", "rbf")
 _EVICTIONS = ("smallest-coef", "farthest-point")
@@ -96,24 +97,13 @@ def _finish(Xf, state) -> KernelBank:
     return KernelBank(idx=idx, coef=coef, points=_gather(Xf, idx), q=q, r=r, xi2=xi2, m=m)
 
 
-def _buffer_gram(xc, kernel, gamma):
-    """(B, S, S) Gram of each model's core set, as the reference's einsum."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # full f32, as on the TPU
-    acc = torch.bmm(xc, xc.transpose(1, 2))
-    if kernel != "rbf":
-        return acc
-    n2 = torch.sum(xc * xc, dim=-1)
-    return torch.exp(-gamma * torch.clamp(n2[:, :, None] + n2[:, None, :] - 2.0 * acc, min=0.0))
-
-
 def _fit_kernel_bank(X, Y, cs, gamma, *, kernel, coreset_size, eviction, variant, block_n,
-                     s_tile, stream_dtype, device=None, max_tiles=None,
-                     plain=False) -> KernelBank:
+                     s_tile, stream_dtype, device=None, plain=False) -> KernelBank:
     """Engine core of ``fit_kernel_bank`` (no validation of the seed signs).
 
-    ``max_tiles`` stops after that many tiles. ``plain=True`` runs the plain
-    versions of B5 and R1 on the same path whatever the device (the card's
-    check of the kernels); otherwise their wrappers dispatch on the device.
+    ``plain=True`` runs the plain versions of B5 and R1 on the same path
+    whatever the device (the card's check of the kernels); otherwise their
+    wrappers dispatch on the device.
     """
     from ..kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
     from ..kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
@@ -147,11 +137,9 @@ def _fit_kernel_bank(X, Y, cs, gamma, *, kernel, coreset_size, eviction, variant
     m = torch.zeros((b,), dtype=torch.int32, device=dev)
 
     n_tiles = -(-n // block_n)
-    if max_tiles is not None:
-        n_tiles = min(n_tiles, int(max_tiles))
     Xs = Xf.to(sdt)  # the streamed tiles, rounded when bf16
     norms_f = norms_fn(Xf)  # core-set rows come from the f32 stream
-    norms_s = norms_fn(Xs)
+    norms_s = norms_f if sdt == torch.float32 else norms_fn(Xs)
     Yp = _pad_to(Y, block_n, 1)
     for t in range(n_tiles):
         lo, hi = t * block_n, min((t + 1) * block_n, n)
@@ -169,7 +157,7 @@ def _fit_kernel_bank(X, Y, cs, gamma, *, kernel, coreset_size, eviction, variant
             parts.append(k.reshape(block_n, b, s1 - s0))
         k_cs = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
         k_tt = gram_fn(x_stream, x_stream.float(), an, an, gamma, epilogue=kernel)
-        kbb = _buffer_gram(xc, kernel, gamma).contiguous() if farthest else None
+        kbb = _pair_gram(xc, xc, kernel, gamma).contiguous() if farthest else None
         rows_fn(k_cs.contiguous(), k_tt, y_tile, idx, coef, q, r, xi2, m, c_inv, gain,
                 base=lo, n_valid=hi - lo, kbb=kbb)
     return _finish(Xf, (idx, coef, q, r, xi2, m))

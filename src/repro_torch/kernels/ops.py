@@ -374,6 +374,7 @@ def predict_kernel_bank(
     k: int | None = None,
     q_block: int = 256,
     stream_dtype=None,
+    point_norms=None,
     device=None,
 ):
     """Score (Q, D) queries against a kernelized bank's stored core sets.
@@ -393,7 +394,9 @@ def predict_kernel_bank(
 
     q_block: the server's microbatch height (the Gram takes every row at
     once here). stream_dtype: "bf16" rounds the queries; the core sets and
-    coefficients stay f32.
+    coefficients stay f32. point_norms: the (B*S,) ``row_norms`` of the
+    flattened core sets, for a caller that scores one bank many times
+    (``BankServer`` computes them once per bank); computed here if None.
     """
     dev = pick_device(device, X, points, coef)
     X = as_tensor(X, dev)
@@ -429,8 +432,14 @@ def predict_kernel_bank(
         )
     if epilogue == "topk" and (k is None or not (1 <= k <= b)):
         raise ValueError(f"epilogue='topk' needs 1 <= k <= B: got k={k}, B={b}")
+    if int(q_block) < 1:
+        raise ValueError(f"q_block must be >= 1, got {q_block}")
     Xq = X.float().to(_resolve_stream_dtype(stream_dtype))
-    K = gram(Xq, points.reshape(b * s, d), epilogue=kernel, gamma=gamma, bm=q_block)
+    P = points.reshape(b * s, d)
+    pn = row_norms(P) if point_norms is None else as_tensor(point_norms, dev, torch.float32)
+    if pn.shape != (b * s,):
+        raise ValueError(f"point_norms must be (B*S,)={(b * s,)}: got {tuple(pn.shape)}")
+    K = gram_fused(Xq, P, row_norms(Xq), pn, float(gamma), epilogue=kernel)
     scores = tree_sum(K.reshape(q, b, s) * coef)
     if epilogue == "scores":
         return scores

@@ -33,6 +33,7 @@ import torch
 from .._device import as_tensor, pick_device
 from ..core.kernel_bank import KernelBank
 from ..core.meb import Ball, _is_kernel_bank
+from ..kernels.gram import row_norms
 from ..kernels.ops import _check_resident, predict_bank, predict_kernel_bank
 
 
@@ -108,7 +109,7 @@ class BankServer:
                 )
             self.device = pick_device(device, bank.points)
             self._w = None
-            self._points, self._coef = self._kernel_bank_arrays(bank)
+            self._points, self._coef, self._point_norms = self._kernel_bank_arrays(bank)
             b, _, d = self._points.shape
         else:
             if kernel is not None:
@@ -119,7 +120,7 @@ class BankServer:
             w = bank.w if hasattr(bank, "w") else bank
             self.device = pick_device(device, w)
             self._w = self._bank_weights(bank)
-            self._points = self._coef = None
+            self._points = self._coef = self._point_norms = None
             b, d = self._w.shape
         self.kernel = kernel
         self.gamma = float(gamma)
@@ -149,7 +150,9 @@ class BankServer:
 
     # -- bank management ----------------------------------------------------
 
-    def _kernel_bank_arrays(self, bank) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _kernel_bank_arrays(self, bank) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(points, coef, point norms) of a KernelBank on the server's device;
+        the norms are computed here, once per bank, not on every step."""
         points = as_tensor(bank.points, self.device, torch.float32)
         coef = as_tensor(bank.coef, self.device, torch.float32)
         if points.ndim != 3 or tuple(coef.shape) != tuple(points.shape[:2]):
@@ -157,7 +160,7 @@ class BankServer:
                 f"KernelBank needs (B, S, D) points with (B, S) coef: got "
                 f"points.shape={tuple(points.shape)}, coef.shape={tuple(coef.shape)}"
             )
-        return points, coef
+        return points, coef, row_norms(points.reshape(-1, points.shape[2]))
 
     def _bank_weights(self, bank) -> torch.Tensor:
         w = bank.w if hasattr(bank, "w") else bank
@@ -206,14 +209,14 @@ class BankServer:
                     "this server serves a KernelBank; hot-swap needs another "
                     "KernelBank of the same (B, S, D) shape"
                 )
-            points, coef = self._kernel_bank_arrays(bank)
+            points, coef, norms = self._kernel_bank_arrays(bank)
             if points.shape != self._points.shape:
                 raise ValueError(
                     f"hot-swap core-set shape {tuple(points.shape)} != "
                     f"served shape {tuple(self._points.shape)}; start a new "
                     "BankServer to change shape"
                 )
-            self._points, self._coef = points, coef
+            self._points, self._coef, self._point_norms = points, coef, norms
             self.stats.bank_swaps += 1
             return
         if _is_kernel_bank(bank):
@@ -332,6 +335,7 @@ class BankServer:
                 queries, self._points, self._coef, kernel=self.kernel, gamma=self.gamma,
                 epilogue=self.epilogue, n_classes=self.n_classes, k=self.k,
                 q_block=self.q_block, stream_dtype=self.stream_dtype,
+                point_norms=self._point_norms,
             )
         else:
             out = predict_bank(

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.core import fit, fit_kernel_bank, fit_lookahead
+from repro_torch.core.meb import _pair_gram
 from repro_torch.kernels import ops
 from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
 from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
@@ -228,10 +229,11 @@ def test_gram_kernel_chunks_are_bit_exact(cuda):
 
 
 def _tile_inputs(cuda, b, s, bn, d, seed, farthest):
-    """One mid-stream tile's inputs: a bank state from a fit over earlier rows,
-    and the tile's Gram blocks, as fit_kernel_bank builds them."""
+    """The second tile's inputs: a bank state from a fit over the first tile,
+    and the tile's Gram blocks, as fit_kernel_bank builds them. One earlier
+    tile leaves the balls small enough that every case absorbs rows here."""
     rng = np.random.default_rng(seed)
-    n0 = 3 * bn
+    n0 = bn
     X = rng.normal(size=(n0 + bn, d)).astype(np.float32)
     X /= np.linalg.norm(X, axis=1, keepdims=True)
     Y = np.sign(rng.normal(size=(b, n0 + bn))).astype(np.float32)
@@ -248,11 +250,7 @@ def _tile_inputs(cuda, b, s, bn, d, seed, farthest):
     k_cs = gram_fused(xt, xc.reshape(b * s, d), row_norms(xt), row_norms(xc.reshape(b * s, d)),
                       1.0, epilogue="rbf").reshape(bn, b, s)
     k_tt = gram_fused(xt, xt, row_norms(xt), row_norms(xt), 1.0, epilogue="rbf")
-    kbb = None
-    if farthest:
-        acc = torch.bmm(xc, xc.transpose(1, 2))
-        n2 = (xc * xc).sum(-1)
-        kbb = torch.exp(-torch.clamp(n2[:, :, None] + n2[:, None, :] - 2 * acc, min=0.0))
+    kbb = _pair_gram(xc, xc, "rbf", 1.0).contiguous() if farthest else None
     state = [t.to(cuda) for t in (kb.idx, kb.coef, kb.q, kb.r, kb.xi2, kb.m)]
     c_inv = 1.0 / torch.as_tensor(cs, device=cuda)
     y = torch.as_tensor(Y[:, n0:], device=cuda).contiguous()
@@ -277,6 +275,11 @@ def test_rows_kernel_matches_plain(cuda, farthest, b, s, bn, d):
     assert torch.equal(got[0], want[0]) and torch.equal(got[5], want[5])  # idx, m
     for g, w in zip(got[1:5], want[1:5]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    absorbed = int((got[5] - state[5]).sum())
+    filled = int((got[0] >= 0).sum() - (state[0] >= 0).sum())
+    assert absorbed > 0  # the tile moved the state
+    if s <= 12:
+        assert absorbed - filled > 0  # and, at small S, evicted
 
 
 def test_rows_kernel_refuses_a_core_set_beyond_its_registers(cuda):

@@ -44,6 +44,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.kernel_bank import _kdiag
 from repro_torch.kernels import ops, predict_kernel_bank
+from repro_torch.kernels.gram import row_norms
 from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
 from repro_torch.serve import BankServer
 
@@ -111,6 +112,150 @@ def test_bf16_stream_vs_reference(eviction):
     assert torch.equal(got.points[live], torch.as_tensor(X)[got.idx[live].long()])
     f32 = _port(X, Y, cs, **{**kw, "stream_dtype": None})
     assert not torch.equal(got.q, f32.q)
+
+
+# ---------------------------------------------------------------------------
+# The tie regime: the reference's own draws under "farthest-point"
+# ---------------------------------------------------------------------------
+
+U32 = 2.0**-24  # f32 unit roundoff
+
+
+def _reference_draws(b, n, d, seed, unit=False):
+    """tests/test_kernel_bank.py::_bank_data(zeros=True)'s draws: N(0, 1)
+    rows (unit-norm if ``unit``), 20 % inert signs, row 0 live."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    Y = np.sign(rng.normal(size=(b, n))).astype(np.float32)
+    Y[Y == 0] = 1.0
+    mask = rng.random(size=(b, n)) < 0.2
+    mask[:, 0] = False
+    Y[mask] = 0.0
+    if unit:
+        X /= np.linalg.norm(X, axis=1, keepdims=True)
+    return X, Y, np.linspace(0.5, 8.0, b).astype(np.float32)
+
+
+def _prefix_states(fit, Y):
+    """fit(Ym) for Ym = Y with the rows from t on made inert, t = 0..N: the
+    state after the stream's first t rows (inert rows move no state), at one
+    shape, so the reference traces once."""
+    out = []
+    for t in range(Y.shape[1] + 1):
+        Ym = Y.copy()
+        Ym[:, t:] = 0.0
+        out.append(tuple(np.asarray(v) for v in fit(Ym)))
+    return out
+
+
+def _same_state(a, b, bi):
+    idx, coef, _, q, r, xi2, m = range(7)
+    return (np.array_equal(a[idx][bi], b[idx][bi]) and a[m][bi] == b[m][bi]
+            and np.allclose(a[coef][bi], b[coef][bi], rtol=1e-4, atol=1e-5)
+            and all(np.isclose(a[k][bi], b[k][bi], rtol=1e-4, atol=1e-5) for k in (q, r, xi2)))
+
+
+def _choice(pre, post, bi, row):
+    """The slot that row ``row`` went into, or None if it was not absorbed."""
+    if post[6][bi] == pre[6][bi]:
+        return None
+    return int(np.flatnonzero(post[0][bi] == row)[0])
+
+
+def _decisions_f64(X, Y, cs, gamma, state, bi, row):
+    """Row ``row``'s two decisions for model ``bi`` from ``state`` (before the
+    row), in float64, each beside the error bound of its f32 evaluation.
+
+    One f32 evaluation of k(a, b) = exp(-gamma d^2) errs by at most
+    gamma (D + 2) u (|a| + |b|)^2 k in d^2's three D-term sums, plus exp's
+    rounding: ``dk`` takes twice that. A score q - 2 sign(c_s) (Kbb c)_s +
+    Kbb_ss then errs by 2 sum_t |c_t| dk_st + dk_ss plus its own summation,
+    (S + 4) u times the magnitudes summed, also taken twice; d^2 likewise."""
+    idx, coef = state[0][bi], state[1][bi].astype(np.float64)
+    q, r, xi2 = (float(state[k][bi]) for k in (3, 4, 5))
+    s_size, d = idx.shape[0], X.shape[1]
+    live = idx >= 0
+    P = np.where(live[:, None], X[np.clip(idx, 0, None)], 0.0).astype(np.float64)
+    x = X[row].astype(np.float64)
+    pn, xn = np.linalg.norm(P, axis=1), np.linalg.norm(x)
+
+    def k(a, b):
+        return np.exp(-gamma * ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1))
+
+    def dk(na, nb, kk):
+        return 2.0 * (gamma * (d + 2) * U32 * (na[:, None] + nb[None, :]) ** 2 + 2 * U32) * kk
+
+    both = live[:, None] & live[None, :]
+    kv = np.where(live, k(x[None], P)[0], 0.0)
+    kbb = np.where(both, k(P, P), 0.0)
+    dkv = np.where(live, dk(np.array([xn]), pn, kv[None])[0], 0.0)
+    dkbb = np.where(both, dk(pn, pn, kbb), 0.0)
+    c_inv = 1.0 / float(cs[bi])
+    d2 = q - 2.0 * float(Y[bi, row]) * (coef @ kv) + 1.0 + xi2 + c_inv
+    dist = np.sqrt(max(d2, 1e-12))
+    d2_err = 2 * np.abs(coef) @ dkv + 2 * (s_size + 4) * U32 * (
+        abs(q) + 2 * np.abs(coef) @ kv + 1.0 + xi2 + c_inv)
+    score = np.where(live, q - 2.0 * np.sign(coef) * (kbb @ coef) + np.diag(kbb), -np.inf)
+    score_err = 2 * dkbb @ np.abs(coef) + np.diag(dkbb) + 2 * (s_size + 4) * U32 * (
+        abs(q) + 2 * kbb @ np.abs(coef) + 1.0)
+    return dict(dist_minus_r=dist - r, dist_err=d2_err / (2 * dist) + 2 * U32 * r,
+                score=score, score_err=score_err, free=~live)
+
+
+def _partings(X, Y, cs, gamma, a, b):
+    """Per model, the first row after which the prefix states ``a`` and ``b``
+    differ, with the decision that differs and its float64 margin beside its
+    bound, evaluated from each side's state before the row."""
+    out = []
+    for bi in range(Y.shape[0]):
+        t = next((t for t in range(1, Y.shape[1] + 1) if not _same_state(a[t], b[t], bi)), None)
+        if t is None:
+            continue
+        row = t - 1
+        ca, cb = _choice(a[row], a[t], bi, row), _choice(b[row], b[t], bi, row)
+        for pre in (a[row], b[row]):
+            f = _decisions_f64(X, Y, cs, gamma, pre, bi, row)
+            if (ca is None) != (cb is None):
+                kind, gap, tol = "absorb", abs(f["dist_minus_r"]), f["dist_err"]
+            elif ca != cb and not f["free"].any():
+                j = int(np.argmin(f["score"]))  # the float64 minimum: both picks lie within
+                kind = "slot"                   # their two evaluations' errors of it
+                gap, tol = max((f["score"][s] - f["score"][j], f["score_err"][s] + f["score_err"][j])
+                               for s in (ca, cb))
+            else:
+                kind, gap, tol = "other", np.inf, 0.0  # a free slot or the same decision
+            out.append(dict(model=bi, row=row, kind=kind, slots=(ca, cb), gap=gap, tol=tol))
+    return out
+
+
+TIE_DRAWS = [  # (seed, D, unit-norm, gamma, S, block_n)
+    (4, 11, False, 0.6, 4, 8),  # tests/test_kernel_bank.py::test_bounded_buffer_matches_ref's
+    (8, 11, False, 0.6, 8, 16),  # draws and shapes, under "farthest-point"
+    (16, 11, False, 0.6, 16, 8),
+    (4, 16, True, 2.0, 4, 8),  # unit-norm rows with gamma 2
+]
+
+
+@pytest.mark.parametrize("seed,d,unit,gamma,s,block_n", TIE_DRAWS)
+def test_farthest_point_ties_on_the_reference_draws(seed, d, unit, gamma, s, block_n):
+    """Where most RBF values underflow towards 0, many farthest-point scores
+    agree to a few ulps and an argmin (or a dist >= r) is decided by
+    rounding: the reference and its own oracle part there (ROADMAP.md
+    section C lists the rows). The port is held to both up to the first row
+    where either parts from it: the states before it are equal (idx and m
+    exactly), and the decision that differs there is a tie within the f32
+    error of its evaluation: both slots' float64 scores lie within their
+    errors of the float64 minimum, or |dist - r| within the error of dist."""
+    X, Y, cs = _reference_draws(3, 57, d, seed, unit)
+    kw = dict(kernel="rbf", gamma=gamma, coreset_size=s, eviction="farthest-point")
+    port = _prefix_states(
+        lambda Ym: kernel_bank_to_numpy(_port(X, Ym, cs, block_n=block_n, seed_check=False, **kw)), Y)
+    oracle = _prefix_states(lambda Ym: fit_kernel_bank_ref(X, Ym, cs, **kw), Y)
+    ref = _prefix_states(lambda Ym: jfit_kernel_bank(jnp.asarray(X), jnp.asarray(Ym), jnp.asarray(cs),
+                                                     block_n=block_n, seed_check=False, **kw), Y)
+    for other in (oracle, ref):
+        for p in _partings(X, Y, cs, gamma, port, other):
+            assert p["kind"] != "other" and p["gap"] <= p["tol"], p
 
 
 def test_continuation_with_inert_first_rows():
@@ -291,10 +436,17 @@ def test_predict_kernel_bank_validation():
         ((Qt, kb.points, kb.coef), dict(epilogue="argmax"), "epilogue"),
         ((Qt, kb.points, kb.coef), dict(n_classes=2), "requires epilogue='ovr'"),
         ((Qt, kb.points, kb.coef), dict(k=2), "requires epilogue='topk'"),
+        ((Qt, kb.points, kb.coef), dict(q_block=0), "q_block"),
+        ((Qt, kb.points, kb.coef), dict(point_norms=torch.ones(5)), "point_norms"),
     ]
     for args, kw, what in bad:
         with pytest.raises(ValueError, match=what):
             predict_kernel_bank(*args, **kw)
+    # Norms computed once by the caller give the bits of norms computed per call.
+    b, s, d = kb.points.shape
+    norms = row_norms(kb.points.reshape(b * s, d))
+    assert torch.equal(predict_kernel_bank(Qt, kb.points, kb.coef, point_norms=norms),
+                       predict_kernel_bank(Qt, kb.points, kb.coef))
 
 
 def test_checkpoints_cross_packages(tmp_path):
