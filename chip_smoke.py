@@ -5,15 +5,17 @@
     python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
         --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
 
-The second form rehearses phases 2-6 on the CPU at a tiny size, through the
+The second form rehearses phases 2-7 on the CPU at a tiny size, through the
 kernels' plain versions; a run on the card never takes that path (add
 --fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
-phase 4 too, and --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
-the kernelized bank).
+phase 4 too, --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
+the kernelized bank, and --ring-classes 16 --ring-d 40 --ring-n-train 2000
+--ring-n-test 300 --ring-check-n 512 --ring-plain-n 256 for phase 7b).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: name, count, power limit, versions; build every kernel from
-     src/repro_torch/kernels/csrc and print their ptxas reports;
+     src/repro_torch/kernels/csrc and print their ptxas reports, and each
+     kernel's static shared memory beside its byte model's static terms;
   2. each kernel against its plain PyTorch version on the card: B1 (one
      pass of Algorithm 1 for a bank), B2 (fused bank predict, all three
      epilogues), B4 (Algorithm 1 for one model) and B3 (the fused
@@ -43,6 +45,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      (gamma 1, S = --coreset, block_n 256) in one pass per eviction through
      B5 and R1, checkpointed with save_kernel_bank and served (ovr) through
      BankServer, with the launch counts read around it;
+  7. B6, the ring (bank_resident="hbm"), with the launch counts read around
+     its paths: (a) phases 3 and 4b forced to "hbm" (fit_chunked_many,
+     checkpoint, BankServer over the same ragged requests; the Algorithm-2
+     bank), each equal to its "vmem" result bit for bit; (b) the repo's
+     beyond-VMEM configuration bank_b1536_d4096_hbm_beyond_vmem (512 blob
+     classes x C in {1, 10, 100}, D = 4,096, block_n 256, b_tile 64, 60,000
+     training and 10,000 held-out rows from --seed, drawn on the device):
+     trained and served (ovr) "hbm" and "vmem", equal bit for bit; Algorithm
+     2 run or refused as the byte model predicts; the ring at J = 1, 2, 3, 4
+     tiles per CTA equal to B1 over the first --ring-check-n rows, and
+     against its plain version over the first --ring-plain-n; every byte
+     model equal to ptxas's static bytes plus the launch's dynamic bytes;
   5. (printed last) kernel times at the main path's shapes against their
      bounds, printed as one JSON line {"kernels": [...]}.
 The last line is {"ok": true, "device": {...}}.
@@ -260,6 +274,30 @@ def phase_device(dev):
           f"(per source: {json.dumps({k: round(v, 1) for k, v in _build.build_seconds.items()})})")
     for name in _build.SOURCES:
         print(f"ptxas [{name}]:\n{_build.ptxas_report(name)}")
+    for src, kern, model in smem_models():
+        print(f"shared memory per CTA [{kern}]: ptxas static "
+              f"{sorted(_build.static_smem(src, kern))} B; byte model static {model} B")
+
+
+def smem_models():
+    """(source, kernel, static bytes by the byte models) for every kernel the
+    byte models describe; the ring's dynamic terms are checked in phase 7."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.streamsvm_scan import ring_plan
+
+    ring = ring_plan(8, 8, lookahead=False)["smem"]
+    pring = ops.predict_vmem_bytes(8, 8, bank_resident="hbm")
+    return (
+        ("streamsvm_scan", "scan_kernel", sum(ops.engine_vmem_bytes(8, 8).values())),
+        ("streamsvm_scan", "lookahead_kernel",
+         sum(ops.engine_vmem_bytes(8, 8, lookahead_max=2).values())),
+        ("streamsvm_scan", "scan_ring_kernel", ring["stream_tile"] + ring["block_gram"]),
+        ("predict", "predict_kernel", sum(ops.predict_vmem_bytes(8, 8).values())),
+        ("predict", "predict_ring_kernel", pring["query_tile"] + pring["scores"]),
+        ("gram", "gram_kernel", ops.kernel_engine_vmem_bytes(8, 8, coreset_size=1)["gram_tiles"]),
+        ("kernel_bank", "rows_kernel",
+         ops.kernel_engine_vmem_bytes(8, 8, coreset_size=1)["row_recursion"]),
+    )
 
 
 def scan_inputs(rng, b, n, d, dev, *, bp, ragged_n=0, sign0=True, start=None):
@@ -582,6 +620,10 @@ def phase_main_path(dev, args):
     t_serve = time.perf_counter() - t0
     cls = torch.as_tensor(np.concatenate([r.result[0] for r in reqs]))
     margin = torch.as_tensor(np.concatenate([r.result[1] for r in reqs]))
+    launches = {  # the fit's chunks and the served steps, at phase 5's shapes
+        "streamsvm_scan": streamsvm_scan_many.launches,
+        "predict_bank": predict_bank_fused.launches,
+    }
 
     # Hot swap with requests queued: 256 rows score on the old bank, the
     # last 64 on the new one.
@@ -593,9 +635,9 @@ def phase_main_path(dev, args):
     server.swap_bank(result2.ball)
     server.run()
     sync(dev)
-    launches = {
-        "streamsvm_scan": streamsvm_scan_many.launches,
-        "predict_bank": predict_bank_fused.launches,
+    swap_launches = {
+        "streamsvm_scan": streamsvm_scan_many.launches - launches["streamsvm_scan"],
+        "predict_bank": predict_bank_fused.launches - launches["predict_bank"],
     }
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
 
@@ -606,7 +648,8 @@ def phase_main_path(dev, args):
     for cval, acc in zip(c_pts, acc1):
         print(f"  C={cval:g}: held-out accuracy {acc:.4f}")
     print(f"  max_memory_allocated: {peak} bytes")
-    print(f"  launches on the main path: {launches}")
+    print(f"  launches on the main path: {launches}; then the 500-row resume and the hot swap "
+          f"{swap_launches}")
     if dev.type == "cuda" and min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
 
@@ -622,8 +665,8 @@ def phase_main_path(dev, args):
     new_s = (torch.as_tensor(Xte[256:320], device=dev) @ result2.ball.w.T).reshape(64, -1, n_classes)
     compare_ids("rows scored after the swap vs the new bank", torch.as_tensor(swap_reqs[4].result[0]),
                 new_cls, new_s.sort(dim=-1, descending=True).values, 1)
-    return dict(chunk=chunks[0], cs=cs, bank=bank, launches=launches, acc=acc1,
-                data=(Xtr, Y, Xte, yte))
+    return dict(chunk=chunks[0], chunks=chunks, cs=cs, bank=bank, launches=launches, acc=acc1,
+                data=(Xtr, Y, Xte, yte), served=(cls, margin))
 
 
 def serve_ovr(dev, bank, Xte, n_classes):
@@ -720,11 +763,13 @@ def phase_algorithms(dev, args, main):
           f"lookahead 10, one fit_bank pass over {len(X6)} rows")
     Xd, Yd = torch.as_tensor(X6, device=dev), torch.as_tensor(Y6, device=dev)
     cs6 = torch.as_tensor(main["cs"], device=dev)
+    fig3_b3 = streamsvm_scan_lookahead_many.launches  # Fig 3's single-model B3 launches
     sync(dev)
     t0 = time.perf_counter()
     bank = fit_bank(Xd, Yd, cs6, variant="lookahead", lookahead=10, b_tile=64)
     sync(dev)
     t_fit = time.perf_counter() - t0
+    bank_b3 = streamsvm_scan_lookahead_many.launches - fig3_b3
     for name, leaf in zip("w r xi2".split(), bank[:3]):
         if not torch.isfinite(leaf).all():
             raise AssertionError(f"the lookahead bank has non-finite {name}")
@@ -780,8 +825,9 @@ def phase_algorithms(dev, args, main):
     print(f"  launches in phase 4: {launches}")
     if dev.type == "cuda" and min(launches.values()) < 1:
         raise AssertionError(f"a kernel of phase 4 was never launched: {launches}")
-    b3 = dict(inputs=in3, kw=kw3, err=err3, plain_ms=plain3, pushes=float((bank.m - 1).sum()))
-    return dict(launches=launches, fig3=(Xp, yp), bank=bank, b3=b3)
+    b3 = dict(inputs=in3, kw=kw3, err=err3, plain_ms=plain3, pushes=float((bank.m - 1).sum()),
+              bank_launches=bank_b3, fig3_launches=fig3_b3)
+    return dict(launches=launches, fig3=(Xp, yp), bank=bank, b3=b3, data4b=(Xd, Yd, cs6))
 
 
 def make_rings(n, d, seed):
@@ -956,14 +1002,295 @@ def phase_kernel_bank(dev, args, kb, main):
                 - train_launches["gram_fused"])
 
 
-def phase_times(dev, args, main, algos, kb, kbc, kbres):
+RING_C = (1.0, 10.0, 100.0)  # phase 7b's C grid (benchmarks/streaming_throughput.py)
+
+
+def make_blobs_on(n, n_classes, d, seed, dev, proto_seed=0):
+    """make_blobs' unit-norm class blobs drawn with torch on ``dev`` (phase
+    7b's 60,000 x 4,096 stream is ~1 GB); the fixed proto_seed shares the
+    classes between the training and held-out draws."""
+    g = torch.Generator(device=dev).manual_seed(proto_seed)
+    proto = torch.randn((n_classes, d), generator=g, device=dev) * 3
+    g = torch.Generator(device=dev).manual_seed(1_000 + seed)
+    labels = torch.randint(0, n_classes, (n,), generator=g, device=dev)
+    X = torch.randn((n, d), generator=g, device=dev) + proto[labels]
+    return X / X.norm(dim=1, keepdim=True), labels
+
+
+def check_equal(name, got, want):
+    """Two banks (or tuples of tensors) equal bit for bit."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: leaf {i} differs at {int((a != b).sum())} entries")
+
+
+def parting_tie(kernel, plain, inp, n, model):
+    """Where the kernel's and the plain version's decisions for ``model``
+    first part (bisecting n_valid over the prefix runs ``kernel(nv)`` and
+    ``plain(nv)``), and the exact margin there: Algorithm 1 for the model
+    alone in float64 up to that row gives ``(row, dist, r, bound)``, with
+    ``bound`` the f32 error of evaluating dist from
+    d^2 = |w|^2 - 2 y <w, x> + |x|^2 + xi2 + 1/C: each D-long sum errs by at
+    most (D + 2) u times its absolute terms (u = 2^-24), and
+    |delta dist| <= |delta d^2| / (2 dist)."""
+    lo, hi = 0, n
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if int(kernel(mid)[3][model]) == int(plain(mid)[3][model]):
+            lo = mid
+        else:
+            hi = mid
+    X, Y, W0, _, xi20, c_inv, _, gain = (t.double() for t in inp)
+    w, r = W0[model].clone(), torch.zeros((), dtype=torch.float64, device=X.device)
+    xi2, ci, ga = xi20[model], c_inv[model], gain[model]
+    d = X.shape[1]
+    for i in range(lo + 1):
+        y, x = Y[model, i], X[i]
+        if y == 0:
+            continue
+        dist = torch.sqrt((w @ w) - 2 * y * (w @ x) + (x @ x) + xi2 + ci)
+        if i == lo:
+            terms = (w @ w) + 2 * w.norm() * x.norm() + (x @ x) + xi2 + ci
+            bound = (d + 2) * 2.0**-24 * terms / (2 * dist)
+            return lo, float(dist), float(r), float(bound)
+        if dist >= r:
+            s = 0.5 * (1 - r / dist)
+            w, r = (1 - s) * w + s * y * x, r + 0.5 * (dist - r)
+            xi2 = xi2 * (1 - s) ** 2 + s * s * ga
+    raise AssertionError(f"model {model}: the parting row {lo} is inert")
+
+
+def phase_ring(dev, args, main, algos):
+    """Phase 7: B6, the ring (bank_resident="hbm"), at full width."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import fit_bank, fit_chunked_many, ovr_signs
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import predict as predict_mod
+    from repro_torch.kernels import streamsvm_scan as scan_mod
+    from repro_torch.kernels.predict import predict_bank_ring
+    from repro_torch.kernels.streamsvm_scan import (
+        ring_plan,
+        streamsvm_scan_lookahead_many_ring,
+        streamsvm_scan_many,
+        streamsvm_scan_many_ring,
+        streamsvm_scan_many_ring_plain,
+    )
+    from repro_torch.serve import BankServer
+
+    counters = (streamsvm_scan_many_ring, streamsvm_scan_lookahead_many_ring, predict_bank_ring)
+    for f in counters:
+        f.launches = 0
+    n_classes = args.classes
+    print(f'[7a] the main path with bank_resident="hbm": phase 3\'s {len(main["cs"])}-model '
+          f"bank over its {len(main['chunks'])} chunks, served over its ragged requests; "
+          "phase 4b's Algorithm-2 bank")
+    sync(dev)
+    t0 = time.perf_counter()
+    res = fit_chunked_many(main["chunks"], main["cs"], b_tile=64, bank_resident="hbm", device=dev)
+    sync(dev)
+    t_fit_a = time.perf_counter() - t0
+    check_equal('7a "hbm" bank against phase 3\'s "vmem" bank', res.ball, main["bank"])
+    with tempfile.TemporaryDirectory() as td:
+        ckpt.save(td, res.ball, meta={"position": res.position, "n_classes": n_classes})
+        server = BankServer.from_checkpoint(td, epilogue="ovr", q_block=256, b_tile=200,
+                                            bank_resident="hbm", device=dev)
+    Xte3 = main["data"][2]
+    rng = np.random.default_rng(args.seed + 7)  # phase 3's requests
+    reqs, lo = [], 0
+    while lo < len(Xte3):
+        m = int(rng.integers(1, 200))
+        reqs.append(server.submit(Xte3[lo : lo + m]))
+        lo += m
+    t0 = time.perf_counter()
+    stats = server.run()
+    sync(dev)
+    t_serve_a = time.perf_counter() - t0
+    served = (np.concatenate([r.result[0] for r in reqs]), np.concatenate([r.result[1] for r in reqs]))
+    check_equal("7a served ids and margins against phase 3's", served, main["served"])
+    Xd, Yd, cs6 = algos["data4b"]
+    sync(dev)
+    t0 = time.perf_counter()
+    la = fit_bank(Xd, Yd, cs6, variant="lookahead", lookahead=10, b_tile=64, bank_resident="hbm")
+    sync(dev)
+    t_la_a = time.perf_counter() - t0
+    check_equal('7a "hbm" Algorithm-2 bank against phase 4b\'s', la, algos["bank"])
+    print(f"  fit {t_fit_a:.3f} s, bit-equal to phase 3's bank; served {len(Xte3)} queries in "
+          f"{stats.steps} steps, {t_serve_a:.3f} s, ids and margins bit-equal to phase 3's; "
+          f"Algorithm 2 {t_la_a:.3f} s, bit-equal to phase 4b's bank")
+    launches_a = {f.__name__: f.launches for f in counters}
+    print(f"  launches of B6 in 7a: {launches_a}")
+    if dev.type == "cuda" and min(launches_a.values()) < 1:
+        raise AssertionError(f"a B6 path of 7a was never launched: {launches_a}")
+    for f in counters:
+        f.launches = 0
+
+    rc, d = args.ring_classes, args.ring_d
+    b = rc * len(RING_C)
+    print(f"[7b] bank_b1536_d4096_hbm_beyond_vmem: {rc} classes x C {RING_C} = {b} models, "
+          f"D={d}, {args.ring_n_train} training rows, {args.ring_n_test} held-out rows, "
+          "block_n 256, b_tile 64")
+    Xtr, ytr = make_blobs_on(args.ring_n_train, rc, d, args.seed, dev)
+    Xte, yte = make_blobs_on(args.ring_n_test, rc, d, args.seed + 1, dev)
+    Y = ovr_signs(ytr, rc, device=dev).repeat(len(RING_C), 1)
+    cs = torch.tensor(RING_C, device=dev).repeat_interleave(rc)
+    kw = dict(block_n=256, b_tile=64)
+    budget = ops.vmem_budget_bytes()
+    banks, secs = {}, {}
+    for resident in ("hbm", "vmem"):
+        sync(dev)
+        t0 = time.perf_counter()
+        banks[resident] = fit_bank(Xtr, Y, cs, bank_resident=resident, **kw)
+        sync(dev)
+        secs[resident] = time.perf_counter() - t0
+    check_equal('7b "hbm" bank against "vmem"', banks["hbm"], banks["vmem"])
+    for name, leaf in zip("w r xi2".split(), banks["hbm"][:3]):
+        if not torch.isfinite(leaf).all():
+            raise AssertionError(f"7b bank has non-finite {name}")
+    out = {}
+    for resident in ("hbm", "vmem"):
+        sync(dev)
+        t0 = time.perf_counter()
+        out[resident] = ops.predict_bank(Xte, banks["hbm"].w, epilogue="ovr", n_classes=rc,
+                                         q_block=256, b_tile=64, bank_resident=resident)
+        sync(dev)
+        secs["serve_" + resident] = time.perf_counter() - t0
+    check_equal('7b served ids and margins, "hbm" against "vmem"', out["hbm"], out["vmem"])
+    accs = [float((out["hbm"][0][:, g] == yte).float().mean()) for g in range(len(RING_C))]
+    print(f"  fit: hbm {secs['hbm']:.3f} s, vmem {secs['vmem']:.3f} s, bit-equal (m mean "
+          f"{banks['hbm'].m.float().mean().item():.1f}); served {len(Xte)} queries (ovr, q_block "
+          f"256): hbm {secs['serve_hbm']:.3f} s, vmem {secs['serve_vmem']:.3f} s, bit-equal; "
+          "held-out accuracy " + ", ".join(f"C={c:g}: {a:.4f}" for c, a in zip(RING_C, accs)))
+    by = ops.engine_vmem_bytes(b, d, lookahead_max=10, bank_resident="hbm", **kw)
+    la = {}
+    if sum(by.values()) <= budget:
+        for resident in ("hbm", "vmem"):
+            sync(dev)
+            t0 = time.perf_counter()
+            la[resident] = fit_bank(Xtr, Y, cs, variant="lookahead", lookahead=10,
+                                    bank_resident=resident, **kw)
+            sync(dev)
+            secs["la_" + resident] = time.perf_counter() - t0
+        check_equal('7b "hbm" Algorithm-2 bank against "vmem" (B3)', la["hbm"], la["vmem"])
+        print(f"  Algorithm 2 (lookahead 10): the byte model admits {sum(by.values())} B of "
+              f"{budget} B; hbm {secs['la_hbm']:.3f} s, vmem {secs['la_vmem']:.3f} s, bit-equal")
+    else:
+        try:
+            fit_bank(Xtr[:300], Y[:, :300], cs, variant="lookahead", lookahead=10,
+                     bank_resident="hbm", **kw)
+        except ValueError as err:
+            if "breakdown" not in str(err):
+                raise
+            print(f"  Algorithm 2 (lookahead 10): refused by the preflight, as the byte model "
+                  f"predicts ({sum(by.values())} B > {budget} B)")
+        else:
+            raise AssertionError("Algorithm 2 at this D ran beyond the byte model's budget")
+    launches_b = {f.__name__: f.launches for f in counters}
+    print(f"  launches of B6 in 7b: {launches_b}")
+    need = [f.__name__ for f in counters if la or f is not streamsvm_scan_lookahead_many_ring]
+    if dev.type == "cuda" and min(launches_b[k] for k in need) < 1:
+        raise AssertionError(f"a B6 path of 7b was never launched: {launches_b}")
+
+    bp = -(-b // 64) * 64
+    tiles = bp // 8
+    in_c, n_c, live = seeded_bank_inputs(Xtr[: args.ring_check_n], Y[:, : args.ring_check_n], cs, bp)
+    ref = streamsvm_scan_many(*in_c, n_valid=n_c)
+    js = []
+    for j in (1, 2, 3, 4):
+        n_ctas = -(-tiles // j)
+        jmax = ring_plan(bp, d, lookahead=False, n_ctas=n_ctas)["jmax"]
+        if tiles % j == 0 and jmax != j:
+            raise AssertionError(f"n_ctas={n_ctas} gives {jmax} tiles per CTA, not {j}")
+        check_equal(f"the ring at J={jmax} against B1", streamsvm_scan_many_ring(
+            *in_c, n_valid=n_c, n_ctas=n_ctas), ref)
+        js.append(jmax)
+    print(f"  the first {n_c} rows: the ring at J = {js} tiles per CTA bit-equal to B1")
+    in_p, n_p, _ = seeded_bank_inputs(Xtr[: args.ring_plain_n], Y[:, : args.ring_plain_n], cs, bp)
+    kernel = lambda nv: streamsvm_scan_many_ring(*in_p, n_valid=nv)
+    plain = lambda nv: streamsvm_scan_many_ring_plain(*in_p, n_valid=nv, ring_tile=bp // 2,
+                                                      n_ctas=1)
+    b1 = lambda nv: streamsvm_scan_many(*in_p, n_valid=nv)
+    got, want = kernel(n_p), plain(n_p)
+    sync(dev)
+    parted = (got[3][:b] != want[3][:b]).nonzero().flatten().tolist()
+    if len(parted) > 1:  # the seeded data part on one f32 tie (ROADMAP section C)
+        raise AssertionError(f"the ring against its plain version: m differs at {parted}")
+    for model in parted:  # a decision tie within the f32 error, B1 parting there too
+        row, dist, r, bound = parting_tie(kernel, plain, in_p, n_p, model)
+        print(f"  model {model} parts from the plain version at row {row}: float64 "
+              f"(dist - r)/r = {(dist - r) / r:.3e}, f32 error bound {bound / r:.3e} of r: a tie")
+        if abs(dist - r) > bound:
+            raise AssertionError(f"model {model} parts at row {row} by more than the f32 error")
+        before, after = b1(row), b1(row + 1)
+        if (int(before[3][model]) != int(plain(row)[3][model])
+                or int(after[3][model]) == int(plain(row + 1)[3][model])):
+            raise AssertionError(f"model {model}: B1 does not part from the plain version at "
+                                 f"row {row} as the ring does")
+        check_state(f"model {model} up to its parting row", [x[model] for x in kernel(row)],
+                    [x[model] for x in plain(row)])
+    keep = torch.ones(b, dtype=torch.bool, device=got[3].device)
+    keep[parted] = False
+    err = check_state("the ring against its plain version", [x[:b][keep] for x in got],
+                      [x[:b][keep] for x in want])
+    print(f"  the first {n_p} rows: the ring against its plain version (ring tile {bp // 2}): "
+          f"w max|err| {err:.3e}, m equal on {int(keep.sum())} of {b} models"
+          + (f"; {len(parted)} parted on a tie (above)" if parted else ""))
+
+    if dev.type == "cuda":  # the byte models against what the kernels allocate
+        lib, plib = scan_mod._lib(), predict_mod._lib()
+        (ring_static,) = _build.static_smem("streamsvm_scan", "scan_ring_kernel")
+        shapes = [(640, 784, False, None), (640, 784, True, None), (bp, d, False, None),
+                  (bp, d, True, None)] + [(bp, d, False, -(-tiles // j)) for j in (1, 2, 3, 4)]
+        for sbp, sd, look, n_ctas in shapes:
+            plan = ring_plan(sbp, sd, lookahead=look, n_ctas=n_ctas)
+            have = ring_static + lib.streamsvm_scan_ring_dyn_bytes(
+                sd, plan["jmax"], int(plan["owned"]), int(look))
+            model = sum(plan["smem"].values()) if n_ctas else sum(ops.engine_vmem_bytes(
+                sbp, sd, lookahead_max=10 if look else None, bank_resident="hbm").values())
+            if have != model:
+                raise AssertionError(f"ring B={sbp} D={sd}: allocates {have} B, model {model} B")
+            print(f"  ring B={sbp} D={sd} lookahead={look} J={plan['jmax']} owned="
+                  f"{plan['owned']}: {have} B allocated (static {ring_static} + dynamic "
+                  f"{have - ring_static}) = byte model")
+        (pr_static,) = _build.static_smem("predict", "predict_ring_kernel")
+        for ep, k in (("ovr", None), ("scores", None), ("topk", 5)):
+            have = pr_static + plib.predict_bank_ring_dyn_bytes(
+                {"scores": 0, "ovr": 1, "topk": 2}[ep], k or 0)
+            model = sum(ops.predict_vmem_bytes(b, d, epilogue=ep, k=k, n_classes=rc if ep == "ovr"
+                                               else None, bank_resident="hbm").values())
+            if have != model:
+                raise AssertionError(f"serving ring {ep}: allocates {have} B, model {model} B")
+        for src, kern, model in smem_models():
+            if kern in ("scan_ring_kernel", "predict_ring_kernel"):
+                continue  # checked above with their dynamic bytes
+            if _build.static_smem(src, kern) != {model}:
+                raise AssertionError(f"{kern}: ptxas {_build.static_smem(src, kern)} B, "
+                                     f"model {model} B")
+        print("  every byte model equals ptxas's static bytes plus the launch's dynamic bytes")
+    b7 = dict(X=Xtr, Y=Y, cs=cs, Xte=Xte, w=banks["hbm"].w, n_classes=rc, bp=bp,
+              la_m=la["hbm"].m if la else None)
+    return dict(launches_a=launches_a, launches_b=launches_b, secs=secs, fit_a=t_fit_a,
+                serve_a=t_serve_a, la_a=t_la_a, b7=b7)
+
+
+def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
+    from repro_torch.kernels.predict import (
+        predict_bank_fused,
+        predict_bank_plain,
+        predict_bank_ring,
+        predict_bank_ring_plain,
+    )
     from repro_torch.kernels.streamsvm_scan import (
         streamsvm_scan,
         streamsvm_scan_lookahead_many,
+        streamsvm_scan_lookahead_many_plain,
+        streamsvm_scan_lookahead_many_ring,
+        streamsvm_scan_lookahead_many_ring_plain,
         streamsvm_scan_many,
         streamsvm_scan_many_plain,
+        streamsvm_scan_many_ring,
+        streamsvm_scan_many_ring_plain,
         streamsvm_scan_plain,
     )
 
@@ -983,6 +1310,16 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres):
     plain1 = time_ms(lambda: streamsvm_scan_many_plain(*args1, n_valid=n), dev, 1, warmup=0)
     flops1 = 4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32
     bytes1 = 4.0 * (n * d + b * n + 2 * b * d + 6 * b)
+    # B6 train (Algorithm 1) at phase 7a's first launch: the same chunk and
+    # work as B1 there, so the same bound; it must give B1's bits.
+    got_r = streamsvm_scan_many_ring(*args1, n_valid=n)
+    check_equal("B6 (Algorithm 1) against B1 at the main-path shape", got_r, got)
+    t0 = time.perf_counter()
+    want_r = streamsvm_scan_many_ring_plain(*args1, n_valid=n, ring_tile=bp, n_ctas=1)
+    sync(dev)
+    plain_r = (time.perf_counter() - t0) * 1e3
+    err_r = check_state("B6 (Algorithm 1) against its plain version", got_r, want_r, live=b)
+    ms_r = time_ms(lambda: streamsvm_scan_many_ring(*args1, n_valid=n), dev, reps)
     # B3 at its main-path launch (phase 4b): the whole stream, 10-row windows,
     # held against the plain version there.
     b3 = algos["b3"]
@@ -995,6 +1332,33 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres):
     # row, at least one distance in a flush (this run's pushes).
     flops3 = 2.0 * b * n3 * d + 2.0 * n3 * d + 3.0 * d * pushes
     bytes3 = 4.0 * (n3 * d + b * n3 + 2 * b * d + 6 * b)
+    # B6 train (Algorithm 2) at phase 7a's lookahead launch: B3's inputs,
+    # work and bound; it must give B3's bits.
+    got3 = streamsvm_scan_lookahead_many(*in3, **kw3)
+    got_r3 = streamsvm_scan_lookahead_many_ring(*in3, **kw3)
+    check_equal("B6 (Algorithm 2) against B3 at the bank's launch", got_r3, got3)
+    t0 = time.perf_counter()
+    want_r3 = streamsvm_scan_lookahead_many_ring_plain(*in3, **kw3, ring_tile=bp, n_ctas=1)
+    sync(dev)
+    plain_r3 = (time.perf_counter() - t0) * 1e3
+    err_r3 = check_state("B6 (Algorithm 2) against its plain version", got_r3, want_r3, live=b)
+    ms_r3 = time_ms(lambda: streamsvm_scan_lookahead_many_ring(*in3, **kw3), dev, reps)
+    # B3 at Fig 3's launches (phase 4a): one model, L = 10, over the
+    # permuted training stream, as fit_lookahead hands it to B3.
+    Xf3, yf3 = (torch.as_tensor(a, device=dev) for a in algos["fig3"])
+    in3f, n3f, live3f = seeded_bank_inputs(Xf3, yf3[None, :], torch.full((1,), 10.0, device=dev), 8)
+    kw3f = dict(lookahead=torch.where(live3f, 10, 1).to(torch.int32), lookahead_max=10,
+                n_valid=n3f)
+    got3f = streamsvm_scan_lookahead_many(*in3f, **kw3f)
+    t0 = time.perf_counter()
+    want3f = streamsvm_scan_lookahead_many_plain(*in3f, **kw3f)
+    sync(dev)
+    plain3f = (time.perf_counter() - t0) * 1e3
+    err3f = check_state("B3 at the Fig 3 shape", got3f, want3f, live=1)
+    ms3f = time_ms(lambda: streamsvm_scan_lookahead_many(*in3f, **kw3f), dev, 10 * reps)
+    d3f, pushes3f = Xf3.shape[1], float(got3f[3][0] - 1)
+    flops3f = 2.0 * n3f * d3f + 2.0 * n3f * d3f + 3.0 * d3f * pushes3f
+    bytes3f = 4.0 * (n3f * d3f + n3f + 2 * d3f + 6)
     # B4 at Fig 3's shapes: one model over the permuted training stream.
     Xf, yf = (torch.as_tensor(a, device=dev) for a in algos["fig3"])
     n4 = Xf.shape[0] - 1
@@ -1024,6 +1388,13 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres):
                        score_atol(want2[1]))
     ms2 = time_ms(lambda: predict_bank_fused(Q, W, bias, **kw), dev, 50 * reps)
     plain2 = time_ms(lambda: predict_bank_plain(Q, W, bias, **kw), dev, 50 * reps)
+    # B6 serve at the same server step: B2's work and bound, B2's bits.
+    got_r2 = predict_bank_ring(Q, W, bias, **kw)
+    check_equal("B6 serve against B2 at the main-path step", got_r2, got2)
+    err_r2 = check_close("B6 serve against its plain version, margins", got_r2[1],
+                         predict_bank_ring_plain(Q, W, bias, **kw)[1], RTOL_W, score_atol(want2[1]))
+    ms_r2 = time_ms(lambda: predict_bank_ring(Q, W, bias, **kw), dev, 50 * reps)
+    plain_r2 = time_ms(lambda: predict_bank_ring_plain(Q, W, bias, **kw), dev, 50 * reps)
     flops2 = 2.0 * Q.shape[0] * W.shape[0] * d
     bytes2 = 4.0 * (Q.shape[0] * d + W.shape[0] * (d + 1) + 2 * Q.shape[0] * (W.shape[0] // nc))
 
@@ -1047,10 +1418,15 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres):
             err2, ms2, plain2, flops2, bytes2, None,
             f"Q=256 B={W.shape[0]} D={d} ovr n_classes={nc} f32"),
         row("streamsvm_scan_lookahead", "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
-            "src/repro/kernels/streamsvm_scan.py:800",
-            algos["launches"]["streamsvm_scan_lookahead_many"], b3["err"], ms3, b3["plain_ms"],
-            flops3, bytes3, None,
-            f"N={n3} D={d} B={b} (bank padded to {bp}) L=10 f32, {pushes:.0f} pushes"),
+            "src/repro/kernels/streamsvm_scan.py:800", b3["bank_launches"], b3["err"], ms3,
+            b3["plain_ms"], flops3, bytes3, None,
+            f"the Algorithm-2 bank's launch (phase 4b): N={n3} D={d} B={b} (bank padded to "
+            f"{bp}) L=10 f32, {pushes:.0f} pushes"),
+        row("streamsvm_scan_lookahead[fig3]", "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
+            "src/repro/kernels/streamsvm_scan.py:800", b3["fig3_launches"], err3f, ms3f,
+            plain3f, flops3f, bytes3f, None,
+            f"Fig 3's single-model launches (phase 4a): N={n3f} D={d3f} B=1 (padded to 8) L=10 "
+            f"f32, {pushes3f:.0f} pushes"),
         row("streamsvm_single", "src/repro_torch/kernels/csrc/streamsvm_single.cu",
             "src/repro/kernels/streamsvm_scan.py:639", algos["launches"]["streamsvm_scan"],
             err4, ms4, plain4, flops4, bytes4, None,
@@ -1065,8 +1441,155 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres):
                   4.0 * (len(Qs) * d + W.shape[0] * d + len(Qs) * W.shape[0]) / HBM_BYTES_PER_S) * 1e3
     print(f"  B2 scores at Q={len(Qs)}: kernel {ms_s:.4f} ms, torch.matmul {lib_s:.4f} ms, "
           f"bound {bound_s:.4f} ms (operations)")
+    # B6 serve's scores at the held-out size, against B2 and the library.
+    got_rs = predict_bank_ring(Qsp, W, bias, epilogue="scores", q_block=256)
+    check_equal("B6 serve scores against B2 at Q=10,000",
+                (got_rs,), (predict_bank_fused(Qsp, W, bias, epilogue="scores", q_block=256),))
+    sync(dev)
+    t0 = time.perf_counter()
+    want_rs = predict_bank_ring_plain(Qsp, W, bias, epilogue="scores", q_block=256)
+    sync(dev)
+    plain_rs = (time.perf_counter() - t0) * 1e3
+    err_rs = check_close("B6 serve scores against its plain version", got_rs, want_rs, RTOL_W,
+                         score_atol(want_rs))
+    ms_rs = time_ms(lambda: predict_bank_ring(Qsp, W, bias, epilogue="scores", q_block=256), dev,
+                    5 * reps)
+    flops_s = 2.0 * len(Qs) * W.shape[0] * d
+    bytes_s = 4.0 * (len(Qs) * d + W.shape[0] * d + len(Qs) * W.shape[0])
+    ring_src = "src/repro_torch/kernels/csrc/streamsvm_scan.cu"
+    kernels += [
+        row("streamsvm_scan_ring", ring_src, "src/repro/kernels/streamsvm_scan.py:899",
+            ring["launches_a"]["streamsvm_scan_many_ring"], err_r, ms_r, plain_r, flops1, bytes1,
+            None, f"phase 7a's first launch: N={n} D={d} B={b} (bank padded to {bp}) f32, "
+            "Algorithm 1; plain: one ring tile"),
+        row("streamsvm_scan_ring_lookahead", ring_src, "src/repro/kernels/streamsvm_scan.py:899",
+            ring["launches_a"]["streamsvm_scan_lookahead_many_ring"], err_r3, ms_r3, plain_r3,
+            flops3, bytes3, None, f"phase 7a's Algorithm-2 launch: N={n3} D={d} B={b} (bank "
+            f"padded to {bp}) L=10 f32, {pushes:.0f} pushes; plain: one ring tile"),
+        row("predict_bank_ring", "src/repro_torch/kernels/csrc/predict.cu",
+            "src/repro/kernels/predict.py:321", ring["launches_a"]["predict_bank_ring"], err_r2,
+            ms_r2, plain_r2, flops2, bytes2, None,
+            f"phase 7a's server step: Q=256 B={W.shape[0]} D={d} ovr n_classes={nc} f32"),
+        row("predict_bank_ring[scores]", "src/repro_torch/kernels/csrc/predict.cu",
+            "src/repro/kernels/predict.py:321", 0, err_rs, ms_rs, plain_rs, flops_s, bytes_s,
+            lib_s, f"Q={len(Qs)} B={W.shape[0]} D={d} scores f32, a yardstick against "
+            "torch.matmul (library_ms): no path of this run launches the scores epilogue"),
+    ]
+    kernels += ring_7b_rows(dev, args, ring, row)
+    print(f"  B6 train (Algorithm 1): kernel {ms_r:.4f} ms (B1 {ms1:.4f}), plain {plain_r:.1f} ms; "
+          f"(Algorithm 2): kernel {ms_r3:.4f} ms (B3 {ms3:.4f}), plain {plain_r3:.1f} ms; B3 at "
+          f"Fig 3's shape {ms3f:.4f} ms; B6 serve: ovr step {ms_r2:.4f} ms (B2 {ms2:.4f}), "
+          f"scores at Q={len(Qs)} {ms_rs:.4f} ms (B2 {ms_s:.4f})")
     kernels += kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, args.kb_check_tiles)
     return kernels
+
+
+def ring_7b_rows(dev, args, ring, row):
+    """Phase 5's rows for B6 at phase 7b's launches (1,536 x 4,096): the
+    Algorithm-1 and Algorithm-2 fits over the whole stream and the ovr
+    serve of the held-out rows, each with the count of its launches in 7b,
+    B1's / B3's / B2's time at the same launch beside it, and one plain call.
+    The plain versions part from the kernels on f32 ties over 60,000 rows
+    (the 511-row check of 7b certifies the one it meets), so max_abs_err
+    is over the models whose m agrees, and the parted ones are counted."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.predict import (
+        predict_bank_fused,
+        predict_bank_ring,
+        predict_bank_ring_plain,
+    )
+    from repro_torch.kernels.streamsvm_scan import (
+        streamsvm_scan_lookahead_many,
+        streamsvm_scan_lookahead_many_ring,
+        streamsvm_scan_lookahead_many_ring_plain,
+        streamsvm_scan_many,
+        streamsvm_scan_many_ring,
+        streamsvm_scan_many_ring_plain,
+    )
+
+    b7, lb = ring["b7"], ring["launches_b"]
+    reps = 1 if dev.type == "cpu" else 2
+    b, bp, d = b7["Y"].shape[0], b7["bp"], b7["X"].shape[1]
+    src = "src/repro_torch/kernels/csrc/streamsvm_scan.cu"
+    ref = "src/repro/kernels/streamsvm_scan.py:899"
+    inp, n, live = seeded_bank_inputs(b7["X"], b7["Y"], b7["cs"], bp)
+
+    def against_plain(name, got, plain_fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        want = plain_fn()
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = got[3][:b] == want[3][:b]
+        err = check_state(name, [x[:b][same] for x in got], [x[:b][same] for x in want])
+        return err, plain_ms, int((~same).sum())
+
+    out, notes = [], []
+    got = streamsvm_scan_many_ring(*inp, n_valid=n)
+    ms = time_ms(lambda: streamsvm_scan_many_ring(*inp, n_valid=n), dev, reps)
+    ms_b1 = time_ms(lambda: streamsvm_scan_many(*inp, n_valid=n), dev, reps)
+    err, plain, parted = against_plain("7b's Algorithm-1 launch against its plain version", got,
+                                       lambda: streamsvm_scan_many_ring_plain(
+                                           *inp, n_valid=n, ring_tile=bp, n_ctas=1))
+    out.append(row(
+        "streamsvm_scan_ring[7b]", src, ref, lb["streamsvm_scan_many_ring"], err, ms, plain,
+        4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32,
+        4.0 * (n * d + b * n + 2 * b * d + 6 * b), None,
+        f"phase 7b's Algorithm-1 launch: N={n} D={d} B={b} f32 (B1 at this launch {ms_b1:.3f} "
+        f"ms); max_abs_err over the {b - parted} models whose m the plain version matches"))
+    notes.append(f"Algorithm 1 {ms:.3f} ms (B1 {ms_b1:.3f}), plain {plain / 1e3:.1f} s, "
+                 f"{parted} models part on ties")
+    if b7["la_m"] is not None:
+        kw = dict(lookahead=torch.where(live, 10, 1).to(torch.int32), lookahead_max=10,
+                  n_valid=n)
+        got = streamsvm_scan_lookahead_many_ring(*inp, **kw)
+        ms = time_ms(lambda: streamsvm_scan_lookahead_many_ring(*inp, **kw), dev, reps)
+        ms_b3 = time_ms(lambda: streamsvm_scan_lookahead_many(*inp, **kw), dev, reps)
+        err, plain, parted = against_plain(
+            "7b's Algorithm-2 launch against its plain version", got,
+            lambda: streamsvm_scan_lookahead_many_ring_plain(*inp, **kw, ring_tile=bp, n_ctas=1))
+        pushes = float((b7["la_m"] - 1).sum())
+        out.append(row(
+            "streamsvm_scan_ring_lookahead[7b]", src, ref,
+            lb["streamsvm_scan_lookahead_many_ring"], err, ms, plain,
+            2.0 * b * n * d + 2.0 * n * d + 3.0 * d * pushes,
+            4.0 * (n * d + b * n + 2 * b * d + 6 * b), None,
+            f"phase 7b's Algorithm-2 launch: N={n} D={d} B={b} L=10 f32, {pushes:.0f} pushes "
+            f"(B3 at this launch {ms_b3:.3f} ms); max_abs_err over the {b - parted} models "
+            "whose m the plain version matches"))
+        notes.append(f"Algorithm 2 {ms:.3f} ms (B3 {ms_b3:.3f}), plain {plain / 1e3:.1f} s, "
+                     f"{parted} models part on ties")
+    # The ovr serve of 7b's held-out rows, as ops.predict_bank hands it over.
+    nc = b7["n_classes"]
+    g = b // nc
+    nc_pad, g_tile, gp = ops.ovr_group_tiling(b, nc, 64)
+    Q = ops._pad_to(b7["Xte"].float(), 256, 0)
+    Wp = ops._pad_to(ops._pad_to(b7["w"].reshape(g, nc, d), nc_pad, 1), gp, 0).reshape(-1, d)
+    lane = torch.arange(gp * nc_pad, device=dev)
+    bias = torch.where((lane % nc_pad < nc) & (lane // nc_pad < g), 0.0,
+                       ops.NEG_MASK).to(torch.float32)
+    kw = dict(epilogue="ovr", q_block=256, b_tile=g_tile * nc_pad, nc_pad=nc_pad)
+    got = predict_bank_ring(Q, Wp, bias, **kw)
+    check_equal("7b's serve: the ring against B2", got, predict_bank_fused(Q, Wp, bias, **kw))
+    sync(dev)
+    t0 = time.perf_counter()
+    want = predict_bank_ring_plain(Q, Wp, bias, **kw)
+    sync(dev)
+    plain = (time.perf_counter() - t0) * 1e3
+    err = check_close("7b's serve against its plain version, margins", got[1], want[1], RTOL_W,
+                      score_atol(want[1]))
+    ms = time_ms(lambda: predict_bank_ring(Q, Wp, bias, **kw), dev, 5 * reps)
+    ms_b2 = time_ms(lambda: predict_bank_fused(Q, Wp, bias, **kw), dev, 5 * reps)
+    q, bl = Q.shape[0], Wp.shape[0]
+    out.append(row(
+        "predict_bank_ring[7b]", "src/repro_torch/kernels/csrc/predict.cu",
+        "src/repro/kernels/predict.py:321", lb["predict_bank_ring"], err, ms, plain,
+        2.0 * q * bl * d, 4.0 * (q * d + bl * (d + 1) + 2 * q * g), None,
+        f"phase 7b's serve: Q={q} B={b} (padded to {bl}) D={d} ovr n_classes={nc} f32 "
+        f"(B2 at this launch {ms_b2:.4f} ms)"))
+    notes.append(f"serve {ms:.4f} ms (B2 {ms_b2:.4f}), plain {plain:.1f} ms")
+    print("  B6 at phase 7b's launches: " + "; ".join(notes))
+    return out
 
 
 def kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, t):
@@ -1192,6 +1715,14 @@ def main(argv=None):
                     help="tiles of phase 6b's pass held against the plain path")
     ap.add_argument("--kb-evict-coreset", type=int, default=16,
                     help="a smaller S for the phase-2 check, small enough to evict")
+    ap.add_argument("--ring-classes", type=int, default=512, help="phase 7b: blob classes")
+    ap.add_argument("--ring-d", type=int, default=4096, help="phase 7b: D")
+    ap.add_argument("--ring-n-train", type=int, default=60_000)
+    ap.add_argument("--ring-n-test", type=int, default=10_000)
+    ap.add_argument("--ring-check-n", type=int, default=8192,
+                    help="phase 7b: rows of the ring-against-B1 checks at J = 1..4")
+    ap.add_argument("--ring-plain-n", type=int, default=512,
+                    help="phase 7b: rows of the ring-against-plain check")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; nothing was run")
@@ -1216,8 +1747,9 @@ def main(argv=None):
     algos = phase_algorithms(dev, args, main_out)
     phase_rings(dev, args)
     kbres = phase_kernel_bank(dev, args, kb, main_out)
+    ring = phase_ring(dev, args, main_out, algos)
     print("[5] kernel times at the main path's shapes")
-    kernels = phase_times(dev, args, main_out, algos, kb, kbc, kbres)
+    kernels = phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if smi is not None:

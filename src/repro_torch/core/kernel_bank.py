@@ -198,8 +198,13 @@ def fit_kernel_bank(
     the S axis (bit-exact with one launch). stream_dtype: "bf16" rounds the
     streamed tiles; the buffered rows and the state stay f32.
 
-    ``mesh=`` (a sharded stream) and ``vmem_budget_bytes=`` (the TPU VMEM
-    preflight) are not ported yet and raise.
+    vmem_budget_bytes: the preflight's budget (else ``ops.vmem_budget_bytes()``):
+    every call holds ``ops.kernel_engine_vmem_bytes``, the shared memory per
+    CTA of B5 and R1, to it and raises with the breakdown before any launch.
+    What ``s_tile`` caps (the K_cs block, the gathered core-set operand)
+    lives in device memory, which that budget does not see.
+
+    ``mesh=`` (a sharded stream) is not ported yet and raises.
     """
     if kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {_KERNELS}")
@@ -225,10 +230,23 @@ def fit_kernel_bank(
                 "label encoding dropped a model. Offending model rows "
                 f"(Y[b, 0] == 0): b = {bad.tolist()}"
             )
-    if vmem_budget_bytes is not None:
-        raise NotImplementedError(
-            "vmem_budget_bytes= is the TPU's VMEM preflight; its shared-memory "
-            "byte model on the card is not ported yet: ROADMAP queue B, B6"
+    from ..kernels.ops import kernel_engine_vmem_bytes, vmem_budget_bytes as _vmem_budget
+
+    b, d = Y.shape[0], X.shape[-1]
+    by = kernel_engine_vmem_bytes(
+        b, d, coreset_size=coreset_size, block_n=block_n, s_tile=s_tile,
+        stream_dtype=stream_dtype,
+    )
+    budget = _vmem_budget(vmem_budget_bytes)
+    if sum(by.values()) > budget:
+        raise ValueError(
+            f"fit_kernel_bank with B={b}, D={d}, S={coreset_size}, "
+            f"block_n={block_n}, s_tile={s_tile} needs {sum(by.values())} bytes "
+            f"of shared memory per CTA (breakdown: {by}), exceeding the budget "
+            f"of {budget} bytes — raise the budget: the card's Gram tiles do not "
+            "shrink with s_tile or block_n. The budget follows "
+            "vmem_budget_bytes(): pass vmem_budget_bytes= or set "
+            "REPRO_VMEM_BUDGET_BYTES."
         )
     if mesh is not None:
         raise NotImplementedError(

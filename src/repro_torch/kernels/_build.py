@@ -87,6 +87,22 @@ def ptxas_report(name: str) -> str:
     return "\n".join(l for l in log.read_text().splitlines() if "ptxas" in l)
 
 
+def static_smem(name: str, kernel: str) -> set[int]:
+    """Static shared bytes per CTA that ptxas reports for every instantiation
+    of the ``__global__`` function ``kernel`` in the cached build of
+    ``name`` (matched by its length-prefixed mangled name)."""
+    out, entry = set(), None
+    for line in ptxas_report(name).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry is not None:
+            if f"{len(kernel)}{kernel}" in entry:
+                words = line.replace(",", "").split()
+                out.add(int(words[words.index("smem") - 2]) if "smem" in words else 0)
+            entry = None
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (built first if needed)."""
     lib = _libs.get(name)

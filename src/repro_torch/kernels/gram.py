@@ -29,6 +29,10 @@ from . import _build
 _EPILOGUES = {"linear": 0, "rbf": 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+#: Shared memory per CTA of ``gram_kernel``, as declared: its two operand
+#: chunks, 2 x 32 x 65 f32 (the kernel bank's byte model reads it).
+GRAM_SMEM = 16_640
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gram")

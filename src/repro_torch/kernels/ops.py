@@ -6,8 +6,8 @@ the two agree model for model; the 128-lane padding of D (and the Gram's
 (8, 128)-aligned tiles and 512-column D padding) are TPU tiling rules and
 are not kept. Each runs on the device its inputs name (see
 ``repro_torch._device``): the kernels (B1 and B3 for a bank, B4 for one
-model, B2 to predict, B5 for a Gram block) launch on a CUDA tensor and run
-their plain versions on a CPU tensor.
+model, B2 to predict, B5 for a Gram block, B6 for a bank through the
+ring) launch on a CUDA tensor and run their plain versions on a CPU tensor.
 
 Dtype policy
 ------------
@@ -17,20 +17,51 @@ those bytes. The bank, the ball scalars and every accumulator stay f32.
 
 Bank residency
 --------------
-On the card the bank always lives in device memory, so ``"vmem"`` and
-``"auto"`` both run B1/B2 as they are. ``"hbm"``, the TPU's ring through
-VMEM, is the B6 kernel, not ported yet.
+``bank_resident`` chooses the kernel layout: ``"vmem"`` runs B1 / B3 / B2,
+``"hbm"`` runs B6, the ring (``streamsvm_scan_many_ring``,
+``predict_bank_ring``), and ``"auto"`` picks by the byte models below. On
+the card the bank lives in device memory either way, and both layouts give
+the same bits; what they differ in is shared memory per CTA and data
+movement. The byte models (``engine_vmem_bytes``, ``predict_vmem_bytes``,
+``kernel_engine_vmem_bytes``) keep the reference's names and signatures
+but return, by term, the shared memory per CTA of the kernel the call
+would launch: static (as declared) plus dynamic (as requested at launch).
+The budget they are held to (``vmem_budget_bytes``) defaults to
+``DEFAULT_VMEM_BUDGET_BYTES``, the H100's per-block opt-in limit, 232,448 B
+(227 KB: the ``hopper-kernels`` guide; CUDA's
+``cudaDevAttrMaxSharedMemoryPerBlockOptin``). B1, B3 and B2 keep no
+whole-bank scratch, so their bytes do not grow with B and ``"auto"``
+resolves to ``"vmem"`` at the default budget for every B; it reaches
+``"hbm"`` only under a budget below the vmem layout's bytes (the TPU flips
+near B * D * 4 = 16 MiB).
 """
 from __future__ import annotations
+
+import functools
+import os
 
 import torch
 import torch.nn.functional as F
 
 from .._device import as_tensor, pick_device
 from ..core.meb import Ball
-from .gram import gram_fused, row_norms, tree_sum
-from .predict import NEG_MASK, predict_bank_fused
-from .streamsvm_scan import streamsvm_scan, streamsvm_scan_many
+from .gram import GRAM_SMEM, gram_fused, row_norms, tree_sum
+from .predict import (
+    NEG_MASK,
+    PREDICT_RING_SMEM,
+    PREDICT_SMEM,
+    predict_bank_fused,
+    predict_bank_ring,
+    topk_state_bytes,
+)
+from .streamsvm_scan import (
+    SCAN_SMEM,
+    SMEM_PER_BLOCK,
+    ring_plan,
+    streamsvm_scan,
+    streamsvm_scan_many,
+    streamsvm_scan_many_ring,
+)
 
 _STREAM_DTYPES = {
     None: torch.float32,
@@ -52,17 +83,169 @@ def _resolve_stream_dtype(stream_dtype) -> torch.dtype:
     )
 
 
+# ---------------------------------------------------------------------------
+# Residency policy: the shared-memory byte models and the budget
+# ---------------------------------------------------------------------------
+
+#: Default shared-memory budget per CTA for the "auto" policy and the
+#: preflight: the H100's per-block opt-in limit (see the module docstring).
+#: Overridable per call (``vmem_budget_bytes=``) and per process
+#: (``REPRO_VMEM_BUDGET_BYTES``).
+DEFAULT_VMEM_BUDGET_BYTES = SMEM_PER_BLOCK
+
+_BANK_RESIDENCIES = ("vmem", "hbm", "auto")
+
+
 def _check_resident(bank_resident: str) -> None:
-    if bank_resident == "hbm":
-        raise NotImplementedError(
-            'bank_resident="hbm" (the TPU ring through VMEM) is kernel B6, not '
-            "ported yet: ROADMAP queue B, B6. On the card the bank lives in "
-            'device memory; use "auto" or "vmem".'
-        )
-    if bank_resident not in ("vmem", "auto"):
+    if bank_resident not in _BANK_RESIDENCIES:
         raise ValueError(
-            f"unknown bank_resident {bank_resident!r}; expected 'vmem', 'hbm' or 'auto'"
+            f"unknown bank_resident {bank_resident!r}; expected one of "
+            f"{_BANK_RESIDENCIES}"
         )
+
+
+def vmem_budget_bytes(override: int | None = None) -> int:
+    """The shared-memory budget the residency policy checks against, in
+    bytes: ``override``, else ``REPRO_VMEM_BUDGET_BYTES``, else the default."""
+    if override is not None:
+        return int(override)
+    env = os.environ.get("REPRO_VMEM_BUDGET_BYTES")
+    return int(env) if env else DEFAULT_VMEM_BUDGET_BYTES
+
+
+_vmem_budget = vmem_budget_bytes  # the entry points' keyword shadows the name
+
+
+def engine_vmem_bytes(
+    b: int,
+    d: int,
+    *,
+    block_n: int = 256,
+    b_tile: int | None = None,
+    stream_dtype=None,
+    lookahead_max: int | None = None,
+    bank_resident: str = "vmem",
+    smem_budget: int | None = None,
+) -> dict:
+    """Shared memory per CTA of the training kernel, bytes by term.
+
+    ``"vmem"``: B1's ``scan_kernel`` or B3's ``lookahead_kernel``
+    (``SCAN_SMEM``), the same whatever B, D, block_n and the stream dtype
+    (their blocks are 32 rows, staged f32). ``"hbm"``: B6's
+    ``scan_ring_kernel`` at the layout ``ring_plan`` gives the padded bank
+    (B to whole ``b_tile`` tiles): its bytes grow with the tiles per CTA and,
+    for owned slots, with D, never with B at a fixed number of tiles per CTA.
+    ``smem_budget`` (the port's own keyword; default the card's limit): the
+    ring takes owned whole-row slots only where they fit it, else it
+    cycles column chunks. The lookahead windows stay in device memory in
+    both layouts.
+    """
+    _check_resident(bank_resident)
+    if bank_resident != "hbm":
+        return dict(SCAN_SMEM)
+    bt, n_tiles = bank_tiling(b, b_tile)
+    return ring_plan(
+        bt * n_tiles, d, lookahead=lookahead_max is not None, smem_budget=smem_budget
+    )["smem"]
+
+
+def predict_vmem_bytes(
+    b: int,
+    d: int,
+    *,
+    q_block: int = 256,
+    b_tile: int | None = None,
+    stream_dtype=None,
+    epilogue: str = "scores",
+    n_classes: int | None = None,
+    k: int | None = None,
+    bank_resident: str = "vmem",
+) -> dict:
+    """Shared memory per CTA of the predict kernel, bytes by term: B2's
+    ``predict_kernel`` (``"vmem"``) or B6's ``predict_ring_kernel``
+    (``"hbm"``), plus the topk epilogue's running lists. Neither holds the
+    bank: both stage chunks of it, so the bytes do not grow with B."""
+    _check_resident(bank_resident)
+    out = dict(PREDICT_RING_SMEM if bank_resident == "hbm" else PREDICT_SMEM)
+    out["epilogue_state"] = topk_state_bytes(k) if epilogue == "topk" else 0
+    return out
+
+
+def kernel_engine_vmem_bytes(
+    b: int,
+    d: int,
+    *,
+    coreset_size: int,
+    block_n: int = 256,
+    s_tile: int | None = None,
+    stream_dtype=None,
+) -> dict:
+    """Shared memory per CTA of the kernelized bank engine, bytes by term:
+    B5's Gram tiles (``gram_kernel``, ``GRAM_SMEM``) and R1's row recursion
+    (``rows_kernel``, which keeps its slots in registers: 0). What
+    ``s_tile`` caps, the (block_n, B * s_tile) K_cs block and the gathered
+    (B * s_tile, D) core-set operand, lives in device memory, which no
+    shared-memory budget sees."""
+    return {"gram_tiles": GRAM_SMEM, "row_recursion": 0}
+
+
+def derive_hbm_b_tile(b: int, byte_model_at, *, vmem_budget: int):
+    """Pick a ring tile for an HBM-resident bank when the caller gave none.
+
+    ``byte_model_at(b_tile)`` returns the hbm breakdown for a candidate
+    tile; this returns None if the default (one tile holding the bank) fits
+    ``vmem_budget``, else the largest power-of-two tile (512 down to 8)
+    under it, else 8 (and the preflight raises). A caller's ``b_tile`` is
+    never overridden. On the card a tile only pads the bank (the ring's
+    unit is a lane group of 8 models), so this nearly always keeps None.
+    """
+    if sum(byte_model_at(None).values()) <= vmem_budget:
+        return None
+    for cand in (512, 256, 128, 64, 32, 16, 8):
+        if cand < b and sum(byte_model_at(cand).values()) <= vmem_budget:
+            return cand
+    return 8
+
+
+def resolve_bank_resident(
+    bank_resident: str,
+    byte_model,
+    *,
+    vmem_budget: int,
+    what: str,
+    shapes: str,
+) -> tuple[str, dict]:
+    """Resolve the residency policy against the byte model.
+
+    ``byte_model(residency)`` returns the breakdown for one residency.
+    "auto" picks "vmem" when its bytes fit ``vmem_budget`` and "hbm"
+    otherwise; a forced residency beyond the budget, and a configuration no
+    residency fits, raise a ValueError carrying the shapes, the breakdown
+    and the budget, before any launch. Returns ``(residency, breakdown)``.
+    """
+    _check_resident(bank_resident)
+    if bank_resident == "auto":
+        by = byte_model("vmem")
+        if sum(by.values()) <= vmem_budget:
+            return "vmem", by
+        bank_resident = "hbm"
+    by = byte_model(bank_resident)
+    total = sum(by.values())
+    if total > vmem_budget:
+        hint = (
+            "shrink the tiles per CTA (the bank), D (owned ring slots hold "
+            "whole rows) or the lookahead, or raise the budget"
+            if bank_resident == "hbm"
+            else 'use bank_resident="hbm" (or "auto"), or shrink the bank'
+        )
+        raise ValueError(
+            f"{what} with {shapes} needs {total} bytes of shared memory per "
+            f"CTA under bank_resident={bank_resident!r} (breakdown: {by}), "
+            f"exceeding the budget of {vmem_budget} bytes — {hint}. The "
+            "budget follows vmem_budget_bytes(): pass vmem_budget_bytes= or "
+            "set REPRO_VMEM_BUDGET_BYTES."
+        )
+    return bank_resident, by
 
 
 def bank_tiling(b: int, b_tile: int | None):
@@ -154,10 +337,12 @@ def streamsvm_fit_many(
     b_tile: int | None = None,
     stream_dtype=None,
     bank_resident: str = "auto",
+    vmem_budget_bytes: int | None = None,
     device=None,
 ) -> Ball:
     """One-pass Algorithm 1 or 2 for a bank of B models through kernel B1
-    or B3: one read of the stream.
+    or B3 (or B6, the ring, when the residency resolves to "hbm"): one read
+    of the stream.
 
     X: (N, D) shared stream; Y: (B, N) per-model label signs in {-1, +1}
     (classes x C-grid flatten onto B). A sign of 0 makes a row inert for
@@ -171,7 +356,10 @@ def streamsvm_fit_many(
     ints; default 1), flushed farthest-first when full and after the last
     row. ``b_tile`` pads the bank to whole tiles of a multiple of 8 models;
     the result does not depend on it. ``stream_dtype="bf16"`` rounds the
-    streamed X/Y only. Returns a stacked Ball on the device of the inputs.
+    streamed X/Y only. ``bank_resident``: "vmem", "hbm" or "auto", resolved
+    against ``vmem_budget_bytes`` (see the module docstring); the two
+    layouts give the same bits. Returns a stacked Ball on the device of the
+    inputs.
     """
     if variant not in ("exact", "paper-listing", "lookahead", "lookahead-paper"):
         raise ValueError(
@@ -184,7 +372,6 @@ def streamsvm_fit_many(
             f"lookahead={lookahead!r} requires variant='lookahead' or "
             f"'lookahead-paper' (got variant={variant!r})"
         )
-    _check_resident(bank_resident)
     dev = pick_device(device, X, Y, None if balls is None else balls.w)
     X, Y = as_tensor(X, dev), as_tensor(Y, dev)
     b, n_y = Y.shape
@@ -208,6 +395,34 @@ def streamsvm_fit_many(
                 f"lookahead must be an int >= 1 or a length-B tuple of them: "
                 f"got {lookahead} for B={b}"
             )
+    l_max = max(lookahead) if is_lookahead else None
+    budget = _vmem_budget(vmem_budget_bytes)
+    engine_bytes_at = lambda bt_, res: engine_vmem_bytes(
+        b, d, block_n=block_n, b_tile=bt_, stream_dtype=sdt, lookahead_max=l_max,
+        bank_resident=res, smem_budget=budget,
+    )
+    if b_tile is None and bank_resident in ("auto", "hbm"):
+        vmem_fits = sum(engine_bytes_at(None, "vmem").values()) <= budget
+        if bank_resident == "hbm" or not vmem_fits:
+            b_tile = derive_hbm_b_tile(
+                b, lambda bt_: engine_bytes_at(bt_, "hbm"), vmem_budget=budget
+            )
+    # The preflight: resolve "auto" and refuse, before any launch, a layout
+    # beyond the budget.
+    residency, _ = resolve_bank_resident(
+        bank_resident,
+        lambda res: engine_bytes_at(b_tile, res),
+        vmem_budget=budget,
+        what="streamsvm_fit_many",
+        shapes=(
+            f"B={b}, D={d}, block_n={block_n}, b_tile={b_tile}, "
+            f"lookahead_max={l_max}, stream_dtype={stream_dtype!r}"
+        ),
+    )
+    scan = (
+        functools.partial(streamsvm_scan_many_ring, smem_budget=budget)
+        if residency == "hbm" else streamsvm_scan_many
+    )
     if balls is None:
         w0 = Y[:, 0:1] * X[0][None, :]
         r0 = torch.zeros((b,), dtype=torch.float32, device=dev)
@@ -233,7 +448,7 @@ def streamsvm_fit_many(
     Yp = _pad_to(_pad_to(Y.float(), block_n, 1), bp, 0).to(sdt)
     W0p = _pad_to(w0.float(), bp, 0)
     pad1 = lambda v, dt=torch.float32: _pad_to(_vec(v, b, dev, dt), bp, 0)
-    W, r, xi2, m = streamsvm_scan_many(
+    W, r, xi2, m = scan(
         Xp,
         Yp,
         W0p,
@@ -248,7 +463,7 @@ def streamsvm_fit_many(
             torch.tensor(lookahead + (1,) * (bp - b), dtype=torch.int32, device=dev)
             if is_lookahead else None
         ),
-        lookahead_max=max(lookahead) if is_lookahead else None,
+        lookahead_max=l_max,
     )
     return Ball(w=W[:b], r=r[:b], xi2=xi2[:b], m=m[:b])
 
@@ -264,9 +479,11 @@ def predict_bank(
     b_tile: int | None = None,
     stream_dtype=None,
     bank_resident: str = "auto",
+    vmem_budget_bytes: int | None = None,
     device=None,
 ):
-    """Score (Q, D) queries against a (B, D) bank through kernel B2.
+    """Score (Q, D) queries against a (B, D) bank through kernel B2 (or B6,
+    the ring, when the residency resolves to "hbm").
 
     epilogue:
       "scores"          -> (Q, B) f32 margins, no bias
@@ -278,8 +495,9 @@ def predict_bank(
                            scores and ids per query, ties to the lowest id
     q_block: query rows per tile; b_tile: bank lanes per tile (for "ovr",
     whole padded groups); stream_dtype: None/"f32" or "bf16" queries.
+    bank_resident / vmem_budget_bytes: as in ``streamsvm_fit_many``; the
+    two layouts give the same bits.
     """
-    _check_resident(bank_resident)
     dev = pick_device(device, X, W)
     X, W = as_tensor(X, dev), as_tensor(W, dev, torch.float32)
     q, d = X.shape
@@ -306,7 +524,30 @@ def predict_bank(
         )
     if epilogue == "topk" and (k is None or not (1 <= k <= b)):
         raise ValueError(f"epilogue='topk' needs 1 <= k <= B: got k={k}, B={b}")
-    Xp = _pad_to(X.float(), q_block, 0).to(_resolve_stream_dtype(stream_dtype))
+    sdt = _resolve_stream_dtype(stream_dtype)
+    budget = _vmem_budget(vmem_budget_bytes)
+    predict_bytes_at = lambda bt_, res: predict_vmem_bytes(
+        b, d, q_block=q_block, b_tile=bt_, stream_dtype=sdt, epilogue=epilogue,
+        n_classes=n_classes, k=k, bank_resident=res,
+    )
+    if b_tile is None and bank_resident in ("auto", "hbm"):
+        vmem_fits = sum(predict_bytes_at(None, "vmem").values()) <= budget
+        if bank_resident == "hbm" or not vmem_fits:
+            b_tile = derive_hbm_b_tile(
+                b, lambda bt_: predict_bytes_at(bt_, "hbm"), vmem_budget=budget
+            )
+    residency, _ = resolve_bank_resident(
+        bank_resident,
+        lambda res: predict_bytes_at(b_tile, res),
+        vmem_budget=budget,
+        what="predict_bank",
+        shapes=(
+            f"Q={q}, B={b}, D={d}, q_block={q_block}, b_tile={b_tile}, "
+            f"epilogue={epilogue!r}, stream_dtype={stream_dtype!r}"
+        ),
+    )
+    predict = predict_bank_ring if residency == "hbm" else predict_bank_fused
+    Xp = _pad_to(X.float(), q_block, 0).to(sdt)
 
     if epilogue == "ovr":
         g = b // n_classes
@@ -315,7 +556,7 @@ def predict_bank(
         lane = torch.arange(gp * nc_pad, device=dev)
         live = (lane % nc_pad < n_classes) & (lane // nc_pad < g)
         bias = torch.where(live, 0.0, NEG_MASK).to(torch.float32)
-        cls, margin = predict_bank_fused(
+        cls, margin = predict(
             Xp, Wp.reshape(gp * nc_pad, d), bias, epilogue="ovr", q_block=q_block,
             b_tile=g_tile * nc_pad, nc_pad=nc_pad,
         )
@@ -326,11 +567,9 @@ def predict_bank(
     Wp = _pad_to(W, bp, 0)
     bias = torch.where(torch.arange(bp, device=dev) < b, 0.0, NEG_MASK).to(torch.float32)
     if epilogue == "topk":
-        vals, ids = predict_bank_fused(
-            Xp, Wp, bias, epilogue="topk", q_block=q_block, b_tile=bt, k=k
-        )
+        vals, ids = predict(Xp, Wp, bias, epilogue="topk", q_block=q_block, b_tile=bt, k=k)
         return vals[:q], ids[:q]
-    scores = predict_bank_fused(Xp, Wp, bias, epilogue="scores", q_block=q_block, b_tile=bt)
+    scores = predict(Xp, Wp, bias, epilogue="scores", q_block=q_block, b_tile=bt)
     return scores[:q, :b]
 
 

@@ -5,9 +5,14 @@ The port of the TPU kernel ``repro/kernels/predict.py::_kernel``
 for Hopper, in ``csrc/predict.cu``; its header says how it is laid out and
 what bounds it.
 
-``predict_bank_fused`` dispatches on the device of ``Q``: a CPU tensor runs
-``predict_bank_plain``, a CUDA tensor launches the kernel, or raises. Both
-take what ``ops.predict_bank`` prepares: Q padded to a whole number of
+B6 serve, ``predict_bank_ring`` (``bank_resident="hbm"``), is the port of
+the same ``_kernel`` with ``hbm=True``: one CTA per query tile walks the
+whole bank in order through a 2-slot shared-memory ring of W chunks. It
+equals B2 bit for bit.
+
+``predict_bank_fused`` and ``predict_bank_ring`` dispatch on the device of
+``Q``: a CPU tensor runs the plain version, a CUDA tensor launches the
+kernel, or raises. Both take what ``ops.predict_bank`` prepares: Q padded to a whole number of
 ``q_block`` rows, the bank padded to whole ``b_tile`` tiles (for "ovr", to
 whole groups of ``nc_pad`` class lanes) and a (B,) additive lane bias that
 is 0 for live lanes and ``NEG_MASK`` for padding.
@@ -27,11 +32,28 @@ NEG_MASK = -3.0e38
 _EPILOGUES = {"scores": 0, "ovr": 1, "topk": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+#: Shared memory per CTA of B2's ``predict_kernel``, by term, as declared:
+#: the query chunk (32 x 129 f32), the bank chunk (32 x 129) and the score
+#: block (32 x 33); the topk list adds 32 k (value, id) pairs.
+PREDICT_SMEM = {"query_tile": 16_512, "bank": 16_512, "scores": 4_224}
+#: The same for B6 serve's ``predict_ring_kernel``: the query chunk (32 x 65)
+#: and the score block static, the two W slots (2 x 32 x 65) dynamic.
+PREDICT_RING_SMEM = {"query_tile": 8_320, "bank": 16_640, "scores": 4_224}
+
+
+def topk_state_bytes(k: int) -> int:
+    """Dynamic shared memory of the topk epilogue: 32 (value, id) lists of k."""
+    return 32 * k * 8
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("predict")
     lib.predict_bank.argtypes = [_P, _P, _P] + [_I] * 7 + [_P, _P, _I, _P]
     lib.predict_bank.restype = ctypes.c_int
+    lib.predict_bank_ring.argtypes = [_P, _P, _P] + [_I] * 6 + [_P, _P, _I, _P]
+    lib.predict_bank_ring.restype = ctypes.c_int
+    lib.predict_bank_ring_dyn_bytes.argtypes = [_I, _I]
+    lib.predict_bank_ring_dyn_bytes.restype = ctypes.c_long
     return lib
 
 
@@ -144,3 +166,97 @@ def predict_bank_fused(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=Non
 
 
 predict_bank_fused.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+# ---------------------------------------------------------------------------
+# B6 serve: the bank walked through a ring (bank_resident="hbm")
+# ---------------------------------------------------------------------------
+
+
+def predict_bank_ring_plain(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=None,
+                            nc_pad=None, k=None):
+    """Plain PyTorch version of B6 serve: B2's plain margins (the one f32
+    product), met in the ring's order. Each query tile walks the bank tiles
+    in lane order: "ovr" takes each tile's whole groups, "topk" merges each
+    tile into a running list of k (a stable sort: ties stay with the lower
+    lane). Same arguments and results as ``predict_bank_plain``, and equal
+    to it bit for bit."""
+    b_tile = W.shape[0] if b_tile is None else b_tile
+    _check_args(Q, W, bias, epilogue, q_block, b_tile, nc_pad, k)
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 margins
+    s = Q.float() @ W.float().T
+    if epilogue == "scores":
+        return s
+    s = s + bias.float()[None, :]
+    parts_a, parts_b = [], []
+    for q0 in range(0, s.shape[0], q_block):
+        sq = s[q0 : q0 + q_block]
+        if epilogue == "ovr":
+            cls, best = [], []
+            for b0 in range(0, W.shape[0], b_tile):
+                grouped = sq[:, b0 : b0 + b_tile].reshape(sq.shape[0], -1, nc_pad)
+                cls.append(torch.argmax(grouped, dim=-1).to(torch.int32))
+                best.append(grouped.amax(dim=-1))
+            parts_a.append(torch.cat(cls, 1))
+            parts_b.append(torch.cat(best, 1))
+            continue
+        vals = sq[:, :0]
+        ids = torch.zeros((sq.shape[0], 0), dtype=torch.int64, device=s.device)
+        for b0 in range(0, W.shape[0], b_tile):
+            lanes = torch.arange(b0, min(b0 + b_tile, W.shape[0]), device=s.device)
+            vals = torch.cat([vals, sq[:, b0 : b0 + b_tile]], 1)
+            ids = torch.cat([ids, lanes.expand(sq.shape[0], -1)], 1)
+            vals, order = torch.sort(vals, dim=1, descending=True, stable=True)
+            vals, ids = vals[:, :k], torch.gather(ids, 1, order)[:, :k]
+        parts_a.append(vals.contiguous())
+        parts_b.append(ids.to(torch.int32))
+    return torch.cat(parts_a), torch.cat(parts_b)
+
+
+def predict_bank_ring(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=None,
+                      nc_pad=None, k=None):
+    """B6 serve on the device of ``Q``: the ring kernel for a CUDA tensor,
+    the plain version for a CPU tensor. Same arguments and results as
+    ``predict_bank_fused``; the kernel walks every lane, so ``b_tile`` only
+    pads the bank."""
+    if Q.device.type == "cpu":
+        return predict_bank_ring_plain(
+            Q, W, bias, epilogue=epilogue, q_block=q_block, b_tile=b_tile, nc_pad=nc_pad, k=k,
+        )
+    if Q.device.type != "cuda":
+        raise ValueError(f"predict_bank_ring runs on cuda or cpu, not {Q.device}")
+    b_tile = W.shape[0] if b_tile is None else b_tile
+    _check_args(Q, W, bias, epilogue, q_block, b_tile, nc_pad, k)
+    if Q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"Q must be float32 or bfloat16: got {Q.dtype}")
+    lib = _lib()
+    if epilogue == "topk" and k > lib.predict_bank_max_k():
+        raise ValueError(
+            f"the topk kernel keeps k <= {lib.predict_bank_max_k()} entries per "
+            f"query in shared memory: got k={k}"
+        )
+    dev = Q.device
+    qn, d = Q.shape
+    bp = W.shape[0]
+    Q = Q.contiguous()
+    W = W.to(dev, torch.float32).contiguous()
+    bias = bias.to(dev, torch.float32).contiguous()
+    cols = {"scores": bp, "ovr": bp // nc_pad if nc_pad else 0, "topk": k}[epilogue]
+    out_f = torch.empty((qn, cols), device=dev, dtype=torch.float32)
+    out_i = torch.empty((qn, cols) if epilogue != "scores" else (1,), device=dev,
+                        dtype=torch.int32)
+    err = lib.predict_bank_ring(
+        Q.data_ptr(), W.data_ptr(), bias.data_ptr(), qn, bp, d, _EPILOGUES[epilogue],
+        int(nc_pad or 0), int(k or 0), out_f.data_ptr(), out_i.data_ptr(),
+        int(Q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "predict_bank_ring")
+    predict_bank_ring.launches += 1
+    if epilogue == "scores":
+        return out_f
+    if epilogue == "ovr":
+        return out_i, out_f
+    return out_f, out_i
+
+
+predict_bank_ring.launches = 0  # kernel launches, read by chip_smoke.py

@@ -10,10 +10,15 @@ B3  ``streamsvm_scan_lookahead_many`` (``streamsvm_scan_many`` with
     ``_block_update`` with ``_bank_flush``.
 B4  ``streamsvm_scan``: Algorithm 1 for one model on label-signed rows, the
     port of ``_kernel`` / ``streamsvm_scan_pallas``.
+B6  ``streamsvm_scan_many_ring`` (and ``streamsvm_scan_lookahead_many_ring``):
+    B1 and B3 for ``bank_resident="hbm"``, the port of ``_kernel_many_hbm``
+    (``_call_many_hbm``): persistent CTAs that stage each stream chunk once
+    for all their bank tiles and cycle the tiles' w through a 2-slot
+    shared-memory ring. Equal to B1 / B3 bit for bit.
 
-The kernels are CUDA C++ for Hopper, B1 and B3 in ``csrc/streamsvm_scan.cu``,
-B4 in ``csrc/streamsvm_single.cu``; their headers say how they are laid out
-and what bounds them. Each wrapper dispatches on the device of ``X``: a CPU
+The kernels are CUDA C++ for Hopper, B1, B3 and B6 in
+``csrc/streamsvm_scan.cu``, B4 in ``csrc/streamsvm_single.cu``; their headers
+say how they are laid out and what bounds them. Each wrapper dispatches on the device of ``X``: a CPU
 tensor runs its ``*_plain`` twin, the TPU kernel's blocked algorithm in
 plain PyTorch; a CUDA tensor launches the kernel, or raises. They take the
 padded stream ``ops`` prepares: N a multiple of ``block_n``, B a multiple of
@@ -33,6 +38,24 @@ from . import _build
 #: hold the same number of models.
 LANE_GROUP = 8
 
+#: Rows per internal block of the kernels (``BN`` in csrc/streamsvm_scan.cu).
+BLOCK_ROWS = 32
+#: Columns per chunk of B6's ring (``RDC`` in csrc/streamsvm_scan.cu).
+RING_DC = 64
+#: Shared memory one CTA may use on an H100: 227 KB, the per-block opt-in
+#: limit (cudaDevAttrMaxSharedMemoryPerBlockOptin).
+SMEM_PER_BLOCK = 232_448
+#: Streaming multiprocessors of an H100 SXM.
+H100_SMS = 132
+
+#: Shared memory per CTA of B1's ``scan_kernel`` and B3's
+#: ``lookahead_kernel``, by term, as declared: the staged stream chunk
+#: (32 x 129 f32), the bank chunk (8 x 129), the block Gram (32 x 33) and
+#: per-model row state (B1's alpha*y, B3's flush masks: 8 x 32 words). It
+#: does not grow with B: the bank stays in device memory.
+SCAN_SMEM = {"stream_tile": 16_512, "bank_tile": 4_128, "block_gram": 4_224,
+             "row_state": 1_024}
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -42,6 +65,10 @@ def _lib() -> ctypes.CDLL:
     lib.streamsvm_scan_many.restype = ctypes.c_int
     lib.streamsvm_scan_lookahead.argtypes = [_P] * 11 + [_I] * 6 + [_P]
     lib.streamsvm_scan_lookahead.restype = ctypes.c_int
+    lib.streamsvm_scan_ring.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    lib.streamsvm_scan_ring.restype = ctypes.c_int
+    lib.streamsvm_scan_ring_dyn_bytes.argtypes = [_I] * 4
+    lib.streamsvm_scan_ring_dyn_bytes.restype = ctypes.c_long
     return lib
 
 
@@ -100,30 +127,40 @@ def streamsvm_scan_many_plain(X, Y, W0, r0, xi20, c_inv, m0, gain, *, n_valid, b
     for i0 in range(0, n, block_n):
         x = X[i0 : i0 + block_n].float()  # bf16 tiles upcast here
         ys = Y[:, i0 : i0 + block_n].float()
-        gram = x @ x.T
-        g = ys * _grouped(w, x.T)
-        alpha = torch.zeros_like(g)
-        decay = torch.ones_like(r)
-        # Rows at or past n_valid leave every quantity exactly as it is
-        # (s = 0), so the loop stops at the last valid row.
-        for jr in range(min(block_n, n - i0)):
-            gj = g[:, jr]
-            gjj = gram[jr, jr]
-            d = torch.sqrt(torch.clamp(wsq - 2.0 * gj + gjj + xi2 + c_inv, min=1e-12))
-            yj = ys[:, jr]
-            upd = (d >= r) & (yj != 0.0)
-            s = torch.where(upd, 0.5 * (1.0 - r / d), 0.0)
-            one_s = 1.0 - s
-            g = one_s[:, None] * g + (s * yj)[:, None] * (ys * gram[jr][None, :])
-            alpha = one_s[:, None] * alpha
-            alpha[:, jr] = s
-            decay = decay * one_s
-            wsq = one_s**2 * wsq + 2.0 * s * one_s * gj + s**2 * gjj
-            r = torch.where(upd, r + 0.5 * (d - r), r)
-            xi2 = xi2 * one_s**2 + s**2 * gain
-            m = m + upd.to(torch.int32)
-        w = decay[:, None] * w + _grouped(alpha * ys, x)
+        w, r, xi2, m, wsq = _scan_block_plain(
+            x, ys, x @ x.T, w, r, xi2, c_inv, gain, m, wsq, min(block_n, n - i0)
+        )
     return w, r, xi2, m
+
+
+def _scan_block_plain(x, ys, gram, w, r, xi2, c_inv, gain, m, wsq, rows):
+    """One block of B1's plain version for the models of ``w`` (a whole
+    number of lane groups): ``g = ys * (W X^T)``, the row-by-row update of
+    every model at once over the first ``rows`` rows, and the deferred
+    ``W <- decay * W + (alpha * ys) X``. Returns ``(w, r, xi2, m, wsq)``."""
+    g = ys * _grouped(w, x.T)
+    alpha = torch.zeros_like(g)
+    decay = torch.ones_like(r)
+    # Rows at or past n_valid leave every quantity exactly as it is (s = 0),
+    # so the loop stops at the last valid row.
+    for jr in range(rows):
+        gj = g[:, jr]
+        gjj = gram[jr, jr]
+        d = torch.sqrt(torch.clamp(wsq - 2.0 * gj + gjj + xi2 + c_inv, min=1e-12))
+        yj = ys[:, jr]
+        upd = (d >= r) & (yj != 0.0)
+        s = torch.where(upd, 0.5 * (1.0 - r / d), 0.0)
+        one_s = 1.0 - s
+        g = one_s[:, None] * g + (s * yj)[:, None] * (ys * gram[jr][None, :])
+        alpha = one_s[:, None] * alpha
+        alpha[:, jr] = s
+        decay = decay * one_s
+        wsq = one_s**2 * wsq + 2.0 * s * one_s * gj + s**2 * gjj
+        r = torch.where(upd, r + 0.5 * (d - r), r)
+        xi2 = xi2 * one_s**2 + s**2 * gain
+        m = m + upd.to(torch.int32)
+    w = decay[:, None] * w + _grouped(alpha * ys, x)
+    return w, r, xi2, m, wsq
 
 
 def streamsvm_scan_many(
@@ -262,27 +299,36 @@ def streamsvm_scan_lookahead_many_plain(
     for i0 in range(0, n, block_n):
         x = X[i0 : i0 + block_n].float()  # bf16 tiles upcast here
         ys = Y[:, i0 : i0 + block_n].float()
-        gram = x @ x.T
-        g = ys * _grouped(w, x.T)
-        for jr in range(min(block_n, n - i0)):
-            gj = g[:, jr]
-            d = torch.sqrt(torch.clamp(wsq - 2.0 * gj + gram[jr, jr] + xi2 + c_inv, min=1e-12))
-            yj = ys[:, jr]
-            violate = (d >= r) & (yj != 0.0)
-            if not bool(violate.any()):
-                continue  # nothing is pushed, so no window fills
-            hit = violate.nonzero()[:, 0]
-            buf[hit, cnt[hit].long()] = yj[hit, None] * x[jr][None, :]
-            cnt = cnt + violate.to(torch.int32)
-            m = m + violate.to(torch.int32)  # counted at push
-            full = cnt >= L
-            if bool(full.any()):
-                w, r, xi2, g = _bank_flush_plain(w, r, xi2, g, cnt, buf, full, x, ys, c_inv, gain)
-                cnt = torch.where(full, 0, cnt)
-                wsq = (w * w).sum(1)  # w only changes in a flush
+        w, r, xi2, m, wsq, cnt, g = _lookahead_block_plain(
+            x, ys, x @ x.T, w, r, xi2, c_inv, gain, m, wsq, L, buf, cnt, min(block_n, n - i0)
+        )
     if x is not None and bool((cnt > 0).any()):  # the partial windows
         w, r, xi2, _ = _bank_flush_plain(w, r, xi2, g, cnt, buf, cnt > 0, x, ys, c_inv, gain)
     return w, r, xi2, m
+
+
+def _lookahead_block_plain(x, ys, gram, w, r, xi2, c_inv, gain, m, wsq, L, buf, cnt, rows):
+    """One block of B3's plain version for the models of ``w`` (a whole
+    number of lane groups) and their windows ``buf`` (written in place).
+    Returns ``(w, r, xi2, m, wsq, cnt, g)``."""
+    g = ys * _grouped(w, x.T)
+    for jr in range(rows):
+        gj = g[:, jr]
+        d = torch.sqrt(torch.clamp(wsq - 2.0 * gj + gram[jr, jr] + xi2 + c_inv, min=1e-12))
+        yj = ys[:, jr]
+        violate = (d >= r) & (yj != 0.0)
+        if not bool(violate.any()):
+            continue  # nothing is pushed, so no window fills
+        hit = violate.nonzero()[:, 0]
+        buf[hit, cnt[hit].long()] = yj[hit, None] * x[jr][None, :]
+        cnt = cnt + violate.to(torch.int32)
+        m = m + violate.to(torch.int32)  # counted at push
+        full = cnt >= L
+        if bool(full.any()):
+            w, r, xi2, g = _bank_flush_plain(w, r, xi2, g, cnt, buf, full, x, ys, c_inv, gain)
+            cnt = torch.where(full, 0, cnt)
+            wsq = (w * w).sum(1)  # w only changes in a flush
+    return w, r, xi2, m, wsq, cnt, g
 
 
 def streamsvm_scan_lookahead_many(
@@ -341,6 +387,265 @@ def streamsvm_scan_lookahead_many(
 
 
 streamsvm_scan_lookahead_many.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+# ---------------------------------------------------------------------------
+# B6 train: B1 and B3 through the ring (bank_resident="hbm")
+# ---------------------------------------------------------------------------
+
+
+def sm_count() -> int:
+    """Streaming multiprocessors of the current CUDA card; an H100's 132
+    where there is none (the byte models then describe the card the port
+    targets)."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return H100_SMS
+
+
+def ring_plan(
+    bp: int, d: int, *, lookahead: bool, n_ctas: int | None = None,
+    smem_budget: int | None = None,
+) -> dict:
+    """B6's launch layout for ``bp`` lanes of D features: ``n_ctas``
+    persistent CTAs (default: one per SM, at most one per tile of
+    LANE_GROUP models), ``jmax`` tiles on the busiest one, whether each tile
+    ``owned`` a whole-row slot (at most 2 tiles per CTA, and two whole tiles
+    fit ``smem_budget``, capped at the card's SMEM_PER_BLOCK), and ``smem``,
+    the shared memory per CTA by term: static (stream_tile, block_gram) and
+    dynamic (the rest). Both layouts give the same bits."""
+    tiles = bp // LANE_GROUP
+    n_ctas = min(tiles, sm_count()) if n_ctas is None else int(n_ctas)
+    if not 1 <= n_ctas <= tiles:
+        raise ValueError(f"n_ctas must lie in [1, {tiles}] for {tiles} tiles: got {n_ctas}")
+    jmax = -(-tiles // n_ctas)
+    dp = -(-d // RING_DC) * RING_DC
+
+    def terms(owned):
+        return {
+            "stream_tile": BLOCK_ROWS * (RING_DC + 1) * 4,
+            "block_gram": BLOCK_ROWS * (BLOCK_ROWS + 1) * 4,
+            "bank": 2 * LANE_GROUP * (dp if owned else RING_DC) * 4,  # the 2-slot ring
+            "h_alpha": jmax * LANE_GROUP * BLOCK_ROWS * 4,
+            "state": jmax * LANE_GROUP * 6 * 4,  # r, xi2, |w|^2, decay, m, cnt
+            "window_masks": LANE_GROUP * 32 * 4 if lookahead else 0,
+        }
+
+    limit = SMEM_PER_BLOCK if smem_budget is None else min(int(smem_budget), SMEM_PER_BLOCK)
+    owned = jmax <= 2 and sum(terms(True).values()) <= limit
+    return dict(n_ctas=n_ctas, jmax=jmax, owned=owned, smem=terms(owned))
+
+
+def _ring_tiles(bp, ring_tile, n_ctas):
+    """The plain ring's tiles: ``ring_tile`` models each (a multiple of
+    LANE_GROUP dividing B), dealt to ``n_ctas`` CTAs (default 1) as the
+    kernel deals them: tile c + j n_ctas to CTA c. Returns a slice list per
+    CTA."""
+    if ring_tile % LANE_GROUP or bp % ring_tile:
+        raise ValueError(
+            f"ring_tile={ring_tile} must be a multiple of {LANE_GROUP} dividing B={bp}"
+        )
+    tiles = bp // ring_tile
+    n_ctas = 1 if n_ctas is None else int(n_ctas)
+    if not 1 <= n_ctas <= tiles:
+        raise ValueError(f"n_ctas must lie in [1, {tiles}] for {tiles} tiles: got {n_ctas}")
+    return [
+        [slice(t * ring_tile, (t + 1) * ring_tile) for t in range(c, tiles, n_ctas)]
+        for c in range(n_ctas)
+    ]
+
+
+def streamsvm_scan_many_ring_plain(
+    X, Y, W0, r0, xi20, c_inv, m0, gain, *, n_valid, block_n=256, ring_tile=LANE_GROUP,
+    n_ctas=None,
+):
+    """Plain PyTorch version of B6 train, Algorithm 1: B1's plain version in
+    the ring's data-major order. Each CTA takes its tiles (``_ring_tiles``)
+    through the stream, blocks outer and tiles inner, each tile's state
+    carried between its visits. Equal to ``streamsvm_scan_many_plain`` bit
+    for bit whatever ``ring_tile`` and ``n_ctas``. Returns ``(W, r, xi2, m)``."""
+    _check_args(X, Y, W0, r0, xi20, c_inv, m0, gain, block_n)
+    ctas = _ring_tiles(W0.shape[0], ring_tile, n_ctas)
+    torch.backends.cuda.matmul.allow_tf32 = False  # TF32 flips d >= r decisions
+    n = min(int(n_valid), X.shape[0])
+    w = W0.float().clone()
+    r, xi2 = r0.float().clone(), xi20.float().clone()
+    c_inv, gain = c_inv.float(), gain.float()
+    m = m0.to(torch.int32).clone()
+    wsq = (w * w).sum(1)
+    for own in ctas:
+        for i0 in range(0, n, block_n):
+            x = X[i0 : i0 + block_n].float()  # bf16 tiles upcast here
+            gram = x @ x.T
+            for sl in own:
+                w[sl], r[sl], xi2[sl], m[sl], wsq[sl] = _scan_block_plain(
+                    x, Y[sl, i0 : i0 + block_n].float(), gram, w[sl], r[sl], xi2[sl],
+                    c_inv[sl], gain[sl], m[sl], wsq[sl], min(block_n, n - i0),
+                )
+    return w, r, xi2, m
+
+
+def streamsvm_scan_lookahead_many_ring_plain(
+    X, Y, W0, r0, xi20, c_inv, m0, gain, *, lookahead, lookahead_max, n_valid, block_n=256,
+    ring_tile=LANE_GROUP, n_ctas=None,
+):
+    """Plain PyTorch version of B6 train, Algorithm 2: B3's plain version in
+    the ring's data-major order, each tile's windows and counts carried
+    between its visits and its partial windows flushed after the last row.
+    Equal to ``streamsvm_scan_lookahead_many_plain`` bit for bit whatever
+    ``ring_tile`` and ``n_ctas``. Returns ``(W, r, xi2, m)``."""
+    _check_args(X, Y, W0, r0, xi20, c_inv, m0, gain, block_n)
+    bp, d = W0.shape
+    _check_lookahead(lookahead, lookahead_max, bp)
+    ctas = _ring_tiles(bp, ring_tile, n_ctas)
+    torch.backends.cuda.matmul.allow_tf32 = False  # TF32 flips d >= r decisions
+    n = min(int(n_valid), X.shape[0])
+    w = W0.float().clone()
+    r, xi2 = r0.float().clone(), xi20.float().clone()
+    c_inv, gain = c_inv.float(), gain.float()
+    m = m0.to(torch.int32).clone()
+    L = lookahead.to(torch.int32)
+    wsq = (w * w).sum(1)
+    buf = torch.zeros((bp, lookahead_max, d), dtype=torch.float32, device=w.device)
+    cnt = torch.zeros((bp,), dtype=torch.int32, device=w.device)
+    for own in ctas:
+        x = None
+        last = {}  # per tile: the last block's (ys, g) for the final flush
+        for i0 in range(0, n, block_n):
+            x = X[i0 : i0 + block_n].float()
+            gram = x @ x.T
+            for k, sl in enumerate(own):
+                ys = Y[sl, i0 : i0 + block_n].float()
+                w[sl], r[sl], xi2[sl], m[sl], wsq[sl], cnt[sl], g = _lookahead_block_plain(
+                    x, ys, gram, w[sl], r[sl], xi2[sl], c_inv[sl], gain[sl], m[sl], wsq[sl],
+                    L[sl], buf[sl], cnt[sl], min(block_n, n - i0),
+                )
+                last[k] = (ys, g)
+        for k, sl in enumerate(own):
+            if x is not None and bool((cnt[sl] > 0).any()):  # the partial windows
+                ys, g = last[k]
+                w[sl], r[sl], xi2[sl], _ = _bank_flush_plain(
+                    w[sl], r[sl], xi2[sl], g, cnt[sl], buf[sl], cnt[sl] > 0, x, ys,
+                    c_inv[sl], gain[sl],
+                )
+    return w, r, xi2, m
+
+
+def _ring_state(W0, r0, xi20, c_inv, m0, gain, dev):
+    return (
+        W0.to(dev, torch.float32).contiguous().clone(),
+        r0.to(dev, torch.float32).contiguous().clone(),
+        xi20.to(dev, torch.float32).contiguous().clone(),
+        m0.to(dev, torch.int32).contiguous().clone(),
+        c_inv.to(dev, torch.float32).contiguous(),
+        gain.to(dev, torch.float32).contiguous(),
+    )
+
+
+def streamsvm_scan_many_ring(
+    X, Y, W0, r0, xi20, c_inv, m0, gain, *, n_valid, block_n=256, lookahead=None,
+    lookahead_max=None, n_ctas=None, smem_budget=None,
+):
+    """B6 train on the device of ``X``: the ring kernel for a CUDA tensor,
+    the plain version for a CPU tensor. Arguments and result as
+    ``streamsvm_scan_many`` (with ``lookahead`` it runs Algorithm 2,
+    ``streamsvm_scan_lookahead_many_ring``). ``n_ctas``: the persistent
+    CTAs (default one per SM, see ``ring_plan``), which sets the tiles each
+    cycles through its ring; ``smem_budget``: the shared memory per CTA the
+    layout may take (``ring_plan``). Neither changes a bit of the result."""
+    if lookahead is not None:
+        return streamsvm_scan_lookahead_many_ring(
+            X, Y, W0, r0, xi20, c_inv, m0, gain, lookahead=lookahead,
+            lookahead_max=lookahead_max, n_valid=n_valid, block_n=block_n, n_ctas=n_ctas,
+            smem_budget=smem_budget,
+        )
+    if X.device.type == "cpu":
+        return streamsvm_scan_many_ring_plain(
+            X, Y, W0, r0, xi20, c_inv, m0, gain, n_valid=n_valid, block_n=block_n,
+            n_ctas=n_ctas,
+        )
+    if X.device.type != "cuda":
+        raise ValueError(f"streamsvm_scan_many_ring runs on cuda or cpu, not {X.device}")
+    _check_args(X, Y, W0, r0, xi20, c_inv, m0, gain, block_n)
+    if X.dtype not in (torch.float32, torch.bfloat16) or Y.dtype != X.dtype:
+        raise ValueError(
+            f"X and Y must share a float32 or bfloat16 stream dtype: got {X.dtype}, {Y.dtype}"
+        )
+    dev = X.device
+    n, d = X.shape
+    bp = Y.shape[0]
+    plan = ring_plan(bp, d, lookahead=False, n_ctas=n_ctas, smem_budget=smem_budget)
+    X, Y = X.contiguous(), Y.contiguous()
+    W, r, xi2, m, c_inv, gain = _ring_state(W0, r0, xi20, c_inv, m0, gain, dev)
+    G = torch.empty(-(-n // BLOCK_ROWS) * BLOCK_ROWS * BLOCK_ROWS, device=dev,
+                    dtype=torch.float32)
+    err = _lib().streamsvm_scan_ring(
+        X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(), xi2.data_ptr(),
+        m.data_ptr(), c_inv.data_ptr(), gain.data_ptr(), None, None, n, int(n_valid), d, bp,
+        0, plan["n_ctas"], int(plan["owned"]), int(X.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "streamsvm_scan_ring")
+    streamsvm_scan_many_ring.launches += 1
+    return W, r, xi2, m
+
+
+streamsvm_scan_many_ring.launches = 0  # kernel launches, read by chip_smoke.py
+
+
+def streamsvm_scan_lookahead_many_ring(
+    X, Y, W0, r0, xi20, c_inv, m0, gain, *, lookahead, lookahead_max, n_valid, block_n=256,
+    n_ctas=None, smem_budget=None,
+):
+    """B6 train, Algorithm 2, on the device of ``X``: the ring kernel for a
+    CUDA tensor, the plain version for a CPU tensor. Arguments and result as
+    ``streamsvm_scan_lookahead_many``, plus ``n_ctas`` and ``smem_budget``
+    as in ``streamsvm_scan_many_ring``."""
+    if X.device.type == "cpu":
+        return streamsvm_scan_lookahead_many_ring_plain(
+            X, Y, W0, r0, xi20, c_inv, m0, gain, lookahead=lookahead,
+            lookahead_max=lookahead_max, n_valid=n_valid, block_n=block_n, n_ctas=n_ctas,
+        )
+    if X.device.type != "cuda":
+        raise ValueError(
+            f"streamsvm_scan_lookahead_many_ring runs on cuda or cpu, not {X.device}"
+        )
+    _check_args(X, Y, W0, r0, xi20, c_inv, m0, gain, block_n)
+    bp, d = W0.shape
+    _check_lookahead(lookahead, lookahead_max, bp)
+    if X.dtype not in (torch.float32, torch.bfloat16) or Y.dtype != X.dtype:
+        raise ValueError(
+            f"X and Y must share a float32 or bfloat16 stream dtype: got {X.dtype}, {Y.dtype}"
+        )
+    lib = _lib()
+    if lookahead_max > lib.streamsvm_scan_lookahead_max():
+        raise ValueError(
+            f"lookahead_max={lookahead_max}: B6 takes windows of at most "
+            f"{lib.streamsvm_scan_lookahead_max()} rows"
+        )
+    dev = X.device
+    L = lookahead.to(dev, torch.int32).contiguous()
+    if int(L.max()) > lookahead_max or int(L.min()) < 1:
+        raise ValueError(f"every lookahead must lie in [1, lookahead_max={lookahead_max}]")
+    n = X.shape[0]
+    plan = ring_plan(bp, d, lookahead=True, n_ctas=n_ctas, smem_budget=smem_budget)
+    X, Y = X.contiguous(), Y.contiguous()
+    W, r, xi2, m, c_inv, gain = _ring_state(W0, r0, xi20, c_inv, m0, gain, dev)
+    G = torch.empty(-(-n // BLOCK_ROWS) * BLOCK_ROWS * BLOCK_ROWS, device=dev,
+                    dtype=torch.float32)
+    buf = torch.empty(bp * lookahead_max * d, device=dev, dtype=torch.float32)
+    err = lib.streamsvm_scan_ring(
+        X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(), xi2.data_ptr(),
+        m.data_ptr(), c_inv.data_ptr(), gain.data_ptr(), L.data_ptr(), buf.data_ptr(), n,
+        int(n_valid), d, bp, int(lookahead_max), plan["n_ctas"], int(plan["owned"]),
+        int(X.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "streamsvm_scan_ring (lookahead)")
+    streamsvm_scan_lookahead_many_ring.launches += 1
+    return W, r, xi2, m
+
+
+streamsvm_scan_lookahead_many_ring.launches = 0  # kernel launches, read by chip_smoke.py
 
 
 # ---------------------------------------------------------------------------

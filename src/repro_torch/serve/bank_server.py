@@ -77,9 +77,10 @@ class BankServer:
     or a ``KernelBank``, scored through ``predict_kernel_bank`` (B5), which
     needs ``kernel=`` ("linear"/"rbf") and ``gamma=`` as the bank was
     trained (``from_checkpoint`` takes them from the meta). epilogue /
-    n_classes / k / q_block / b_tile / stream_dtype: the serving
-    configuration, see ``kernels.ops.predict_bank`` (a kernel bank ignores
-    ``b_tile`` and ``bank_resident``). ``device``: where the bank lives and
+    n_classes / k / q_block / b_tile / stream_dtype / bank_resident: the
+    serving configuration, see ``kernels.ops.predict_bank``
+    (``bank_resident="hbm"`` scores through B6, the ring, with the same
+    bits; a kernel bank ignores ``b_tile`` and ``bank_resident``). ``device``: where the bank lives and
     the queries are scored (None: where a tensor bank lives, else CUDA).
     """
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1-B5, R1) against their plain versions, on the card.
+"""The port's CUDA kernels (B1-B6, R1) against their plain versions, on the card.
 
 Marked ``gpu``: each test needs a CUDA card and skips without one. Whether
 there is a card is decided inside the fixture, so every pytest worker
@@ -8,6 +8,8 @@ collects the same tests. On the card:
 
 Tolerances are the repo's engine tolerance (f32 sums in another order);
 core-vector counts and ids are exact, and the bank's tiling changes no bit.
+B6, the ring (bank_resident="hbm"), equals B1 / B3 / B2 bit for bit at every
+number of tiles per CTA.
 B5 is held to 2 (D + 1) 2^-24 |a_i| |b_j| per element (twice gamma that,
 plus 1e-6, under the RBF map), the bound on two f32 evaluations of a D-long
 dot product; R1's slots and counts are exact.
@@ -22,12 +24,22 @@ from repro_torch.core.meb import _pair_gram
 from repro_torch.kernels import ops
 from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
 from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
-from repro_torch.kernels.predict import predict_bank_fused, predict_bank_plain
+from repro_torch.kernels import _build
+from repro_torch.kernels.predict import (
+    predict_bank_fused,
+    predict_bank_plain,
+    predict_bank_ring,
+    predict_bank_ring_plain,
+)
 from repro_torch.kernels.streamsvm_scan import (
+    ring_plan,
     streamsvm_scan,
     streamsvm_scan_lookahead_many,
+    streamsvm_scan_lookahead_many_ring,
     streamsvm_scan_many,
     streamsvm_scan_many_plain,
+    streamsvm_scan_many_ring,
+    streamsvm_scan_many_ring_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -314,3 +326,160 @@ def test_fit_kernel_bank_on_the_card_matches_the_cpu(cuda, eviction, stream_dtyp
     tiled = fit_kernel_bank(X, Y, cs, device=cuda, s_tile=5, **kw)
     for a, b_ in zip(got, tiled):
         assert torch.equal(a, b_)
+
+
+# ---------------------------------------------------------------------------
+# B6: the ring (bank_resident="hbm")
+# ---------------------------------------------------------------------------
+
+
+def _ring_args(cuda, bp, n, d, seed, dtype=torch.float32):
+    X, Y, cs = _bank_data(bp, n + 1, d, seed)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=cuda)
+    return (t(X[1:]).to(dtype), t(Y[:, 1:]).to(dtype), t(Y[:, :1] * X[:1]), t(np.zeros(bp)),
+            t(1 / cs), t(1 / cs), t(np.ones(bp), torch.int32), t(1 / cs))
+
+
+@pytest.mark.parametrize("d", [20, 784, 1500])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lookahead", [False, True])
+def test_ring_equals_b1_b3_at_every_j(cuda, d, dtype, lookahead):
+    """n_ctas giving J = 1, 2, 3, 4 tiles per CTA: owned slots at J <= 2
+    (where two whole tiles fit), cycling 64-column chunks beyond."""
+    bp, n = 32, 600
+    args = _ring_args(cuda, bp, n, d, seed=d, dtype=dtype)
+    kw = dict(n_valid=n - 7, block_n=n)
+    if lookahead:
+        kw.update(lookahead=torch.tensor([(1, 2, 3, 7)[i % 4] for i in range(bp)],
+                                         dtype=torch.int32, device=cuda), lookahead_max=7)
+        ref = streamsvm_scan_lookahead_many(*args, **kw)
+        ring, counter = streamsvm_scan_lookahead_many_ring, streamsvm_scan_lookahead_many_ring
+    else:
+        ref = streamsvm_scan_many(*args, **kw)
+        ring, counter = streamsvm_scan_many_ring, streamsvm_scan_many_ring
+    for n_ctas, j in ((4, 1), (2, 2), (1, 4)):
+        assert ring_plan(bp, d, lookahead=lookahead, n_ctas=n_ctas)["jmax"] == j
+        before = counter.launches
+        got = ring(*args, n_ctas=n_ctas, **kw)
+        assert counter.launches == before + 1
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    args3 = _ring_args(cuda, 24, n, d, seed=d + 1, dtype=dtype)  # J = 3: odd, cycling
+    if lookahead:
+        kw["lookahead"] = kw["lookahead"][:24]
+        ref3 = streamsvm_scan_lookahead_many(*args3, **kw)
+    else:
+        ref3 = streamsvm_scan_many(*args3, **kw)
+    for a, b in zip(ring(*args3, n_ctas=1, **kw), ref3):
+        assert torch.equal(a, b)
+
+
+def test_ring_matches_its_plain_version(cuda):
+    args = _ring_args(cuda, 40, 700, 130, seed=4)
+    got = streamsvm_scan_many_ring(*args, n_valid=690, block_n=700, n_ctas=2)
+    want = streamsvm_scan_many_ring_plain(*args, n_valid=690, block_n=700, ring_tile=8, n_ctas=2)
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-6)
+    assert torch.equal(got[3], want[3])
+
+
+def test_hbm_end_to_end_equals_vmem_on_the_card(cuda):
+    X, Y, cs = _bank_data(61, 500, 50, seed=3)
+    for kw in ({}, dict(variant="lookahead", lookahead=4)):
+        fits = [ops.streamsvm_fit_many(X, Y, cs, device=cuda, b_tile=8, bank_resident=res, **kw)
+                for res in ("vmem", "hbm")]
+        for a, b in zip(*fits):
+            assert torch.equal(a, b)
+    squeeze = sum(ops.engine_vmem_bytes(61, 50, b_tile=8).values()) - 1
+    auto = ops.streamsvm_fit_many(X, Y, cs, device=cuda, b_tile=8, vmem_budget_bytes=squeeze)
+    vmem = ops.streamsvm_fit_many(X, Y, cs, device=cuda, b_tile=8, bank_resident="vmem")
+    for a, b in zip(auto, vmem):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lookahead", [None, 3])
+def test_auto_squeezed_at_a_real_width_runs_the_cycling_ring(cuda, lookahead):
+    """Under a budget just below B1's 25,888 B at D = 784, "auto" launches
+    the ring in its cycling layout (owned slots would need 67,008 B) and
+    equals "vmem" bit for bit."""
+    X, Y, cs = _bank_data(61, 500, 784, seed=9)
+    kw = {} if lookahead is None else dict(variant="lookahead", lookahead=lookahead)
+    ring = streamsvm_scan_many_ring if lookahead is None else streamsvm_scan_lookahead_many_ring
+    squeeze = sum(ops.engine_vmem_bytes(61, 784).values()) - 1
+    before = ring.launches
+    auto = ops.streamsvm_fit_many(X, Y, cs, device=cuda, vmem_budget_bytes=squeeze, **kw)
+    assert ring.launches == before + 1
+    vmem = ops.streamsvm_fit_many(X, Y, cs, device=cuda, bank_resident="vmem", **kw)
+    for a, b in zip(auto, vmem):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("epilogue,kw", [
+    ("scores", {}), ("ovr", {"nc_pad": 24, "b_tile": 48}), ("topk", {"k": 7}),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_predict_ring_equals_b2(cuda, epilogue, kw, dtype):
+    rng = np.random.default_rng(5)
+    Q = torch.as_tensor(rng.normal(size=(300, 200)).astype(np.float32), device=cuda).to(dtype)
+    W = torch.as_tensor(rng.normal(size=(96, 200)).astype(np.float32), device=cuda)
+    W[7] = W[3]  # a tie: the lower lane wins in both
+    bias = torch.zeros(96, device=cuda)
+    bias[-5:] = -3.0e38
+    before = predict_bank_ring.launches
+    got = predict_bank_ring(Q, W, bias, epilogue=epilogue, q_block=300, **kw)
+    assert predict_bank_ring.launches == before + 1
+    want = predict_bank_fused(Q, W, bias, epilogue=epilogue, q_block=300, **kw)
+    plain = predict_bank_ring_plain(Q, W, bias, epilogue=epilogue, q_block=300, **kw)
+    got, want, plain = ((x if isinstance(x, tuple) else (x,)) for x in (got, want, plain))
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        if p.dtype == torch.int32:
+            assert torch.equal(g, p)
+        else:
+            torch.testing.assert_close(g, p, rtol=2e-4, atol=2e-5 * max(1.0, p.abs().max().item()))
+
+
+def test_ring_beyond_the_cards_shared_memory_is_refused(cuda):
+    """A budget above the card's 232,448 B lets the preflight pass a layout
+    the card cannot hold; the launch is then refused with a RuntimeError and
+    nothing runs (here 200 tiles on one CTA: ~250 KB)."""
+    bp = 1600
+    args = _ring_args(cuda, bp, 64, 16, seed=1)
+    assert sum(ring_plan(bp, 16, lookahead=False, n_ctas=1)["smem"].values()) > 232_448
+    before = streamsvm_scan_many_ring.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        streamsvm_scan_many_ring(*args, n_valid=64, block_n=64, n_ctas=1)
+    torch.cuda.synchronize()  # no fault was left behind
+    assert streamsvm_scan_many_ring.launches == before
+
+
+def test_byte_models_equal_what_the_kernels_allocate(cuda):
+    """Static shared memory from ptxas plus the dynamic bytes of the launch
+    equal each byte model's total."""
+    from repro_torch.kernels import streamsvm_scan as scan_mod
+    from repro_torch.kernels import predict as predict_mod
+
+    _build.build()
+    lib, plib = scan_mod._lib(), predict_mod._lib()
+    assert _build.static_smem("streamsvm_scan", "scan_kernel") == {25_888}
+    assert _build.static_smem("streamsvm_scan", "lookahead_kernel") == {25_888}
+    assert _build.static_smem("predict", "predict_kernel") == {37_248}
+    assert sum(ops.engine_vmem_bytes(600, 784).values()) == 25_888
+    (ring_static,) = _build.static_smem("streamsvm_scan", "scan_ring_kernel")
+    for b, d, la, budget in ((600, 784, None, None), (600, 784, None, 25_887),
+                             (600, 784, 10, 25_887), (1536, 4096, None, None),
+                             (1536, 4096, 10, None), (64, 20, 3, None)):
+        plan = ring_plan(-(-b // 8) * 8, d, lookahead=la is not None, smem_budget=budget)
+        dyn = lib.streamsvm_scan_ring_dyn_bytes(d, plan["jmax"], int(plan["owned"]), int(la is not None))
+        assert ring_static + dyn == sum(ops.engine_vmem_bytes(
+            b, d, lookahead_max=la, bank_resident="hbm", smem_budget=budget).values())
+    (pr_static,) = _build.static_smem("predict", "predict_ring_kernel")
+    for ep, k in (("scores", None), ("topk", 9)):
+        dyn = plib.predict_bank_ring_dyn_bytes({"scores": 0, "topk": 2}[ep], k or 0)
+        assert pr_static + dyn == sum(ops.predict_vmem_bytes(
+            96, 100, epilogue=ep, k=k, bank_resident="hbm").values())
+    assert _build.static_smem("gram", "gram_kernel") == {16_640}
+    assert _build.static_smem("kernel_bank", "rows_kernel") == {0}
+    assert sum(ops.kernel_engine_vmem_bytes(600, 784, coreset_size=64).values()) == 16_640
+

@@ -358,8 +358,8 @@ def test_fit_kernel_bank_validation():
     assert "Y[:, 0]" in str(err.value) and "[1, 3]" in str(err.value)
     with pytest.raises(NotImplementedError, match="A10"):
         _port(X, Y, cs, mesh=object())
-    with pytest.raises(NotImplementedError, match="B6"):
-        _port(X, Y, cs, vmem_budget_bytes=1 << 20)
+    with pytest.raises(ValueError, match="breakdown"):  # below B5's 16,640 B of tiles
+        _port(X, Y, cs, vmem_budget_bytes=16_639)
 
 
 # ---------------------------------------------------------------------------

@@ -201,8 +201,11 @@ def test_unported_banks_and_checkpoints_raise(tmp_path):
         BankServer(KernelBankLike(), device="cpu")
     with pytest.raises(ValueError, match="only applies to a KernelBank"):
         BankServer(torch.zeros(4, 3), kernel="rbf")
-    with pytest.raises(NotImplementedError, match="B6"):
-        BankServer(torch.zeros(4, 3), bank_resident="hbm")
+    # bank_resident="hbm" serves through B6 (the ring), with the bits of "vmem".
+    w = torch.arange(12.0).reshape(4, 3)
+    q = np.ones((5, 3), np.float32)
+    np.testing.assert_array_equal(BankServer(w, bank_resident="hbm").score(q),
+                                  BankServer(w, bank_resident="vmem").score(q))
     ckpt.save(str(tmp_path), (torch.zeros(2),), meta={"live_k": 2})
     with pytest.raises(NotImplementedError, match="A11"):
         BankServer.from_checkpoint(str(tmp_path), device="cpu")
