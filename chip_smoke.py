@@ -28,7 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
      -> BankServer.from_checkpoint -> ragged serving -> swap_bank, with the
-     kernels' launch counts read around it;
+     kernels' launch counts read around it and the served steps' kernel
+     milliseconds printed beside the serve wall (7a does the same);
   4. the paper's algorithms at full width, with the launch counts read
      around the phase: (a) Fig 3's configuration (mnist89, D = 784, 11,800
      training rows, C = 10, L in 1, 2, 5, 10, 20, 50 over --fig3-runs
@@ -58,7 +59,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      against its plain version over the first --ring-plain-n; every byte
      model equal to ptxas's static bytes plus the launch's dynamic bytes;
   5. (printed last) kernel times at the main path's shapes against their
-     bounds, printed as one JSON line {"kernels": [...]}.
+     bounds, printed as one JSON line {"kernels": [...]}, with torch.matmul's
+     bare product (no epilogue) at the server step and at 7b's serve.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -293,7 +295,7 @@ def smem_models():
          sum(ops.engine_vmem_bytes(8, 8, lookahead_max=2).values())),
         ("streamsvm_scan", "scan_ring_kernel", ring["stream_tile"] + ring["block_gram"]),
         ("predict", "predict_kernel", sum(ops.predict_vmem_bytes(8, 8).values())),
-        ("predict", "predict_ring_kernel", pring["query_tile"] + pring["scores"]),
+        ("predict", "predict_ring_kernel", pring["stages"]),
         ("gram", "gram_kernel", ops.kernel_engine_vmem_bytes(8, 8, coreset_size=1)["gram_tiles"]),
         ("kernel_bank", "rows_kernel",
          ops.kernel_engine_vmem_bytes(8, 8, coreset_size=1)["row_recursion"]),
@@ -644,6 +646,9 @@ def phase_main_path(dev, args):
     print(f"  fit: {result.position} rows x {bank.w.shape[0]} models in {t_fit:.3f} s")
     print(f"  serve: {len(Xte)} queries in {stats.steps} steps, {t_serve:.3f} s, "
           f"{len(Xte) / t_serve:.0f} queries/s, slot utilisation {stats.utilization:.4f}")
+    step_ms, kernel_ms = served_kernel_ms(dev, bank.w, Xte, n_classes, stats.steps, ring=False)
+    print(f"  served steps' kernel (B2): {stats.steps} x {step_ms:.4f} ms = {kernel_ms:.2f} ms of "
+          f"the {t_serve * 1e3:.2f} ms serve wall ({kernel_ms / (t_serve * 1e3):.1%})")
     acc1 = [float((cls[:, g].numpy() == yte).mean()) for g in range(len(c_pts))]
     for cval, acc in zip(c_pts, acc1):
         print(f"  C={cval:g}: held-out accuracy {acc:.4f}")
@@ -689,6 +694,31 @@ def serve_ovr(dev, bank, Xte, n_classes):
     cls = torch.as_tensor(np.concatenate([r.result[0] for r in reqs]))
     margin = torch.as_tensor(np.concatenate([r.result[1] for r in reqs]))
     return cls, margin, stats
+
+
+def served_kernel_ms(dev, w, Xq, n_classes, steps, ring):
+    """The kernel's part of a BankServer.run() serve: the CUDA-event
+    milliseconds of one served step's launch (256 query slots of ``Xq``, the
+    ovr epilogue at b_tile 200, as ops.predict_bank hands it to B2 or, with
+    ``ring``, to B6 serve), back to back, times the steps served. The
+    launches made here are measurement: the wrapper's count is put back."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.predict import predict_bank_fused, predict_bank_ring
+
+    b, d = w.shape
+    g = b // n_classes
+    nc_pad, g_tile, gp = ops.ovr_group_tiling(b, n_classes, 200)
+    Wp = ops._pad_to(ops._pad_to(w.reshape(g, n_classes, d), nc_pad, 1), gp, 0).reshape(-1, d)
+    lane = torch.arange(gp * nc_pad, device=dev)
+    bias = torch.where((lane % nc_pad < n_classes) & (lane // nc_pad < g), 0.0,
+                       ops.NEG_MASK).to(torch.float32)
+    Q = ops._pad_to(torch.as_tensor(Xq[:256], device=dev), 256, 0)
+    fn = predict_bank_ring if ring else predict_bank_fused
+    kw = dict(epilogue="ovr", q_block=256, b_tile=g_tile * nc_pad, nc_pad=nc_pad)
+    before = fn.launches
+    ms = time_ms(lambda: fn(Q, Wp, bias, **kw), dev, 50 if dev.type == "cuda" else 1)
+    fn.launches = before
+    return ms, ms * steps
 
 
 def seeded_bank_inputs(X, Y, cs, bp):
@@ -1118,6 +1148,9 @@ def phase_ring(dev, args, main, algos):
     print(f"  fit {t_fit_a:.3f} s, bit-equal to phase 3's bank; served {len(Xte3)} queries in "
           f"{stats.steps} steps, {t_serve_a:.3f} s, ids and margins bit-equal to phase 3's; "
           f"Algorithm 2 {t_la_a:.3f} s, bit-equal to phase 4b's bank")
+    step_ms, kernel_ms = served_kernel_ms(dev, res.ball.w, Xte3, n_classes, stats.steps, ring=True)
+    print(f"  served steps' kernel (B6 serve): {stats.steps} x {step_ms:.4f} ms = {kernel_ms:.2f} "
+          f"ms of the {t_serve_a * 1e3:.2f} ms serve wall ({kernel_ms / (t_serve_a * 1e3):.1%})")
     launches_a = {f.__name__: f.launches for f in counters}
     print(f"  launches of B6 in 7a: {launches_a}")
     if dev.type == "cuda" and min(launches_a.values()) < 1:
@@ -1396,6 +1429,9 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     ms_r2 = time_ms(lambda: predict_bank_ring(Q, W, bias, **kw), dev, 50 * reps)
     plain_r2 = time_ms(lambda: predict_bank_ring_plain(Q, W, bias, **kw), dev, 50 * reps)
     flops2 = 2.0 * Q.shape[0] * W.shape[0] * d
+    mm2 = time_ms(lambda: torch.matmul(Q, W.T), dev, 50 * reps)
+    print(f"  torch.matmul, product only, no epilogue, at the server step ({Q.shape[0]} x "
+          f"{W.shape[0]} x {d}): {mm2:.4f} ms (B2 ovr {ms2:.4f} ms, B6 serve ovr {ms_r2:.4f} ms)")
     bytes2 = 4.0 * (Q.shape[0] * d + W.shape[0] * (d + 1) + 2 * Q.shape[0] * (W.shape[0] // nc))
 
     def row(name, src, replaces, launches, err, ms, plain, flops, nbytes, lib, shape):
@@ -1581,6 +1617,9 @@ def ring_7b_rows(dev, args, ring, row):
     ms = time_ms(lambda: predict_bank_ring(Q, Wp, bias, **kw), dev, 5 * reps)
     ms_b2 = time_ms(lambda: predict_bank_fused(Q, Wp, bias, **kw), dev, 5 * reps)
     q, bl = Q.shape[0], Wp.shape[0]
+    mm = time_ms(lambda: torch.matmul(Q, Wp.T), dev, 5 * reps)
+    print(f"  torch.matmul, product only, no epilogue, at 7b's serve ({q} x {bl} x {d}): "
+          f"{mm:.4f} ms (B2 ovr {ms_b2:.4f} ms, B6 serve ovr {ms:.4f} ms)")
     out.append(row(
         "predict_bank_ring[7b]", "src/repro_torch/kernels/csrc/predict.cu",
         "src/repro/kernels/predict.py:321", lb["predict_bank_ring"], err, ms, plain,

@@ -1,338 +1,621 @@
-// B2 on Hopper: score a tile of queries against a bank with a fused
-// epilogue, with a plain C interface (bound from Python with ctypes).
+// B2 and B6 serve on Hopper: score a tile of queries against a bank with a
+// fused epilogue, with a plain C interface (bound from Python with ctypes).
 //
-// Replaces src/repro/kernels/predict.py::_kernel (predict_bank_pallas) in
-// its VMEM layout, with _first_argmax.
+// Replaces src/repro/kernels/predict.py::_kernel (predict_bank_pallas) with
+// _first_argmax: B2 (predict_kernel) in its VMEM layout, B6 serve
+// (predict_ring_kernel) with hbm=True (predict.py:94-134), where W stays in
+// ANY space and (b_tile, D) slices pass through a 2-slot VMEM ring.
 //
-// Layout. One CTA per QT = 32 query rows and one column of bank lanes: a
-// column is SCORES_TILE lanes for "scores", one bank tile of whole groups
-// for "ovr" (so a group never crosses a CTA) and the whole bank for "topk"
-// (whose running list spans the bank). The CTA loops over its lanes in
-// chunks of BT = 32, and over D in staged chunks of DC columns. Each margin
-// S[q, b] = <q, w_b> is one f32 dot product over the full D, summed in
-// ascending order with FMAs on the CUDA cores (no TF32, no library GEMM).
-// The epilogue then runs in the CTA:
-//   scores  raw S, no bias;
-//   ovr     S + bias, then per group of nc_pad lanes the first argmax and
-//           its margin (a running max that a strictly greater value
-//           replaces, reset at each group's first lane);
-//   topk    S + bias, kept in a running sorted list of k (score, id) per
-//           query in shared memory, across the whole bank: a candidate
-//           goes in after every entry it does not beat, so ties go to the
-//           lowest lane and the list is in descending order.
-// bf16 query tiles are upcast on load; the bank, bias and epilogue state
-// are f32.
+// The product (walk below, one body for both kernels). A CTA of 128 threads
+// computes BM x 64 blocks of margins S[q, b] = <q, w_b>: one query tile
+// against a run of consecutive 64-lane bank chunks. Each thread keeps a
+// TM x TN register block, rows ty + TY i and lanes tx + TX j. Per chunk, the
+// query tile and the bank chunk pass through a 3-stage shared-memory buffer
+// of BK-column steps, staged row-major (a row's k-chunk contiguous) by
+// cp.async: two steps are in flight while one computes, with one barrier per
+// step. The inner loop reads four columns of a row as one float4, so a
+// thread makes TM + TN 16-byte shared loads per 4 TM TN FMAs (the old body
+// made 5 loads per 4 FMAs). Two tile shapes share one shared-memory arena,
+// so the byte model does not depend on which a launch takes:
+//   small  BM = 32,  4 x 4 per thread, BK = 32: many CTAs for few queries
+//          (a 256-query server step: 8 query tiles x 10 bank tiles in B2);
+//   large  BM = 128, 8 x 8 per thread, BK = 16: a quarter fewer loads per
+//          FMA, where the launch has queries enough to fill the card.
+// A launch takes the large tile when that gives at least two CTAs per SM.
+// Rows are copied 16 bytes at a time where D and the pointers allow (D a
+// multiple of 4 in f32, of 8 in bf16), else element by element (4-byte
+// cp.async in f32; plain loads for bf16, the one synchronous case). The
+// epilogue reuses the drained stages, so the arena is 46,080 B.
 //
-// Bound. 2 Q B D flops against Q D + B D input bytes: at the served shapes
-// the card is bound by its f32 rate. This simple kernel is held back by
-// shared-memory operand traffic (five loads per four FMAs) and, per server
-// step, by launch overhead.
+// Order of the sums. Each margin is one f32 fmaf chain over d = 0 .. D - 1 in
+// ascending order from 0.f (columns past D are never added), whatever the
+// tile, the thread or the kernel: B2 and the ring give the same bits, and a
+// query's margins do not depend on the launch or step it is in. No TF32, no
+// tensor cores (f32 wgmma does not exist; 3xTF32 changes the bits), no split
+// over k. bf16 queries are upcast on load (exact).
 //
-// B6 serve (predict_ring_kernel below), bank_resident="hbm": replaces the
-// same _kernel with hbm=True (src/repro/kernels/predict.py:94-134), where
-// W stays in ANY space and (b_tile, D) slices pass through a read-only
-// 2-slot VMEM ring. Here one CTA per QT query rows walks every bank lane in
-// order, the query tile outer as in the TPU grid. Its steps are (BT-lane
-// chunk, RDC-column chunk) pairs; the W chunk of step t + 1 is copied into
-// the other of two shared-memory slots by cp.async before the compute on
-// step t starts. Each margin is the same ascending f32 chain over D as in
-// B2, and the epilogues run in lane order as in B2's column (a group's
-// running argmax resets at its first lane; topk's list spans the bank), so
-// the ring equals B2 bit for bit. Bound: B2's work; the ring's chunks are
-// half as wide (its slots and query tile fit in less shared memory than
-// B2's tiles) and it keeps no second grid axis over the bank.
+// Epilogues, each query row's lanes met in lane order:
+//   scores  raw S, no bias, stored from registers;
+//   ovr     S + bias, staged through shared memory 32 lanes at a time; one
+//           owner thread per query row walks them keeping the first argmax of
+//           each group of nc_pad lanes (a running max that only a strictly
+//           greater value replaces, reset at the group's first lane) and
+//           writes every group that begins and ends in its CTA's lanes. A
+//           group that crosses a CTA's edge leaves a partial (best, lane)
+//           there, and the partials of a query tile's CTAs are merged in lane
+//           order by the same rule (merge_row): ties go to the lowest lane and
+//           the result is the one sequential walk's, deterministically. This
+//           is the route taken instead of 64-bit atomicMax keys: no float
+//           ordering trick, no -0.0 folding, and one merge for both kernels.
+//           B2 (one CTA per 64-lane tile, so groups of any nc_pad straddle
+//           tiles) keeps the partials in device memory, and the last CTA of
+//           a query tile to finish merges them (an arrival counter per query
+//           tile, cleared by cudaMemsetAsync at the launch; __threadfence
+//           before arriving and before reading). The ring keeps them in
+//           shared memory and merges across its cluster (below);
+//   topk    S + bias into a running sorted list of k (score, lane) per query
+//           in dynamic shared memory: a candidate goes in after every entry
+//           it does not beat, so ties go to the lowest lane. One CTA walks
+//           the whole bank per query tile (small tile), in both kernels.
+//
+// B6 serve (predict_ring_kernel). The query tile is outer and the bank is
+// walked in lane order, chunk after chunk through the shared body's cp.async
+// stages. The walk of each query tile is split along the bank across a
+// thread-block cluster of up to 8 CTAs (the portable size): each CTA walks a
+// contiguous run of whole 64-lane chunks, and rank 0 merges the ovr partials
+// of every rank through distributed shared memory (map_shared_rank) between
+// two cluster barriers. The cluster size is the one whose launch should end
+// first given how many clusters the card holds at once (ring_cluster): a
+// 256-query step at B = 600 runs 8 query tiles x 8 = 64 CTAs.
+//
+// Bound. 2 Q B D operations against Q D + B D input bytes: at the served
+// shapes the card is bound by its f32 rate (67 TFLOP/s without tensor
+// cores). A 256-query step is 0.24 GFLOP, 3.6 us at that rate: there the
+// launch, the memset and the per-step latency of 25 k-steps dominate.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int QT = 32;   // query rows per CTA
-constexpr int BT = 32;   // bank lanes per chunk
-constexpr int DC = 128;  // feature columns staged per chunk
-constexpr int THREADS = 256;
-constexpr int SCORES_TILE = 64;  // bank lanes per CTA column for "scores"
+constexpr int THREADS = 128;
+constexpr int BN = 64;  // bank lanes per chunk
+constexpr int EP = 32;  // lanes per epilogue piece staged in shared memory
+constexpr int SMALL_BM = 32, LARGE_BM = 128;
+constexpr int ARENA_FLOATS = 3 * (LARGE_BM + BN) * (16 + 4);  // 46,080 B: 3 large stages
+constexpr int MAX_SMEM = 232448;  // the H100's shared memory per block
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
 constexpr float NEG_MASK = -3.0e38f;
 enum { SCORES = 0, OVR = 1, TOPK = 2 };
 
-__device__ __forceinline__ float ld(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
+template <int BM_, int TM_, int TN_, int BK_, int STAGES_>
+struct Tile {
+  static constexpr int BM = BM_, TM = TM_, TN = TN_, BK = BK_, STAGES = STAGES_;
+  static constexpr int TY = BM / TM, TX = BN / TN;
+  static constexpr int STAGE = (BM + BN) * (BK + 4);  // floats per stage
+  static_assert(TY * TX == THREADS, "one register block per thread");
+  static_assert(STAGES >= 2 && STAGES * STAGE <= ARENA_FLOATS, "stages fit the arena");
+  static_assert(BM * (EP + 1) <= ARENA_FLOATS && 4 * BM <= ARENA_FLOATS, "pieces, partials");
+  static_assert(EP % TX == 0 && BK % 8 == 0, "pieces and copies");
+};
+using Small = Tile<SMALL_BM, 4, 4, 32, 3>;
+using Large = Tile<LARGE_BM, 8, 8, 16, 3>;
+
+// The query operand: its shared-memory row padding (rows stay 16-byte
+// aligned and an odd number of 16-byte units apart in f32), the elements in
+// one 16-byte copy, and four (or one) columns read as f32.
+template <typename T> struct Op;
+template <> struct Op<float> {
+  static constexpr int PAD = 4, VEC = 4;
+  static __device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ float ld1(const float* p) { return *p; }
+};
+template <> struct Op<__nv_bfloat16> {
+  static constexpr int PAD = 8, VEC = 8;
+  static __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  static __device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// 16 bytes, or zeros where !ok.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_elem(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_elem(__nv_bfloat16* dst, const __nv_bfloat16* src, bool ok) {
+  *dst = ok ? *src : __float2bfloat16(0.f);
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T>
+// Start the copy of one step: query rows q0 .. q0 + BM and bank lanes b0 ..
+// b0 + 64, columns k0 .. k0 + BK; rows past qn / bp and columns past d are
+// zero-filled.
+template <class Tl, typename T>
+__device__ __forceinline__ void stage_load(T* As, float* Bs, const T* Q, const float* W,
+                                           int qn, int bp, int d, long q0, int b0, int k0,
+                                           bool vec) {
+  constexpr int SA = Tl::BK + Op<T>::PAD, SB = Tl::BK + 4;
+  const int tid = threadIdx.x;
+  if (vec) {
+    constexpr int VA = Op<T>::VEC, CA = Tl::BK / VA, CB = Tl::BK / 4;
+    for (int e = tid; e < Tl::BM * CA; e += THREADS) {
+      const int r = e / CA, c = e % CA * VA;
+      const bool ok = q0 + r < qn && k0 + c < d;
+      cp16(As + r * SA + c, ok ? Q + (q0 + r) * d + k0 + c : Q, ok);
+    }
+    for (int e = tid; e < BN * CB; e += THREADS) {
+      const int r = e / CB, c = e % CB * 4;
+      const bool ok = b0 + r < bp && k0 + c < d;
+      cp16(Bs + r * SB + c, ok ? W + (long)(b0 + r) * d + k0 + c : W, ok);
+    }
+  } else {
+    for (int e = tid; e < Tl::BM * Tl::BK; e += THREADS) {
+      const int r = e / Tl::BK, c = e % Tl::BK;
+      const bool ok = q0 + r < qn && k0 + c < d;
+      cp_elem(As + r * SA + c, ok ? Q + (q0 + r) * d + k0 + c : Q, ok);
+    }
+    for (int e = tid; e < BN * Tl::BK; e += THREADS) {
+      const int r = e / Tl::BK, c = e % Tl::BK;
+      const bool ok = b0 + r < bp && k0 + c < d;
+      cp_elem(Bs + r * SB + c, ok ? W + (long)(b0 + r) * d + k0 + c : W, ok);
+    }
+  }
+}
+
+// One step's FMAs over its kv valid columns, each accumulator in ascending k.
+template <class Tl, typename T>
+__device__ __forceinline__ void stage_compute(const T* As, const float* Bs, int kv,
+                                              float (&acc)[Tl::TM][Tl::TN]) {
+  constexpr int SA = Tl::BK + Op<T>::PAD, SB = Tl::BK + 4;
+  const int tx = threadIdx.x % Tl::TX, ty = threadIdx.x / Tl::TX;
+  const T* a0 = As + ty * SA;
+  const float* b0 = Bs + tx * SB;
+  if (kv == Tl::BK) {
+#pragma unroll
+    for (int k = 0; k < Tl::BK; k += 4) {
+      float4 a[Tl::TM];
+#pragma unroll
+      for (int i = 0; i < Tl::TM; ++i) a[i] = Op<T>::ld4(a0 + i * Tl::TY * SA + k);
+#pragma unroll
+      for (int j = 0; j < Tl::TN; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(b0 + j * Tl::TX * SB + k);
+#pragma unroll
+        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+      }
+    }
+    return;
+  }
+  for (int k = 0; k < kv; ++k) {  // the last step of a ragged D
+    float a[Tl::TM];
+#pragma unroll
+    for (int i = 0; i < Tl::TM; ++i) a[i] = Op<T>::ld1(a0 + i * Tl::TY * SA + k);
+#pragma unroll
+    for (int j = 0; j < Tl::TN; ++j) {
+      const float b = b0[j * Tl::TX * SB + k];
+#pragma unroll
+      for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
+    }
+  }
+}
+
+// The shared product body: margins of query rows q0 .. q0 + BM against bank
+// chunks c_lo .. c_hi (64 lanes each), with epi(b0, acc) called on each
+// chunk's block in chunk order, once every copy has landed and the arena is
+// free for the epilogue. Every thread of the CTA calls it.
+template <class Tl, typename T, class Epi>
+__device__ __forceinline__ void walk(const T* Q, const float* W, int qn, int bp, int d,
+                                     long q0, int c_lo, int c_hi, bool vec, float* arena,
+                                     Epi&& epi) {
+  constexpr int S = Tl::STAGES;
+  const int nk = (d + Tl::BK - 1) / Tl::BK;
+  auto load = [&](int t, int b0) {  // step t of the chunk at lane b0, one copy group
+    if (t < nk) {
+      float* st = arena + t % S * Tl::STAGE;
+      stage_load<Tl>(reinterpret_cast<T*>(st), st + Tl::BM * (Tl::BK + 4), Q, W, qn, bp, d, q0,
+                     b0, t * Tl::BK, vec);
+    }
+    cp_commit();
+  };
+  float acc[Tl::TM][Tl::TN];
+  for (int c = c_lo; c < c_hi; ++c) {
+#pragma unroll
+    for (int i = 0; i < Tl::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < Tl::TN; ++j) acc[i][j] = 0.f;
+    for (int t = 0; t < S - 1; ++t) load(t, c * BN);
+    for (int s = 0; s < nk; ++s) {
+      cp_wait<S - 2>();  // step s has landed
+      __syncthreads();   // ... for every thread, and step s - 1's stage is free
+      load(s + S - 1, c * BN);
+      const float* st = arena + s % S * Tl::STAGE;
+      stage_compute<Tl>(reinterpret_cast<const T*>(st), st + Tl::BM * (Tl::BK + 4),
+                        min(Tl::BK, d - s * Tl::BK), acc);
+    }
+    __syncthreads();  // the epilogue may reuse the arena
+    epi(c * BN, acc);
+  }
+}
+
+struct Best {
+  float v;
+  int arg;
+};
+
+// The epilogue of one CTA over its lanes [L, H): owner thread tid < BM holds
+// query row q0 + tid.
+template <class Tl>
+struct Epilogue {
+  const float* bias;
+  float* ss;         // one piece of margins, BM x (EP + 1)
+  float* tv;         // topk values of this owner, then ids (ti)
+  int* ti;
+  float* out_f;
+  int* out_i;
+  int qn, bp, epilogue, nc_pad, gp, k, L, H;
+  long q0;
+  Best best{0.f, 0}, edge0{0.f, 0}, edge1{0.f, 0};
+
+  __device__ __forceinline__ void visit(long q, int b, float v) {
+    if (epilogue == TOPK) {
+      if (v > tv[k - 1]) {
+        int p = k - 1;
+        while (p > 0 && v > tv[p - 1]) {
+          tv[p] = tv[p - 1];
+          ti[p] = ti[p - 1];
+          --p;
+        }
+        tv[p] = v;
+        ti[p] = b;
+      }
+      return;
+    }
+    const int cls = b % nc_pad;
+    if (cls == 0 || b == L || v > best.v) best = {v, cls};
+    if (cls == nc_pad - 1 || b == H - 1) {  // the group's run in this CTA ends
+      const int g = b / nc_pad;
+      const bool began = g * nc_pad >= L;
+      if (began && cls == nc_pad - 1) {
+        out_i[q * gp + g] = best.arg;
+        out_f[q * gp + g] = best.v;
+      } else if (!began) {
+        edge0 = best;  // entered mid-group at L
+      } else {
+        edge1 = best;  // left mid-group at H
+      }
+    }
+  }
+
+  __device__ __forceinline__ void chunk(int b0, const float (&acc)[Tl::TM][Tl::TN]) {
+    const int tid = threadIdx.x, tx = tid % Tl::TX, ty = tid / Tl::TX;
+    if (epilogue == SCORES) {
+#pragma unroll
+      for (int i = 0; i < Tl::TM; ++i) {
+        const long q = q0 + ty + i * Tl::TY;
+#pragma unroll
+        for (int j = 0; j < Tl::TN; ++j) {
+          const int b = b0 + tx + j * Tl::TX;
+          if (q < qn && b < bp) out_f[q * bp + b] = acc[i][j];
+        }
+      }
+      return;
+    }
+    for (int p = 0; p < BN / EP && b0 + p * EP < H; ++p) {
+#pragma unroll
+      for (int j = 0; j < Tl::TN; ++j) {
+        if (j * Tl::TX / EP != p) continue;
+        const int c = tx + j * Tl::TX, b = b0 + c;
+        const float bb = b < bp ? bias[b] : 0.f;
+#pragma unroll
+        for (int i = 0; i < Tl::TM; ++i)
+          ss[(ty + i * Tl::TY) * (EP + 1) + c - p * EP] = acc[i][j] + bb;
+      }
+      __syncthreads();
+      const long q = q0 + tid;
+      if (tid < Tl::BM && q < qn) {
+        const int lo = b0 + p * EP, lim = min(EP, H - lo);
+        for (int c = 0; c < lim; ++c) visit(q, lo + c, ss[tid * (EP + 1) + c]);
+      }
+      __syncthreads();  // ss is rewritten by the next piece
+    }
+  }
+
+  __device__ __forceinline__ void start() {
+    if (epilogue == TOPK && threadIdx.x < Tl::BM && q0 + threadIdx.x < qn)
+      for (int i = 0; i < k; ++i) {
+        tv[i] = NEG_MASK;
+        ti[i] = 0;
+      }
+  }
+
+  __device__ __forceinline__ void finish() {
+    const long q = q0 + threadIdx.x;
+    if (epilogue == TOPK && threadIdx.x < Tl::BM && q < qn)
+      for (int i = 0; i < k; ++i) {
+        out_f[q * k + i] = tv[i];
+        out_i[q * k + i] = ti[i];
+      }
+  }
+};
+
+// Merge the ovr partials of the R CTAs of one query tile for row q, in lane
+// order: bounds(r) gives CTA r's lanes [L, H), slot(r, 0) its partial of the
+// group it entered mid-way, slot(r, 1) of the group it left mid-way. A later
+// partial replaces the running best only if strictly greater.
+template <class Bounds, class Slot>
+__device__ __forceinline__ void merge_row(int R, int nc_pad, int gp, long q, Bounds bounds,
+                                          Slot slot, float* out_f, int* out_i) {
+  Best cur{0.f, 0};
+  for (int r = 0; r < R; ++r) {
+    const int2 lh = bounds(r);
+    if (lh.x % nc_pad != 0) {
+      const Best p = slot(r, 0);
+      if (p.v > cur.v) cur = p;
+      const int g = lh.x / nc_pad;
+      if ((g + 1) * nc_pad <= lh.y) {
+        out_i[q * gp + g] = cur.arg;
+        out_f[q * gp + g] = cur.v;
+      }
+    }
+    if (lh.y % nc_pad != 0 && (lh.y - 1) / nc_pad * nc_pad >= lh.x) cur = slot(r, 1);
+  }
+}
+
+template <class Tl>
+__device__ __forceinline__ Epilogue<Tl> make_epilogue(const float* bias, float* arena,
+                                                      float* lists, float* out_f, int* out_i,
+                                                      int qn, int bp, int epilogue, int nc_pad,
+                                                      int k, long q0, int L, int H) {
+  Epilogue<Tl> ep;
+  ep.bias = bias;
+  ep.ss = arena;  // the stages are drained while an epilogue runs
+  ep.tv = lists + threadIdx.x * k;
+  ep.ti = reinterpret_cast<int*>(lists + Tl::BM * k) + threadIdx.x * k;
+  ep.out_f = out_f;
+  ep.out_i = out_i;
+  ep.qn = qn;
+  ep.bp = bp;
+  ep.epilogue = epilogue;
+  ep.nc_pad = nc_pad;
+  ep.gp = epilogue == OVR ? bp / nc_pad : 0;
+  ep.k = k;
+  ep.L = L;
+  ep.H = H;
+  ep.q0 = q0;
+  return ep;
+}
+
+// B2: grid (bank tiles of 64 lanes, query tiles); topk has one bank column
+// that walks the whole bank. edges (qn, R, 2) and counters (query tiles)
+// hold the ovr partials and the arrivals for the merge.
+template <class Tl, typename T>
 __global__ void __launch_bounds__(THREADS)
 predict_kernel(const T* __restrict__ Q, const float* __restrict__ W,
-               const float* __restrict__ bias, int qn, int bp, int d,
-               int epilogue, int nc_pad, int k, int tile,
-               float* __restrict__ out_f, int* __restrict__ out_i) {
-  __shared__ float qs[QT][DC + 1];
-  __shared__ float wsm[BT][DC + 1];
-  __shared__ float ss[QT][BT + 1];
-  extern __shared__ float topk_state[];  // QT*k values, then QT*k ids
+               const float* __restrict__ bias, int qn, int bp, int d, int epilogue,
+               int nc_pad, int k, int vec, float* __restrict__ out_f, int* __restrict__ out_i,
+               int2* __restrict__ edges, int* __restrict__ counters) {
+  __shared__ __align__(16) float arena[ARENA_FLOATS];
+  __shared__ int last;  // this CTA arrived last for its query tile
+  extern __shared__ float lists[];  // topk: BM*k values, then BM*k ids
+  const int nch = (bp + BN - 1) / BN, R = gridDim.x;
+  const int c_lo = epilogue == TOPK ? 0 : blockIdx.x;
+  const int c_hi = epilogue == TOPK ? nch : c_lo + 1;
+  const long q0 = (long)blockIdx.y * Tl::BM;
+  auto ep = make_epilogue<Tl>(bias, arena, lists, out_f, out_i, qn, bp, epilogue, nc_pad, k,
+                              q0, c_lo * BN, min(c_hi * BN, bp));
+  ep.start();
+  walk<Tl>(Q, W, qn, bp, d, q0, c_lo, c_hi, vec != 0, arena,
+           [&](int b0, const float (&acc)[Tl::TM][Tl::TN]) { ep.chunk(b0, acc); });
+  ep.finish();
+  if (epilogue != OVR || R == 1) return;
   const int tid = threadIdx.x;
-  const int bl = tid & 31;  // bank lane within the chunk
-  const int qb = tid >> 5;  // first query row of this thread (+8 i)
-  const long q0 = (long)blockIdx.x * QT;
-  const long my_q = q0 + tid;  // epilogue row of threads tid < QT
-  const bool owner = tid < QT && my_q < qn;
+  const long q = q0 + tid;
+  const bool owner = tid < Tl::BM && q < qn;
+  if (owner) {
+    int2* e = edges + (q * R + blockIdx.x) * 2;
+    e[0] = make_int2(__float_as_int(ep.edge0.v), ep.edge0.arg);
+    e[1] = make_int2(__float_as_int(ep.edge1.v), ep.edge1.arg);
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + blockIdx.y, 1) == R - 1;
+  __syncthreads();
+  if (!last || !owner) return;
+  __threadfence();
+  merge_row(
+      R, nc_pad, bp / nc_pad, q,
+      [&](int r) { return make_int2(r * BN, min((r + 1) * BN, bp)); },
+      [&](int r, int s) {
+        const int2 u = __ldcg(edges + (q * R + r) * 2 + s);
+        return Best{__int_as_float(u.x), u.y};
+      },
+      out_f, out_i);
+}
 
-  float* tv = topk_state + tid * k;
-  int* ti = (int*)(topk_state + QT * k) + tid * k;
-  if (epilogue == TOPK && owner) {
-    for (int i = 0; i < k; ++i) {
-      tv[i] = NEG_MASK;
-      ti[i] = 0;
-    }
+// B6 serve: grid (cluster size, query tiles) in clusters along the bank;
+// rank r walks chunks [lo(r), lo(r + 1)).
+template <class Tl, typename T>
+__global__ void __launch_bounds__(THREADS)
+predict_ring_kernel(const T* __restrict__ Q, const float* __restrict__ W,
+                    const float* __restrict__ bias, int qn, int bp, int d, int epilogue,
+                    int nc_pad, int k, int vec, float* __restrict__ out_f,
+                    int* __restrict__ out_i) {
+  __shared__ __align__(16) float arena[ARENA_FLOATS];
+  extern __shared__ float lists[];  // topk: BM*k values, then BM*k ids
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nch = (bp + BN - 1) / BN, cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  auto lo = [&](int r) { return r * (nch / cs) + min(r, nch % cs); };
+  const long q0 = (long)blockIdx.y * Tl::BM;
+  auto ep = make_epilogue<Tl>(bias, arena, lists, out_f, out_i, qn, bp, epilogue, nc_pad, k,
+                              q0, lo(rank) * BN, min(lo(rank + 1) * BN, bp));
+  ep.start();
+  walk<Tl>(Q, W, qn, bp, d, q0, lo(rank), lo(rank + 1), vec != 0, arena,
+           [&](int b0, const float (&acc)[Tl::TM][Tl::TN]) { ep.chunk(b0, acc); });
+  ep.finish();
+  if (epilogue != OVR || cs == 1) return;
+  const int tid = threadIdx.x;
+  // The partials overlay the arena, free once the walk has ended.
+  Best* slots = reinterpret_cast<Best*>(arena);
+  if (tid < Tl::BM) {
+    slots[2 * tid] = ep.edge0;
+    slots[2 * tid + 1] = ep.edge1;
   }
-  float best = 0.f;
-  int arg = 0;
-  const int gp = epilogue == OVR ? bp / nc_pad : 0;
+  cluster.sync();
+  const long q = q0 + tid;
+  if (rank == 0 && tid < Tl::BM && q < qn)
+    merge_row(
+        cs, nc_pad, bp / nc_pad, q,
+        [&](int r) { return make_int2(lo(r) * BN, min(lo(r + 1) * BN, bp)); },
+        [&](int r, int s) { return cluster.map_shared_rank(slots, r)[2 * tid + s]; },
+        out_f, out_i);
+  cluster.sync();  // no CTA leaves while rank 0 reads its partials
+}
 
-  const int lo = blockIdx.y * tile;
-  const int hi = lo + tile < bp ? lo + tile : bp;
-  for (int b0 = lo; b0 < hi; b0 += BT) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < d; d0 += DC) {
-      for (int e = tid; e < QT * DC; e += THREADS) {
-        const int j = e / DC, c = e % DC;
-        const int col = d0 + c;
-        qs[j][c] = (q0 + j < qn && col < d) ? ld(Q, (q0 + j) * d + col) : 0.f;
-      }
-      for (int e = tid; e < BT * DC; e += THREADS) {
-        const int j = e / DC, c = e % DC;
-        const int col = d0 + c;
-        wsm[j][c] = (b0 + j < hi && col < d) ? W[(long)(b0 + j) * d + col] : 0.f;
-      }
-      __syncthreads();
-      for (int c = 0; c < DC; ++c) {
-        const float wv = wsm[bl][c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] = fmaf(qs[qb + 8 * i][c], wv, acc[i]);
-      }
-      __syncthreads();
-    }
-    const int b = b0 + bl;
-    if (epilogue == SCORES) {
-      if (b < hi) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const long q = q0 + qb + 8 * i;
-          if (q < qn) out_f[q * bp + b] = acc[i];
-        }
-      }
-      continue;
-    }
-    const float bb = b < hi ? bias[b] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ss[qb + 8 * i][bl] = acc[i] + bb;
-    __syncthreads();
-    if (owner) {
-      const int lim = hi - b0 < BT ? hi - b0 : BT;
-      for (int c = 0; c < lim; ++c) {
-        const float v = ss[tid][c];
-        const int lane = b0 + c;
-        if (epilogue == OVR) {
-          const int cls = lane % nc_pad;
-          if (cls == 0 || v > best) {
-            best = v;
-            arg = cls;
-          }
-          if (cls == nc_pad - 1) {
-            out_i[my_q * gp + lane / nc_pad] = arg;
-            out_f[my_q * gp + lane / nc_pad] = best;
-          }
-        } else if (v > tv[k - 1]) {
-          int p = k - 1;
-          while (p > 0 && v > tv[p - 1]) {
-            tv[p] = tv[p - 1];
-            ti[p] = ti[p - 1];
-            --p;
-          }
-          tv[p] = v;
-          ti[p] = lane;
-        }
-      }
-    }
-    __syncthreads();  // ss is rewritten by the next chunk
-  }
-  if (epilogue == TOPK && owner) {
-    for (int i = 0; i < k; ++i) {
-      out_f[my_q * k + i] = tv[i];
-      out_i[my_q * k + i] = ti[i];
-    }
-  }
+size_t lists_bytes(int epilogue, int k) {
+  return epilogue == TOPK ? (size_t)SMALL_BM * k * (sizeof(float) + sizeof(int)) : 0;
+}
+
+// The large tile where it gives at least two CTAs per SM, else the small.
+bool large_tile(int epilogue, int qn, int along) {
+  if (epilogue == TOPK) return false;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (long)((qn + LARGE_BM - 1) / LARGE_BM) * along >= 2L * sms;
 }
 
 template <typename T>
-int launch(const void* Q, const void* W, const void* bias, int qn, int bp,
-           int d, int epilogue, int nc_pad, int k, int tile, void* out_f,
-           void* out_i, cudaStream_t s) {
-  const size_t dyn = epilogue == TOPK ? (size_t)QT * k * (sizeof(float) + sizeof(int)) : 0;
-  if (dyn > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        (const void*)predict_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+bool vectorized(const void* Q, const void* W, int d) {
+  return d % Op<T>::VEC == 0 && d % 4 == 0 && (size_t)Q % 16 == 0 && (size_t)W % 16 == 0;
+}
+
+// Scratch of the B2 ovr merge: one counter per small query tile, then the
+// (qn, bank tiles, 2) partials.
+size_t counter_bytes(int qn) { return ((size_t)(qn + SMALL_BM - 1) / SMALL_BM * 4 + 15) / 16 * 16; }
+size_t scratch_bytes(int qn, int bp, int epilogue) {
+  const int R = (bp + BN - 1) / BN;
+  if (epilogue != OVR || R == 1) return 0;
+  return counter_bytes(qn) + (size_t)qn * R * 2 * sizeof(int2);
+}
+
+template <class Tl, typename T>
+int launch(const void* Q, const void* W, const void* bias, int qn, int bp, int d, int epilogue,
+           int nc_pad, int k, void* out_f, void* out_i, void* scratch, cudaStream_t s) {
+  const size_t dyn = lists_bytes(epilogue, k);
+  cudaError_t err = cudaFuncSetAttribute((const void*)predict_kernel<Tl, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(epilogue == TOPK ? 1 : (bp + BN - 1) / BN, (qn + Tl::BM - 1) / Tl::BM);
+  int* counters = (int*)scratch;
+  int2* edges = scratch ? (int2*)((char*)scratch + counter_bytes(qn)) : nullptr;
+  if (scratch_bytes(qn, bp, epilogue) > 0) {
+    err = cudaMemsetAsync(counters, 0, grid.y * sizeof(int), s);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((qn + QT - 1) / QT, (bp + tile - 1) / tile);
-  predict_kernel<T><<<grid, THREADS, dyn, s>>>(
-      (const T*)Q, (const float*)W, (const float*)bias, qn, bp, d, epilogue,
-      nc_pad, k, tile, (float*)out_f, (int*)out_i);
+  predict_kernel<Tl, T><<<grid, THREADS, dyn, s>>>(
+      (const T*)Q, (const float*)W, (const float*)bias, qn, bp, d, epilogue, nc_pad, k,
+      (int)vectorized<T>(Q, W, d), (float*)out_f, (int*)out_i, edges, counters);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// B6 serve: the ring
-// ---------------------------------------------------------------------------
-
-constexpr int RDC = 64;                      // ring columns per chunk
-constexpr int RING_FLOATS = 2 * BT * (RDC + 1);  // the two W slots
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
+// The ring's launch: grid (cluster size, query tiles), clusters along x.
+template <class Tl>
+cudaLaunchConfig_t ring_config(int qn, int cs, size_t dyn, cudaStream_t s,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (qn + Tl::BM - 1) / Tl::BM);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
-// Start the copy of the W chunk of step `step` (lane chunk step / nd, column
-// chunk step % nd) into slot, as one cp.async group of every thread; lanes
-// past bp and columns past d are zero-filled.
-__device__ __forceinline__ void ring_load(float (*slot)[RDC + 1], const float* W,
-                                          int step, int nd, int bp, int d, int tid) {
-  const int b0 = step / nd * BT, d0 = step % nd * RDC;
-  for (int e = tid; e < BT * RDC; e += THREADS) {
-    const int j = e / RDC, c = e % RDC;
-    const bool ok = b0 + j < bp && d0 + c < d;
-    cp_async4(&slot[j][c], ok ? W + (long)(b0 + j) * d + d0 + c : W, ok);
+// The ring's cluster size: the one of 1 .. 8 (at most the bank's chunks)
+// whose launch should finish first, counting waves of the clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters: a cluster must fit one GPC)
+// times the chunks each CTA walks; ties to the larger cluster. topk walks
+// the bank in one CTA.
+template <class Tl, typename T>
+int ring_cluster(int epilogue, int qn, int bp, size_t dyn, cudaStream_t s, int* cs) {
+  const int nch = (bp + BN - 1) / BN, qt = (qn + Tl::BM - 1) / Tl::BM;
+  *cs = 1;
+  if (epilogue == TOPK) return 0;
+  static int cached_dev = -1;               // the card the counts below are for
+  static int active[MAX_CLUSTER + 1] = {};  // clusters of each size it holds at once
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev != cached_dev) {
+    for (int c = 1; c <= MAX_CLUSTER; ++c) {
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = ring_config<Tl>(qn, c, dyn, s, &attr);
+      err = cudaOccupancyMaxActiveClusters(&active[c], predict_ring_kernel<Tl, T>, &cfg);
+      if (err != cudaSuccess) return (int)err;
+    }
+    cached_dev = dev;
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  long best = -1;
+  for (int c = 1; c <= MAX_CLUSTER && c <= nch; ++c) {
+    if (active[c] < 1) continue;
+    const long cost = (long)((qt + active[c] - 1) / active[c]) * ((nch + c - 1) / c);
+    if (best < 0 || cost <= best) {
+      best = cost;
+      *cs = c;
+    }
+  }
+  return 0;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-predict_ring_kernel(const T* __restrict__ Q, const float* __restrict__ W,
-                    const float* __restrict__ bias, int qn, int bp, int d,
-                    int epilogue, int nc_pad, int k, float* __restrict__ out_f,
-                    int* __restrict__ out_i) {
-  __shared__ float qs[QT][RDC + 1];
-  __shared__ float ss[QT][BT + 1];
-  extern __shared__ float dyn[];  // the two W slots, then QT*k values, QT*k ids
-  float (*ring)[BT][RDC + 1] = (float (*)[BT][RDC + 1])dyn;
-  float* topk_state = dyn + RING_FLOATS;
-  const int tid = threadIdx.x;
-  const int bl = tid & 31;  // bank lane within the chunk
-  const int qb = tid >> 5;  // first query row of this thread (+8 i)
-  const long q0 = (long)blockIdx.x * QT;
-  const long my_q = q0 + tid;  // epilogue row of threads tid < QT
-  const bool owner = tid < QT && my_q < qn;
-
-  float* tv = topk_state + tid * k;
-  int* ti = (int*)(topk_state + QT * k) + tid * k;
-  if (epilogue == TOPK && owner) {
-    for (int i = 0; i < k; ++i) {
-      tv[i] = NEG_MASK;
-      ti[i] = 0;
-    }
-  }
-  float best = 0.f;
-  int arg = 0;
-  const int gp = epilogue == OVR ? bp / nc_pad : 0;
-
-  const int nd = (d + RDC - 1) / RDC;
-  const int steps = (bp + BT - 1) / BT * nd;
-  ring_load(ring[0], W, 0, nd, bp, d, tid);
-  int step = 0;
-  for (int b0 = 0; b0 < bp; b0 += BT) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < d; d0 += RDC, ++step) {
-      if (step + 1 < steps) {  // prefetch step + 1 before computing step
-        ring_load(ring[(step + 1) & 1], W, step + 1, nd, bp, d, tid);
-        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-      } else {
-        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      }
-      for (int e = tid; e < QT * RDC; e += THREADS) {
-        const int j = e / RDC, c = e % RDC;
-        const int col = d0 + c;
-        qs[j][c] = (q0 + j < qn && col < d) ? ld(Q, (q0 + j) * d + col) : 0.f;
-      }
-      __syncthreads();
-      const float (*wsm)[RDC + 1] = ring[step & 1];
-      for (int c = 0; c < RDC; ++c) {
-        const float wv = wsm[bl][c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] = fmaf(qs[qb + 8 * i][c], wv, acc[i]);
-      }
-      __syncthreads();  // the slot and qs may be refilled
-    }
-    const int b = b0 + bl;
-    if (epilogue == SCORES) {
-      if (b < bp) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const long q = q0 + qb + 8 * i;
-          if (q < qn) out_f[q * bp + b] = acc[i];
-        }
-      }
-      continue;
-    }
-    const float bb = b < bp ? bias[b] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ss[qb + 8 * i][bl] = acc[i] + bb;
-    __syncthreads();
-    if (owner) {
-      const int lim = bp - b0 < BT ? bp - b0 : BT;
-      for (int c = 0; c < lim; ++c) {
-        const float v = ss[tid][c];
-        const int lane = b0 + c;
-        if (epilogue == OVR) {
-          const int cls = lane % nc_pad;
-          if (cls == 0 || v > best) {
-            best = v;
-            arg = cls;
-          }
-          if (cls == nc_pad - 1) {
-            out_i[my_q * gp + lane / nc_pad] = arg;
-            out_f[my_q * gp + lane / nc_pad] = best;
-          }
-        } else if (v > tv[k - 1]) {
-          int p = k - 1;
-          while (p > 0 && v > tv[p - 1]) {
-            tv[p] = tv[p - 1];
-            ti[p] = ti[p - 1];
-            --p;
-          }
-          tv[p] = v;
-          ti[p] = lane;
-        }
-      }
-    }
-    __syncthreads();  // ss is rewritten by the next chunk
-  }
-  if (epilogue == TOPK && owner) {
-    for (int i = 0; i < k; ++i) {
-      out_f[my_q * k + i] = tv[i];
-      out_i[my_q * k + i] = ti[i];
-    }
-  }
-}
-
-size_t ring_dyn_bytes(int epilogue, int k) {
-  return sizeof(float) * RING_FLOATS +
-         (epilogue == TOPK ? (size_t)QT * k * (sizeof(float) + sizeof(int)) : 0);
-}
-
-template <typename T>
+template <class Tl, typename T>
 int launch_ring(const void* Q, const void* W, const void* bias, int qn, int bp, int d,
-                int epilogue, int nc_pad, int k, void* out_f, void* out_i,
-                cudaStream_t s) {
-  const size_t dyn = ring_dyn_bytes(epilogue, k);
-  cudaError_t err = cudaFuncSetAttribute((const void*)predict_ring_kernel<T>,
+                int epilogue, int nc_pad, int k, void* out_f, void* out_i, cudaStream_t s) {
+  const size_t dyn = lists_bytes(epilogue, k);
+  cudaError_t err = cudaFuncSetAttribute((const void*)predict_ring_kernel<Tl, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return (int)err;
-  predict_ring_kernel<T><<<(qn + QT - 1) / QT, THREADS, dyn, s>>>(
-      (const T*)Q, (const float*)W, (const float*)bias, qn, bp, d, epilogue, nc_pad, k,
-      (float*)out_f, (int*)out_i);
+  int cs = 1;
+  if (int e = ring_cluster<Tl, T>(epilogue, qn, bp, dyn, s, &cs)) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = ring_config<Tl>(qn, cs, dyn, s, &attr);
+  err = cudaLaunchKernelEx(&cfg, predict_ring_kernel<Tl, T>, (const T*)Q, (const float*)W,
+                           (const float*)bias, qn, bp, d, epilogue, nc_pad, k,
+                           (int)vectorized<T>(Q, W, d), (float*)out_f, (int*)out_i);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -340,43 +623,63 @@ int launch_ring(const void* Q, const void* W, const void* bias, int qn, int bp, 
 
 extern "C" {
 
-// Largest k the topk epilogue's shared-memory state can hold.
-int predict_bank_max_k() { return (232448 - 40 * 1024) / (QT * 8); }
+// Largest k the topk epilogue's shared-memory lists can hold beside B2's
+// static bytes (the arena and its merge flag).
+int predict_bank_max_k() {
+  return (MAX_SMEM - (int)sizeof(float) * ARENA_FLOATS - 16) / (SMALL_BM * 8);
+}
+
+// Device-memory scratch B2 needs for a launch (0 unless an ovr launch spans
+// more than one bank tile).
+long predict_bank_scratch_bytes(int qn, int bp, int epilogue) {
+  return (long)scratch_bytes(qn, bp, epilogue);
+}
 
 // Q (qn, d) in f32 (bf16 when bf16 != 0); W (bp, d) and bias (bp,) f32.
 // epilogue 0 scores -> out_f (qn, bp); 1 ovr -> out_i, out_f (qn, bp/nc_pad);
-// 2 topk -> out_f, out_i (qn, k). b_tile is the ovr bank tile (whole
-// groups of nc_pad lanes); the other epilogues ignore it. Returns the CUDA
-// error of the launch.
-int predict_bank(const void* Q, const void* W, const void* bias, int qn,
-                 int bp, int d, int epilogue, int nc_pad, int k, int b_tile,
-                 void* out_f, void* out_i, int bf16, void* stream) {
+// 2 topk -> out_f, out_i (qn, k). b_tile is the ovr bank tile of the
+// caller's padding (whole groups of nc_pad lanes, checked); the kernel's own
+// lane tiles cross groups. scratch holds predict_bank_scratch_bytes. Returns
+// the CUDA error of the launch.
+int predict_bank(const void* Q, const void* W, const void* bias, int qn, int bp, int d,
+                 int epilogue, int nc_pad, int k, int b_tile, void* out_f, void* out_i,
+                 void* scratch, int bf16, void* stream) {
   if (qn <= 0 || bp <= 0 || d <= 0 || epilogue < SCORES || epilogue > TOPK)
     return (int)cudaErrorInvalidValue;
   if (epilogue == OVR && (nc_pad <= 0 || b_tile <= 0 || b_tile % nc_pad != 0 || bp % b_tile != 0))
     return (int)cudaErrorInvalidValue;
   if (epilogue == TOPK && (k < 1 || k > predict_bank_max_k())) return (int)cudaErrorInvalidValue;
+  if (scratch_bytes(qn, bp, epilogue) > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int tile = epilogue == SCORES ? SCORES_TILE : epilogue == OVR ? b_tile : bp;
-  if (bf16) return launch<__nv_bfloat16>(Q, W, bias, qn, bp, d, epilogue, nc_pad, k, tile, out_f, out_i, s);
-  return launch<float>(Q, W, bias, qn, bp, d, epilogue, nc_pad, k, tile, out_f, out_i, s);
+  const bool large = large_tile(epilogue, qn, (bp + BN - 1) / BN);
+#define B2_ARGS Q, W, bias, qn, bp, d, epilogue, nc_pad, k, out_f, out_i, scratch, s
+  if (bf16)
+    return large ? launch<Large, __nv_bfloat16>(B2_ARGS) : launch<Small, __nv_bfloat16>(B2_ARGS);
+  return large ? launch<Large, float>(B2_ARGS) : launch<Small, float>(B2_ARGS);
+#undef B2_ARGS
 }
 
-// B6 serve: as predict_bank with the bank walked by one CTA per query tile
-// through the ring (every lane in order, so b_tile is not needed here).
-int predict_bank_ring(const void* Q, const void* W, const void* bias, int qn, int bp,
-                      int d, int epilogue, int nc_pad, int k, void* out_f, void* out_i,
-                      int bf16, void* stream) {
+// B6 serve: as predict_bank, each query tile's walk of the bank split over a
+// cluster of up to 8 CTAs (one CTA for topk); b_tile is not needed here.
+int predict_bank_ring(const void* Q, const void* W, const void* bias, int qn, int bp, int d,
+                      int epilogue, int nc_pad, int k, void* out_f, void* out_i, int bf16,
+                      void* stream) {
   if (qn <= 0 || bp <= 0 || d <= 0 || epilogue < SCORES || epilogue > TOPK)
     return (int)cudaErrorInvalidValue;
   if (epilogue == OVR && (nc_pad <= 0 || bp % nc_pad != 0)) return (int)cudaErrorInvalidValue;
   if (epilogue == TOPK && (k < 1 || k > predict_bank_max_k())) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) return launch_ring<__nv_bfloat16>(Q, W, bias, qn, bp, d, epilogue, nc_pad, k, out_f, out_i, s);
-  return launch_ring<float>(Q, W, bias, qn, bp, d, epilogue, nc_pad, k, out_f, out_i, s);
+  const int nch = (bp + BN - 1) / BN;
+  const bool large = large_tile(epilogue, qn, nch < MAX_CLUSTER ? nch : MAX_CLUSTER);
+#define RING_ARGS Q, W, bias, qn, bp, d, epilogue, nc_pad, k, out_f, out_i, s
+  if (bf16)
+    return large ? launch_ring<Large, __nv_bfloat16>(RING_ARGS)
+                 : launch_ring<Small, __nv_bfloat16>(RING_ARGS);
+  return large ? launch_ring<Large, float>(RING_ARGS) : launch_ring<Small, float>(RING_ARGS);
+#undef RING_ARGS
 }
 
-// Dynamic shared memory the serving ring requests.
-long predict_bank_ring_dyn_bytes(int epilogue, int k) { return (long)ring_dyn_bytes(epilogue, k); }
+// Dynamic shared memory the serving ring requests (the topk lists).
+long predict_bank_ring_dyn_bytes(int epilogue, int k) { return (long)lists_bytes(epilogue, k); }
 
 }  // extern "C"

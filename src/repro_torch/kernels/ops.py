@@ -164,7 +164,10 @@ def predict_vmem_bytes(
     """Shared memory per CTA of the predict kernel, bytes by term: B2's
     ``predict_kernel`` (``"vmem"``) or B6's ``predict_ring_kernel``
     (``"hbm"``), plus the topk epilogue's running lists. Neither holds the
-    bank: both stage chunks of it, so the bytes do not grow with B."""
+    bank: both stage chunks of it through one arena whatever tile the launch
+    picks, so the bytes do not grow with B, D or Q. The ring's merge waits
+    on a cluster barrier where B2's needs a flag, so the ring is 16 B
+    smaller."""
     _check_resident(bank_resident)
     out = dict(PREDICT_RING_SMEM if bank_resident == "hbm" else PREDICT_SMEM)
     out["epilogue_state"] = topk_state_bytes(k) if epilogue == "topk" else 0

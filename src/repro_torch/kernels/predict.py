@@ -6,9 +6,10 @@ for Hopper, in ``csrc/predict.cu``; its header says how it is laid out and
 what bounds it.
 
 B6 serve, ``predict_bank_ring`` (``bank_resident="hbm"``), is the port of
-the same ``_kernel`` with ``hbm=True``: one CTA per query tile walks the
-whole bank in order through a 2-slot shared-memory ring of W chunks. It
-equals B2 bit for bit.
+the same ``_kernel`` with ``hbm=True``: each query tile walks the bank in
+lane order through a 2-slot shared-memory ring, split along the bank over a
+thread-block cluster. Both kernels run one register-tiled product body, so
+the ring equals B2 bit for bit.
 
 ``predict_bank_fused`` and ``predict_bank_ring`` dispatch on the device of
 ``Q``: a CPU tensor runs the plain version, a CUDA tensor launches the
@@ -32,13 +33,17 @@ NEG_MASK = -3.0e38
 _EPILOGUES = {"scores": 0, "ovr": 1, "topk": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-#: Shared memory per CTA of B2's ``predict_kernel``, by term, as declared:
-#: the query chunk (32 x 129 f32), the bank chunk (32 x 129) and the score
-#: block (32 x 33); the topk list adds 32 k (value, id) pairs.
-PREDICT_SMEM = {"query_tile": 16_512, "bank": 16_512, "scores": 4_224}
-#: The same for B6 serve's ``predict_ring_kernel``: the query chunk (32 x 65)
-#: and the score block static, the two W slots (2 x 32 x 65) dynamic.
-PREDICT_RING_SMEM = {"query_tile": 8_320, "bank": 16_640, "scores": 4_224}
+#: Shared memory per CTA of B2's ``predict_kernel``, by term, as ptxas
+#: places it: the 3-stage operand buffer (sized for the large 128-query tile,
+#: 3 x (128 + 64) rows x 20 f32; the small 32-query tile uses less of it, and
+#: the epilogue's 32-lane pieces reuse it once a chunk's steps have drained)
+#: and the flag of the ovr merge (an int, padded to 16 B). Both tiles run in
+#: this one arena, so the bytes do not depend on which tile a launch takes;
+#: the topk lists add ``topk_state_bytes(k)``.
+PREDICT_SMEM = {"stages": 46_080, "merge_flag": 16}
+#: The same for B6 serve's ``predict_ring_kernel``: the same arena and no
+#: flag (its merge waits on a cluster barrier).
+PREDICT_RING_SMEM = {"stages": 46_080}
 
 
 def topk_state_bytes(k: int) -> int:
@@ -48,8 +53,10 @@ def topk_state_bytes(k: int) -> int:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("predict")
-    lib.predict_bank.argtypes = [_P, _P, _P] + [_I] * 7 + [_P, _P, _I, _P]
+    lib.predict_bank.argtypes = [_P, _P, _P] + [_I] * 7 + [_P, _P, _P, _I, _P]
     lib.predict_bank.restype = ctypes.c_int
+    lib.predict_bank_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.predict_bank_scratch_bytes.restype = ctypes.c_long
     lib.predict_bank_ring.argtypes = [_P, _P, _P] + [_I] * 6 + [_P, _P, _I, _P]
     lib.predict_bank_ring.restype = ctypes.c_int
     lib.predict_bank_ring_dyn_bytes.argtypes = [_I, _I]
@@ -150,11 +157,14 @@ def predict_bank_fused(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=Non
     out_f = torch.empty((qn, cols), device=dev, dtype=torch.float32)
     out_i = torch.empty((qn, cols) if epilogue != "scores" else (1,), device=dev,
                         dtype=torch.int32)
+    # The ovr merge's partials and arrival counters (cleared by the launch).
+    nbytes = lib.predict_bank_scratch_bytes(qn, bp, _EPILOGUES[epilogue])
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8) if nbytes else None
     err = lib.predict_bank(
         Q.data_ptr(), W.data_ptr(), bias.data_ptr(), qn, bp, d,
         _EPILOGUES[epilogue], int(nc_pad or 0), int(k or 0), int(b_tile),
-        out_f.data_ptr(), out_i.data_ptr(), int(Q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
+        out_f.data_ptr(), out_i.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        int(Q.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "predict_bank")
     predict_bank_fused.launches += 1
@@ -218,7 +228,7 @@ def predict_bank_ring(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=None
     """B6 serve on the device of ``Q``: the ring kernel for a CUDA tensor,
     the plain version for a CPU tensor. Same arguments and results as
     ``predict_bank_fused``; the kernel walks every lane, so ``b_tile`` only
-    pads the bank."""
+    pads the bank. A launch the card refuses (the cluster too) raises."""
     if Q.device.type == "cpu":
         return predict_bank_ring_plain(
             Q, W, bias, epilogue=epilogue, q_block=q_block, b_tile=b_tile, nc_pad=nc_pad, k=k,

@@ -9,7 +9,8 @@ collects the same tests. On the card:
 Tolerances are the repo's engine tolerance (f32 sums in another order);
 core-vector counts and ids are exact, and the bank's tiling changes no bit.
 B6, the ring (bank_resident="hbm"), equals B1 / B3 / B2 bit for bit at every
-number of tiles per CTA.
+number of tiles per CTA; B2 and the serving ring give the same bits whatever
+their tile, cluster or launch, with exact ties to the lowest lane.
 B5 is held to 2 (D + 1) 2^-24 |a_i| |b_j| per element (twice gamma that,
 plus 1e-6, under the RBF map), the bound on two f32 evaluations of a D-long
 dot product; R1's slots and counts are exact.
@@ -440,6 +441,117 @@ def test_predict_ring_equals_b2(cuda, epilogue, kw, dtype):
             torch.testing.assert_close(g, p, rtol=2e-4, atol=2e-5 * max(1.0, p.abs().max().item()))
 
 
+def _both_kernels(Q, W, bias, **kw):
+    """B2's and the ring's results, each a tuple, the ring held to B2 bit
+    for bit; returns B2's."""
+    b2 = predict_bank_fused(Q, W, bias, **kw)
+    ring = predict_bank_ring(Q, W, bias, **kw)
+    b2, ring = ((x if isinstance(x, tuple) else (x,)) for x in (b2, ring))
+    for a, r in zip(b2, ring):
+        assert torch.equal(a, r)
+    return b2
+
+
+def _tied_bank(cuda, b, d, ties, seed):
+    """A bank of small random rows where each tuple of lanes in ``ties``
+    holds one large row, bit-identical across the tuple, and queries near
+    those rows: each tuple's lanes tie exactly and beat the rest of their
+    group."""
+    rng = np.random.default_rng(seed)
+    W = 0.01 * rng.normal(size=(b, d)).astype(np.float32)
+    rows = rng.normal(size=(len(ties), d)).astype(np.float32)
+    for row, lanes in zip(rows, ties):
+        W[list(lanes)] = row
+    Q = rows[rng.integers(0, len(ties), size=300)] + 0.1 * rng.normal(size=(300, d))
+    return (torch.as_tensor(Q.astype(np.float32), device=cuda),
+            torch.as_tensor(W, device=cuda), torch.zeros(b, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ovr_ties_across_tiles_and_clusters_go_to_the_lowest_lane(cuda, dtype):
+    """Duplicated bank rows in different 64-lane tiles (B2's CTAs) and in
+    different CTAs of the ring's cluster, within one group (nc_pad = 256, so
+    every group spans four tiles) and repeated across groups: each group's
+    winner is its lowest tied lane, in both kernels, bit for bit equal."""
+    nc_pad, d = 256, 96
+    ties = [(10, 200), (63, 64), (127, 128, 255), (300, 450, 700), (767, 768, 1000)]
+    Q, W, bias = _tied_bank(cuda, 1024, d, ties, seed=41)
+    Q = Q.to(dtype)
+    cls, margin = _both_kernels(Q, W, bias, epilogue="ovr", q_block=300, nc_pad=nc_pad,
+                                b_tile=nc_pad)
+    s = Q.float() @ W.T
+    for g in range(1024 // nc_pad):
+        grp = s[:, g * nc_pad : (g + 1) * nc_pad]
+        top = grp.amax(dim=1)
+        for lanes in ties:
+            inside = [l - g * nc_pad for l in lanes if l // nc_pad == g]
+            if not inside:
+                continue
+            won = grp[:, inside[0]] == top  # queries this tuple wins (near its row)
+            assert won.sum() > 10
+            assert (cls[won, g] == inside[0]).all()  # the lowest tied lane
+    want = predict_bank_plain(Q, W, bias, epilogue="ovr", q_block=300, nc_pad=nc_pad,
+                              b_tile=nc_pad)[1]
+    torch.testing.assert_close(margin, want, rtol=2e-4,
+                               atol=2e-5 * max(1.0, want.abs().max().item()))
+
+
+def test_topk_ties_across_tiles_go_to_the_lowest_lane(cuda):
+    """topk walks the whole bank in one CTA per query tile: exact ties
+    across tiles keep lane order, in both kernels."""
+    Q, W, bias = _tied_bank(cuda, 320, 40, [(5, 70, 300), (64, 65)], seed=43)
+    vals, ids = _both_kernels(Q, W, bias, epilogue="topk", q_block=300, k=3)
+    first = (Q @ W.T)[:, 5] > (Q @ W.T)[:, 64]  # the queries near the first row
+    assert first.sum() > 10 and (~first).sum() > 10
+    assert (ids[first] == torch.tensor([5, 70, 300], device=cuda, dtype=torch.int32)).all()
+    assert (vals[first, 0] == vals[first, 1]).all() and (vals[first, 1] == vals[first, 2]).all()
+    assert (ids[~first, :2] == torch.tensor([64, 65], device=cuda, dtype=torch.int32)).all()
+
+
+@pytest.mark.parametrize("d", [33, 785])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ovr_groups_straddling_tiles_match_plain(cuda, d, dtype):
+    """nc_pad = 200 lanes, so groups straddle the kernels' 64-lane tiles;
+    D = 33 and 785 are not whole k-steps (nor whole 16-byte copies in bf16
+    at 33); Q = 300 and B = 1,000 leave ragged query and lane tiles."""
+    rng = np.random.default_rng(d)
+    Q = torch.as_tensor(rng.normal(size=(300, d)).astype(np.float32), device=cuda).to(dtype)
+    W = torch.as_tensor(rng.normal(size=(1000, d)).astype(np.float32), device=cuda)
+    bias = torch.zeros(1000, device=cuda)
+    bias[torch.arange(1000, device=cuda) % 200 >= 195] = -3.0e38  # each group's padded lanes
+    kw = dict(epilogue="ovr", q_block=300, nc_pad=200, b_tile=200)
+    before = (predict_bank_fused.launches, predict_bank_ring.launches)
+    cls, margin = _both_kernels(Q, W, bias, **kw)
+    assert (predict_bank_fused.launches, predict_bank_ring.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want_cls, want = predict_bank_plain(Q, W, bias, **kw)
+    torch.testing.assert_close(margin, want, rtol=2e-4,
+                               atol=2e-5 * max(1.0, want.abs().max().item()))
+    top2 = (Q.float() @ W.T + bias).reshape(300, 5, 200).topk(2, dim=-1).values
+    sep = (top2[..., 0] - top2[..., 1]) > 1e-5 * top2.abs().max()
+    assert torch.equal(cls[sep], want_cls[sep])
+    assert (cls < 195).all()
+
+
+@pytest.mark.parametrize("epilogue", ["scores", "ovr"])
+def test_served_step_equals_the_whole_launch(cuda, epilogue):
+    """A 256-query step (the small tile, 64-CTA cluster walk) and one
+    10,240-query launch (the large tile) give the same bits for the same
+    rows, in both kernels: each margin is the same ascending fmaf chain."""
+    rng = np.random.default_rng(7)
+    Q = torch.as_tensor(rng.normal(size=(10_240, 784)).astype(np.float32), device=cuda)
+    W = torch.as_tensor(rng.normal(size=(600, 784)).astype(np.float32), device=cuda)
+    bias = torch.zeros(600, device=cuda)
+    kw = dict(epilogue=epilogue, q_block=256)
+    if epilogue == "ovr":
+        kw.update(nc_pad=200, b_tile=200)
+    whole = _both_kernels(Q, W, bias, **kw)
+    for q0 in (0, 256 * 17, 10_240 - 256):
+        step = _both_kernels(Q[q0 : q0 + 256], W, bias, **kw)
+        for a, b in zip(step, whole):
+            assert torch.equal(a, b[q0 : q0 + 256])
+
+
 def test_ring_beyond_the_cards_shared_memory_is_refused(cuda):
     """A budget above the card's 232,448 B lets the preflight pass a layout
     the card cannot hold; the launch is then refused with a RuntimeError and
@@ -464,7 +576,7 @@ def test_byte_models_equal_what_the_kernels_allocate(cuda):
     lib, plib = scan_mod._lib(), predict_mod._lib()
     assert _build.static_smem("streamsvm_scan", "scan_kernel") == {25_888}
     assert _build.static_smem("streamsvm_scan", "lookahead_kernel") == {25_888}
-    assert _build.static_smem("predict", "predict_kernel") == {37_248}
+    assert _build.static_smem("predict", "predict_kernel") == {46_096}
     assert sum(ops.engine_vmem_bytes(600, 784).values()) == 25_888
     (ring_static,) = _build.static_smem("streamsvm_scan", "scan_ring_kernel")
     for b, d, la, budget in ((600, 784, None, None), (600, 784, None, 25_887),

@@ -425,9 +425,9 @@ def test_byte_models_follow_the_card_layouts():
         vmem_budget=ops.DEFAULT_VMEM_BUDGET_BYTES, what="t", shapes="s")
     assert res == "vmem"
     p = [sum(ops.predict_vmem_bytes(b, 128, b_tile=8).values()) for b in (64, 4096)]
-    assert p[0] == p[1] == sum(PREDICT_SMEM.values()) == 37_248
-    assert sum(ops.predict_vmem_bytes(64, 128, epilogue="topk", k=5).values()) == 37_248 + 1_280
-    assert sum(ops.predict_vmem_bytes(64, 128, bank_resident="hbm").values()) == 29_184
+    assert p[0] == p[1] == sum(PREDICT_SMEM.values()) == 46_096
+    assert sum(ops.predict_vmem_bytes(64, 128, epilogue="topk", k=5).values()) == 46_096 + 1_280
+    assert sum(ops.predict_vmem_bytes(64, 128, bank_resident="hbm").values()) == 46_080
 
 
 def test_forced_vmem_beyond_budget_raises_with_breakdown():
