@@ -19,11 +19,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. each kernel against its plain PyTorch version on the card: B1 (one
      pass of Algorithm 1 for a bank), B2 (fused bank predict, all three
      epilogues), B4 (Algorithm 1 for one model) and B3 (the fused
-     Algorithm 2 for a bank); B5 (the Gram block, with its row-norms
-     kernel) on a small ragged case and at the kernelized bank's K_cs shape,
-     and R1 (the core-set row recursion) with B5 over the first
-     --kb-check-tiles tiles of phase 6b's pass, for both evictions, at
-     S = --coreset and at --kb-evict-coreset (whose buffers fill and evict);
+     Algorithm 2 for a bank); top-k at every list layout in B2 and B6 serve
+     (k = B on phase 3's bank shape; k = 728 and k = B = 1,536, the lists in
+     device memory); B5 (the Gram block, with its row-norms kernel) bit for
+     bit on ragged cases and at the kernelized bank's K_cs shape, linear B5
+     bit-equal to B2's scores, and R1 (the core-set row recursion) with B5
+     over the first --kb-check-tiles tiles of phase 6b's pass, for both
+     evictions, at S = --coreset and at --kb-evict-coreset (whose buffers
+     fill and evict), and over 2 tiles at S = 256 (slots in registers) and
+     300 (slots in a device scratch);
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
@@ -159,24 +163,14 @@ def compare_ids(name, got, want, sorted_scores, k):
 KB_GAMMA = 1.0  # phase 6b's RBF bandwidth on unit-norm rows
 
 
-def gram_tol(A, B, epilogue, gamma):
-    """Per-element bound on two f32 evaluations of a D-long dot product:
-    each errs by at most about D u sum|a_d b_d| <= D u |a| |b| (u = 2^-24),
-    so they differ by at most 2 (D + 1) u |a_i| |b_j|; the RBF map is
-    gamma-Lipschitz in d^2 = ... - 2<a, b>, plus 1e-6 for exp's rounding."""
-    d = A.shape[1]
-    na, nb = A.float().norm(dim=1), B.float().norm(dim=1)
-    lin = (2.0 * (d + 1) * 2.0**-24) * na[:, None] * nb[None, :]
-    return lin if epilogue == "linear" else (2.0 * gamma) * lin + 1e-6
-
-
-def check_gram(name, got, want, A, B, epilogue, gamma):
-    err = (got - want).abs()
-    bad = int((err > gram_tol(A, B, epilogue, gamma)).sum())
-    if bad:
-        raise AssertionError(f"{name}: {bad} elements beyond 2 (D+1) u |a||b| (max |err| "
-                             f"{err.max().item():.3e})")
-    return err.max().item()
+def bit_equal(name, got, want):
+    """Two tensors equal bit for bit, compared on their device; returns the
+    largest difference (0.0)."""
+    if not torch.equal(got, want):
+        bad = got != want
+        raise AssertionError(f"{name}: differs at {int(bad.sum())} entries (max |err| "
+                             f"{(got - want).abs().max().item():.3e})")
+    return 0.0
 
 
 def check_kernel_state(name, got, want):
@@ -299,6 +293,8 @@ def smem_models():
         ("gram", "gram_kernel", ops.kernel_engine_vmem_bytes(8, 8, coreset_size=1)["gram_tiles"]),
         ("kernel_bank", "rows_kernel",
          ops.kernel_engine_vmem_bytes(8, 8, coreset_size=1)["row_recursion"]),
+        ("kernel_bank", "rows_wide_kernel",  # slots in device memory
+         ops.kernel_engine_vmem_bytes(8, 8, coreset_size=300)["row_recursion"]),
     )
 
 
@@ -472,6 +468,8 @@ def phase_kernels(dev, args, rng):
 
     check_single(dev, args, rng)
     check_lookahead(dev, args, rng)
+    print(f"[2] B2 and B6 serve top-k at any k: Q=250 (ragged), D={d}")
+    check_topk_any_k(dev, args, rng)
 
     q, bq = args.check_q, args.classes * 3
     print(f"[2] B2 against its plain version: Q={q} (ragged), B={bq}, D={d}")
@@ -509,6 +507,43 @@ def phase_kernels(dev, args, rng):
         print(f"  {ep}: values max|err| {err:.3e}")
 
 
+def check_topk_any_k(dev, args, rng):
+    """Phase 2's top-k at every list layout: k = B on phase 3's bank shape
+    (600 x 784: the shared-memory lists at their largest) and k = 728 (one
+    past them) and k = B on 7b's model count at D = 784 (1,536 lanes: the
+    lists in the outputs, in device memory). One ragged served step (250
+    queries); B2 and the ring against the plain version and each other."""
+    from repro_torch.kernels.predict import (
+        TOPK_SMEM_MAX_K,
+        predict_bank_fused,
+        predict_bank_plain,
+        predict_bank_ring,
+    )
+
+    d, q = args.d, 250
+    Q = torch.as_tensor(rng.normal(size=(q, d)).astype(np.float32), device=dev)
+    Qp = torch.nn.functional.pad(Q, (0, 0, 0, 256 - q))
+    for b in (args.classes * 3, args.ring_classes * 3):
+        W = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+        W[b - 1] = W[1]  # an exact tie across the whole bank
+        bias = torch.zeros(b, device=dev)
+        full = (Qp @ W.T).sort(dim=1, descending=True).values
+        for k in sorted({b, min(b, TOPK_SMEM_MAX_K + 1)}):
+            t0 = time.perf_counter()
+            got = predict_bank_fused(Qp, W, bias, epilogue="topk", q_block=256, k=k)
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            check_equal(f"B6 serve topk against B2 at B={b} k={k}",
+                        predict_bank_ring(Qp, W, bias, epilogue="topk", q_block=256, k=k), got)
+            want = predict_bank_plain(Qp, W, bias, epilogue="topk", q_block=256, k=k)
+            compare_ids(f"topk ids B={b} k={k} ({'shared' if k <= TOPK_SMEM_MAX_K else 'device'}"
+                        " memory lists)", got[1][:q], want[1][:q], full[:q], k)
+            err = check_close(f"B2 topk values B={b} k={k}", got[0][:q], want[0][:q], RTOL_W,
+                              score_atol(want[0][:q]))
+            print(f"    values max|err| {err:.3e}; B6 serve bit-equal to B2; one launch "
+                  f"{ms:.1f} ms (host clock, first call)")
+
+
 def check_kernel_bank(dev, args, rng, kb):
     """Phase 2's B5 and R1 checks: B5 and its row norms on small ragged
     cases, then the engine's kernel path over the first --kb-check-tiles
@@ -516,10 +551,10 @@ def check_kernel_bank(dev, args, rng, kb):
     B5 at the full K_cs shape those tiles reach."""
     from repro_torch.core.kernel_bank import _fit_kernel_bank
     from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
+    from repro_torch.kernels.predict import predict_bank_fused
 
     print("[2] B5 against its plain version: ragged M, N, D; f32 and bf16 A; linear and rbf")
-    worst = 0.0
-    for m, n, d in ((37, 130, 33), (65, 1, 7), (200, 321, 784)):
+    for m, n, d in ((37, 130, 33), (65, 1, 7), (200, 321, 784), (700, 2000, 785)):
         for dt in (torch.float32, torch.bfloat16):
             A = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32), device=dev).to(dt)
             B = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=dev)
@@ -530,9 +565,14 @@ def check_kernel_bank(dev, args, rng, kb):
                 got = gram_fused(A, B, an, bn, 0.1, epilogue=ep)
                 want = gram_plain(A, B, an, bn, 0.1, epilogue=ep)
                 sync(dev)
-                worst = max(worst, check_gram(f"B5 {ep} {m}x{n}x{d} {dt}", got, want, A.float(),
-                                              B, ep, 0.1))
-    print(f"  within 2 (D+1) u |a||b| everywhere (max |err| {worst:.3e}); row norms equal")
+                bit_equal(f"B5 {ep} {m}x{n}x{d} {dt}", got, want)
+            if dev.type == "cuda":  # one product body (the plain versions differ: B2's is a matmul)
+                bit_equal(f"B5 linear against B2 scores {m}x{n}x{d} {dt}",
+                          gram_fused(A, B, an, bn, epilogue="linear"),
+                          predict_bank_fused(A, B, torch.zeros(n, device=dev), epilogue="scores",
+                                             q_block=m))
+    print("  bit-equal to the plain version everywhere (one fmaf chain per element); row norms "
+          "equal" + ("; linear B5 bit-equal to B2's scores" if dev.type == "cuda" else ""))
 
     tiles, bn = args.kb_check_tiles, 256
     b, d = kb["Y"].shape[0], args.d
@@ -541,16 +581,19 @@ def check_kernel_bank(dev, args, rng, kb):
     csd = torch.as_tensor(kb["cs"], device=dev)
     out = {}
     # S = --coreset is phase 6b's pass; the smaller --kb-evict-coreset fills
-    # the buffers within these tiles, so both eviction policies run.
-    for s in (args.coreset, args.kb_evict_coreset):
-        print(f"[2] R1 and B5 on phase 6b's stream: the first {tiles} tiles ({tiles * bn} rows), "
+    # the buffers within these tiles, so both eviction policies run. S = 256
+    # (eight register slots a lane) and 300 (the slots in device memory) run
+    # R1 past its four register slots a lane, over 2 tiles.
+    for s, nt in ((args.coreset, tiles), (args.kb_evict_coreset, tiles), (256, 2), (300, 2)):
+        print(f"[2] R1 and B5 on phase 6b's stream: the first {nt} tiles ({nt * bn} rows), "
               f"B={b}, S={s}, D={d}, rbf gamma {KB_GAMMA}, against the plain path")
         for ev in ("smallest-coef", "farthest-point"):
             kw = dict(kernel="rbf", coreset_size=s, eviction=ev, variant="exact", block_n=bn,
                       s_tile=None, stream_dtype=None)
-            got = _fit_kernel_bank(Xd, Yd, csd, KB_GAMMA, **kw)
+            got = _fit_kernel_bank(Xd[: nt * bn], Yd[:, : nt * bn], csd, KB_GAMMA, **kw)
             t0 = time.perf_counter()
-            want = _fit_kernel_bank(Xd, Yd, csd, KB_GAMMA, plain=True, **kw)
+            want = _fit_kernel_bank(Xd[: nt * bn], Yd[:, : nt * bn], csd, KB_GAMMA, plain=True,
+                                    **kw)
             sync(dev)
             err = check_kernel_state(f"R1+B5 S={s} {ev}", got, want)
             filled = int((got.idx >= 0).sum())
@@ -565,9 +608,12 @@ def check_kernel_bank(dev, args, rng, kb):
     got = gram_fused(A, P, an, pn, KB_GAMMA, epilogue="rbf")
     want = gram_plain(A, P, an, pn, KB_GAMMA, epilogue="rbf")
     sync(dev)
-    err = check_gram("B5 at the K_cs shape", got, want, A, P, "rbf", KB_GAMMA)
-    print(f"  B5 at the K_cs shape ({bn} x {P.shape[0]} x {d}, rbf): max |err| {err:.3e}, "
-          f"bit-equal: {bool(torch.equal(got, want))}")
+    err = bit_equal("B5 at the K_cs shape", got, want)
+    if not torch.equal(torch.diagonal(gram_fused(A, A, an, an, KB_GAMMA, epilogue="rbf")),
+                       torch.ones(len(A), device=dev)):
+        raise AssertionError("B5's RBF diagonal is not exactly 1")
+    print(f"  B5 at the K_cs shape ({bn} x {P.shape[0]} x {d}, rbf): bit-equal to the plain "
+          "version; the RBF diagonal is exactly 1")
     out["kcs"] = dict(A=A, P=P, err=err)
     return out
 
@@ -1098,7 +1144,7 @@ def phase_ring(dev, args, main, algos):
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import predict as predict_mod
     from repro_torch.kernels import streamsvm_scan as scan_mod
-    from repro_torch.kernels.predict import predict_bank_ring
+    from repro_torch.kernels.predict import TOPK_SMEM_MAX_K, predict_bank_ring
     from repro_torch.kernels.streamsvm_scan import (
         ring_plan,
         streamsvm_scan_lookahead_many_ring,
@@ -1286,13 +1332,17 @@ def phase_ring(dev, args, main, algos):
                   f"{plan['owned']}: {have} B allocated (static {ring_static} + dynamic "
                   f"{have - ring_static}) = byte model")
         (pr_static,) = _build.static_smem("predict", "predict_ring_kernel")
-        for ep, k in (("ovr", None), ("scores", None), ("topk", 5)):
+        for ep, k in (("ovr", None), ("scores", None), ("topk", 5), ("topk", 727),
+                      ("topk", 728)):
             have = pr_static + plib.predict_bank_ring_dyn_bytes(
                 {"scores": 0, "ovr": 1, "topk": 2}[ep], k or 0)
             model = sum(ops.predict_vmem_bytes(b, d, epilogue=ep, k=k, n_classes=rc if ep == "ovr"
                                                else None, bank_resident="hbm").values())
             if have != model:
                 raise AssertionError(f"serving ring {ep}: allocates {have} B, model {model} B")
+        if plib.predict_bank_max_k() != TOPK_SMEM_MAX_K:
+            raise AssertionError(f"topk lists: the kernel keeps k <= {plib.predict_bank_max_k()} "
+                                 f"in shared memory, the byte model {TOPK_SMEM_MAX_K}")
         for src, kern, model in smem_models():
             if kern in ("scan_ring_kernel", "predict_ring_kernel"):
                 continue  # checked above with their dynamic bytes
@@ -1652,7 +1702,7 @@ def kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, t):
         want = gram_plain(A, P, an, pn, KB_GAMMA, epilogue="rbf")
         sync(dev)
         plain = (time.perf_counter() - t0) * 1e3
-        err = check_gram(name, got, want, A, P, "rbf", KB_GAMMA)
+        err = bit_equal(name, got, want)
         del got, want
         ms = time_ms(call, dev, reps)
         lib = time_ms(lambda: torch.matmul(A, P.T), dev, reps)
@@ -1670,11 +1720,21 @@ def kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, t):
     b, s, d = bank.points.shape
     P = bank.points.reshape(b * s, d)
     A = kbc["kcs"]["A"]
-    out.append(gram_row("gram", A, P, kbres["train_launches"]["gram_fused"],
-                        "the K_cs launch of a training tile"))
+    # Phase 6b's launches have two shapes: each training tile's K_cs block
+    # and every 256-row served step (BankServer scores a kernel bank in
+    # q_block steps) are 256 x B S; each tile's K_tt is 256 x 256. One R1
+    # launch a tile counts the tiles.
+    ktt = sum(kbres["rows_launches"].values())
+    if kbres["train_launches"]["gram_fused"] != 2 * ktt:
+        raise AssertionError(f"phase 6b: {kbres['train_launches']['gram_fused']} training "
+                             f"launches of B5 over {ktt} tiles, not one K_cs and one K_tt each")
+    out.append(gram_row("gram", A, P, kbres["launches"]["gram_fused"] - ktt,
+                        "the K_cs launch of a training tile and of a served step"))
+    out.append(gram_row("gram[K_tt]", A, A, ktt, "the K_tt launch of a training tile"))
     Q = torch.as_tensor(kb["Xte"], device=dev)
-    out.append(gram_row("gram_serve", Q, P, kbres["serve_launches"],
-                        f"serving Q={Q.shape[0]} queries at once"))
+    out.append(gram_row("gram[yardstick]", Q, P, 0,
+                        f"a yardstick: Q={Q.shape[0]} queries in one launch, which no path of "
+                        "this run makes"))
     del Q
 
     X = torch.as_tensor(kb["X"], device=dev)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/repro_torch_kernels/<name>-<hash>.so`` at the root of the
-checkout, where ``<hash>`` is the SHA-256 of the source and the flags: a
-changed source builds anew, an unchanged one loads from the cache. ``nvcc``
+checkout, where ``<hash>`` is the SHA-256 of the source, the shared headers
+(``csrc/*.cuh``) and the flags: a changed source or header builds anew, an
+unchanged one loads from the cache. ``nvcc``
 also writes its ``-Xptxas -v`` report (registers, shared memory, spills)
 beside the library, as ``<name>-<hash>.log``.
 
@@ -48,7 +49,8 @@ def nvcc() -> str:
 
 def _paths(name: str) -> tuple[Path, Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(FLAGS).encode()).hexdigest()[:16]
     stem = BUILD_DIR / f"{name}-{digest}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")
 

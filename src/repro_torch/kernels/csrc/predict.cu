@@ -6,33 +6,16 @@
 // (predict_ring_kernel) with hbm=True (predict.py:94-134), where W stays in
 // ANY space and (b_tile, D) slices pass through a 2-slot VMEM ring.
 //
-// The product (walk below, one body for both kernels). A CTA of 128 threads
-// computes BM x 64 blocks of margins S[q, b] = <q, w_b>: one query tile
-// against a run of consecutive 64-lane bank chunks. Each thread keeps a
-// TM x TN register block, rows ty + TY i and lanes tx + TX j. Per chunk, the
-// query tile and the bank chunk pass through a 3-stage shared-memory buffer
-// of BK-column steps, staged row-major (a row's k-chunk contiguous) by
-// cp.async: two steps are in flight while one computes, with one barrier per
-// step. The inner loop reads four columns of a row as one float4, so a
-// thread makes TM + TN 16-byte shared loads per 4 TM TN FMAs (the old body
-// made 5 loads per 4 FMAs). Two tile shapes share one shared-memory arena,
-// so the byte model does not depend on which a launch takes:
-//   small  BM = 32,  4 x 4 per thread, BK = 32: many CTAs for few queries
-//          (a 256-query server step: 8 query tiles x 10 bank tiles in B2);
-//   large  BM = 128, 8 x 8 per thread, BK = 16: a quarter fewer loads per
-//          FMA, where the launch has queries enough to fill the card.
-// A launch takes the large tile when that gives at least two CTAs per SM.
-// Rows are copied 16 bytes at a time where D and the pointers allow (D a
-// multiple of 4 in f32, of 8 in bf16), else element by element (4-byte
-// cp.async in f32; plain loads for bf16, the one synchronous case). The
-// epilogue reuses the drained stages, so the arena is 46,080 B.
-//
-// Order of the sums. Each margin is one f32 fmaf chain over d = 0 .. D - 1 in
-// ascending order from 0.f (columns past D are never added), whatever the
-// tile, the thread or the kernel: B2 and the ring give the same bits, and a
-// query's margins do not depend on the launch or step it is in. No TF32, no
-// tensor cores (f32 wgmma does not exist; 3xTF32 changes the bits), no split
-// over k. bf16 queries are upcast on load (exact).
+// The product is tile_product.cuh's walk, one body for both kernels (and
+// for B5's Gram): a CTA of 128 threads computes 128 x 64 (large tile) or
+// 32 x 64 (small tile) blocks of margins S[q, b] = <q, w_b>, one query tile
+// against a run of consecutive 64-lane bank chunks, through a 3-stage
+// cp.async arena of 46,080 B. A launch takes the large tile when that gives
+// at least two CTAs per SM (a 256-query server step takes the small one: 8
+// query tiles x 10 bank tiles in B2). Each margin is one f32 fmaf chain over
+// d ascending from 0.f, whatever the tile, the thread or the kernel: B2 and
+// the ring give the same bits, and a query's margins do not depend on the
+// launch or step it is in. The epilogue reuses the drained stages.
 //
 // Epilogues, each query row's lanes met in lane order:
 //   scores  raw S, no bias, stored from registers;
@@ -53,10 +36,14 @@
 //           tile, cleared by cudaMemsetAsync at the launch; __threadfence
 //           before arriving and before reading). The ring keeps them in
 //           shared memory and merges across its cluster (below);
-//   topk    S + bias into a running sorted list of k (score, lane) per query
-//           in dynamic shared memory: a candidate goes in after every entry
-//           it does not beat, so ties go to the lowest lane. One CTA walks
-//           the whole bank per query tile (small tile), in both kernels.
+//   topk    S + bias into a running sorted list of k (score, lane) per query:
+//           a candidate goes in after every entry it does not beat, so ties
+//           go to the lowest lane. One CTA walks the whole bank per query
+//           tile (small tile), in both kernels. The lists live in dynamic
+//           shared memory up to k = MAX_K (727: 32 queries x k x 8 B beside
+//           B2's static bytes); past it, in device memory: each query's list
+//           is its own row of the (Q, k) outputs, filled in place by the same
+//           insertion, so any 1 <= k <= B runs and gives the same ids.
 //
 // B6 serve (predict_ring_kernel). The query tile is outer and the bank is
 // walked in lane order, chunk after chunk through the shared body's cp.async
@@ -73,197 +60,30 @@
 // cores). A 256-query step is 0.24 GFLOP, 3.6 us at that rate: there the
 // launch, the memset and the per-step latency of 25 k-steps dominate.
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "tile_product.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int BN = 64;  // bank lanes per chunk
 constexpr int EP = 32;  // lanes per epilogue piece staged in shared memory
-constexpr int SMALL_BM = 32, LARGE_BM = 128;
-constexpr int ARENA_FLOATS = 3 * (LARGE_BM + BN) * (16 + 4);  // 46,080 B: 3 large stages
 constexpr int MAX_SMEM = 232448;  // the H100's shared memory per block
 constexpr int MAX_CLUSTER = 8;    // the portable cluster size
+// The largest k whose topk lists (SMALL_BM queries x k (value, id) pairs)
+// fit in shared memory beside B2's static bytes (the arena and the merge
+// flag); a larger k keeps the lists in the outputs themselves.
+constexpr int MAX_K = (MAX_SMEM - (int)sizeof(float) * ARENA_FLOATS - 16) / (SMALL_BM * 8);
 constexpr float NEG_MASK = -3.0e38f;
 enum { SCORES = 0, OVR = 1, TOPK = 2 };
 
-template <int BM_, int TM_, int TN_, int BK_, int STAGES_>
-struct Tile {
-  static constexpr int BM = BM_, TM = TM_, TN = TN_, BK = BK_, STAGES = STAGES_;
-  static constexpr int TY = BM / TM, TX = BN / TN;
-  static constexpr int STAGE = (BM + BN) * (BK + 4);  // floats per stage
-  static_assert(TY * TX == THREADS, "one register block per thread");
-  static_assert(STAGES >= 2 && STAGES * STAGE <= ARENA_FLOATS, "stages fit the arena");
-  static_assert(BM * (EP + 1) <= ARENA_FLOATS && 4 * BM <= ARENA_FLOATS, "pieces, partials");
-  static_assert(EP % TX == 0 && BK % 8 == 0, "pieces and copies");
+template <class Tl>
+struct Pieces {  // the ovr pieces and partials reuse the drained arena
+  static_assert(Tl::BM * (EP + 1) <= ARENA_FLOATS && 4 * Tl::BM <= ARENA_FLOATS, "pieces, partials");
+  static_assert(EP % Tl::TX == 0, "pieces");
+  static constexpr bool ok = true;
 };
-using Small = Tile<SMALL_BM, 4, 4, 32, 3>;
-using Large = Tile<LARGE_BM, 8, 8, 16, 3>;
-
-// The query operand: its shared-memory row padding (rows stay 16-byte
-// aligned and an odd number of 16-byte units apart in f32), the elements in
-// one 16-byte copy, and four (or one) columns read as f32.
-template <typename T> struct Op;
-template <> struct Op<float> {
-  static constexpr int PAD = 4, VEC = 4;
-  static __device__ __forceinline__ float4 ld4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ float ld1(const float* p) { return *p; }
-};
-template <> struct Op<__nv_bfloat16> {
-  static constexpr int PAD = 8, VEC = 8;
-  static __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  static __device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-// 16 bytes, or zeros where !ok.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_elem(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_elem(__nv_bfloat16* dst, const __nv_bfloat16* src, bool ok) {
-  *dst = ok ? *src : __float2bfloat16(0.f);
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start the copy of one step: query rows q0 .. q0 + BM and bank lanes b0 ..
-// b0 + 64, columns k0 .. k0 + BK; rows past qn / bp and columns past d are
-// zero-filled.
-template <class Tl, typename T>
-__device__ __forceinline__ void stage_load(T* As, float* Bs, const T* Q, const float* W,
-                                           int qn, int bp, int d, long q0, int b0, int k0,
-                                           bool vec) {
-  constexpr int SA = Tl::BK + Op<T>::PAD, SB = Tl::BK + 4;
-  const int tid = threadIdx.x;
-  if (vec) {
-    constexpr int VA = Op<T>::VEC, CA = Tl::BK / VA, CB = Tl::BK / 4;
-    for (int e = tid; e < Tl::BM * CA; e += THREADS) {
-      const int r = e / CA, c = e % CA * VA;
-      const bool ok = q0 + r < qn && k0 + c < d;
-      cp16(As + r * SA + c, ok ? Q + (q0 + r) * d + k0 + c : Q, ok);
-    }
-    for (int e = tid; e < BN * CB; e += THREADS) {
-      const int r = e / CB, c = e % CB * 4;
-      const bool ok = b0 + r < bp && k0 + c < d;
-      cp16(Bs + r * SB + c, ok ? W + (long)(b0 + r) * d + k0 + c : W, ok);
-    }
-  } else {
-    for (int e = tid; e < Tl::BM * Tl::BK; e += THREADS) {
-      const int r = e / Tl::BK, c = e % Tl::BK;
-      const bool ok = q0 + r < qn && k0 + c < d;
-      cp_elem(As + r * SA + c, ok ? Q + (q0 + r) * d + k0 + c : Q, ok);
-    }
-    for (int e = tid; e < BN * Tl::BK; e += THREADS) {
-      const int r = e / Tl::BK, c = e % Tl::BK;
-      const bool ok = b0 + r < bp && k0 + c < d;
-      cp_elem(Bs + r * SB + c, ok ? W + (long)(b0 + r) * d + k0 + c : W, ok);
-    }
-  }
-}
-
-// One step's FMAs over its kv valid columns, each accumulator in ascending k.
-template <class Tl, typename T>
-__device__ __forceinline__ void stage_compute(const T* As, const float* Bs, int kv,
-                                              float (&acc)[Tl::TM][Tl::TN]) {
-  constexpr int SA = Tl::BK + Op<T>::PAD, SB = Tl::BK + 4;
-  const int tx = threadIdx.x % Tl::TX, ty = threadIdx.x / Tl::TX;
-  const T* a0 = As + ty * SA;
-  const float* b0 = Bs + tx * SB;
-  if (kv == Tl::BK) {
-#pragma unroll
-    for (int k = 0; k < Tl::BK; k += 4) {
-      float4 a[Tl::TM];
-#pragma unroll
-      for (int i = 0; i < Tl::TM; ++i) a[i] = Op<T>::ld4(a0 + i * Tl::TY * SA + k);
-#pragma unroll
-      for (int j = 0; j < Tl::TN; ++j) {
-        const float4 b = *reinterpret_cast<const float4*>(b0 + j * Tl::TX * SB + k);
-#pragma unroll
-        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-#pragma unroll
-        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-#pragma unroll
-        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-#pragma unroll
-        for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-      }
-    }
-    return;
-  }
-  for (int k = 0; k < kv; ++k) {  // the last step of a ragged D
-    float a[Tl::TM];
-#pragma unroll
-    for (int i = 0; i < Tl::TM; ++i) a[i] = Op<T>::ld1(a0 + i * Tl::TY * SA + k);
-#pragma unroll
-    for (int j = 0; j < Tl::TN; ++j) {
-      const float b = b0[j * Tl::TX * SB + k];
-#pragma unroll
-      for (int i = 0; i < Tl::TM; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-    }
-  }
-}
-
-// The shared product body: margins of query rows q0 .. q0 + BM against bank
-// chunks c_lo .. c_hi (64 lanes each), with epi(b0, acc) called on each
-// chunk's block in chunk order, once every copy has landed and the arena is
-// free for the epilogue. Every thread of the CTA calls it.
-template <class Tl, typename T, class Epi>
-__device__ __forceinline__ void walk(const T* Q, const float* W, int qn, int bp, int d,
-                                     long q0, int c_lo, int c_hi, bool vec, float* arena,
-                                     Epi&& epi) {
-  constexpr int S = Tl::STAGES;
-  const int nk = (d + Tl::BK - 1) / Tl::BK;
-  auto load = [&](int t, int b0) {  // step t of the chunk at lane b0, one copy group
-    if (t < nk) {
-      float* st = arena + t % S * Tl::STAGE;
-      stage_load<Tl>(reinterpret_cast<T*>(st), st + Tl::BM * (Tl::BK + 4), Q, W, qn, bp, d, q0,
-                     b0, t * Tl::BK, vec);
-    }
-    cp_commit();
-  };
-  float acc[Tl::TM][Tl::TN];
-  for (int c = c_lo; c < c_hi; ++c) {
-#pragma unroll
-    for (int i = 0; i < Tl::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < Tl::TN; ++j) acc[i][j] = 0.f;
-    for (int t = 0; t < S - 1; ++t) load(t, c * BN);
-    for (int s = 0; s < nk; ++s) {
-      cp_wait<S - 2>();  // step s has landed
-      __syncthreads();   // ... for every thread, and step s - 1's stage is free
-      load(s + S - 1, c * BN);
-      const float* st = arena + s % S * Tl::STAGE;
-      stage_compute<Tl>(reinterpret_cast<const T*>(st), st + Tl::BM * (Tl::BK + 4),
-                        min(Tl::BK, d - s * Tl::BK), acc);
-    }
-    __syncthreads();  // the epilogue may reuse the arena
-    epi(c * BN, acc);
-  }
-}
+static_assert(Pieces<Small>::ok && Pieces<Large>::ok, "epilogue layout");
 
 struct Best {
   float v;
@@ -276,8 +96,8 @@ template <class Tl>
 struct Epilogue {
   const float* bias;
   float* ss;         // one piece of margins, BM x (EP + 1)
-  float* tv;         // topk values of this owner, then ids (ti)
-  int* ti;
+  float* tv;         // topk values of this owner, then ids (ti): in shared
+  int* ti;           // memory, or (k > MAX_K) the owner's rows of the outputs
   float* out_f;
   int* out_i;
   int qn, bp, epilogue, nc_pad, gp, k, L, H;
@@ -358,7 +178,7 @@ struct Epilogue {
 
   __device__ __forceinline__ void finish() {
     const long q = q0 + threadIdx.x;
-    if (epilogue == TOPK && threadIdx.x < Tl::BM && q < qn)
+    if (epilogue == TOPK && k <= MAX_K && threadIdx.x < Tl::BM && q < qn)
       for (int i = 0; i < k; ++i) {
         out_f[q * k + i] = tv[i];
         out_i[q * k + i] = ti[i];
@@ -397,8 +217,13 @@ __device__ __forceinline__ Epilogue<Tl> make_epilogue(const float* bias, float* 
   Epilogue<Tl> ep;
   ep.bias = bias;
   ep.ss = arena;  // the stages are drained while an epilogue runs
-  ep.tv = lists + threadIdx.x * k;
-  ep.ti = reinterpret_cast<int*>(lists + Tl::BM * k) + threadIdx.x * k;
+  if (k <= MAX_K) {
+    ep.tv = lists + threadIdx.x * k;
+    ep.ti = reinterpret_cast<int*>(lists + Tl::BM * k) + threadIdx.x * k;
+  } else {  // read only by owners of rows q < qn
+    ep.tv = out_f + (q0 + threadIdx.x) * k;
+    ep.ti = out_i + (q0 + threadIdx.x) * k;
+  }
   ep.out_f = out_f;
   ep.out_i = out_i;
   ep.qn = qn;
@@ -424,7 +249,7 @@ predict_kernel(const T* __restrict__ Q, const float* __restrict__ W,
                int2* __restrict__ edges, int* __restrict__ counters) {
   __shared__ __align__(16) float arena[ARENA_FLOATS];
   __shared__ int last;  // this CTA arrived last for its query tile
-  extern __shared__ float lists[];  // topk: BM*k values, then BM*k ids
+  extern __shared__ float lists[];  // topk, k <= MAX_K: BM*k values, then BM*k ids
   const int nch = (bp + BN - 1) / BN, R = gridDim.x;
   const int c_lo = epilogue == TOPK ? 0 : blockIdx.x;
   const int c_hi = epilogue == TOPK ? nch : c_lo + 1;
@@ -469,7 +294,7 @@ predict_ring_kernel(const T* __restrict__ Q, const float* __restrict__ W,
                     int nc_pad, int k, int vec, float* __restrict__ out_f,
                     int* __restrict__ out_i) {
   __shared__ __align__(16) float arena[ARENA_FLOATS];
-  extern __shared__ float lists[];  // topk: BM*k values, then BM*k ids
+  extern __shared__ float lists[];  // topk, k <= MAX_K: BM*k values, then BM*k ids
   cg::cluster_group cluster = cg::this_cluster();
   const int nch = (bp + BN - 1) / BN, cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -501,21 +326,13 @@ predict_ring_kernel(const T* __restrict__ Q, const float* __restrict__ W,
 }
 
 size_t lists_bytes(int epilogue, int k) {
-  return epilogue == TOPK ? (size_t)SMALL_BM * k * (sizeof(float) + sizeof(int)) : 0;
+  return epilogue == TOPK && k <= MAX_K ? (size_t)SMALL_BM * k * (sizeof(float) + sizeof(int))
+                                        : 0;
 }
 
 // The large tile where it gives at least two CTAs per SM, else the small.
 bool large_tile(int epilogue, int qn, int along) {
-  if (epilogue == TOPK) return false;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (long)((qn + LARGE_BM - 1) / LARGE_BM) * along >= 2L * sms;
-}
-
-template <typename T>
-bool vectorized(const void* Q, const void* W, int d) {
-  return d % Op<T>::VEC == 0 && d % 4 == 0 && (size_t)Q % 16 == 0 && (size_t)W % 16 == 0;
+  return epilogue != TOPK && fills_card((long)((qn + LARGE_BM - 1) / LARGE_BM) * along);
 }
 
 // Scratch of the B2 ovr merge: one counter per small query tile, then the
@@ -623,11 +440,10 @@ int launch_ring(const void* Q, const void* W, const void* bias, int qn, int bp, 
 
 extern "C" {
 
-// Largest k the topk epilogue's shared-memory lists can hold beside B2's
-// static bytes (the arena and its merge flag).
-int predict_bank_max_k() {
-  return (MAX_SMEM - (int)sizeof(float) * ARENA_FLOATS - 16) / (SMALL_BM * 8);
-}
+// Largest k whose topk lists the launch keeps in shared memory beside B2's
+// static bytes (the arena and its merge flag); past it they live in the
+// outputs, in device memory.
+int predict_bank_max_k() { return MAX_K; }
 
 // Device-memory scratch B2 needs for a launch (0 unless an ovr launch spans
 // more than one bank tile).
@@ -637,7 +453,7 @@ long predict_bank_scratch_bytes(int qn, int bp, int epilogue) {
 
 // Q (qn, d) in f32 (bf16 when bf16 != 0); W (bp, d) and bias (bp,) f32.
 // epilogue 0 scores -> out_f (qn, bp); 1 ovr -> out_i, out_f (qn, bp/nc_pad);
-// 2 topk -> out_f, out_i (qn, k). b_tile is the ovr bank tile of the
+// 2 topk -> out_f, out_i (qn, k), any k >= 1. b_tile is the ovr bank tile of the
 // caller's padding (whole groups of nc_pad lanes, checked); the kernel's own
 // lane tiles cross groups. scratch holds predict_bank_scratch_bytes. Returns
 // the CUDA error of the launch.
@@ -648,7 +464,7 @@ int predict_bank(const void* Q, const void* W, const void* bias, int qn, int bp,
     return (int)cudaErrorInvalidValue;
   if (epilogue == OVR && (nc_pad <= 0 || b_tile <= 0 || b_tile % nc_pad != 0 || bp % b_tile != 0))
     return (int)cudaErrorInvalidValue;
-  if (epilogue == TOPK && (k < 1 || k > predict_bank_max_k())) return (int)cudaErrorInvalidValue;
+  if (epilogue == TOPK && k < 1) return (int)cudaErrorInvalidValue;
   if (scratch_bytes(qn, bp, epilogue) > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bool large = large_tile(epilogue, qn, (bp + BN - 1) / BN);
@@ -667,7 +483,7 @@ int predict_bank_ring(const void* Q, const void* W, const void* bias, int qn, in
   if (qn <= 0 || bp <= 0 || d <= 0 || epilogue < SCORES || epilogue > TOPK)
     return (int)cudaErrorInvalidValue;
   if (epilogue == OVR && (nc_pad <= 0 || bp % nc_pad != 0)) return (int)cudaErrorInvalidValue;
-  if (epilogue == TOPK && (k < 1 || k > predict_bank_max_k())) return (int)cudaErrorInvalidValue;
+  if (epilogue == TOPK && k < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int nch = (bp + BN - 1) / BN;
   const bool large = large_tile(epilogue, qn, nch < MAX_CLUSTER ? nch : MAX_CLUSTER);

@@ -6,13 +6,16 @@ its header says how it is laid out and what bounds it.
 
 ``gram_fused`` dispatches on the device of ``A``: a CPU tensor runs
 ``gram_plain``, a CUDA tensor launches the kernel, or raises. Both take the
-row norms from the caller, as ``gram_pallas`` does, and sum each element
-over d in ascending order with every product and sum rounded on its own, so
-an element's value does not depend on the shape of the launch (a slice of
-B's rows gives the bits of the whole) and the kernel computes the plain
-version's bits. ``row_norms`` (a second kernel in ``csrc/gram.cu``, with
-``row_norms_plain`` beside it) gives the norms by the same chain, so the
-RBF diagonal K(x, x) is exactly 1.
+row norms from the caller, as ``gram_pallas`` does, and compute each element
+as one f32 fused multiply-add chain, ``acc = fmaf(a_d, b_d, acc)`` over d
+ascending from 0: the kernel with the card's ``fmaf``, the plain version
+with ``fma32``, its exact float64 emulation. An element's value therefore
+does not depend on the shape of the launch (a slice of B's rows gives the
+bits of the whole), and the kernel computes the plain version's bits.
+``row_norms`` (a second kernel in ``csrc/gram.cu``, with ``row_norms_plain``
+beside it) gives the norms by the same chain over a row with itself, so
+K(x, x)'s accumulator is the norm bit for bit, d^2 = 0 and the RBF diagonal
+is exactly 1.
 
 ``tree_sum`` is the port's shape-independent reduction over the last axis:
 a fixed halving tree, so the same row gives the same bits whatever else is
@@ -29,9 +32,11 @@ from . import _build
 _EPILOGUES = {"linear": 0, "rbf": 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-#: Shared memory per CTA of ``gram_kernel``, as declared: its two operand
-#: chunks, 2 x 32 x 65 f32 (the kernel bank's byte model reads it).
-GRAM_SMEM = 16_640
+#: Shared memory per CTA of ``gram_kernel``, as declared: the product
+#: body's 3-stage operand arena, sized for the large tile, 3 x (128 + 64)
+#: rows x 20 f32, whichever tile a launch takes (the kernel bank's byte
+#: model reads it).
+GRAM_SMEM = 46_080
 
 
 def _lib() -> ctypes.CDLL:
@@ -58,13 +63,31 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``fmaf(a, b, c)``, a * b + c rounded once, on any device: exact in
+    float64 by round-to-odd. The product of two f32 values is exact in
+    float64; the sum s = p + c is rounded there, with its error e from
+    TwoSum; where e is not 0 and s's last bit is even, s steps one ulp toward
+    e (the sum rounded to odd), and rounding that to f32 is then the exact
+    sum rounded once (53 >= 24 + 2 bits). Non-finite sums are kept as they
+    are. Broadcasts like ``torch.addcmul``; returns f32."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    step = (e != 0) & ((s.view(torch.int64) & 1) == 0) & torch.isfinite(s)
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(torch.float64)
+    return torch.where(step, torch.nextafter(s, toward), s).float()
+
+
 def row_norms_plain(A: torch.Tensor) -> torch.Tensor:
     """(M,) f32 squared row norms of A (upcast first): the Gram's chain,
-    acc + a_d a_d over d ascending."""
+    fmaf(a_d, a_d, acc) over d ascending."""
     A = A.float()
     acc = torch.zeros((A.shape[0],), dtype=torch.float32, device=A.device)
     for k in range(A.shape[1]):
-        acc = acc + A[:, k] * A[:, k]
+        acc = fma32(A[:, k], A[:, k], acc)
     return acc
 
 
@@ -117,17 +140,29 @@ def _epilogue(acc, an, bn, gamma, epilogue):
     return torch.exp(-float(gamma) * torch.clamp(d2, min=0.0))
 
 
+#: Elements per block of rows in ``gram_plain`` (bounds its float64
+#: temporaries; an element's value does not depend on the block).
+_PLAIN_BLOCK = 1 << 22
+
+
 def gram_plain(A, B, an, bn, gamma=1.0, *, epilogue="linear"):
-    """Plain PyTorch version of B5: ``A @ B.T`` summed over d in ascending
-    order (one multiply and one add per step, each rounded: the kernel's
-    arithmetic, so any shape of launch gives the same bits per element),
-    then the epilogue. (M, N) f32."""
+    """Plain PyTorch version of B5: ``A @ B.T`` as one ``fma32`` chain per
+    element over d ascending from 0 (the kernel's arithmetic, so any shape
+    of launch gives the same bits per element), then the epilogue. Rows of A
+    are taken in blocks of at most ``_PLAIN_BLOCK`` elements. (M, N) f32."""
     _check_args(A, B, an, bn, epilogue)
     A, B = A.float(), B.float()
-    acc = torch.zeros((A.shape[0], B.shape[0]), dtype=torch.float32, device=A.device)
-    for k in range(A.shape[1]):
-        acc = acc + A[:, k, None] * B[None, :, k]
-    return _epilogue(acc, an.float(), bn.float(), gamma, epilogue)
+    m, n = A.shape[0], B.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=A.device)
+    rows = max(1, _PLAIN_BLOCK // max(n, 1))
+    for r0 in range(0, m, rows):
+        a = A[r0 : r0 + rows]
+        acc = torch.zeros((a.shape[0], n), dtype=torch.float32, device=A.device)
+        for k in range(A.shape[1]):
+            acc = fma32(a[:, k, None], B[None, :, k], acc)
+        out[r0 : r0 + rows] = _epilogue(acc, an[r0 : r0 + rows].float(), bn.float(), gamma,
+                                        epilogue)
+    return out
 
 
 def gram_fused(A, B, an, bn, gamma=1.0, *, epilogue="linear"):

@@ -19,7 +19,10 @@ Both advance the state tensors in place from the tile's Gram blocks:
 Rows at or past ``n_valid`` are inert; ``base`` is the stream index of the
 tile's row 0. Sums over slots are ``gram.tree_sum`` trees in both versions,
 and each operation is rounded on its own, so on the same K blocks the kernel
-and the plain version agree bit for bit.
+and the plain version agree bit for bit. Any S >= 1 runs: the kernel keeps
+a model's slots in registers up to 256 (padded to a power of two), past that
+in a device-memory scratch the wrapper allocates. Neither takes shared
+memory.
 """
 from __future__ import annotations
 
@@ -35,9 +38,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("kernel_bank")
-    lib.kernel_bank_rows.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.kernel_bank_rows.argtypes = [_P] * 12 + [_I] * 5 + [_P, _P]
     lib.kernel_bank_rows.restype = ctypes.c_int
-    lib.kernel_bank_max_s.restype = ctypes.c_int
+    lib.kernel_bank_rows_scratch_bytes.argtypes = [_I, _I]
+    lib.kernel_bank_rows_scratch_bytes.restype = ctypes.c_long
     return lib
 
 
@@ -124,11 +128,6 @@ def kernel_bank_rows(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, *,
     _check_args(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, kbb)
     bn, b, s_size = k_cs.shape
     lib = _lib()
-    if s_size > lib.kernel_bank_max_s():
-        raise ValueError(
-            f"the R1 kernel holds at most S={lib.kernel_bank_max_s()} core-set slots "
-            f"per model in registers: got coreset_size={s_size}"
-        )
     floats = (k_cs, k_tt, y, c_inv, gain, coef, q, r, xi2) + ((kbb,) if kbb is not None else ())
     for t in floats:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != k_cs.device:
@@ -137,11 +136,14 @@ def kernel_bank_rows(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, *,
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != k_cs.device:
             raise ValueError("R1 takes contiguous int32 idx and m on the device of k_cs")
     dev = k_cs.device
+    nbytes = lib.kernel_bank_rows_scratch_bytes(b, s_size)  # slots past the registers
+    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8) if nbytes else None
     err = lib.kernel_bank_rows(
         k_cs.data_ptr(), k_tt.data_ptr(), y.data_ptr(), c_inv.data_ptr(), gain.data_ptr(),
         idx.data_ptr(), coef.data_ptr(), q.data_ptr(), r.data_ptr(), xi2.data_ptr(),
         m.data_ptr(), kbb.data_ptr() if kbb is not None else None,
         b, s_size, bn, int(min(n_valid, bn)), int(base),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "kernel_bank_rows")

@@ -163,7 +163,9 @@ def predict_vmem_bytes(
 ) -> dict:
     """Shared memory per CTA of the predict kernel, bytes by term: B2's
     ``predict_kernel`` (``"vmem"``) or B6's ``predict_ring_kernel``
-    (``"hbm"``), plus the topk epilogue's running lists. Neither holds the
+    (``"hbm"``), plus the topk epilogue's running lists where the launch
+    keeps them in shared memory (k <= ``TOPK_SMEM_MAX_K``; past it they
+    live in the outputs, in device memory, and count 0). Neither holds the
     bank: both stage chunks of it through one arena whatever tile the launch
     picks, so the bytes do not grow with B, D or Q. The ring's merge waits
     on a cluster barrier where B2's needs a flag, so the ring is 16 B
@@ -185,10 +187,11 @@ def kernel_engine_vmem_bytes(
 ) -> dict:
     """Shared memory per CTA of the kernelized bank engine, bytes by term:
     B5's Gram tiles (``gram_kernel``, ``GRAM_SMEM``) and R1's row recursion
-    (``rows_kernel``, which keeps its slots in registers: 0). What
-    ``s_tile`` caps, the (block_n, B * s_tile) K_cs block and the gathered
-    (B * s_tile, D) core-set operand, lives in device memory, which no
-    shared-memory budget sees."""
+    (``rows_kernel``, which keeps its slots in registers, or past S = 256 in
+    a device-memory scratch: 0). What ``s_tile`` caps, the
+    (block_n, B * s_tile) K_cs block and the gathered (B * s_tile, D)
+    core-set operand, lives in device memory, which no shared-memory budget
+    sees."""
     return {"gram_tiles": GRAM_SMEM, "row_recursion": 0}
 
 

@@ -11,6 +11,10 @@ lane order through a 2-slot shared-memory ring, split along the bank over a
 thread-block cluster. Both kernels run one register-tiled product body, so
 the ring equals B2 bit for bit.
 
+The topk epilogue serves any 1 <= k <= B: each query's running list sits in
+shared memory up to ``TOPK_SMEM_MAX_K`` and in its own row of the outputs
+past it, with the same insertion, so the ids do not depend on the layout.
+
 ``predict_bank_fused`` and ``predict_bank_ring`` dispatch on the device of
 ``Q``: a CPU tensor runs the plain version, a CUDA tensor launches the
 kernel, or raises. Both take what ``ops.predict_bank`` prepares: Q padded to a whole number of
@@ -25,6 +29,7 @@ import ctypes
 import torch
 
 from . import _build
+from .streamsvm_scan import SMEM_PER_BLOCK
 
 # Large-but-finite lane mask: padded bank lanes carry this additive bias so
 # every real margin beats them (finite so bias + margin never becomes NaN).
@@ -46,9 +51,18 @@ PREDICT_SMEM = {"stages": 46_080, "merge_flag": 16}
 PREDICT_RING_SMEM = {"stages": 46_080}
 
 
+#: The largest k whose topk lists a launch keeps in shared memory (32 lists
+#: of k (value, id) pairs beside B2's static bytes, within the card's
+#: 232,448 B per block): ``predict_bank_max_k()`` of the kernel source. Past
+#: it the lists are the (Q, k) outputs themselves, in device memory, and any
+#: 1 <= k <= B runs with the same ids.
+TOPK_SMEM_MAX_K = (SMEM_PER_BLOCK - sum(PREDICT_SMEM.values())) // (32 * 8)
+
+
 def topk_state_bytes(k: int) -> int:
-    """Dynamic shared memory of the topk epilogue: 32 (value, id) lists of k."""
-    return 32 * k * 8
+    """Dynamic shared memory of the topk epilogue: 32 (value, id) lists of k
+    where they fit (k <= ``TOPK_SMEM_MAX_K``), else none."""
+    return 32 * k * 8 if k <= TOPK_SMEM_MAX_K else 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -142,11 +156,6 @@ def predict_bank_fused(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=Non
     if Q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"Q must be float32 or bfloat16: got {Q.dtype}")
     lib = _lib()
-    if epilogue == "topk" and k > lib.predict_bank_max_k():
-        raise ValueError(
-            f"the topk kernel keeps k <= {lib.predict_bank_max_k()} entries per "
-            f"query in shared memory: got k={k}"
-        )
     dev = Q.device
     qn, d = Q.shape
     bp = W.shape[0]
@@ -240,11 +249,6 @@ def predict_bank_ring(Q, W, bias, *, epilogue="scores", q_block=256, b_tile=None
     if Q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"Q must be float32 or bfloat16: got {Q.dtype}")
     lib = _lib()
-    if epilogue == "topk" and k > lib.predict_bank_max_k():
-        raise ValueError(
-            f"the topk kernel keeps k <= {lib.predict_bank_max_k()} entries per "
-            f"query in shared memory: got k={k}"
-        )
     dev = Q.device
     qn, d = Q.shape
     bp = W.shape[0]

@@ -11,9 +11,10 @@ core-vector counts and ids are exact, and the bank's tiling changes no bit.
 B6, the ring (bank_resident="hbm"), equals B1 / B3 / B2 bit for bit at every
 number of tiles per CTA; B2 and the serving ring give the same bits whatever
 their tile, cluster or launch, with exact ties to the lowest lane.
-B5 is held to 2 (D + 1) 2^-24 |a_i| |b_j| per element (twice gamma that,
-plus 1e-6, under the RBF map), the bound on two f32 evaluations of a D-long
-dot product; R1's slots and counts are exact.
+B5 equals its plain version bit for bit (both one fmaf chain per element),
+linear B5 equals B2's scores on the same operands, and the RBF diagonal is
+exactly 1; R1's slots and counts are exact at every core-set size, wherever
+its slots live. Top-k serves any k <= B, in both kernels.
 This file imports no JAX: the machine with the card has none.
 """
 import numpy as np
@@ -24,9 +25,11 @@ from repro_torch.core import fit, fit_kernel_bank, fit_lookahead
 from repro_torch.core.meb import _pair_gram
 from repro_torch.kernels import ops
 from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
+from repro_torch.core.kernel_bank import _fit_kernel_bank
 from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
 from repro_torch.kernels import _build
 from repro_torch.kernels.predict import (
+    TOPK_SMEM_MAX_K,
     predict_bank_fused,
     predict_bank_plain,
     predict_bank_ring,
@@ -203,13 +206,6 @@ def test_fit_lookahead_on_the_card_matches_the_cpu(cuda):
                        fit_lookahead(X, y, 10.0, 8, device="cpu"))
 
 
-def _gram_tol(A, B, epilogue, gamma):
-    d = A.shape[1]
-    na, nb = A.double().norm(dim=1), B.double().norm(dim=1)
-    lin = 2.0 * (d + 1) * 2.0**-24 * na[:, None] * nb[None, :]
-    return lin if epilogue == "linear" else 2.0 * gamma * lin + 1e-6
-
-
 @pytest.mark.parametrize("m,n,d", [(256, 1000, 784), (37, 130, 33), (65, 63, 7), (1, 5, 1)])
 @pytest.mark.parametrize("epilogue", ["linear", "rbf"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -223,8 +219,34 @@ def test_gram_kernel_matches_plain(cuda, m, n, d, epilogue, dtype):
     got = gram_fused(A, B, an, bn, 0.05, epilogue=epilogue)
     assert gram_fused.launches == before + 1
     want = gram_plain(A, B, an, bn, 0.05, epilogue=epilogue)
-    err = (got.double() - want.double()).abs()
-    assert bool((err <= _gram_tol(A.float(), B, epilogue, 0.05)).all()), err.max().item()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("m,n,d", [(256, 38_400, 784), (300, 1000, 785), (1000, 640, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_linear_equals_b2_scores(cuda, m, n, d, dtype):
+    """One product body: linear B5 and B2's scores give the same bits on the
+    same operands, at the K_cs shape (large tile) and at small launches."""
+    rng = np.random.default_rng(m + d)
+    A = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32), device=cuda).to(dtype)
+    B = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda)
+    z = torch.zeros(m, device=cuda)
+    got = gram_fused(A, B, z, torch.zeros(n, device=cuda), epilogue="linear")
+    want = predict_bank_fused(A, B, torch.zeros(n, device=cuda), epilogue="scores", q_block=m)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,d", [(60_000, 784), (131, 33), (1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_norms_kernel_matches_plain(cuda, n, d, dtype):
+    rng = np.random.default_rng(n + d)
+    X = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda).to(dtype)
+    before = row_norms.launches
+    got = row_norms(X)
+    assert row_norms.launches == before + 1
+    assert torch.equal(got, row_norms_plain(X))
+    K = gram_fused(X[:256], X[:256], got[:256], got[:256], 3.0, epilogue="rbf")
+    assert torch.equal(torch.diagonal(K), torch.ones(min(n, 256), device=cuda))
 
 
 def test_gram_kernel_chunks_are_bit_exact(cuda):
@@ -295,15 +317,82 @@ def test_rows_kernel_matches_plain(cuda, farthest, b, s, bn, d):
         assert absorbed - filled > 0  # and, at small S, evicted
 
 
-def test_rows_kernel_refuses_a_core_set_beyond_its_registers(cuda):
-    k_cs = torch.zeros(4, 1, 129, device=cuda)
-    st = [torch.full((1, 129), -1, dtype=torch.int32, device=cuda),
-          torch.zeros(1, 129, device=cuda)] + [torch.zeros(1, device=cuda)] * 3 + \
-         [torch.zeros(1, dtype=torch.int32, device=cuda)]
-    with pytest.raises(ValueError, match="at most S=128"):
-        kernel_bank_rows(k_cs, torch.zeros(4, 4, device=cuda), torch.ones(1, 4, device=cuda),
-                         *st, torch.ones(1, device=cuda), torch.ones(1, device=cuda),
-                         base=0, n_valid=4)
+@pytest.mark.parametrize("farthest", [False, True])
+@pytest.mark.parametrize("b,s,bn,d", [
+    (600, 129, 256, 784), (40, 256, 256, 30), (9, 300, 64, 12), (5, 1100, 32, 8),
+])
+def test_rows_kernel_beyond_128_slots_matches_plain(cuda, farthest, b, s, bn, d):
+    """S past the 4-register slots: 8 registers a lane (S <= 256), then the
+    slots in the wrapper's device scratch (S = 300, 1,100); bit for bit with
+    the plain version."""
+    k_cs, k_tt, y, state, c_inv, kbb, n0 = _tile_inputs(cuda, b, s, bn, d, b + s, farthest)
+    got, want = [t.clone() for t in state], [t.clone() for t in state]
+    kbb_g = kbb.clone() if farthest else None
+    kbb_w = kbb.clone() if farthest else None
+    kernel_bank_rows(k_cs, k_tt, y, *got, c_inv, c_inv, base=n0, n_valid=bn, kbb=kbb_g)
+    kernel_bank_rows_plain(k_cs, k_tt, y, *want, c_inv, c_inv, base=n0, n_valid=bn, kbb=kbb_w)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if farthest:
+        assert torch.equal(kbb_g, kbb_w)
+    assert int((got[5] - state[5]).sum()) > 0
+
+
+def test_rows_kernel_slots_in_device_memory(cuda):
+    """S = 9,000 pads to 16,384 slots, all in the wrapper's device scratch
+    (6 words a slot, 1.2 MiB for three models)."""
+    from repro_torch.kernels import kernel_bank as kb_mod
+
+    b, s, bn = 3, 9000, 16
+    rng = np.random.default_rng(3)
+    k_cs = torch.as_tensor(rng.uniform(0.1, 1.0, size=(bn, b, s)).astype(np.float32), device=cuda)
+    x = rng.normal(size=(bn, 4)).astype(np.float32)
+    k_tt = torch.as_tensor(np.exp(-((x[:, None] - x[None]) ** 2).sum(-1)), device=cuda)
+    y = torch.as_tensor(np.sign(rng.normal(size=(b, bn))).astype(np.float32), device=cuda)
+    idx = torch.full((b, s), -1, dtype=torch.int32, device=cuda)
+    idx[:, :4000] = torch.arange(4000, device=cuda, dtype=torch.int32)
+    coef = torch.where(idx >= 0, torch.as_tensor(rng.normal(size=(b, s)).astype(np.float32),
+                                                 device=cuda) * 1e-3, 0.0)
+    state = [idx, coef, torch.full((b,), 0.5, device=cuda), torch.full((b,), 0.2, device=cuda),
+             torch.full((b,), 0.1, device=cuda), torch.full((b,), 4000, dtype=torch.int32,
+                                                           device=cuda)]
+    c_inv = torch.full((b,), 0.5, device=cuda)
+    assert kb_mod._lib().kernel_bank_rows_scratch_bytes(b, s) == b * 6 * 16_384 * 4
+    got, want = [t.clone() for t in state], [t.clone() for t in state]
+    before = kernel_bank_rows.launches
+    kernel_bank_rows(k_cs, k_tt, y, *got, c_inv, c_inv, base=5000, n_valid=bn)
+    assert kernel_bank_rows.launches == before + 1
+    kernel_bank_rows_plain(k_cs, k_tt, y, *want, c_inv, c_inv, base=5000, n_valid=bn)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[5] - state[5]).sum()) > 0
+
+
+@pytest.mark.parametrize("eviction", ["smallest-coef", "farthest-point"])
+@pytest.mark.parametrize("s", [129, 256])
+def test_fit_kernel_bank_beyond_128_slots_matches_the_plain_path(cuda, eviction, s):
+    """fit_kernel_bank(coreset_size > 128) runs on the card through B5 and
+    R1 and equals the plain path's bank bit for bit, evicting."""
+    rng = np.random.default_rng(s)
+    b, n, d = 30, 600, 16
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    X *= (1.01 ** np.arange(n))[:, None]  # norms grow: every model absorbs past S
+    Y = np.sign(rng.normal(size=(b, n))).astype(np.float32)
+    Y[Y == 0] = 1.0
+    Xd = torch.as_tensor(X.astype(np.float32), device=cuda)
+    Yd = torch.as_tensor(Y, device=cuda)
+    csd = torch.as_tensor(np.exp(rng.uniform(-1, 3, size=b)).astype(np.float32), device=cuda)
+    kw = dict(kernel="linear", coreset_size=s, eviction=eviction, variant="exact",
+              block_n=128, s_tile=None, stream_dtype=None)
+    before = kernel_bank_rows.launches
+    got = _fit_kernel_bank(Xd, Yd, csd, 1.0, **kw)
+    assert kernel_bank_rows.launches == before + 5
+    want = _fit_kernel_bank(Xd, Yd, csd, 1.0, plain=True, **kw)
+    for leaf in got._fields:
+        assert torch.equal(getattr(got, leaf), getattr(want, leaf)), leaf
+    assert int(got.m.sum()) > int((got.idx >= 0).sum())  # evictions ran
 
 
 @pytest.mark.parametrize("eviction", ["smallest-coef", "farthest-point"])
@@ -508,6 +597,44 @@ def test_topk_ties_across_tiles_go_to_the_lowest_lane(cuda):
     assert (ids[~first, :2] == torch.tensor([64, 65], device=cuda, dtype=torch.int32)).all()
 
 
+@pytest.mark.parametrize("b,k", [(1000, 727), (1000, 728), (1000, 1000), (1536, 1536)])
+@pytest.mark.parametrize("d", [33, 784])
+def test_topk_at_any_k_matches_plain(cuda, b, k, d):
+    """k up to B: past 727 the lists live in the outputs (device memory) in
+    both kernels, bit-equal to each other, with the plain version's ids
+    where the scores are separated."""
+    rng = np.random.default_rng(b + k + d)
+    Q = torch.as_tensor(rng.normal(size=(300, d)).astype(np.float32), device=cuda)
+    W = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=cuda)
+    bias = torch.zeros(b, device=cuda)
+    bias[-7:] = -3.0e38  # padded lanes never enter a list ahead of a live one
+    before = (predict_bank_fused.launches, predict_bank_ring.launches)
+    vals, ids = _both_kernels(Q, W, bias, epilogue="topk", q_block=300, k=k)
+    assert (predict_bank_fused.launches, predict_bank_ring.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want_v, want_i = predict_bank_plain(Q, W, bias, epilogue="topk", q_block=300, k=k)
+    torch.testing.assert_close(vals, want_v, rtol=2e-4,
+                               atol=2e-5 * max(1.0, want_v[:, : b - 7].abs().max().item()))
+    gaps = want_v[:, :-1] - want_v[:, 1:]
+    sep = torch.ones_like(vals, dtype=torch.bool)
+    tol = 1e-5 * want_v[:, 0].abs().max()
+    sep[:, 1:] &= gaps > tol
+    sep[:, :-1] &= gaps > tol
+    assert torch.equal(ids[sep], want_i[sep])
+    assert (torch.diff(vals, dim=1) <= 0).all()
+
+
+def test_topk_ties_past_the_shared_lists_go_to_the_lowest_lane(cuda):
+    """The device-memory lists keep lane order on exact ties across tiles."""
+    Q, W, bias = _tied_bank(cuda, 1000, 40, [(5, 70, 900), (64, 999)], seed=44)
+    vals, ids = _both_kernels(Q, W, bias, epilogue="topk", q_block=300, k=800)
+    first = (Q @ W.T)[:, 5] > (Q @ W.T)[:, 64]
+    assert first.sum() > 10 and (~first).sum() > 10
+    assert (ids[first, :3] == torch.tensor([5, 70, 900], device=cuda, dtype=torch.int32)).all()
+    assert (ids[~first, :2] == torch.tensor([64, 999], device=cuda, dtype=torch.int32)).all()
+    assert (vals[first, 0] == vals[first, 2]).all()
+
+
 @pytest.mark.parametrize("d", [33, 785])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ovr_groups_straddling_tiles_match_plain(cuda, d, dtype):
@@ -569,6 +696,7 @@ def test_ring_beyond_the_cards_shared_memory_is_refused(cuda):
 def test_byte_models_equal_what_the_kernels_allocate(cuda):
     """Static shared memory from ptxas plus the dynamic bytes of the launch
     equal each byte model's total."""
+    from repro_torch.kernels import kernel_bank as kb_mod
     from repro_torch.kernels import streamsvm_scan as scan_mod
     from repro_torch.kernels import predict as predict_mod
 
@@ -591,7 +719,17 @@ def test_byte_models_equal_what_the_kernels_allocate(cuda):
         dyn = plib.predict_bank_ring_dyn_bytes({"scores": 0, "topk": 2}[ep], k or 0)
         assert pr_static + dyn == sum(ops.predict_vmem_bytes(
             96, 100, epilogue=ep, k=k, bank_resident="hbm").values())
-    assert _build.static_smem("gram", "gram_kernel") == {16_640}
+    assert _build.static_smem("gram", "gram_kernel") == {46_080}
     assert _build.static_smem("kernel_bank", "rows_kernel") == {0}
-    assert sum(ops.kernel_engine_vmem_bytes(600, 784, coreset_size=64).values()) == 16_640
+    assert sum(ops.kernel_engine_vmem_bytes(600, 784, coreset_size=64).values()) == 46_080
+    assert _build.static_smem("kernel_bank", "rows_wide_kernel") == {0}
+    klib = kb_mod._lib()
+    for s in (1, 128, 256, 257, 300, 1100, 9000):
+        assert ops.kernel_engine_vmem_bytes(600, 784, coreset_size=s)["row_recursion"] == 0
+        sp = 1 << (s - 1).bit_length()
+        assert klib.kernel_bank_rows_scratch_bytes(600, s) == (0 if sp <= 256 else 600 * 6 * sp * 4)
+    assert plib.predict_bank_max_k() == TOPK_SMEM_MAX_K
+    for k in (TOPK_SMEM_MAX_K, TOPK_SMEM_MAX_K + 1, 1536):
+        assert pr_static + plib.predict_bank_ring_dyn_bytes(2, k) == sum(ops.predict_vmem_bytes(
+            1536, 100, epilogue="topk", k=k, bank_resident="hbm").values())
 

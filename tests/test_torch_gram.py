@@ -27,7 +27,14 @@ from repro.kernels.ref import gram_ref
 from repro_torch.core import fit_kernelized, linear_kernel, linear_weights, rbf_kernel
 from repro_torch.core.kernelized import decision_function
 from repro_torch.kernels import ops
-from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain, tree_sum
+from repro_torch.kernels.gram import (
+    fma32,
+    gram_fused,
+    gram_plain,
+    row_norms,
+    row_norms_plain,
+    tree_sum,
+)
 
 U = 2.0**-24
 
@@ -123,6 +130,56 @@ def test_tree_sum_and_norms_are_row_independent():
     torch.testing.assert_close(full, x.double().sum(1).float(), rtol=1e-5, atol=1e-6)
     assert torch.equal(row_norms_plain(x[2:5]), row_norms_plain(x)[2:5])
     assert tree_sum(torch.ones(3, 1)).tolist() == [1.0, 1.0, 1.0]
+
+
+def _fma_exact(a, b, c):
+    """f32 fma(a, b, c) by exact rational arithmetic: a b + c rounded once
+    to the nearest f32, ties to even."""
+    from fractions import Fraction
+
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(v))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda x: (abs(Fraction(float(x)) - v),
+                                     int(np.float32(x).view(np.uint32)) & 1))
+
+
+def test_fma32_is_the_exactly_rounded_fused_multiply_add():
+    """fma32, the plain versions' emulation of the card's fmaf, equals the
+    exact rounding on random triples, on cancelling ones (c near -a b) and
+    on a true double-rounding case, where a float64 product and sum rounded
+    to f32 is one ulp off."""
+    rng = np.random.default_rng(11)
+    a = rng.normal(size=4000).astype(np.float32)
+    b = (rng.normal(size=4000) * np.exp2(rng.integers(-30, 30, size=4000))).astype(np.float32)
+    c = rng.normal(size=4000).astype(np.float32)
+    c[2000:] = (-(a[2000:].astype(np.float64) * b[2000:]) * (1 + rng.normal(size=2000) * 1e-6)
+                ).astype(np.float32)
+    a = np.append(a, np.float32(1 + 2**-23))
+    b = np.append(b, np.float32(2**-24 * (1 - 2**-23)))
+    c = np.append(c, np.float32(1 + 2**-23))
+    got = fma32(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)).numpy()
+    want = np.array([_fma_exact(x, y, z) for x, y, z in zip(a, b, c)], np.float32)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert naive[-1] != want[-1] and got[-1] == want[-1] == np.float32(1 + 2**-23)
+    z = torch.tensor([-0.0])
+    assert torch.signbit(fma32(z, torch.tensor([1.0]), z)).item()  # -0 stays -0
+
+
+def test_gram_is_one_fma_chain_per_element():
+    """gram_plain's element (i, j) is fmaf(a_d, b_d, acc) over d ascending
+    from 0, and the row norms the same chain of a row with itself."""
+    rng = np.random.default_rng(12)
+    A = torch.as_tensor(rng.normal(size=(5, 19)).astype(np.float32))
+    B = torch.as_tensor(rng.normal(size=(4, 19)).astype(np.float32))
+    K = gram_plain(A, B, row_norms(A), row_norms(B), epilogue="linear")
+    for i, j in ((0, 0), (4, 3), (2, 1)):
+        acc = torch.zeros(())
+        for d in range(19):
+            acc = fma32(A[i, d], B[j, d], acc)
+        assert K[i, j] == acc
+    assert torch.equal(torch.diagonal(gram_plain(A, A, row_norms(A), row_norms(A))), row_norms(A))
 
 
 def test_gram_validation():

@@ -464,15 +464,15 @@ def test_fit_kernel_bank_budget_preflight():
     """The kernel bank's preflight holds B5's tiles (R1 keeps none) to the
     budget on every call."""
     by = ops.kernel_engine_vmem_bytes(3, 10, coreset_size=8)
-    assert by == {"gram_tiles": 16_640, "row_recursion": 0}
+    assert by == {"gram_tiles": 46_080, "row_recursion": 0}
     rng = np.random.default_rng(1)
     X = rng.normal(size=(40, 10)).astype(np.float32)
     Y = np.sign(rng.normal(size=(3, 40))).astype(np.float32)
     Y[:, 0] = 1.0
     kw = dict(coreset_size=8, block_n=16, device="cpu")
     with pytest.raises(ValueError) as ei:
-        fit_kernel_bank(X, Y, 1.0, vmem_budget_bytes=16_639, **kw)
-    assert "breakdown" in str(ei.value) and "16639" in str(ei.value)
+        fit_kernel_bank(X, Y, 1.0, vmem_budget_bytes=46_079, **kw)
+    assert "breakdown" in str(ei.value) and "46079" in str(ei.value)
     default = fit_kernel_bank(X, Y, 1.0, **kw)
-    at_limit = fit_kernel_bank(X, Y, 1.0, vmem_budget_bytes=16_640, **kw)
+    at_limit = fit_kernel_bank(X, Y, 1.0, vmem_budget_bytes=46_080, **kw)
     _assert_equal(default, at_limit)

@@ -44,7 +44,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.kernel_bank import _kdiag
 from repro_torch.kernels import ops, predict_kernel_bank
-from repro_torch.kernels.gram import row_norms
+from repro_torch.kernels.gram import GRAM_SMEM, row_norms
 from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
 from repro_torch.serve import BankServer
 
@@ -94,6 +94,28 @@ def test_fit_kernel_bank_vs_reference_and_oracle(kernel, eviction, s, block_n):
     xi2_rtol = 1e-3 if eviction == "smallest-coef" else 1e-4
     _assert_bank(got, fit_kernel_bank_ref(X, Y, cs, **kw), xi2_rtol=xi2_rtol)
     want = jfit_kernel_bank(jnp.asarray(X), jnp.asarray(Y), jnp.asarray(cs), block_n=block_n, **kw)
+    _assert_bank(got, tuple(want), xi2_rtol=xi2_rtol)
+
+
+def _growing(n, s, sign0=0.2):
+    """A linear stream whose norms grow 1 % a row, so every new row lies
+    outside each model's ball and every model absorbs well past S rows."""
+    X, Y, cs = _data(3, n, 16, seed=s, sign0=sign0)
+    return (X * 1.01 ** np.arange(n)[:, None]).astype(np.float32), Y, cs
+
+
+@pytest.mark.parametrize("eviction", ["smallest-coef", "farthest-point"])
+@pytest.mark.parametrize("s,n", [(129, 400), (256, 600)])
+def test_fit_kernel_bank_beyond_128_slots_vs_reference_and_oracle(eviction, s, n):
+    """Core sets past R1's four register slots a lane (S = 129: eight a
+    lane; S = 256: all eight full), evicting, held as the small ones are."""
+    X, Y, cs = _growing(n, s)
+    kw = dict(kernel="linear", gamma=1.0, coreset_size=s, eviction=eviction)
+    got = _port(X, Y, cs, block_n=64, **kw)
+    assert (got.m > s).all() and ((got.idx >= 0).sum(1) == s).all()  # full, and evicting
+    xi2_rtol = 1e-3 if eviction == "smallest-coef" else 1e-4
+    _assert_bank(got, fit_kernel_bank_ref(X, Y, cs, **kw), xi2_rtol=xi2_rtol)
+    want = jfit_kernel_bank(jnp.asarray(X), jnp.asarray(Y), jnp.asarray(cs), block_n=64, **kw)
     _assert_bank(got, tuple(want), xi2_rtol=xi2_rtol)
 
 
@@ -306,6 +328,45 @@ def test_full_buffer_is_the_dense_fit(kernel, block_n):
         torch.testing.assert_close(kb.r[bi], dense.r, rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(kb.xi2[bi], dense.xi2, rtol=1e-3, atol=1e-6)
         assert int(kb.m[bi]) == int(dense.m)
+
+
+@pytest.mark.parametrize("eviction", ["smallest-coef", "farthest-point"])
+def test_full_buffer_beyond_128_slots_is_the_dense_fit(eviction):
+    """S >= N past R1's register slots (S = 300: its slots sit in a device
+    scratch on the card): nothing is evicted, whatever the policy, and each model is
+    fit_kernelized's."""
+    n = 280
+    X, Y, cs = _growing(n, 7, sign0=0.0)
+    kb = _port(X, Y, cs, kernel="linear", coreset_size=300, eviction=eviction, block_n=64)
+    for bi in range(3):
+        dense = fit_kernelized(torch.as_tensor(X), torch.as_tensor(Y[bi]), float(cs[bi]),
+                               linear_kernel)
+        alpha = torch.zeros(n)
+        live = kb.idx[bi] >= 0
+        alpha[kb.idx[bi][live].long()] = kb.coef[bi][live]
+        assert int(kb.m[bi]) == int(dense.m) == int(live.sum()) > 128
+        torch.testing.assert_close(alpha, dense.alpha, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(kb.q[bi], dense.q, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(kb.r[bi], dense.r, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(kb.xi2[bi], dense.xi2, rtol=1e-3, atol=1e-6)
+
+
+def test_preflight_passes_any_core_set_size():
+    """R1 takes no shared memory at any S (registers up to 256, past that a
+    device scratch), so the byte model is B5's tiles alone at S = 256, 300
+    and 9,000, and fits at S = 256 and 300 pass at exactly GRAM_SMEM and are
+    refused one byte below it."""
+    for s in (256, 300, 9000):
+        assert ops.kernel_engine_vmem_bytes(3, 10, coreset_size=s) == {
+            "gram_tiles": GRAM_SMEM, "row_recursion": 0}
+    X, Y, cs = _data(3, 40, 10, seed=2)
+    for s in (256, 300):
+        kb = fit_kernel_bank(X, Y, cs, coreset_size=s, block_n=16, vmem_budget_bytes=GRAM_SMEM,
+                             device="cpu")
+        assert int(kb.m.min()) >= 1
+        with pytest.raises(ValueError, match=str(GRAM_SMEM - 1)):
+            fit_kernel_bank(X, Y, cs, coreset_size=s, block_n=16,
+                            vmem_budget_bytes=GRAM_SMEM - 1, device="cpu")
 
 
 def test_kdiag_is_the_gram_diagonal():

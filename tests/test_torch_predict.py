@@ -80,6 +80,51 @@ def test_bf16_queries_match_jax_engine():
     _assert_same(port, ref)
 
 
+def _assert_topk_ids(port, ref_vals, ref_ids, scores):
+    """Values within the engine tolerance; ids equal wherever a value is
+    separated from its neighbours by more than 1e-5 x max|score|."""
+    vals, ids = (np.asarray(t) for t in port)
+    np.testing.assert_allclose(vals, np.asarray(ref_vals), rtol=2e-4, atol=2e-5)
+    tol = 1e-5 * np.abs(scores).max()
+    gaps = np.diff(np.asarray(ref_vals), axis=1)
+    sep = np.ones(vals.shape, bool)
+    sep[:, 1:] &= -gaps > tol
+    sep[:, :-1] &= -gaps > tol
+    assert sep.mean() > 0.5
+    np.testing.assert_array_equal(ids[sep], np.asarray(ref_ids)[sep])
+
+
+@pytest.mark.parametrize("bank_resident", ["vmem", "hbm"])
+def test_topk_past_the_shared_memory_lists_matches_jax_engine(bank_resident):
+    """k = 728, one past what the kernels' shared-memory lists hold: the
+    port serves it (the lists then live in the outputs) with the
+    reference's ids, in both layouts."""
+    X, W = _data(40, 1000, 16, seed=728)
+    ref = jops.predict_bank(jnp.asarray(X), jnp.asarray(W), epilogue="topk", k=728, q_block=40)
+    port = ops.predict_bank(X, W, epilogue="topk", k=728, q_block=40, bank_resident=bank_resident,
+                            device="cpu")
+    assert port[0].shape == (40, 728)
+    _assert_topk_ids(port, *ref, X @ W.T)
+
+
+@pytest.mark.parametrize("bank_resident", ["vmem", "hbm"])
+def test_topk_of_the_whole_bank_with_ties_matches_reference(bank_resident):
+    """k = B = 1,200 against the reference's oracle (``lax.top_k``), with
+    exact ties from duplicated bank rows listed lowest lane first."""
+    X, W = _data(30, 1200, 12, seed=12)
+    W[900], W[1100], W[5] = W[3], W[3], W[640]
+    ref = predict_bank_ref(jnp.asarray(X), jnp.asarray(W), epilogue="topk", k=1200)
+    port = ops.predict_bank(X, W, epilogue="topk", k=1200, q_block=32, b_tile=256,
+                            bank_resident=bank_resident, device="cpu")
+    _assert_topk_ids(port, *ref, X @ W.T)
+    vals, ids = (p.numpy() for p in port)
+    for row in range(30):
+        order = {int(i): p for p, i in enumerate(ids[row])}
+        assert order[3] < order[900] < order[1100] and order[5] < order[640]
+        assert vals[row, order[3]] == vals[row, order[1100]]
+    assert sorted(ids[0].tolist()) == list(range(1200))
+
+
 def test_ties_go_to_the_lowest_lane():
     """Duplicated bank rows tie exactly: ovr and topk pick the lower id, and
     topk lists the tied entries in id order."""
