@@ -279,14 +279,16 @@ def smem_models():
     """(source, kernel, static bytes by the byte models) for every kernel the
     byte models describe; the ring's dynamic terms are checked in phase 7."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.streamsvm_scan import ring_plan
+    from repro_torch.kernels.streamsvm_scan import SCAN_SMEM, ring_plan
 
     ring = ring_plan(8, 8, lookahead=False)["smem"]
     pring = ops.predict_vmem_bytes(8, 8, bank_resident="hbm")
+    chunked = sum(SCAN_SMEM.values())
     return (
-        ("streamsvm_scan", "scan_kernel", sum(ops.engine_vmem_bytes(8, 8).values())),
-        ("streamsvm_scan", "lookahead_kernel",
-         sum(ops.engine_vmem_bytes(8, 8, lookahead_max=2).values())),
+        ("streamsvm_scan", "scan_kernel", chunked),
+        ("streamsvm_scan", "lookahead_kernel", chunked),
+        ("streamsvm_scan", "scan_res_kernel", 0),  # all dynamic, checked in phase 7
+        ("streamsvm_scan", "lookahead_small_kernel", 0),
         ("streamsvm_scan", "scan_ring_kernel", ring["stream_tile"] + ring["block_gram"]),
         ("predict", "predict_kernel", sum(ops.predict_vmem_bytes(8, 8).values())),
         ("predict", "predict_ring_kernel", pring["stages"]),
@@ -468,6 +470,7 @@ def phase_kernels(dev, args, rng):
 
     check_single(dev, args, rng)
     check_lookahead(dev, args, rng)
+    check_layouts(dev, args, rng)
     print(f"[2] B2 and B6 serve top-k at any k: Q=250 (ragged), D={d}")
     check_topk_any_k(dev, args, rng)
 
@@ -505,6 +508,109 @@ def phase_kernels(dev, args, rng):
             compare_ids("topk ids", ids_g[:q], ids_w[:q], full[:q], 5)
         err = check_close(f"B2 {ep} values", val_g[:q], val_w[:q], RTOL_W, score_atol(val_w[:q]))
         print(f"  {ep}: values max|err| {err:.3e}")
+
+
+def no_live(kw):
+    """B3's keywords without the live count, for the ring and the plain
+    versions (which walk every lane)."""
+    return {k: v for k, v in kw.items() if k != "n_live"}
+
+
+def plan_of(inp, kw, budget=None):
+    """The layout (``scan_plan``) B1 or B3 takes for the inputs ``inp`` and
+    keywords ``kw`` under the shared-memory budget ``budget``."""
+    from repro_torch.kernels.streamsvm_scan import scan_plan
+
+    X, Y = inp[0], inp[1]
+    return scan_plan(Y.shape[0], X.shape[1], lookahead_max=kw.get("lookahead_max"),
+                     n_live=kw.get("n_live"), dtype=X.dtype, smem_budget=budget)
+
+
+def layout_note(plan):
+    """One line for a B1 / B3 launch's layout (``scan_plan``)."""
+    by = sum(plan["smem"].values())
+    return (f"{plan['layout']}, {plan['models_per_cta']} model(s) x {plan['ctas']} CTAs"
+            + (f", window in {plan['window'].replace('smem', 'shared')} memory"
+               if plan["window"] else "")
+            + f", {by} B {'static' if plan['layout'] == 'chunked' else 'dynamic'}")
+
+
+def check_layouts(dev, args, rng):
+    """Phase 2: B1 and B3 in each layout (``scan_plan``) bit-equal to the
+    ring, B6 train, which this code does not share: at Fig 3's single-model
+    launch (L = 2, 10, 50: the small layout; the chunked kernel under the
+    smallest budget), at phase 3's chunk and at 4b's launch (600 live models
+    over the whole stream: 8 models per CTA at the card's limit, 4 under a
+    60,000 B budget, the chunked kernels under the smallest) and where no
+    tile fits (D = 12,288: the chunked kernels at the card's limit)."""
+    from repro_torch.data import mnist89_like, permuted, preprocess_for
+    from repro_torch.kernels.streamsvm_scan import (
+        SCAN_SMEM,
+        streamsvm_scan_lookahead_many,
+        streamsvm_scan_lookahead_many_ring,
+        streamsvm_scan_many,
+        streamsvm_scan_many_ring,
+    )
+
+    floor = sum(SCAN_SMEM.values())  # the chunked kernels: the smallest budget "vmem" runs under
+
+    def against_ring(label, kernel, ring, inp, kw, budgets):
+        ref = ring(*inp, **no_live(kw))
+        for budget in budgets:
+            check_equal(f"{label} under a budget of {budget} B against the ring",
+                        kernel(*inp, **kw, smem_budget=budget), ref)
+        seen = "; ".join(layout_note(plan_of(inp, kw, by)) for by in budgets)
+        print(f"  {label}: bit-equal to the ring in {seen}")
+        return ref
+
+    b3 = streamsvm_scan_lookahead_many
+    print("[2] B1 and B3 in every layout against the ring (B6 train)")
+    Xtr, ytr, Xte, _ = mnist89_like(seed=args.seed)
+    Xtr, _ = preprocess_for("mnist89", Xtr[: args.fig3_n_train], Xte[:1])
+    Xp, yp = permuted(Xtr, ytr[: args.fig3_n_train], seed=args.seed * 7777)
+    Xf, yf = torch.as_tensor(Xp, device=dev), torch.as_tensor(yp, device=dev)
+    inp, n, live = seeded_bank_inputs(Xf, yf[None, :], torch.full((1,), 10.0, device=dev), 8)
+    for L in (2, 10, 50):
+        kw = dict(lookahead=torch.where(live, L, 1).to(torch.int32), lookahead_max=L,
+                  n_valid=n, n_live=1)
+        against_ring(f"B3 at Fig 3's launch, N={n} D={Xf.shape[1]} L={L}", b3,
+                     streamsvm_scan_lookahead_many_ring, inp, kw, (None, floor))
+
+    b, d = args.classes * 3, args.d
+    X, yc = make_blobs(args.chunk, args.classes, d, seed=args.seed + 5)
+    Y = np.tile(np.where(yc[None, :] == np.arange(args.classes)[:, None], 1.0, -1.0), (3, 1))
+    cs = torch.as_tensor(np.repeat(np.asarray((1.0, 10.0, 100.0), np.float32), args.classes),
+                         device=dev)
+    bp = -(-b // 64) * 64
+    inp, n, live = seeded_bank_inputs(torch.as_tensor(X, device=dev),
+                                      torch.as_tensor(Y, dtype=torch.float32, device=dev), cs, bp)
+    against_ring(f"B1 at phase 3's chunk, N={n} D={d} B={b} (padded to {bp})",
+                 streamsvm_scan_many, streamsvm_scan_many_ring, inp, dict(n_valid=n),
+                 (None, 60_000, floor))
+
+    X, yc = make_blobs(args.n_train, args.classes, d, seed=args.seed + 6)
+    Y = np.tile(np.where(yc[None, :] == np.arange(args.classes)[:, None], 1.0, -1.0), (3, 1))
+    inp, n, live = seeded_bank_inputs(torch.as_tensor(X, device=dev),
+                                      torch.as_tensor(Y, dtype=torch.float32, device=dev), cs, bp)
+    kw = dict(lookahead=torch.where(live, 10, 1).to(torch.int32), lookahead_max=10, n_valid=n,
+              n_live=b)
+    against_ring(f"B3 at 4b's launch, N={n} D={d} B={b} (padded to {bp}) L=10", b3,
+                 streamsvm_scan_lookahead_many_ring, inp, kw, (None, 60_000, floor))
+
+    dw, bw, nw = 12_288, 140, 256
+    inp = scan_inputs(rng, bw, nw, dw, dev, bp=144, ragged_n=9)
+    nv = inp.pop("n_valid")
+    args_ = tuple(inp[k] for k in ("X", "Y", "W0", "r0", "xi20", "c_inv", "m0", "gain"))
+    kw1 = dict(n_valid=nv)
+    kw3 = dict(lookahead=None, lookahead_max=7, n_valid=nv, n_live=bw)
+    if plan_of(args_, kw1)["layout"] != "chunked" or plan_of(args_, kw3)["layout"] != "chunked":
+        raise AssertionError(f"D={dw}: the plan should fall back to the chunked kernels")
+    against_ring(f"B1 where no tile fits, N={nw} D={dw} B={bw}", streamsvm_scan_many,
+                 streamsvm_scan_many_ring, args_, kw1, (None,))
+    L = torch.tensor([(1, 3, 7)[i % 3] if i < bw else 1 for i in range(144)], dtype=torch.int32,
+                     device=dev)
+    against_ring(f"B3 where no tile fits, N={nw} D={dw} B={bw} L in (1, 3, 7)", b3,
+                 streamsvm_scan_lookahead_many_ring, args_, {**kw3, "lookahead": L}, (None,))
 
 
 def check_topk_any_k(dev, args, rng):
@@ -808,9 +914,10 @@ def phase_algorithms(dev, args, main):
     print(f"[4a] Fig 3: mnist89, D={Xtr.shape[1]}, {len(Xtr)} training rows, {len(Xte)} "
           f"held-out rows, C={C:g}, L in {Ls}, {args.fig3_runs} permutations")
     Xte_t = torch.as_tensor(Xte, device=dev)
-    fig3 = []
+    fig3, fig3_by_L = [], {}
     for L in Ls:
         accs, ms, secs = [], [], []
+        before_L = streamsvm_scan_lookahead_many.launches
         for run in range(args.fig3_runs):
             Xp, yp = permuted(Xtr, ytr, seed=args.seed * 7777 + run)
             Xd, yd = torch.as_tensor(Xp, device=dev), torch.as_tensor(yp, device=dev)
@@ -827,6 +934,7 @@ def phase_algorithms(dev, args, main):
                 Xc, yc = torch.as_tensor(Xp), torch.as_tensor(yp)
                 want = fit(Xc, yc, C) if L <= 1 else fit_lookahead(Xc, yc, C, L)
                 check_state(f"Fig 3 L={L} against the plain version", ball, want)
+        fig3_by_L[L] = streamsvm_scan_lookahead_many.launches - before_L
         fig3.append(dict(L=L, mean=float(np.mean(accs)), std=float(np.std(accs)),
                          m=float(np.mean(ms)), s=float(np.mean(secs))))
         print(f"  L={L}: held-out accuracy {np.mean(accs):.2f} +- {np.std(accs):.3f} %, "
@@ -854,9 +962,10 @@ def phase_algorithms(dev, args, main):
     # and the partial windows flushed after the last row.
     b6 = Yd.shape[0]
     in3, n3, live3 = seeded_bank_inputs(Xd, Yd, cs6, -(-b6 // 64) * 64)
-    kw3 = dict(lookahead=torch.where(live3, 10, 1).to(torch.int32), lookahead_max=10, n_valid=n3)
+    kw3 = dict(lookahead=torch.where(live3, 10, 1).to(torch.int32), lookahead_max=10, n_valid=n3,
+               n_live=b6)
     t0 = time.perf_counter()
-    want3 = streamsvm_scan_lookahead_many_plain(*in3, **kw3)
+    want3 = streamsvm_scan_lookahead_many_plain(*in3, **no_live(kw3))
     sync(dev)
     plain3 = (time.perf_counter() - t0) * 1e3
     err3 = check_state("the lookahead bank against the plain version", bank, want3, live=b6)
@@ -902,7 +1011,7 @@ def phase_algorithms(dev, args, main):
     if dev.type == "cuda" and min(launches.values()) < 1:
         raise AssertionError(f"a kernel of phase 4 was never launched: {launches}")
     b3 = dict(inputs=in3, kw=kw3, err=err3, plain_ms=plain3, pushes=float((bank.m - 1).sum()),
-              bank_launches=bank_b3, fig3_launches=fig3_b3)
+              bank_launches=bank_b3, fig3_launches=fig3_b3, fig3_by_L=fig3_by_L)
     return dict(launches=launches, fig3=(Xp, yp), bank=bank, b3=b3, data4b=(Xd, Yd, cs6))
 
 
@@ -1343,6 +1452,33 @@ def phase_ring(dev, args, main, algos):
         if plib.predict_bank_max_k() != TOPK_SMEM_MAX_K:
             raise AssertionError(f"topk lists: the kernel keeps k <= {plib.predict_bank_max_k()} "
                                  f"in shared memory, the byte model {TOPK_SMEM_MAX_K}")
+        # B1 / B3: each layout's static bytes (ptxas) plus its dynamic
+        # request against the byte model, at the shapes of phases 3, 4 and 7b,
+        # at the card's limit and under a 60,000 B budget.
+        kern = {"chunked": ("scan_kernel", "lookahead_kernel"),
+                "resident": ("scan_res_kernel",) * 2, "small": (None, "lookahead_small_kernel")}
+        f32 = torch.float32
+        for sb, sd, lmax, dt, by in (
+                (600, 784, None, f32, None), (600, 784, 10, f32, None), (1, 784, 10, f32, None),
+                (1, 784, 50, f32, None), (1, 784, 10, torch.bfloat16, None),
+                (b, d, None, f32, None), (b, d, 10, f32, None), (1, 4096, 50, f32, None),
+                (16, 12_288, None, f32, None), (600, 784, None, f32, 60_000),
+                (600, 784, 10, f32, 60_000), (1, 784, 10, f32, 60_000)):
+            plan = scan_mod.scan_plan(-(-sb // 8) * 8, sd, lookahead_max=lmax, n_live=sb, dtype=dt,
+                                      smem_budget=by)
+            (static,) = _build.static_smem("streamsvm_scan", kern[plan["layout"]][lmax is not None])
+            bf = int(dt == torch.bfloat16)
+            dyn = 0 if plan["layout"] == "chunked" else (
+                lib.streamsvm_scan_small_dyn_bytes(sd, lmax, int(plan["window"] == "smem"), bf)
+                if plan["layout"] == "small" else lib.streamsvm_scan_resident_dyn_bytes(
+                    sd, plan["models_per_cta"], int(lmax is not None), bf))
+            model = sum(ops.engine_vmem_bytes(sb, sd, lookahead_max=lmax, stream_dtype=dt,
+                                              smem_budget=by).values())
+            if static + dyn != model or model > (by or ops.DEFAULT_VMEM_BUDGET_BYTES):
+                raise AssertionError(f"B{3 if lmax else 1} B={sb} D={sd}: allocates "
+                                     f"{static + dyn} B, model {model} B")
+            print(f"  B{3 if lmax else 1} B={sb} D={sd} L={lmax} {dt}: {layout_note(plan)}: "
+                  f"{static + dyn} B allocated = byte model")
         for src, kern, model in smem_models():
             if kern in ("scan_ring_kernel", "predict_ring_kernel"):
                 continue  # checked above with their dynamic bytes
@@ -1390,6 +1526,7 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     if not torch.equal(got[3].cpu(), want[3].cpu()):
         raise AssertionError("B1 at the main-path shape: m differs from the plain version")
     ms1 = time_ms(lambda: streamsvm_scan_many(*args1, n_valid=n), dev, reps)
+    plan1 = plan_of(args1, dict(n_valid=n))
     plain1 = time_ms(lambda: streamsvm_scan_many_plain(*args1, n_valid=n), dev, 1, warmup=0)
     flops1 = 4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32
     bytes1 = 4.0 * (n * d + b * n + 2 * b * d + 6 * b)
@@ -1409,6 +1546,8 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     in3, kw3, pushes = b3["inputs"], b3["kw"], b3["pushes"]
     n3 = kw3["n_valid"]
     ms3 = time_ms(lambda: streamsvm_scan_lookahead_many(*in3, **kw3), dev, reps)
+    plan3 = plan_of(in3, kw3)
+    kw3r = no_live(kw3)  # the ring walks every lane
     # B3's own work: h = <w, x_k> for every model and row and each row's
     # |x_k|^2 (the Gram's diagonal is all a distance needs; there is no
     # deferred update and g changes only in a flush), plus, for every pushed
@@ -1418,30 +1557,40 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     # B6 train (Algorithm 2) at phase 7a's lookahead launch: B3's inputs,
     # work and bound; it must give B3's bits.
     got3 = streamsvm_scan_lookahead_many(*in3, **kw3)
-    got_r3 = streamsvm_scan_lookahead_many_ring(*in3, **kw3)
+    got_r3 = streamsvm_scan_lookahead_many_ring(*in3, **kw3r)
     check_equal("B6 (Algorithm 2) against B3 at the bank's launch", got_r3, got3)
     t0 = time.perf_counter()
-    want_r3 = streamsvm_scan_lookahead_many_ring_plain(*in3, **kw3, ring_tile=bp, n_ctas=1)
+    want_r3 = streamsvm_scan_lookahead_many_ring_plain(*in3, **kw3r, ring_tile=bp, n_ctas=1)
     sync(dev)
     plain_r3 = (time.perf_counter() - t0) * 1e3
     err_r3 = check_state("B6 (Algorithm 2) against its plain version", got_r3, want_r3, live=b)
-    ms_r3 = time_ms(lambda: streamsvm_scan_lookahead_many_ring(*in3, **kw3), dev, reps)
-    # B3 at Fig 3's launches (phase 4a): one model, L = 10, over the
-    # permuted training stream, as fit_lookahead hands it to B3.
+    ms_r3 = time_ms(lambda: streamsvm_scan_lookahead_many_ring(*in3, **kw3r), dev, reps)
+    L3 = kw3["lookahead"][:b]
+    flushes3 = int((-(-(got3[3][:b] - in3[6][:b]) // L3)).sum())
+    # B3 at Fig 3's launches (phase 4a): one model over the permuted
+    # training stream, as fit_lookahead hands it to B3 (the live count 1),
+    # at L = 10 and at L = 50.
     Xf3, yf3 = (torch.as_tensor(a, device=dev) for a in algos["fig3"])
     in3f, n3f, live3f = seeded_bank_inputs(Xf3, yf3[None, :], torch.full((1,), 10.0, device=dev), 8)
-    kw3f = dict(lookahead=torch.where(live3f, 10, 1).to(torch.int32), lookahead_max=10,
-                n_valid=n3f)
-    got3f = streamsvm_scan_lookahead_many(*in3f, **kw3f)
-    t0 = time.perf_counter()
-    want3f = streamsvm_scan_lookahead_many_plain(*in3f, **kw3f)
-    sync(dev)
-    plain3f = (time.perf_counter() - t0) * 1e3
-    err3f = check_state("B3 at the Fig 3 shape", got3f, want3f, live=1)
-    ms3f = time_ms(lambda: streamsvm_scan_lookahead_many(*in3f, **kw3f), dev, 10 * reps)
-    d3f, pushes3f = Xf3.shape[1], float(got3f[3][0] - 1)
-    flops3f = 2.0 * n3f * d3f + 2.0 * n3f * d3f + 3.0 * d3f * pushes3f
-    bytes3f = 4.0 * (n3f * d3f + n3f + 2 * d3f + 6)
+    d3f = Xf3.shape[1]
+    fig3_rows = {}
+    for L in (10, 50):
+        kw3f = dict(lookahead=torch.where(live3f, L, 1).to(torch.int32), lookahead_max=L,
+                    n_valid=n3f, n_live=1)
+        got3f = streamsvm_scan_lookahead_many(*in3f, **kw3f)
+        plan3f = plan_of(in3f, kw3f)
+        t0 = time.perf_counter()
+        want3f = streamsvm_scan_lookahead_many_plain(*in3f, **no_live(kw3f))
+        sync(dev)
+        plain3f = (time.perf_counter() - t0) * 1e3
+        err3f = check_state(f"B3 at the Fig 3 shape, L={L}", got3f, want3f, live=1)
+        ms3f = time_ms(lambda: streamsvm_scan_lookahead_many(*in3f, **kw3f), dev, 10 * reps)
+        pushes3f = float(got3f[3][0] - 1)
+        fig3_rows[L] = dict(
+            err=err3f, ms=ms3f, plain=plain3f, plan=plan3f, pushes=pushes3f,
+            flushes=-(-int(pushes3f) // L),
+            flops=2.0 * n3f * d3f + 2.0 * n3f * d3f + 3.0 * d3f * pushes3f,
+            nbytes=4.0 * (n3f * d3f + n3f + 2 * d3f + 6))
     # B4 at Fig 3's shapes: one model over the permuted training stream.
     Xf, yf = (torch.as_tensor(a, device=dev) for a in algos["fig3"])
     n4 = Xf.shape[0] - 1
@@ -1494,11 +1643,13 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
             "library_ms": lib, "shape": shape,
         }
 
+    by_L = b3["fig3_by_L"]
+    f10, f50 = fig3_rows[10], fig3_rows[50]
     kernels = [
         row("streamsvm_scan", "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
             "src/repro/kernels/streamsvm_scan.py:800", main["launches"]["streamsvm_scan"],
             err1, ms1, plain1, flops1, bytes1, None,
-            f"N={n} D={d} B={b} (bank padded to {bp}) f32"),
+            f"N={n} D={d} B={b} (bank padded to {bp}) f32; {layout_note(plan1)}"),
         row("predict_bank", "src/repro_torch/kernels/csrc/predict.cu",
             "src/repro/kernels/predict.py:321", main["launches"]["predict_bank"],
             err2, ms2, plain2, flops2, bytes2, None,
@@ -1507,12 +1658,20 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
             "src/repro/kernels/streamsvm_scan.py:800", b3["bank_launches"], b3["err"], ms3,
             b3["plain_ms"], flops3, bytes3, None,
             f"the Algorithm-2 bank's launch (phase 4b): N={n3} D={d} B={b} (bank padded to "
-            f"{bp}) L=10 f32, {pushes:.0f} pushes"),
+            f"{bp}) L=10 f32, {pushes:.0f} pushes, {flushes3} flushes; {layout_note(plan3)}"),
         row("streamsvm_scan_lookahead[fig3]", "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
-            "src/repro/kernels/streamsvm_scan.py:800", b3["fig3_launches"], err3f, ms3f,
-            plain3f, flops3f, bytes3f, None,
-            f"Fig 3's single-model launches (phase 4a): N={n3f} D={d3f} B=1 (padded to 8) L=10 "
-            f"f32, {pushes3f:.0f} pushes"),
+            "src/repro/kernels/streamsvm_scan.py:800", b3["fig3_launches"] - by_L.get(50, 0),
+            f10["err"], f10["ms"], f10["plain"], f10["flops"], f10["nbytes"], None,
+            f"Fig 3's single-model launches at L = 2, 5, 10, 20 (phase 4a), timed at: N={n3f} "
+            f"D={d3f} B=1 (padded to 8) L=10 f32, {f10['pushes']:.0f} pushes, "
+            f"{f10['flushes']} flushes; {layout_note(f10['plan'])}"),
+        row("streamsvm_scan_lookahead[fig3 L=50]",
+            "src/repro_torch/kernels/csrc/streamsvm_scan.cu",
+            "src/repro/kernels/streamsvm_scan.py:800", by_L.get(50, 0), f50["err"], f50["ms"],
+            f50["plain"], f50["flops"], f50["nbytes"], None,
+            f"Fig 3's single-model launches at L = 50 (phase 4a): N={n3f} D={d3f} B=1 (padded "
+            f"to 8) L=50 f32, {f50['pushes']:.0f} pushes, {f50['flushes']} flushes; "
+            f"{layout_note(f50['plan'])}"),
         row("streamsvm_single", "src/repro_torch/kernels/csrc/streamsvm_single.cu",
             "src/repro/kernels/streamsvm_scan.py:639", algos["launches"]["streamsvm_scan"],
             err4, ms4, plain4, flops4, bytes4, None,
@@ -1564,8 +1723,13 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     kernels += ring_7b_rows(dev, args, ring, row)
     print(f"  B6 train (Algorithm 1): kernel {ms_r:.4f} ms (B1 {ms1:.4f}), plain {plain_r:.1f} ms; "
           f"(Algorithm 2): kernel {ms_r3:.4f} ms (B3 {ms3:.4f}), plain {plain_r3:.1f} ms; B3 at "
-          f"Fig 3's shape {ms3f:.4f} ms; B6 serve: ovr step {ms_r2:.4f} ms (B2 {ms2:.4f}), "
+          f"Fig 3's shape {f10['ms']:.4f} ms; B6 serve: ovr step {ms_r2:.4f} ms (B2 {ms2:.4f}), "
           f"scores at Q={len(Qs)} {ms_rs:.4f} ms (B2 {ms_s:.4f})")
+    print(f"  B1 at phase 3's chunk {ms1:.4f} ms ({layout_note(plan1)}); B3 at 4b's launch "
+          f"{ms3:.4f} ms ({layout_note(plan3)}, {pushes:.0f} pushes, {flushes3} flushes); B3 at "
+          f"Fig 3's launch L=10 {f10['ms']:.4f} ms ({layout_note(f10['plan'])}, "
+          f"{f10['pushes']:.0f} pushes, {f10['flushes']} flushes), L=50 {f50['ms']:.4f} ms "
+          f"({layout_note(f50['plan'])}, {f50['pushes']:.0f} pushes, {f50['flushes']} flushes)")
     kernels += kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, args.kb_check_tiles)
     return kernels
 
@@ -1608,12 +1772,13 @@ def ring_7b_rows(dev, args, ring, row):
         plain_ms = (time.perf_counter() - t0) * 1e3
         same = got[3][:b] == want[3][:b]
         err = check_state(name, [x[:b][same] for x in got], [x[:b][same] for x in want])
-        return err, plain_ms, int((~same).sum())
+        return err, plain_ms, (~same).nonzero().flatten().tolist()
 
     out, notes = [], []
     got = streamsvm_scan_many_ring(*inp, n_valid=n)
     ms = time_ms(lambda: streamsvm_scan_many_ring(*inp, n_valid=n), dev, reps)
     ms_b1 = time_ms(lambda: streamsvm_scan_many(*inp, n_valid=n), dev, reps)
+    plan_b1 = plan_of(inp, dict(n_valid=n))
     err, plain, parted = against_plain("7b's Algorithm-1 launch against its plain version", got,
                                        lambda: streamsvm_scan_many_ring_plain(
                                            *inp, n_valid=n, ring_tile=bp, n_ctas=1))
@@ -1622,15 +1787,18 @@ def ring_7b_rows(dev, args, ring, row):
         4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32,
         4.0 * (n * d + b * n + 2 * b * d + 6 * b), None,
         f"phase 7b's Algorithm-1 launch: N={n} D={d} B={b} f32 (B1 at this launch {ms_b1:.3f} "
-        f"ms); max_abs_err over the {b - parted} models whose m the plain version matches"))
-    notes.append(f"Algorithm 1 {ms:.3f} ms (B1 {ms_b1:.3f}), plain {plain / 1e3:.1f} s, "
-                 f"{parted} models part on ties")
+        f"ms: {layout_note(plan_b1)}); max_abs_err over the {b - len(parted)} models "
+        "whose m the plain version matches"))
+    notes.append(f"Algorithm 1 {ms:.3f} ms (B1 {ms_b1:.3f}: {layout_note(plan_b1)}), "
+                 f"plain {plain / 1e3:.1f} s, {len(parted)} models part on ties: {parted}")
     if b7["la_m"] is not None:
         kw = dict(lookahead=torch.where(live, 10, 1).to(torch.int32), lookahead_max=10,
                   n_valid=n)
         got = streamsvm_scan_lookahead_many_ring(*inp, **kw)
         ms = time_ms(lambda: streamsvm_scan_lookahead_many_ring(*inp, **kw), dev, reps)
         ms_b3 = time_ms(lambda: streamsvm_scan_lookahead_many(*inp, **kw), dev, reps)
+        plan_b3 = plan_of(inp, kw)
+        flushes = int((-(-(b7["la_m"] - 1) // 10)).sum())
         err, plain, parted = against_plain(
             "7b's Algorithm-2 launch against its plain version", got,
             lambda: streamsvm_scan_lookahead_many_ring_plain(*inp, **kw, ring_tile=bp, n_ctas=1))
@@ -1640,11 +1808,11 @@ def ring_7b_rows(dev, args, ring, row):
             lb["streamsvm_scan_lookahead_many_ring"], err, ms, plain,
             2.0 * b * n * d + 2.0 * n * d + 3.0 * d * pushes,
             4.0 * (n * d + b * n + 2 * b * d + 6 * b), None,
-            f"phase 7b's Algorithm-2 launch: N={n} D={d} B={b} L=10 f32, {pushes:.0f} pushes "
-            f"(B3 at this launch {ms_b3:.3f} ms); max_abs_err over the {b - parted} models "
-            "whose m the plain version matches"))
-        notes.append(f"Algorithm 2 {ms:.3f} ms (B3 {ms_b3:.3f}), plain {plain / 1e3:.1f} s, "
-                     f"{parted} models part on ties")
+            f"phase 7b's Algorithm-2 launch: N={n} D={d} B={b} L=10 f32, {pushes:.0f} pushes, "
+            f"{flushes} flushes (B3 at this launch {ms_b3:.3f} ms: {layout_note(plan_b3)}); "
+            f"max_abs_err over the {b - len(parted)} models whose m the plain version matches"))
+        notes.append(f"Algorithm 2 {ms:.3f} ms (B3 {ms_b3:.3f}: {layout_note(plan_b3)}), plain "
+                     f"{plain / 1e3:.1f} s, {len(parted)} models part on ties: {parted}")
     # The ovr serve of 7b's held-out rows, as ops.predict_bank hands it over.
     nc = b7["n_classes"]
     g = b // nc

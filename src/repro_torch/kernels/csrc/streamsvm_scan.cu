@@ -5,12 +5,20 @@
 // src/repro/kernels/streamsvm_scan.py::_block_update (driven there by
 // _kernel_many_tiled / streamsvm_scan_many_pallas).
 //
-// Layout. The bank axis is the parallel one: each CTA owns LANES models
-// (one warp per model) and walks the whole stream in order, in internal
-// blocks of BN = 32 rows (one row per thread of the warp). Nothing carries
-// between CTAs. The block Gram G = X_blk X_blk^T is the same for every
-// model, so a pre-pass kernel computes it once per block into global memory
-// (it stays in L2) and every CTA reads its 32x32 block from there.
+// Layout. The bank axis is the parallel one: each CTA owns a few models
+// (one warp per model in the row recursion) and walks the whole stream in
+// order, in internal blocks of BN = 32 rows (one row per thread of the
+// warp). Nothing carries between CTAs. The block Gram G = X_blk X_blk^T is
+// the same for every model, so a pre-pass kernel computes it once per block
+// into global memory (it stays in L2) and every CTA reads its 32x32 block
+// from there. Three layouts give the same bits (the wrapper picks one per
+// launch, streamsvm_scan.py::scan_plan): "resident" (scan_res_kernel, B1
+// and B3), the CTA's (MPC, D) bank tile in shared memory for the whole
+// launch, the stream copied ahead by cp.async and the D loops register-tiled;
+// "chunked" (scan_kernel / lookahead_kernel, LANES = 8 models per CTA), the
+// bank in device memory staged chunk by chunk, where no tile fits the
+// budget; and, for B3 with few live models, "small" (lookahead_small_kernel),
+// one CTA per live model.
 //
 // Per block and model, as in the TPU kernel: h_k = <w, x_k>, g_k = y_k h_k;
 // then, row by row, d^2 = |w|^2 - 2 g_j + G_jj + xi2 + 1/C, the update when
@@ -28,14 +36,19 @@
 //
 // Bound. Per row and model the work is ~4 D flops (h and the deferred
 // update) plus O(BN) for g; at B = 600, D = 784 the card is bound by its
-// f32 rate, but this simple kernel is held back by the dependent per-row
-// chain (a shuffle, a sqrt and a divide per row) and by shared-memory
-// operand traffic in the D loops. Both are left for a later change.
+// f32 rate. What holds the kernels back on the card is latency: the
+// dependent per-row chain of the row recursion (a shuffle, a sqrt and a
+// divide per row), and in the D loops the
+// shared-memory reads, which one or two warps per SM cannot hide by
+// switching. The resident layout keeps the tile out of device memory,
+// copies the stream ahead, gives each thread a register tile (h: MPC / 4
+// models x 2 rows; the deferred update: 4 models x MPC / 2 columns) and
+// issues each unit's reads one unit ahead of its fmafs.
 //
-// B3, the fused Algorithm 2 (lookahead_kernel below), replaces the
-// lookahead branch of the same _block_update with _bank_flush. It shares
-// the Gram pre-pass and the layout: one warp per model, the h pass of each
-// block staged as in B1. A violating row (Gram-form d >= r, valid, sign
+// B3, the fused Algorithm 2 (lookahead_kernel and the B3 instantiations of
+// scan_res_kernel and lookahead_small_kernel below), replaces the lookahead
+// branch of the same _block_update with _bank_flush. It shares the Gram
+// pre-pass, the layouts and the h pass with B1. A violating row (Gram-form d >= r, valid, sign
 // != 0) is pushed, as y_j x_j, into slot cnt of the model's L-row window in
 // global memory (m counts at push). When the window holds L rows the warp
 // flushes it farthest-first: the direct distance to every remaining point,
@@ -47,7 +60,10 @@
 // rows after the block-end barrier. |w|^2 is recomputed as sum w^2 after a
 // flush, and the partial windows are flushed once after the call's last
 // row. Extra work over B1: ~L^2 D / 2 flops per flush for the distances
-// and D flops per absorbed point and remaining row for g.
+// and D flops per absorbed point and remaining row for g. In the chunked
+// and resident layouts the model's warp pushes and flushes, the window in
+// device memory; in the small layout the whole CTA does (flush_cta), the
+// window in shared memory where it fits.
 //
 // B6 train (scan_ring_kernel below), bank_resident="hbm": replaces
 // _kernel_many_hbm in src/repro/kernels/streamsvm_scan.py (the pallas_call
@@ -79,6 +95,8 @@
 // once per 8 models) at the cost of barriers per step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -120,104 +138,6 @@ block_gram_kernel(const T* __restrict__ X, float* __restrict__ G, int n, int d) 
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) G[(row0 + jb + 8 * i) * BN + k] = acc[i];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-scan_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-            const float* __restrict__ G, float* __restrict__ W,
-            float* __restrict__ R, float* __restrict__ XI2, int* __restrict__ M,
-            const float* __restrict__ CINV, const float* __restrict__ GAIN,
-            int n, int n_valid, int d) {
-  __shared__ float xs[BN][DC + 1];
-  __shared__ float ws[LANES][DC + 1];
-  __shared__ float gs[BN][BN + 1];
-  __shared__ float ay[LANES][BN];
-  const int tid = threadIdx.x;
-  const int wl = tid >> 5;  // model within the CTA
-  const int t = tid & 31;   // row within the block
-  const long lane0 = (long)blockIdx.x * LANES;
-  const long lane = lane0 + wl;
-  float* w = W + lane * d;
-
-  // |w|^2: strided partial sums, then an xor tree (every thread ends with
-  // the same value, in the same order for every model).
-  float wsq = 0.f;
-  for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
-  for (int off = 16; off > 0; off >>= 1) wsq += __shfl_xor_sync(FULL, wsq, off);
-
-  float r = R[lane], xi2 = XI2[lane];
-  const float cinv = CINV[lane], gain = GAIN[lane];
-  int m = M[lane];
-
-  const int nblocks = (n + BN - 1) / BN;
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const long row0 = (long)blk * BN;
-    const long row = row0 + t;
-
-    // h = <w, x_row>, summed over D in ascending order.
-    float h = 0.f;
-    for (int d0 = 0; d0 < d; d0 += DC) {
-      for (int e = tid; e < BN * DC; e += THREADS) {
-        const int j = e / DC, c = e % DC;
-        const int col = d0 + c;
-        xs[j][c] = (row0 + j < n && col < d) ? ld(X, (row0 + j) * d + col) : 0.f;
-      }
-      for (int e = tid; e < LANES * DC; e += THREADS) {
-        const int l = e / DC, c = e % DC;
-        const int col = d0 + c;
-        ws[l][c] = col < d ? W[(lane0 + l) * d + col] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < DC; ++c) h = fmaf(ws[wl][c], xs[t][c], h);
-      __syncthreads();
-    }
-    for (int e = tid; e < BN * BN; e += THREADS)
-      gs[e / BN][e % BN] = G[row0 * BN + e];
-    const float ys = row < n ? ld(Y, lane * n + row) : 0.f;
-    __syncthreads();
-
-    float g = ys * h;
-    float alpha = 0.f, decay = 1.f;
-    for (int j = 0; j < BN; ++j) {
-      const float gj = __shfl_sync(FULL, g, j);
-      const float yj = __shfl_sync(FULL, ys, j);
-      const float gjj = gs[j][j];
-      const float d2 = wsq - 2.0f * gj + gjj + xi2 + cinv;
-      const float dist = sqrtf(fmaxf(d2, 1e-12f));
-      const bool upd = dist >= r && row0 + j < n_valid && yj != 0.0f;
-      float s = 0.f;
-      if (upd) s = 0.5f * (1.0f - r / dist);
-      const float one_s = 1.0f - s;
-      g = one_s * g + (s * yj) * (ys * gs[j][t]);
-      alpha = (t == j) ? s : one_s * alpha;
-      decay = decay * one_s;
-      wsq = one_s * one_s * wsq + 2.0f * s * one_s * gj + s * s * gjj;
-      if (upd) {
-        r = r + 0.5f * (dist - r);
-        m += 1;
-      }
-      xi2 = xi2 * one_s * one_s + s * s * gain;
-    }
-
-    // Deferred bank update: w <- decay * w + sum_k (alpha_k y_k) x_k.
-    ay[wl][t] = alpha * ys;
-    __syncwarp();
-    const int left = n - (int)row0;
-    const int kmax = left < BN ? left : BN;
-    for (int c = t; c < d; c += 32) {
-      float acc = 0.f;
-      for (int k = 0; k < kmax; ++k) acc = fmaf(ay[wl][k], ld(X, (row0 + k) * d + c), acc);
-      w[c] = decay * w[c] + acc;
-    }
-    __syncthreads();  // w rows are read by every warp of the CTA next block
-  }
-  if (t == 0) {
-    R[lane] = r;
-    XI2[lane] = xi2;
-    M[lane] = m;
-  }
 }
 
 constexpr int LMAX = 1024;  // largest window: 32 mask words of 32 slots
@@ -288,6 +208,156 @@ __device__ void flush_window(float* __restrict__ w, const float* win,
   }
 }
 
+// The ball distance of row j in Gram form, d = sqrt(max(d^2, 1e-12)).
+__device__ __forceinline__ float ball_dist(float wsq, float gj, float gjj, float xi2,
+                                          float cinv) {
+  const float d2 = wsq - 2.0f * gj + gjj + xi2 + cinv;
+  return sqrtf(fmaxf(d2, 1e-12f));
+}
+
+// B1's row recursion over one 32-row block for one model, every layout: lane
+// t of the model's warp holds row t's g, ys and alpha; gs is the block Gram
+// at row pitch gp. The expressions are the TPU kernel's, as written once
+// here, so the compiler contracts them the same way in every layout.
+__device__ __forceinline__ void alg1_rows(float& g, float& alpha, float& decay, float& wsq,
+                                          float& r, float& xi2, int& m, float ys,
+                                          const float* gs, int gp, float cinv, float gain,
+                                          long row0, int n_valid, int t) {
+  for (int j = 0; j < BN; ++j) {
+    const float gj = __shfl_sync(FULL, g, j);
+    const float yj = __shfl_sync(FULL, ys, j);
+    const float gjj = gs[j * gp + j];
+    const float dist = ball_dist(wsq, gj, gjj, xi2, cinv);
+    const bool upd = dist >= r && row0 + j < n_valid && yj != 0.0f;
+    float s = 0.f;
+    if (upd) s = 0.5f * (1.0f - r / dist);
+    const float one_s = 1.0f - s;
+    g = one_s * g + (s * yj) * (ys * gs[j * gp + t]);
+    alpha = (t == j) ? s : one_s * alpha;
+    decay = decay * one_s;
+    wsq = one_s * one_s * wsq + 2.0f * s * one_s * gj + s * s * gjj;
+    if (upd) {
+      r = r + 0.5f * (dist - r);
+      m += 1;
+    }
+    xi2 = xi2 * one_s * one_s + s * s * gain;
+  }
+}
+
+// B3's rows over one block for one model served by its warp (the chunked
+// and resident layouts): a violating row is pushed as y_j x_j into slot cnt
+// of the window win (row pitch d), and a full window is flushed by the warp
+// (flush_window), after which |w|^2 is recomputed.
+template <typename T>
+__device__ __forceinline__ void alg2_rows_warp(float* w, float* win, int& cnt, int& m,
+                                               unsigned* rm, float& wsq, float& r, float& xi2,
+                                               float& g, float ys, const float* gs, int gp,
+                                               float cinv, float gain, int L, const T* X,
+                                               long row0, int n, int n_valid, int d, int t) {
+  const int left = n - (int)row0;
+  const int kmax = left < BN ? left : BN;
+  for (int j = 0; j < BN; ++j) {
+    const float gj = __shfl_sync(FULL, g, j);
+    const float yj = __shfl_sync(FULL, ys, j);
+    const float gjj = gs[j * gp + j];
+    const float dist = ball_dist(wsq, gj, gjj, xi2, cinv);
+    // Uniform across the warp: every lane holds the model's scalars.
+    if (!(dist >= r && row0 + j < n_valid && yj != 0.0f)) continue;
+    float* p = win + (long)cnt * d;
+    for (int c = t; c < d; c += 32) p[c] = yj * ld(X, (row0 + j) * d + c);
+    __syncwarp();
+    cnt += 1;
+    m += 1;  // counted at push
+    if (cnt >= L) {
+      flush_window(w, win, cnt, rm, r, xi2, cinv, gain, g, ys, X, row0, j + 1, kmax, d, t);
+      cnt = 0;
+      wsq = 0.f;
+      for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+      wsq = warp_sum(wsq);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+scan_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+            const float* __restrict__ G, float* __restrict__ W,
+            float* __restrict__ R, float* __restrict__ XI2, int* __restrict__ M,
+            const float* __restrict__ CINV, const float* __restrict__ GAIN,
+            int n, int n_valid, int d) {
+  __shared__ float xs[BN][DC + 1];
+  __shared__ float ws[LANES][DC + 1];
+  __shared__ float gs[BN][BN + 1];
+  __shared__ float ay[LANES][BN];
+  const int tid = threadIdx.x;
+  const int wl = tid >> 5;  // model within the CTA
+  const int t = tid & 31;   // row within the block
+  const long lane0 = (long)blockIdx.x * LANES;
+  const long lane = lane0 + wl;
+  float* w = W + lane * d;
+
+  // |w|^2: strided partial sums, then an xor tree (every thread ends with
+  // the same value, in the same order for every model).
+  float wsq = 0.f;
+  for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+  for (int off = 16; off > 0; off >>= 1) wsq += __shfl_xor_sync(FULL, wsq, off);
+
+  float r = R[lane], xi2 = XI2[lane];
+  const float cinv = CINV[lane], gain = GAIN[lane];
+  int m = M[lane];
+
+  const int nblocks = (n + BN - 1) / BN;
+  for (int blk = 0; blk < nblocks; ++blk) {
+    const long row0 = (long)blk * BN;
+    const long row = row0 + t;
+
+    // h = <w, x_row>, summed over D in ascending order.
+    float h = 0.f;
+    for (int d0 = 0; d0 < d; d0 += DC) {
+      for (int e = tid; e < BN * DC; e += THREADS) {
+        const int j = e / DC, c = e % DC;
+        const int col = d0 + c;
+        xs[j][c] = (row0 + j < n && col < d) ? ld(X, (row0 + j) * d + col) : 0.f;
+      }
+      for (int e = tid; e < LANES * DC; e += THREADS) {
+        const int l = e / DC, c = e % DC;
+        const int col = d0 + c;
+        ws[l][c] = col < d ? W[(lane0 + l) * d + col] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < DC; ++c) h = fmaf(ws[wl][c], xs[t][c], h);
+      __syncthreads();
+    }
+    for (int e = tid; e < BN * BN; e += THREADS)
+      gs[e / BN][e % BN] = G[row0 * BN + e];
+    const float ys = row < n ? ld(Y, lane * n + row) : 0.f;
+    __syncthreads();
+
+    float g = ys * h;
+    float alpha = 0.f, decay = 1.f;
+    alg1_rows(g, alpha, decay, wsq, r, xi2, m, ys, &gs[0][0], BN + 1, cinv, gain, row0,
+              n_valid, t);
+
+    // Deferred bank update: w <- decay * w + sum_k (alpha_k y_k) x_k.
+    ay[wl][t] = alpha * ys;
+    __syncwarp();
+    const int left = n - (int)row0;
+    const int kmax = left < BN ? left : BN;
+    for (int c = t; c < d; c += 32) {
+      float acc = 0.f;
+      for (int k = 0; k < kmax; ++k) acc = fmaf(ay[wl][k], ld(X, (row0 + k) * d + c), acc);
+      w[c] = decay * w[c] + acc;
+    }
+    __syncthreads();  // w rows are read by every warp of the CTA next block
+  }
+  if (t == 0) {
+    R[lane] = r;
+    XI2[lane] = xi2;
+    M[lane] = m;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 lookahead_kernel(const T* __restrict__ X, const T* __restrict__ Y,
@@ -347,30 +417,8 @@ lookahead_kernel(const T* __restrict__ X, const T* __restrict__ Y,
     __syncthreads();
 
     float g = ys * h;
-    const int left = n - (int)row0;
-    const int kmax = left < BN ? left : BN;
-    for (int j = 0; j < BN; ++j) {
-      const float gj = __shfl_sync(FULL, g, j);
-      const float yj = __shfl_sync(FULL, ys, j);
-      const float gjj = gs[j][j];
-      const float d2 = wsq - 2.0f * gj + gjj + xi2 + cinv;
-      const float dist = sqrtf(fmaxf(d2, 1e-12f));
-      // Uniform across the warp: every lane holds the model's scalars.
-      if (!(dist >= r && row0 + j < n_valid && yj != 0.0f)) continue;
-      float* p = win + (long)cnt * d;
-      for (int c = t; c < d; c += 32) p[c] = yj * ld(X, (row0 + j) * d + c);
-      __syncwarp();
-      cnt += 1;
-      m += 1;  // counted at push
-      if (cnt >= L) {
-        flush_window(w, win, cnt, rmask[wl], r, xi2, cinv, gain, g, ys, X,
-                     row0, j + 1, kmax, d, t);
-        cnt = 0;
-        wsq = 0.f;
-        for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
-        wsq = warp_sum(wsq);
-      }
-    }
+    alg2_rows_warp(w, win, cnt, m, rmask[wl], wsq, r, xi2, g, ys, &gs[0][0], BN + 1, cinv,
+                   gain, L, X, row0, n, n_valid, d, t);
     __syncthreads();  // flushed w rows are read by every warp next block
   }
   if (cnt > 0) {  // the partial window, after the call's last row
@@ -718,6 +766,662 @@ int launch_ring(const void* X, const void* Y, void* G, void* W, void* R, void* X
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// B1 and B3 with the CTA's bank tile resident (the "resident" layout), and
+// B3 for a small bank (the "small" layout: one CTA for each live model)
+// ---------------------------------------------------------------------------
+
+constexpr int SMALL_THREADS = 256;  // the small layout's CTA
+constexpr int SMALL_WARPS = SMALL_THREADS / 32;
+
+// Elements of T in one 16-byte copy, and the row pitch (in elements) of a
+// staged (BN, DC) chunk of the stream: one copy more than DC, so that the
+// 16-byte reads of 8 consecutive rows by a quarter warp fall in distinct
+// banks.
+template <typename T>
+__host__ __device__ constexpr int vec_of() { return 16 / (int)sizeof(T); }
+template <typename T>
+__host__ __device__ constexpr int xpitch() { return DC + vec_of<T>(); }
+
+// A w row in shared memory: D rounded up to 8 floats, zero past D (the h
+// pass reads 4 or 8 columns at a time).
+__host__ __device__ inline int wpitch(int d) { return (d + 7) / 8 * 8; }
+
+template <typename T>
+__host__ __device__ constexpr size_t chunk_bytes() { return (size_t)BN * xpitch<T>() * sizeof(T); }
+
+// Dynamic shared memory of the resident layout, in bytes: two stream
+// chunks, the MPC-row bank tile, the block Gram, h / alpha*y (MPC x BN),
+// then decay (B1) or the flush masks (B3). Static: none.
+size_t res_dyn_bytes(int d, int mpc, int look, int bf16) {
+  const size_t x = 2 * (bf16 ? chunk_bytes<__nv_bfloat16>() : chunk_bytes<float>());
+  return x + sizeof(float) * ((size_t)mpc * wpitch(d) + BN * BN + mpc * BN +
+                              (look ? mpc * 32 : mpc));
+}
+
+// Dynamic shared memory of the small layout, in bytes: two stream chunks,
+// the model's w row, the block Gram, h / the g corrections (BN), the
+// warps' farthest points (value and slot), the window mask (32 words),
+// then the window (l_max w rows) when win_smem.
+size_t small_dyn_bytes(int d, int l_max, int win_smem, int bf16) {
+  const size_t x = 2 * (bf16 ? chunk_bytes<__nv_bfloat16>() : chunk_bytes<float>());
+  return x + sizeof(float) * ((size_t)wpitch(d) + BN * BN + BN + 2 * SMALL_WARPS + 32 +
+                              (win_smem ? (size_t)l_max * wpitch(d) : 0));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Start the copy of rows [row0, row0 + BN) x columns [c0, c0 + DC) of X
+// into dst (pitch xpitch<T>()), raw (bf16 stays bf16), zero past n and d.
+// vec16: rows and base 16-byte aligned (and so d a multiple of a copy):
+// cp.async of 16 bytes, which the caller commits and waits for; otherwise
+// plain element loads, complete at the caller's next barrier.
+template <typename T, int NT>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* __restrict__ X, long row0,
+                                            int n, int d, int c0, int vec16, int tid) {
+  constexpr int V = vec_of<T>();
+  constexpr int P = xpitch<T>();
+  if (vec16) {
+    for (int e = tid; e < BN * (DC / V); e += NT) {
+      const int j = e / (DC / V), c = e % (DC / V) * V;
+      const long row = row0 + j;
+      const int col = c0 + c;
+      const bool ok = row < n && col < d;
+      cp_async16(dst + j * P + c, X + (ok ? row * d + col : 0), ok);
+    }
+  } else {
+    for (int e = tid; e < BN * DC; e += NT) {
+      const int j = e / DC, c = e % DC;
+      const long row = row0 + j;
+      const int col = c0 + c;
+      dst[j * P + c] = (row < n && col < d) ? X[row * d + col] : zero_of<T>();
+    }
+  }
+}
+
+// Start the copy of one block's (BN, BN) Gram into gs.
+template <int NT>
+__device__ __forceinline__ void stage_gram(float* gs, const float* __restrict__ G, long row0,
+                                           int tid) {
+  for (int e = tid; e < BN * BN / 4; e += NT) cp_async16(gs + 4 * e, G + row0 * BN + 4 * e, true);
+}
+
+// 16 bytes of a staged row as floats (bf16 upcast exactly).
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const unsigned u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The h pass over one staged chunk, register-tiled: acc[i][j] carries
+// <w_i, x_j> for RM models (w rows ws + i * mstride) and RR rows (staged
+// rows xr + j * rstride), each its own fmaf chain in ascending column
+// order. Each 16-byte read of a row feeds RM models and each of a w row RR
+// rows. Reads go two copies at a time and are issued one such unit ahead
+// of the fmafs that use them, so the shared-memory latency hides behind
+// the previous unit's fmafs. cols: the chunk's columns rounded up to a
+// copy (past d both w and x are zero, and h is never -0, so the padding
+// adds exactly nothing). The reads ahead may pass cols, still inside the
+// shared allocation; what they fetch there is never used.
+template <typename T, int RM, int RR>
+__device__ __forceinline__ void h_tile(float (&acc)[RM][RR], const float* ws, int mstride,
+                                       const T* xr, int rstride, int cols) {
+  constexpr int V = vec_of<T>();
+  constexpr int U = 2 * V;  // columns a unit
+  float xv[2][RR][U];
+  float4 wv[2][RM][U / 4];
+  auto fetch = [&](int c, float (&x)[RR][U], float4 (&w)[RM][U / 4]) {
+#pragma unroll
+    for (int j = 0; j < RR; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[V];
+        load16(xr + j * rstride + c + h * V, v);
+#pragma unroll
+        for (int q = 0; q < V; ++q) x[j][h * V + q] = v[q];
+      }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int v = 0; v < U / 4; ++v)
+        w[i][v] = *reinterpret_cast<const float4*>(ws + i * mstride + c + 4 * v);
+  };
+  // The fmafs of the first nv4 * 4 columns of a unit.
+  auto step = [&](auto nv4, const float (&x)[RR][U], const float4 (&w)[RM][U / 4]) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RR; ++j)
+#pragma unroll
+        for (int v = 0; v < decltype(nv4)::value; ++v) {
+          acc[i][j] = fmaf(w[i][v].x, x[j][4 * v], acc[i][j]);
+          acc[i][j] = fmaf(w[i][v].y, x[j][4 * v + 1], acc[i][j]);
+          acc[i][j] = fmaf(w[i][v].z, x[j][4 * v + 2], acc[i][j]);
+          acc[i][j] = fmaf(w[i][v].w, x[j][4 * v + 3], acc[i][j]);
+        }
+  };
+  using Full = std::integral_constant<int, U / 4>;
+  using Half = std::integral_constant<int, V / 4>;
+  fetch(0, xv[0], wv[0]);
+  int c = 0;
+  for (; c + 2 * U <= cols; c += 2 * U) {  // two units a trip: the buffers alternate
+    fetch(c + U, xv[1], wv[1]);
+    step(Full(), xv[0], wv[0]);
+    fetch(c + 2 * U, xv[0], wv[0]);
+    step(Full(), xv[1], wv[1]);
+  }
+  if (cols - c >= U) {  // one whole unit, and perhaps one copy, left
+    fetch(c + U, xv[1], wv[1]);
+    step(Full(), xv[0], wv[0]);
+    if (cols - c > U) step(Half(), xv[1], wv[1]);
+  } else if (cols > c) {  // one copy left
+    step(Half(), xv[0], wv[0]);
+  }
+}
+
+// The deferred update of one staged chunk for 4 models (w rows wt + i * wp,
+// alpha*y rows ay + i * BN, decay dec[i]) and UC columns per thread,
+// c0 + cbase + lane + 32 u: each (model, column) one fmaf chain over the
+// block's rows k ascending from 0.f, then w <- decay * w + acc. One read of
+// x serves 4 models; one 16-byte read of alpha*y (4 rows of one model)
+// serves UC columns. The reads of 4 rows are issued 4 rows ahead of their
+// fmafs (and may pass kmax, inside the shared allocation; unused there).
+template <typename T, int UC>
+__device__ __forceinline__ void update_chunk(float* wt, int wp, const float* ay,
+                                             const float* dec, const T* xc, int c0, int cbase,
+                                             int kmax, int d, int lane) {
+  constexpr int P = xpitch<T>();
+  const T* xl = xc + cbase + lane;
+  float acc[4][UC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < UC; ++u) acc[i][u] = 0.f;
+  float x[2][4][UC];
+  float4 a[2][4];
+  auto load = [&](int k, float (&xx)[4][UC], float4 (&aa)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u = 0; u < UC; ++u) xx[j][u] = to_f(xl[(k + j) * P + 32 * u]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) aa[i] = *reinterpret_cast<const float4*>(ay + i * BN + k);
+  };
+  auto fma4 = [&](const float (&xx)[4][UC], const float4 (&aa)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < UC; ++u) {
+        acc[i][u] = fmaf(aa[i].x, xx[0][u], acc[i][u]);
+        acc[i][u] = fmaf(aa[i].y, xx[1][u], acc[i][u]);
+        acc[i][u] = fmaf(aa[i].z, xx[2][u], acc[i][u]);
+        acc[i][u] = fmaf(aa[i].w, xx[3][u], acc[i][u]);
+      }
+  };
+  const int k4 = kmax & ~3;  // rows taken 4 at a time
+  load(0, x[0], a[0]);
+  int k = 0;
+  for (; k + 8 <= k4; k += 8) {  // two groups a trip: the buffers alternate
+    load(k + 4, x[1], a[1]);
+    fma4(x[0], a[0]);
+    load(k + 8, x[0], a[0]);
+    fma4(x[1], a[1]);
+  }
+  if (k < k4) {
+    fma4(x[0], a[0]);
+    k += 4;
+  }
+  for (; k < kmax; ++k) {
+#pragma unroll
+    for (int u = 0; u < UC; ++u) {
+      const float xk = to_f(xl[k * P + 32 * u]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][u] = fmaf(ay[i * BN + k], xk, acc[i][u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < UC; ++u) {
+    const int col = c0 + cbase + lane + 32 * u;
+    if (col >= d) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* wr = wt + i * wp;
+      wr[col] = dec[i] * wr[col] + acc[i][u];
+    }
+  }
+}
+
+// The resident layout of B1 (LOOK false) and B3 (LOOK true): MPC models per
+// CTA, one warp each for the row recursion. The CTA's (MPC, D) bank tile is
+// loaded into shared memory once, updated there (B1's deferred update, B3's
+// flushes) and stored once at the end, as the ring's owned slots are. The
+// stream goes through shared memory in (BN, DC) chunks, two buffers deep:
+// per block the h pass over its chunks, then (B1) the deferred update over
+// the same chunks again; chunk s + 1 is copied by cp.async while chunk s is
+// consumed, and across the row recursion, which runs after the block's last
+// h chunk (the block Gram is copied from its first h chunk on). Both passes run on warps 0 and 1 with register tiles, because
+// shared-memory reads, not fmafs, bound them: the h pass gives each thread
+// MPC / 4 models x 2 rows (h_tile), the deferred update 4 models x MPC / 2
+// columns (update_chunk). B3's windows stay in device memory; its pushes
+// and flushes are the chunked layout's (alg2_rows_warp) on the resident w
+// row.
+template <typename T, int MPC, bool LOOK>
+__global__ void __launch_bounds__(MPC * 32)
+scan_res_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float* __restrict__ G,
+                float* __restrict__ W, float* __restrict__ R, float* __restrict__ XI2,
+                int* __restrict__ M, const float* __restrict__ CINV,
+                const float* __restrict__ GAIN, const int* __restrict__ LA,
+                float* __restrict__ BUF, int n, int n_valid, int d, int l_max, int vec16) {
+  static_assert(MPC == 4 || MPC == 8, "4 or 8 models per CTA");
+  constexpr int NT = MPC * 32;
+  constexpr int P = xpitch<T>();
+  constexpr int V = vec_of<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int wp = wpitch(d);
+  T* xb = reinterpret_cast<T*>(smem);                                    // [2][BN][P]
+  float* wt = reinterpret_cast<float*>(smem + 2 * chunk_bytes<T>());   // [MPC][wp]
+  float* gs = wt + MPC * wp;                                             // [BN][BN]
+  float* hs = gs + BN * BN;         // [MPC][BN]: h, then alpha * y
+  float* dec = hs + MPC * BN;       // [MPC]: decay (B1)
+  unsigned* rmask = reinterpret_cast<unsigned*>(dec);  // [MPC][32] (B3)
+  const int tid = threadIdx.x;
+  const int wl = tid >> 5;  // model within the CTA
+  const int t = tid & 31;   // row within the block
+  const long lane0 = (long)blockIdx.x * MPC;
+  const long lane = lane0 + wl;
+  const int nc = (d + DC - 1) / DC;
+  const int per_block = (LOOK ? 1 : 2) * nc;  // chunk steps per block
+  const int steps = (n + BN - 1) / BN * per_block;
+  // Start the copy of chunk ch of block blk into buffer buf.
+  auto stage = [&](int blk, int ch, int buf) {
+    stage_chunk<T, NT>(xb + buf * BN * P, X, (long)blk * BN, n, d, ch * DC, vec16, tid);
+  };
+
+  stage(0, 0, 0);
+  cp_async_commit();
+  for (int e = tid; e < MPC * wp; e += NT) {
+    const int l = e / wp, c = e % wp;
+    wt[e] = c < d ? W[(lane0 + l) * d + c] : 0.f;
+  }
+  __syncthreads();
+  float* w = wt + wl * wp;  // this warp's model
+  float wsq = 0.f;
+  for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+  wsq = warp_sum(wsq);
+  float r = R[lane], xi2 = XI2[lane];
+  const float cinv = CINV[lane], gain = GAIN[lane];
+  int m = M[lane];
+  int cnt = 0, L = 1;
+  float* win = nullptr;
+  if constexpr (LOOK) {
+    L = LA[lane];
+    win = BUF + lane * (long)l_max * d;
+  }
+  float hacc[MPC / 4][2];
+
+  int blk = 0, within = 0;  // step s is step `within` of block blk
+  for (int s = 0; s < steps; ++s) {
+    const bool h_pass = within < nc, last_h = within == nc - 1;
+    const int ch = h_pass ? within : within - nc;
+    const long row0 = (long)blk * BN;
+    const int nwithin = within + 1 == per_block ? 0 : within + 1;  // step s + 1
+    const int nblk = nwithin == 0 ? blk + 1 : blk;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk s is in place; every thread is past step s - 1
+    if (h_pass && ch == 0) {  // the Gram, needed after the block's last h chunk
+      stage_gram<NT>(gs, G, row0, tid);
+      cp_async_commit();
+    }
+    if (s + 1 < steps) stage(nblk, nwithin < nc ? nwithin : nwithin - nc, (s + 1) & 1);
+    cp_async_commit();
+    const T* xc = xb + (s & 1) * BN * P;
+    const int c0 = ch * DC;
+    float ys = 0.f;
+    if (last_h && row0 + t < n) ys = ld(Y, lane * n + row0 + t);
+    if (h_pass) {
+      // Warps 0 and 1, rows 16 w + rg + 8 j of lane 8 mg + rg, models mg + 4 i.
+      if (wl < 2) {
+        const int mg = t >> 3, rg = t & 7, row = 16 * wl + rg;
+        if (ch == 0) {
+#pragma unroll
+          for (int i = 0; i < MPC / 4; ++i) hacc[i][0] = hacc[i][1] = 0.f;
+        }
+        const int cols = (min(DC, d - c0) + V - 1) / V * V;
+        h_tile<T, MPC / 4, 2>(hacc, wt + mg * wp + c0, 4 * wp, xc + row * P, 8 * P, cols);
+        if (last_h) {
+#pragma unroll
+          for (int i = 0; i < MPC / 4; ++i) {
+            hs[(mg + 4 * i) * BN + row] = hacc[i][0];
+            hs[(mg + 4 * i) * BN + row + 8] = hacc[i][1];
+          }
+        }
+      }
+    } else if (wl < 2) {
+      // Deferred update of the chunk's columns by warps 0 and 1, 4 models x
+      // MPC / 2 columns a thread: w <- decay * w + sum_k (alpha_k y_k) x_k.
+      const int q = MPC == 8 ? wl : 0, cbase = MPC == 8 ? 0 : 64 * wl;
+      const int left = n - (int)row0;
+      update_chunk<T, MPC / 2>(wt + 4 * q * wp, wp, hs + 4 * q * BN, dec + 4 * q, xc, c0, cbase,
+                               left < BN ? left : BN, d, t);
+    }
+    if (last_h) {  // the row recursion of the block, one warp per model
+      cp_async_wait<1>();  // the Gram (the next chunk may still be in flight)
+      __syncthreads();
+      float g = ys * hs[wl * BN + t];
+      if constexpr (!LOOK) {
+        float alpha = 0.f, decay = 1.f;
+        alg1_rows(g, alpha, decay, wsq, r, xi2, m, ys, gs, BN, cinv, gain, row0, n_valid, t);
+        hs[wl * BN + t] = alpha * ys;
+        if (t == 0) dec[wl] = decay;
+      } else {
+        alg2_rows_warp(w, win, cnt, m, rmask + wl * 32, wsq, r, xi2, g, ys, gs, BN, cinv,
+                       gain, L, X, row0, n, n_valid, d, t);
+      }
+    }
+    blk = nblk;
+    within = nwithin;
+  }
+  cp_async_wait<0>();
+  if constexpr (LOOK) {
+    if (cnt > 0) {  // the partial window, after the call's last row
+      float g = 0.f;
+      flush_window(w, win, cnt, rmask + wl * 32, r, xi2, cinv, gain, g, 0.f, X, 0, 0, 0, d, t);
+    }
+  }
+  if (t == 0) {
+    R[lane] = r;
+    XI2[lane] = xi2;
+    M[lane] = m;
+  }
+  __syncthreads();
+  for (int e = tid; e < MPC * d; e += NT) {
+    const int l = e / d, c = e % d;
+    W[(lane0 + l) * d + c] = wt[l * wp + c];
+  }
+}
+
+// Farthest-first flush of the small layout's window by the whole CTA (tid):
+// per step every warp takes the remaining slots k, k + SMALL_WARPS, ...,
+// each distance flush_window's lane-strided chain and xor tree; the
+// farthest point is reduced across the warps on (distance, lowest slot),
+// which is flush_window's strict > in slot order. w is updated elementwise,
+// and each remaining row's g correction <p, x_k> is split over four
+// threads, one per accumulator of flush_window, combined as
+// (a0 + a1) + (a2 + a3); every warp then applies it to its copy of g.
+// win: cnt rows at pitch wpw; rm, bv (2 * SMALL_WARPS words) and dots (BN)
+// are shared scratch. Every thread holds the model's scalars.
+template <typename T>
+__device__ void flush_cta(float* w, const float* win, int wpw, int cnt, unsigned* rm,
+                          float* bv, float* dots, float& r, float& xi2, float cinv, float gain,
+                          float& g, float ys, const T* __restrict__ X, long row0, int k_lo,
+                          int k_hi, int d, int tid) {
+  const int t = tid & 31, wl = tid >> 5;
+  int* bi = reinterpret_cast<int*>(bv + SMALL_WARPS);
+  __syncthreads();  // the window's rows are in place; rm, bv and dots are free
+  if (tid < 32) {
+    const int lo = 32 * t;
+    rm[t] = cnt <= lo ? 0u : (cnt - lo >= 32 ? FULL : (1u << (cnt - lo)) - 1u);
+  }
+  __syncthreads();
+  for (int step = 0; step < cnt; ++step) {
+    float best = __int_as_float(0xff800000);  // -inf
+    int far = -1;
+    for (int i = wl; i < cnt; i += SMALL_WARPS) {
+      if (!((rm[i >> 5] >> (i & 31)) & 1u)) continue;
+      const float* p = win + (long)i * wpw;
+      float acc = 0.f;
+      for (int c = t; c < d; c += 32) {
+        const float e = w[c] - p[c];
+        acc = fmaf(e, e, acc);
+      }
+      acc = warp_sum(acc);
+      const float bd = sqrtf(fmaxf(acc + xi2 + cinv, 1e-12f));
+      if (bd > best) {  // strict: the lowest slot wins a tie
+        best = bd;
+        far = i;
+      }
+    }
+    if (t == 0) {
+      bv[wl] = best;
+      bi[wl] = far;
+    }
+    __syncthreads();
+    best = __int_as_float(0xff800000);
+    far = -1;
+    for (int k = 0; k < SMALL_WARPS; ++k) {
+      const int fk = bi[k];
+      const float bk = bv[k];
+      if (fk >= 0 && (bk > best || (bk == best && fk < far))) {
+        best = bk;
+        far = fk;
+      }
+    }
+    // Empty, or the farthest point is enclosed and so is the rest: done.
+    if (far < 0 || !(best >= r)) break;
+    const float s = 0.5f * (1.0f - r / best);
+    const float one_s = 1.0f - s;
+    const float* p = win + (long)far * wpw;
+    for (int c = tid; c < d; c += SMALL_THREADS) w[c] = one_s * w[c] + s * p[c];
+    r = r + 0.5f * (best - r);
+    xi2 = xi2 * one_s * one_s + s * s * gain;
+    if (tid < 4 * BN) {  // row k_lo + tid / 4, accumulator tid % 4
+      const int k = k_lo + (tid >> 2), q = tid & 3;
+      float a = 0.f;
+      if (k < k_hi) {
+        const long base = (row0 + k) * d;
+        const int d4 = d & ~3;
+        for (int c = q; c < d4; c += 4) a = fmaf(p[c], ld(X, base + c), a);
+        if (q == 0)
+          for (int c = d4; c < d; ++c) a = fmaf(p[c], ld(X, base + c), a);
+      }
+      const float a1 = __shfl_down_sync(FULL, a, 1);
+      const float a2 = __shfl_down_sync(FULL, a, 2);
+      const float a3 = __shfl_down_sync(FULL, a, 3);
+      if (q == 0 && k < k_hi) dots[k] = (a + a1) + (a2 + a3);
+    }
+    __syncthreads();
+    if (t >= k_lo && t < k_hi) g = one_s * g + s * (ys * dots[t]);
+    if (tid == 0) rm[far >> 5] &= ~(1u << (far & 31));
+    __syncthreads();
+  }
+}
+
+// B3's small layout: one CTA for each live model (lanes at or past n_live
+// are padding and get no work). The CTA stages the stream as the resident
+// layout does, its w row in shared memory; warp 0 runs the h pass (one row
+// per lane), every warp runs the row recursion with the model's scalars (so
+// a push or a flush is uniform across the CTA), the whole CTA copies each
+// pushed row and flushes (flush_cta). The window lives in shared memory when
+// win_smem, else in BUF.
+template <typename T>
+__global__ void __launch_bounds__(SMALL_THREADS)
+lookahead_small_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                       const float* __restrict__ G, float* __restrict__ W,
+                       float* __restrict__ R, float* __restrict__ XI2, int* __restrict__ M,
+                       const float* __restrict__ CINV, const float* __restrict__ GAIN,
+                       const int* __restrict__ LA, float* __restrict__ BUF, int n, int n_valid,
+                       int d, int l_max, int win_smem, int vec16) {
+  constexpr int NT = SMALL_THREADS;
+  constexpr int P = xpitch<T>();
+  constexpr int V = vec_of<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int wp = wpitch(d);
+  T* xb = reinterpret_cast<T*>(smem);                                   // [2][BN][P]
+  float* w = reinterpret_cast<float*>(smem + 2 * chunk_bytes<T>());   // [wp]
+  float* gs = w + wp;                                                   // [BN][BN]
+  float* dots = gs + BN * BN;  // [BN]: h, then the g corrections
+  float* bv = dots + BN;       // [2][SMALL_WARPS]
+  unsigned* rm = reinterpret_cast<unsigned*>(bv + 2 * SMALL_WARPS);  // [32]
+  const int tid = threadIdx.x;
+  const int wl = tid >> 5;
+  const int t = tid & 31;
+  const long lane = blockIdx.x;
+  const int wpw = win_smem ? wp : d;
+  float* win = win_smem ? reinterpret_cast<float*>(rm + 32) : BUF + lane * (long)l_max * d;
+  const int nc = (d + DC - 1) / DC;
+  const int steps = (n + BN - 1) / BN * nc;
+  auto stage = [&](int blk, int ch, int buf) {
+    stage_chunk<T, NT>(xb + buf * BN * P, X, (long)blk * BN, n, d, ch * DC, vec16, tid);
+  };
+
+  stage(0, 0, 0);
+  cp_async_commit();
+  for (int c = tid; c < wp; c += NT) w[c] = c < d ? W[lane * d + c] : 0.f;
+  __syncthreads();
+  float wsq = 0.f;  // every warp computes it, in the same order
+  for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+  wsq = warp_sum(wsq);
+  float r = R[lane], xi2 = XI2[lane];
+  const float cinv = CINV[lane], gain = GAIN[lane];
+  const int L = LA[lane];
+  int m = M[lane];
+  int cnt = 0;
+  float h[1][1];
+
+  int blk = 0, ch = 0;  // step s is chunk ch of block blk
+  for (int s = 0; s < steps; ++s, ch = ch + 1 == nc ? 0 : ch + 1, blk += ch == 0) {
+    const bool last = ch == nc - 1;
+    const long row0 = (long)blk * BN;
+    cp_async_wait<0>();
+    __syncthreads();
+    if (ch == 0) {  // the Gram, needed after the block's last chunk
+      stage_gram<NT>(gs, G, row0, tid);
+      cp_async_commit();
+    }
+    if (s + 1 < steps) stage(last ? blk + 1 : blk, last ? 0 : ch + 1, (s + 1) & 1);
+    cp_async_commit();
+    float ys = 0.f;
+    if (last && row0 + t < n) ys = ld(Y, lane * n + row0 + t);
+    if (wl == 0) {
+      if (ch == 0) h[0][0] = 0.f;
+      const int c0 = ch * DC;
+      const int cols = (min(DC, d - c0) + V - 1) / V * V;
+      h_tile<T, 1, 1>(h, w + c0, 0, xb + (s & 1) * BN * P + t * P, 0, cols);
+      if (last) dots[t] = h[0][0];
+    }
+    if (!last) continue;
+    cp_async_wait<1>();
+    __syncthreads();
+    float g = ys * dots[t];
+    const int left = n - (int)row0;
+    const int kmax = left < BN ? left : BN;
+    for (int j = 0; j < BN; ++j) {
+      const float gj = __shfl_sync(FULL, g, j);
+      const float yj = __shfl_sync(FULL, ys, j);
+      const float gjj = gs[j * BN + j];
+      const float dist = ball_dist(wsq, gj, gjj, xi2, cinv);
+      // Uniform across the CTA: every thread holds the model's scalars.
+      if (!(dist >= r && row0 + j < n_valid && yj != 0.0f)) continue;
+      float* p = win + (long)cnt * wpw;
+      for (int c = tid; c < d; c += NT) p[c] = yj * ld(X, (row0 + j) * d + c);
+      cnt += 1;
+      m += 1;  // counted at push
+      if (cnt >= L) {
+        flush_cta(w, win, wpw, cnt, rm, bv, dots, r, xi2, cinv, gain, g, ys, X, row0, j + 1,
+                  kmax, d, tid);
+        cnt = 0;
+        wsq = 0.f;
+        for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+        wsq = warp_sum(wsq);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (cnt > 0) {  // the partial window, after the call's last row
+    float g = 0.f;
+    flush_cta(w, win, wpw, cnt, rm, bv, dots, r, xi2, cinv, gain, g, 0.f, X, 0, 0, 0, d, tid);
+  }
+  if (tid == 0) {
+    R[lane] = r;
+    XI2[lane] = xi2;
+    M[lane] = m;
+  }
+  __syncthreads();
+  for (int c = tid; c < d; c += NT) W[lane * d + c] = w[c];
+}
+
+template <typename T, int MPC, bool LOOK>
+int launch_res(const void* X, const void* Y, void* G, void* W, void* R, void* XI2, void* M,
+               const void* CINV, const void* GAIN, const void* LA, void* BUF, int n,
+               int n_valid, int d, int bp, int l_max, int vec16, cudaStream_t s) {
+  const size_t dyn = res_dyn_bytes(d, MPC, LOOK, sizeof(T) == 2);
+  cudaError_t err = cudaFuncSetAttribute((const void*)scan_res_kernel<T, MPC, LOOK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  const int nblocks = (n + BN - 1) / BN;
+  block_gram_kernel<T><<<nblocks, THREADS, 0, s>>>((const T*)X, (float*)G, n, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  scan_res_kernel<T, MPC, LOOK><<<bp / MPC, MPC * 32, dyn, s>>>(
+      (const T*)X, (const T*)Y, (const float*)G, (float*)W, (float*)R, (float*)XI2, (int*)M,
+      (const float*)CINV, (const float*)GAIN, (const int*)LA, (float*)BUF, n, n_valid, d,
+      l_max, vec16);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_small(const void* X, const void* Y, void* G, void* W, void* R, void* XI2, void* M,
+                 const void* CINV, const void* GAIN, const void* LA, void* BUF, int n,
+                 int n_valid, int d, int n_live, int l_max, int win_smem, int vec16,
+                 cudaStream_t s) {
+  const size_t dyn = small_dyn_bytes(d, l_max, win_smem, sizeof(T) == 2);
+  cudaError_t err = cudaFuncSetAttribute((const void*)lookahead_small_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  const int nblocks = (n + BN - 1) / BN;
+  block_gram_kernel<T><<<nblocks, THREADS, 0, s>>>((const T*)X, (float*)G, n, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lookahead_small_kernel<T><<<n_live, SMALL_THREADS, dyn, s>>>(
+      (const T*)X, (const T*)Y, (const float*)G, (float*)W, (float*)R, (float*)XI2, (int*)M,
+      (const float*)CINV, (const float*)GAIN, (const int*)LA, (float*)BUF, n, n_valid, d, l_max,
+      win_smem, vec16);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_res(const void* X, const void* Y, void* G, void* W, void* R, void* XI2, void* M,
+                 const void* CINV, const void* GAIN, const void* LA, void* BUF, int n,
+                 int n_valid, int d, int bp, int l_max, int mpc, int vec16, cudaStream_t s) {
+  if (mpc == 8)
+    return l_max > 0 ? launch_res<T, 8, true>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                               n_valid, d, bp, l_max, vec16, s)
+                     : launch_res<T, 8, false>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                                n_valid, d, bp, 0, vec16, s);
+  return l_max > 0 ? launch_res<T, 4, true>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                             n_valid, d, bp, l_max, vec16, s)
+                   : launch_res<T, 4, false>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                              n_valid, d, bp, 0, vec16, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -798,5 +1502,54 @@ long streamsvm_scan_ring_dyn_bytes(int d, int jmax, int owned, int look) {
 
 // The ring's column chunk.
 int streamsvm_scan_ring_chunk() { return RDC; }
+
+
+// The resident layout (B1 for l_max == 0, B3's bank layout for l_max >= 1;
+// arguments as streamsvm_scan_many / streamsvm_scan_lookahead): mpc (4 or
+// 8, dividing bp) models per CTA with their (mpc, d) tile in shared memory.
+// vec16 != 0 promises X 16-byte aligned with d * sizeof(element) a multiple
+// of 16. Returns the CUDA error of the launches; a tile beyond the card's
+// shared memory is refused there and never runs.
+int streamsvm_scan_resident(const void* X, const void* Y, void* G, void* W, void* R, void* XI2,
+                            void* M, const void* CINV, const void* GAIN, const void* LA,
+                            void* BUF, int n, int n_valid, int d, int bp, int l_max, int mpc,
+                            int vec16, int bf16, void* stream) {
+  if (n <= 0 || d <= 0 || bp <= 0 || (mpc != 4 && mpc != 8) || bp % mpc != 0 || l_max < 0 ||
+      l_max > LMAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return dispatch_res<__nv_bfloat16>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid, d,
+                                       bp, l_max, mpc, vec16, s);
+  return dispatch_res<float>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid, d, bp,
+                             l_max, mpc, vec16, s);
+}
+
+// B3's small layout: one CTA for each of the first n_live lanes (the rest
+// are padding, left as they are); the windows in shared memory when
+// win_smem != 0, else in BUF (bp * l_max * d floats, as
+// streamsvm_scan_lookahead). Other arguments as streamsvm_scan_resident.
+int streamsvm_scan_lookahead_small(const void* X, const void* Y, void* G, void* W, void* R,
+                                   void* XI2, void* M, const void* CINV, const void* GAIN,
+                                   const void* LA, void* BUF, int n, int n_valid, int d,
+                                   int n_live, int l_max, int win_smem, int vec16, int bf16,
+                                   void* stream) {
+  if (n <= 0 || d <= 0 || n_live <= 0 || l_max < 1 || l_max > LMAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch_small<__nv_bfloat16>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid,
+                                       d, n_live, l_max, win_smem, vec16, s);
+  return launch_small<float>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid, d, n_live,
+                             l_max, win_smem, vec16, s);
+}
+
+// Dynamic shared memory the resident and small layouts request.
+long streamsvm_scan_resident_dyn_bytes(int d, int mpc, int look, int bf16) {
+  return (long)res_dyn_bytes(d, mpc, look, bf16);
+}
+long streamsvm_scan_small_dyn_bytes(int d, int l_max, int win_smem, int bf16) {
+  return (long)small_dyn_bytes(d, l_max, win_smem, bf16);
+}
 
 }  // extern "C"

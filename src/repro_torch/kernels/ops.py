@@ -30,10 +30,14 @@ The budget they are held to (``vmem_budget_bytes``) defaults to
 ``DEFAULT_VMEM_BUDGET_BYTES``, the H100's per-block opt-in limit, 232,448 B
 (227 KB: the ``hopper-kernels`` guide; CUDA's
 ``cudaDevAttrMaxSharedMemoryPerBlockOptin``). B1, B3 and B2 keep no
-whole-bank scratch, so their bytes do not grow with B and ``"auto"``
-resolves to ``"vmem"`` at the default budget for every B; it reaches
-``"hbm"`` only under a budget below the vmem layout's bytes (the TPU flips
-near B * D * 4 = 16 MiB).
+whole-bank scratch: B1 and B3 hold one CTA's tile of the bank (or, for B3
+with few live models, one model's row and window) where it fits the budget
+and fall back to the column-chunked kernels where it does not
+(``scan_plan``), whose bytes (``SCAN_SMEM``, 25,888 B) do not grow with B or
+D. So ``"vmem"`` runs under every budget of at least those bytes, and
+``"auto"`` resolves to ``"vmem"`` there for every B and D; it reaches
+``"hbm"`` only under a smaller budget (the TPU flips near
+B * D * 4 = 16 MiB).
 """
 from __future__ import annotations
 
@@ -55,9 +59,9 @@ from .predict import (
     topk_state_bytes,
 )
 from .streamsvm_scan import (
-    SCAN_SMEM,
     SMEM_PER_BLOCK,
     ring_plan,
+    scan_plan,
     streamsvm_scan,
     streamsvm_scan_many,
     streamsvm_scan_many_ring,
@@ -129,21 +133,29 @@ def engine_vmem_bytes(
 ) -> dict:
     """Shared memory per CTA of the training kernel, bytes by term.
 
-    ``"vmem"``: B1's ``scan_kernel`` or B3's ``lookahead_kernel``
-    (``SCAN_SMEM``), the same whatever B, D, block_n and the stream dtype
-    (their blocks are 32 rows, staged f32). ``"hbm"``: B6's
+    ``"vmem"``: B1 or B3 in the layout ``scan_plan`` gives the padded bank
+    (B to whole ``b_tile`` tiles) with ``b`` live models: the resident tile
+    (grows with D, not with B), B3's small layout (one model's row and,
+    where it fits, its window) or the chunked kernels (``SCAN_SMEM``,
+    whatever B and D). It depends on the stream dtype (the chunks are staged
+    raw), never on block_n. ``"hbm"``: B6's
     ``scan_ring_kernel`` at the layout ``ring_plan`` gives the padded bank
     (B to whole ``b_tile`` tiles): its bytes grow with the tiles per CTA and,
     for owned slots, with D, never with B at a fixed number of tiles per CTA.
-    ``smem_budget`` (the port's own keyword; default the card's limit): the
+    ``smem_budget`` (the port's own keyword; default the card's limit): B1
+    and B3 take a layout only where it fits it (``scan_plan``: 8 models per
+    CTA, then 4, then the chunked kernels, whose bytes are the floor); the
     ring takes owned whole-row slots only where they fit it, else it
-    cycles column chunks. The lookahead windows stay in device memory in
-    both layouts.
+    cycles column chunks. The ring's lookahead windows stay in device
+    memory.
     """
     _check_resident(bank_resident)
-    if bank_resident != "hbm":
-        return dict(SCAN_SMEM)
     bt, n_tiles = bank_tiling(b, b_tile)
+    if bank_resident != "hbm":
+        return scan_plan(
+            bt * n_tiles, d, lookahead_max=lookahead_max, n_live=b,
+            dtype=_resolve_stream_dtype(stream_dtype), smem_budget=smem_budget,
+        )["smem"]
     return ring_plan(
         bt * n_tiles, d, lookahead=lookahead_max is not None, smem_budget=smem_budget
     )["smem"]
@@ -425,9 +437,9 @@ def streamsvm_fit_many(
             f"lookahead_max={l_max}, stream_dtype={stream_dtype!r}"
         ),
     )
-    scan = (
-        functools.partial(streamsvm_scan_many_ring, smem_budget=budget)
-        if residency == "hbm" else streamsvm_scan_many
+    scan = functools.partial(
+        streamsvm_scan_many_ring if residency == "hbm" else streamsvm_scan_many,
+        smem_budget=budget,
     )
     if balls is None:
         w0 = Y[:, 0:1] * X[0][None, :]
@@ -454,6 +466,9 @@ def streamsvm_fit_many(
     Yp = _pad_to(_pad_to(Y.float(), block_n, 1), bp, 0).to(sdt)
     W0p = _pad_to(w0.float(), bp, 0)
     pad1 = lambda v, dt=torch.float32: _pad_to(_vec(v, b, dev, dt), bp, 0)
+    # The vmem path's B3 gets the live count (its small layout leaves the
+    # padded lanes alone); the ring walks every lane.
+    live_kw = {"n_live": b} if is_lookahead and residency == "vmem" else {}
     W, r, xi2, m = scan(
         Xp,
         Yp,
@@ -470,6 +485,7 @@ def streamsvm_fit_many(
             if is_lookahead else None
         ),
         lookahead_max=l_max,
+        **live_kw,
     )
     return Ball(w=W[:b], r=r[:b], xi2=xi2[:b], m=m[:b])
 

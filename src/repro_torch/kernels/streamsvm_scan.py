@@ -23,6 +23,13 @@ tensor runs its ``*_plain`` twin, the TPU kernel's blocked algorithm in
 plain PyTorch; a CUDA tensor launches the kernel, or raises. They take the
 padded stream ``ops`` prepares: N a multiple of ``block_n``, B a multiple of
 8, sign-0 rows and rows at or past ``n_valid`` inert.
+
+B1 and B3 launch in one of three layouts (``scan_plan``), all giving the
+same bits: ``"resident"``, each CTA's bank tile in shared memory for the
+whole launch and the stream copied ahead in chunks; ``"chunked"``, the
+bank in device memory, staged column chunk by column chunk, where the tile
+does not fit; and for B3 with few live models ``"small"``, one CTA for
+each live model, its pushes and flushes spread over the CTA.
 """
 from __future__ import annotations
 
@@ -48,13 +55,24 @@ SMEM_PER_BLOCK = 232_448
 #: Streaming multiprocessors of an H100 SXM.
 H100_SMS = 132
 
-#: Shared memory per CTA of B1's ``scan_kernel`` and B3's
-#: ``lookahead_kernel``, by term, as declared: the staged stream chunk
+#: Shared memory per CTA of the chunked layout (B1's ``scan_kernel`` and
+#: B3's ``lookahead_kernel``), by term, as declared: the staged stream chunk
 #: (32 x 129 f32), the bank chunk (8 x 129), the block Gram (32 x 33) and
 #: per-model row state (B1's alpha*y, B3's flush masks: 8 x 32 words). It
-#: does not grow with B: the bank stays in device memory.
+#: does not grow with B or D: the bank stays in device memory.
 SCAN_SMEM = {"stream_tile": 16_512, "bank_tile": 4_128, "block_gram": 4_224,
              "row_state": 1_024}
+#: Columns of a staged stream chunk (``DC`` in csrc/streamsvm_scan.cu).
+STREAM_DC = 128
+#: Threads of the small layout's CTA (``SMALL_THREADS``): 8 warps.
+SMALL_THREADS = 256
+#: Models per CTA the resident layout can take (its instantiations).
+RESIDENT_MPC = (4, 8)
+#: B3 takes the small layout (one CTA per live model) up to one live model
+#: per SM, and a bank layout beyond. Measured on an H100 by
+#: tools/scan_layouts.py (PERF.md): the small layout is the fastest at 1, 66
+#: and 132 live models, the resident one at 600 (small 2.5x slower there).
+SMALL_BANK_MAX_LIVE = H100_SMS
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -69,7 +87,100 @@ def _lib() -> ctypes.CDLL:
     lib.streamsvm_scan_ring.restype = ctypes.c_int
     lib.streamsvm_scan_ring_dyn_bytes.argtypes = [_I] * 4
     lib.streamsvm_scan_ring_dyn_bytes.restype = ctypes.c_long
+    lib.streamsvm_scan_resident.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    lib.streamsvm_scan_resident.restype = ctypes.c_int
+    lib.streamsvm_scan_lookahead_small.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    lib.streamsvm_scan_lookahead_small.restype = ctypes.c_int
+    for fn in (lib.streamsvm_scan_resident_dyn_bytes, lib.streamsvm_scan_small_dyn_bytes):
+        fn.argtypes = [_I] * 4
+        fn.restype = ctypes.c_long
     return lib
+
+
+def _wpitch(d: int) -> int:
+    """A w row in shared memory: D rounded up to 8 floats."""
+    return -(-d // 8) * 8
+
+
+def _chunks_bytes(dtype) -> int:
+    """Two staged (32, DC) stream chunks, raw in the stream dtype, at a row
+    pitch of DC plus one 16-byte copy."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    return 2 * BLOCK_ROWS * (STREAM_DC + 16 // es) * es
+
+
+def resident_smem(d: int, mpc: int, *, lookahead: bool, dtype=torch.float32) -> dict:
+    """Dynamic shared memory of the resident layout, bytes by term (it has
+    no static bytes): two stream chunks, the (mpc, D) bank tile, the block
+    Gram, h / alpha*y, then decay (B1) or the flush masks (B3)."""
+    return {
+        "stream_chunks": _chunks_bytes(dtype),
+        "bank_tile": mpc * _wpitch(d) * 4,
+        "block_gram": BLOCK_ROWS * BLOCK_ROWS * 4,
+        "h_alpha": mpc * BLOCK_ROWS * 4,
+        "row_state": mpc * (32 if lookahead else 1) * 4,
+    }
+
+
+def small_smem(d: int, lookahead_max: int, *, window_in_smem: bool, dtype=torch.float32) -> dict:
+    """Dynamic shared memory of B3's small layout, bytes by term (no static
+    bytes): two stream chunks, the model's w row, the block Gram, the row
+    state (h / g corrections, the warps' farthest points, the window mask)
+    and the window when it lives in shared memory."""
+    return {
+        "stream_chunks": _chunks_bytes(dtype),
+        "w_row": _wpitch(d) * 4,
+        "block_gram": BLOCK_ROWS * BLOCK_ROWS * 4,
+        "row_state": (BLOCK_ROWS + 2 * (SMALL_THREADS // 32) + 32) * 4,
+        "window": lookahead_max * _wpitch(d) * 4 if window_in_smem else 0,
+    }
+
+
+def scan_plan(
+    bp: int, d: int, *, lookahead_max: int | None = None, n_live: int | None = None,
+    dtype=torch.float32, smem_budget: int | None = None,
+) -> dict:
+    """The launch layout of B1 (``lookahead_max`` None) or B3 for ``bp``
+    lanes (a multiple of LANE_GROUP) of D features, ``n_live`` of them live
+    (default all; the rest padding), with a stream of ``dtype``.
+
+    Each layout is held to ``smem_budget`` capped at the card's
+    SMEM_PER_BLOCK (default the card's limit), as ``ring_plan`` is. B3 with
+    at most SMALL_BANK_MAX_LIVE live models takes ``"small"`` (one CTA per
+    live model; its window in shared memory where it fits, else in device
+    memory) where the model's row fits. Otherwise ``"resident"`` with 8
+    models per CTA, or 4 where 8 do not fit, else ``"chunked"`` (8 models
+    per CTA, SCAN_SMEM whatever B and D: the budget's floor, below which
+    ``ops`` refuses "vmem"). Every layout gives the same bits. Returns
+    ``layout``, ``models_per_cta`` (1 in the small layout), ``ctas``,
+    ``window`` ("smem" / "device", B3) and ``smem``, the shared memory per
+    CTA by term (static for "chunked", dynamic for the other two)."""
+    look = lookahead_max is not None
+    live = bp if n_live is None else int(n_live)
+    if not 1 <= live <= bp:
+        raise ValueError(f"n_live must lie in [1, B={bp}]: got {n_live}")
+    limit = SMEM_PER_BLOCK if smem_budget is None else min(int(smem_budget), SMEM_PER_BLOCK)
+    fits = lambda terms: sum(terms.values()) <= limit
+    window = "device" if look else None
+    if look and live <= SMALL_BANK_MAX_LIVE:
+        for in_smem in (True, False):
+            smem = small_smem(d, lookahead_max, window_in_smem=in_smem, dtype=dtype)
+            if fits(smem):
+                return dict(layout="small", models_per_cta=1, ctas=live,
+                            window="smem" if in_smem else "device", smem=smem)
+    for mpc in RESIDENT_MPC[::-1]:
+        smem = resident_smem(d, mpc, lookahead=look, dtype=dtype)
+        if bp % mpc == 0 and fits(smem):
+            return dict(layout="resident", models_per_cta=mpc, ctas=bp // mpc, window=window,
+                        smem=smem)
+    return dict(layout="chunked", models_per_cta=LANE_GROUP, ctas=bp // LANE_GROUP,
+                window=window, smem=dict(SCAN_SMEM))
+
+
+def _vec16(X: torch.Tensor) -> int:
+    """1 when every row of X starts on a 16-byte boundary (the kernels then
+    copy the stream with 16-byte cp.async), else 0."""
+    return int(X.data_ptr() % 16 == 0 and X.shape[1] * X.element_size() % 16 == 0)
 
 
 def _single_lib() -> ctypes.CDLL:
@@ -165,7 +276,7 @@ def _scan_block_plain(x, ys, gram, w, r, xi2, c_inv, gain, m, wsq, rows):
 
 def streamsvm_scan_many(
     X, Y, W0, r0, xi20, c_inv, m0, gain, *, n_valid, block_n=256, lookahead=None,
-    lookahead_max=None,
+    lookahead_max=None, n_live=None, smem_budget=None,
 ):
     """B1 on the device of ``X``: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. Returns ``(W, r, xi2, m)``.
@@ -173,12 +284,16 @@ def streamsvm_scan_many(
     X: (N, D) f32 or bf16 stream; Y: (B, N) signs of the same dtype; W0:
     (B, D) f32; r0, xi20, c_inv, gain: (B,) f32; m0: (B,) int32. With
     ``lookahead`` ((B,) int32 windows) and ``lookahead_max`` (their largest)
-    it runs Algorithm 2 through B3 (``streamsvm_scan_lookahead_many``).
+    it runs Algorithm 2 through B3 (``streamsvm_scan_lookahead_many``, which
+    reads ``n_live``). ``smem_budget``: the shared memory a CTA may take
+    (``scan_plan``; default the card's limit); every layout gives the same
+    bits.
     """
     if lookahead is not None:
         return streamsvm_scan_lookahead_many(
             X, Y, W0, r0, xi20, c_inv, m0, gain, lookahead=lookahead,
-            lookahead_max=lookahead_max, n_valid=n_valid, block_n=block_n,
+            lookahead_max=lookahead_max, n_valid=n_valid, block_n=block_n, n_live=n_live,
+            smem_budget=smem_budget,
         )
     if X.device.type == "cpu":
         return streamsvm_scan_many_plain(
@@ -201,16 +316,21 @@ def streamsvm_scan_many(
     m = m0.to(dev, torch.int32).contiguous().clone()
     c_inv = c_inv.to(dev, torch.float32).contiguous()
     gain = gain.to(dev, torch.float32).contiguous()
+    plan = scan_plan(bp, d, dtype=X.dtype, smem_budget=smem_budget)
     lib = _lib()
     bn = lib.streamsvm_scan_block_rows()
     G = torch.empty(((n + bn - 1) // bn) * bn * bn, device=dev, dtype=torch.float32)
-    err = lib.streamsvm_scan_many(
-        X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(),
-        xi2.data_ptr(), m.data_ptr(), c_inv.data_ptr(), gain.data_ptr(),
-        n, int(n_valid), d, bp, int(X.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "streamsvm_scan_many")
+    ptrs = (X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(),
+            xi2.data_ptr(), m.data_ptr(), c_inv.data_ptr(), gain.data_ptr())
+    bf16, stream = int(X.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream
+    if plan["layout"] == "resident":
+        err = lib.streamsvm_scan_resident(
+            *ptrs, None, None, n, int(n_valid), d, bp, 0, plan["models_per_cta"], _vec16(X),
+            bf16, stream,
+        )
+    else:
+        err = lib.streamsvm_scan_many(*ptrs, n, int(n_valid), d, bp, bf16, stream)
+    _build.check(err, f"streamsvm_scan_many ({plan['layout']})")
     streamsvm_scan_many.launches += 1
     return W, r, xi2, m
 
@@ -332,13 +452,17 @@ def _lookahead_block_plain(x, ys, gram, w, r, xi2, c_inv, gain, m, wsq, L, buf, 
 
 
 def streamsvm_scan_lookahead_many(
-    X, Y, W0, r0, xi20, c_inv, m0, gain, *, lookahead, lookahead_max, n_valid, block_n=256
+    X, Y, W0, r0, xi20, c_inv, m0, gain, *, lookahead, lookahead_max, n_valid, block_n=256,
+    n_live=None, smem_budget=None,
 ):
     """B3 on the device of ``X``: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. Returns ``(W, r, xi2, m)``.
 
     Arguments as ``streamsvm_scan_many``, plus ``lookahead``: (B,) int32
     per-model windows (padded lanes 1), and ``lookahead_max``, their largest.
+    ``n_live``: the live models, the first of the B lanes (default all); the
+    lanes past it must be padding (r = +inf, sign 0, L = 1), which the small
+    layout leaves as they are. ``smem_budget``: as ``streamsvm_scan_many``.
     """
     if X.device.type == "cpu":
         return streamsvm_scan_lookahead_many_plain(
@@ -372,16 +496,30 @@ def streamsvm_scan_lookahead_many(
     m = m0.to(dev, torch.int32).contiguous().clone()
     c_inv = c_inv.to(dev, torch.float32).contiguous()
     gain = gain.to(dev, torch.float32).contiguous()
+    plan = scan_plan(bp, d, lookahead_max=int(lookahead_max), n_live=n_live, dtype=X.dtype,
+                     smem_budget=smem_budget)
     bn = lib.streamsvm_scan_block_rows()
     G = torch.empty(((n + bn - 1) // bn) * bn * bn, device=dev, dtype=torch.float32)
-    buf = torch.empty(bp * lookahead_max * d, device=dev, dtype=torch.float32)
-    err = lib.streamsvm_scan_lookahead(
-        X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(),
-        xi2.data_ptr(), m.data_ptr(), c_inv.data_ptr(), gain.data_ptr(), L.data_ptr(),
-        buf.data_ptr(), n, int(n_valid), d, bp, int(lookahead_max),
-        int(X.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "streamsvm_scan_lookahead")
+    in_smem = plan["window"] == "smem"
+    buf = torch.empty(0 if in_smem else bp * lookahead_max * d, device=dev, dtype=torch.float32)
+    ptrs = (X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(),
+            xi2.data_ptr(), m.data_ptr(), c_inv.data_ptr(), gain.data_ptr(), L.data_ptr(),
+            buf.data_ptr())
+    bf16, stream = int(X.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream
+    if plan["layout"] == "small":
+        err = lib.streamsvm_scan_lookahead_small(
+            *ptrs, n, int(n_valid), d, plan["ctas"], int(lookahead_max), int(in_smem),
+            _vec16(X), bf16, stream,
+        )
+    elif plan["layout"] == "resident":
+        err = lib.streamsvm_scan_resident(
+            *ptrs, n, int(n_valid), d, bp, int(lookahead_max), plan["models_per_cta"],
+            _vec16(X), bf16, stream,
+        )
+    else:
+        err = lib.streamsvm_scan_lookahead(*ptrs, n, int(n_valid), d, bp, int(lookahead_max),
+                                           bf16, stream)
+    _build.check(err, f"streamsvm_scan_lookahead ({plan['layout']})")
     streamsvm_scan_lookahead_many.launches += 1
     return W, r, xi2, m
 

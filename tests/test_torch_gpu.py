@@ -28,6 +28,7 @@ from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norm
 from repro_torch.core.kernel_bank import _fit_kernel_bank
 from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
 from repro_torch.kernels import _build
+from repro_torch.kernels import streamsvm_scan as scan_mod
 from repro_torch.kernels.predict import (
     TOPK_SMEM_MAX_K,
     predict_bank_fused,
@@ -36,11 +37,16 @@ from repro_torch.kernels.predict import (
     predict_bank_ring_plain,
 )
 from repro_torch.kernels.streamsvm_scan import (
+    SCAN_SMEM,
+    resident_smem,
     ring_plan,
+    scan_plan,
+    small_smem,
     streamsvm_scan,
     streamsvm_scan_lookahead_many,
     streamsvm_scan_lookahead_many_ring,
     streamsvm_scan_many,
+    streamsvm_scan_lookahead_many_plain,
     streamsvm_scan_many_plain,
     streamsvm_scan_many_ring,
     streamsvm_scan_many_ring_plain,
@@ -464,6 +470,263 @@ def test_ring_equals_b1_b3_at_every_j(cuda, d, dtype, lookahead):
         assert torch.equal(a, b)
 
 
+def _padded_args(cuda, b, n, d, seed, dtype=torch.float32):
+    """B1's / B3's padded inputs for b live models: the bank padded to whole
+    lane groups with inert lanes (r = +inf, sign 0, C = gain = 1), sign-0
+    rows, ragged N. Returns (args, bp)."""
+    bp = -(-b // 8) * 8
+    X, Y, cs = _bank_data(b, n + 1, d, seed)
+    Yp = np.zeros((bp, n + 1), np.float32)
+    Yp[:b] = Y
+    live = np.arange(bp) < b
+    c_inv = np.where(live, 1 / np.pad(cs, (0, bp - b), constant_values=1.0), 1.0)
+    W0 = Yp[:, :1] * X[:1]
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=cuda)
+    args = (t(X[1:]).to(dtype), t(Yp[:, 1:]).to(dtype), t(W0), t(np.where(live, 0.0, np.inf)),
+            t(c_inv), t(c_inv), t(np.ones(bp), torch.int32), t(c_inv))
+    return args, bp
+
+
+def _assert_state_close(got, want, b, keep=None):
+    """The first b models' states within the engine tolerance, ``m`` equal;
+    ``keep`` (a (b,) mask) leaves out the models it clears."""
+    sel = slice(None) if keep is None else keep.cpu()
+    got, want = [x[:b].cpu()[sel] for x in got], [x[:b].cpu()[sel] for x in want]
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-6)
+    assert torch.equal(got[3], want[3])
+
+
+def _plan_spy(monkeypatch):
+    """The plans the wrappers take, recorded as they launch."""
+    seen, real = [], scan_mod.scan_plan
+
+    def spy(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(scan_mod, "scan_plan", spy)
+    return seen
+
+
+@pytest.mark.parametrize("b,d,n", [
+    (1, 784, 700), (8, 784, 700), (9, 4096, 300), (600, 784, 300),
+    (16, 16_384, 100),  # no tile fits: the chunked kernel
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b1_equals_the_ring_in_its_layout(cuda, monkeypatch, b, d, n, dtype):
+    """B1 in the layout scan_plan picks is bit-equal to the ring and within
+    the engine tolerance of its plain version: ragged N (not a multiple of
+    the 32-row block), n_valid < N, sign-0 rows, padded lanes."""
+    args, bp = _padded_args(cuda, b, n, d, seed=b + d, dtype=dtype)
+    kw = dict(n_valid=n - 5, block_n=n)
+    plan = scan_plan(bp, d, dtype=dtype)
+    assert plan["layout"] == ("chunked" if d == 16_384 else "resident")
+    ref = streamsvm_scan_many_ring(*args, **kw)
+    before = streamsvm_scan_many.launches
+    seen = _plan_spy(monkeypatch)
+    got = streamsvm_scan_many(*args, **kw)
+    assert streamsvm_scan_many.launches == before + 1
+    assert seen == [plan]
+    for a, c in zip(got, ref):
+        assert torch.equal(a, c)
+    _assert_state_close(got, streamsvm_scan_many_plain(*args, **kw), b)
+
+
+_FLOOR = sum(SCAN_SMEM.values())  # the chunked kernels' bytes, whatever B and D
+
+
+@pytest.mark.parametrize("d,budget,want", [
+    (20, None, ("resident", 8)), (130, None, ("resident", 8)), (784, None, ("resident", 8)),
+    (20, 60_000, ("resident", 8)), (130, 60_000, ("resident", 8)),  # 8 models fit
+    (784, 60_000, ("resident", 4)),
+    (20, _FLOOR, ("chunked", 8)), (130, _FLOOR, ("chunked", 8)), (784, _FLOOR, ("chunked", 8)),
+])
+def test_b1_layouts_give_the_same_bits(cuda, monkeypatch, d, budget, want):
+    """8 or 4 models per CTA, and the chunked kernel, each taken under the
+    budget it fits, at an aligned D, at D = 130 (rows not 16-byte aligned:
+    plain staging) and at D = 20."""
+    args, bp = _padded_args(cuda, 13, 500, d, seed=d)
+    kw = dict(n_valid=490, block_n=500)
+    ref = streamsvm_scan_many_ring(*args, **kw)
+    seen = _plan_spy(monkeypatch)
+    got = streamsvm_scan_many(*args, **kw, smem_budget=budget)
+    assert [(p["layout"], p["models_per_cta"]) for p in seen] == [want]
+    for a, c in zip(got, ref):
+        assert torch.equal(a, c)
+
+
+def _lookahead(cuda, b, bp, ls):
+    mix = (1, 2, 3, 7, 10, 50, 4, 16)
+    ls = [mix[i % len(mix)] for i in range(b)] if ls == "mix" else [ls] * b
+    return torch.tensor(ls + [1] * (bp - b), dtype=torch.int32, device=cuda), max(ls)
+
+
+def _lookahead_parting_tie(kernel, plain, args, kw, n, model):
+    """Where B3's and its plain version's push decisions for ``model``
+    first part (bisecting n_valid: ``m`` counts the pushes of the rows
+    before it), and the exact margin there: Algorithm 2 for the model alone
+    in float64 (pushes into an L-row window, each full window flushed
+    farthest-first) up to that row gives ``(row, dist, r, bound)``, with
+    ``bound`` the f32 error of evaluating dist there as
+    ``chip_smoke.parting_tie`` bounds it: (D + 2) u times the absolute
+    terms of d^2, over 2 dist. The float64 run must agree with the plain
+    version's pushes before the row."""
+    m_at = lambda fn, nv: int(fn(*args, **{**kw, "n_valid": nv})[3][model])
+    lo, hi = 0, n
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if m_at(kernel, mid) == m_at(plain, mid):
+            lo = mid
+        else:
+            hi = mid
+    X, Y, W0, r0, xi20, c_inv, m0, gain = (t.double().cpu() for t in args)
+    L = int(kw["lookahead"][model])
+    w, r, xi2 = W0[model].clone(), r0[model].clone(), xi20[model].clone()
+    ci, ga, d = c_inv[model], gain[model], X.shape[1]
+    window, pushes = [], 0
+    for i in range(lo + 1):
+        y, x = Y[model, i], X[i]
+        if y == 0:
+            continue
+        dist = torch.sqrt((w @ w) - 2 * y * (w @ x) + (x @ x) + xi2 + ci)
+        if i == lo:
+            assert pushes == m_at(plain, lo) - int(m0[model])
+            terms = (w @ w) + 2 * w.norm() * x.norm() + (x @ x) + xi2 + ci
+            bound = (d + 2) * 2.0**-24 * terms / (2 * dist)
+            return lo, float(dist), float(r), float(bound)
+        if dist < r:
+            continue
+        window.append(y * x)
+        pushes += 1
+        if len(window) >= L:  # the farthest-first flush: the first maximum wins
+            while window:
+                far = [float(torch.sqrt(((w - p) ** 2).sum() + xi2 + ci)) for p in window]
+                k = far.index(max(far))
+                if far[k] < r:
+                    break  # every remaining point is enclosed: the window is dropped
+                s = 0.5 * (1 - r / far[k])
+                w, r = (1 - s) * w + s * window.pop(k), r + 0.5 * (far[k] - r)
+                xi2 = xi2 * (1 - s) ** 2 + s * s * ga
+            window = []
+    raise AssertionError(f"model {model}: the parting row {lo} is inert")
+
+
+@pytest.mark.parametrize("b,d,n,ls,layout,window", [
+    (1, 784, 700, 2, "small", "smem"),
+    (1, 784, 700, 10, "small", "smem"),
+    (1, 784, 700, 50, "small", "smem"),
+    (8, 784, 500, "mix", "small", "smem"),
+    (9, 4096, 300, 10, "small", "smem"),
+    (1, 4096, 300, 50, "small", "device"),  # the window does not fit beside the row
+    (600, 784, 300, 10, "resident", "device"),
+    (140, 16_384, 100, 3, "chunked", "device"),  # past the small layout, no tile fits
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_equals_the_ring_in_its_layout(cuda, monkeypatch, b, d, n, ls, layout, window, dtype):
+    """B3 with the live count ops passes: the layout and window placement
+    scan_plan picks, bit-equal to the ring (which walks every lane) and
+    within the engine tolerance of its plain version. A model whose push
+    count parts from the plain version (at most one; ROADMAP section C
+    records it) must part on a decision that float64 shows to be an f32
+    tie; the other models are held to the plain version as before."""
+    args, bp = _padded_args(cuda, b, n, d, seed=3 * b + d, dtype=dtype)
+    L, lmax = _lookahead(cuda, b, bp, ls)
+    kw = dict(lookahead=L, lookahead_max=lmax, n_valid=n - 5, block_n=n)
+    plan = scan_plan(bp, d, lookahead_max=lmax, n_live=b, dtype=dtype)
+    assert (plan["layout"], plan["window"]) == (layout, window)
+    ref = streamsvm_scan_lookahead_many_ring(*args, **kw)
+    before = streamsvm_scan_lookahead_many.launches
+    seen = _plan_spy(monkeypatch)
+    got = streamsvm_scan_lookahead_many(*args, **kw, n_live=b)
+    assert streamsvm_scan_lookahead_many.launches == before + 1
+    assert seen == [plan]
+    for a, c in zip(got, ref):
+        assert torch.equal(a, c)
+    want = streamsvm_scan_lookahead_many_plain(*args, **kw)
+    keep = got[3][:b] == want[3][:b]
+    parted = (~keep).nonzero().flatten().tolist()
+    assert len(parted) <= 1, f"m parts from the plain version at models {parted}"
+    for model in parted:
+        kernel = lambda *a, **k: streamsvm_scan_lookahead_many(*a, **k, n_live=b)
+        row, dist, r, bound = _lookahead_parting_tie(
+            kernel, streamsvm_scan_lookahead_many_plain, args, kw, n - 5, model)
+        print(f"D={d} {dtype}: model {model} parts at row {row}: float64 dist {dist!r}, "
+              f"r {r!r}, (dist - r)/r {(dist - r) / r:.3e}, f32 bound {bound / r:.3e} of r")
+        assert abs(dist - r) <= bound, f"model {model} parts at row {row} beyond an f32 tie"
+    _assert_state_close(got, want, b, keep)
+
+
+@pytest.mark.parametrize("d,small_max,budget,want", [
+    (d, *case) for d in (20, 130, 784) for case in (
+        (None, None, ("small", 1)),
+        (0, None, ("resident", 8)),
+        (0, 55_000, ("resident", 4 if d == 784 else 8)),  # 8 models fit at small D
+        (0, _FLOOR, ("chunked", 8)),
+    )
+])
+def test_b3_layouts_give_the_same_bits(cuda, monkeypatch, d, small_max, budget, want):
+    """Every layout of B3 at per-model windows, with every lane live (the
+    small layout then gives padded lanes a CTA too) and with 13 of 16: the
+    small layout, and with it switched off (SMALL_BANK_MAX_LIVE 0) 8 or 4
+    models per CTA and the chunked kernel, each under the budget it fits."""
+    if small_max is not None:
+        monkeypatch.setattr(scan_mod, "SMALL_BANK_MAX_LIVE", small_max)
+    seen = _plan_spy(monkeypatch)
+    for b in (16, 13):
+        args, bp = _padded_args(cuda, b, 500, d, seed=d + b)
+        L, lmax = _lookahead(cuda, b, bp, "mix")
+        kw = dict(lookahead=L, lookahead_max=lmax, n_valid=490, block_n=500)
+        ref = streamsvm_scan_lookahead_many_ring(*args, **kw)
+        got = streamsvm_scan_lookahead_many(*args, **kw, n_live=b, smem_budget=budget)
+        assert (seen[-1]["layout"], seen[-1]["models_per_cta"]) == want
+        for a, c in zip(got, ref):
+            assert torch.equal(a, c)
+
+
+def test_fit_lookahead_takes_the_small_layout(cuda, monkeypatch):
+    """fit_lookahead (one model) and fit_bank(variant="lookahead") reach the
+    small layout through the normal entry point, with the live count."""
+    rng = np.random.default_rng(12)
+    X = rng.normal(size=(900, 784)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    y = np.sign(rng.normal(size=900)).astype(np.float32)
+    seen = _plan_spy(monkeypatch)
+    got = fit_lookahead(X, y, 10.0, 10, device=cuda)
+    assert [(p["layout"], p["ctas"]) for p in seen] == [("small", 1)]
+    _assert_ball_close(got, fit_lookahead(X, y, 10.0, 10, device="cpu"))
+
+
+@pytest.mark.parametrize("lookahead,budget,want", [
+    (None, _FLOOR, ("chunked", 8, None)),
+    (None, 45_000, ("chunked", 8, None)),
+    (None, 60_000, ("resident", 4, None)),
+    (None, 64_031, ("resident", 4, None)),
+    (3, _FLOOR, ("chunked", 8, "device")),
+    (3, 45_000, ("small", 1, "device")),
+    (3, 60_000, ("small", 1, "smem")),
+])
+def test_vmem_under_a_squeezed_budget_equals_the_ring(cuda, monkeypatch, lookahead, budget,
+                                                      want):
+    """A budget between the chunked kernels' 25,888 B and the resident
+    tile's 64,032 B at D = 784: "vmem" (forced, and "auto") runs B1 / B3 in
+    the layout that fits it (4 models per CTA, B3's small layout with its
+    window in device or shared memory, or the chunked kernels) and equals
+    the ring bit for bit."""
+    X, Y, cs = _bank_data(61, 500, 784, seed=19)
+    kw = {} if lookahead is None else dict(variant="lookahead", lookahead=lookahead)
+    ring = ops.streamsvm_fit_many(X, Y, cs, device=cuda, bank_resident="hbm", **kw)
+    seen = _plan_spy(monkeypatch)
+    for res in ("vmem", "auto"):
+        got = ops.streamsvm_fit_many(X, Y, cs, device=cuda, bank_resident=res,
+                                     vmem_budget_bytes=budget, **kw)
+        for a, b in zip(got, ring):
+            assert torch.equal(a, b)
+    assert [(p["layout"], p["models_per_cta"], p["window"]) for p in seen] == [want] * 2
+    assert sum(seen[0]["smem"].values()) <= budget
+
+
 def test_ring_matches_its_plain_version(cuda):
     args = _ring_args(cuda, 40, 700, 130, seed=4)
     got = streamsvm_scan_many_ring(*args, n_valid=690, block_n=700, n_ctas=2)
@@ -481,7 +744,7 @@ def test_hbm_end_to_end_equals_vmem_on_the_card(cuda):
                 for res in ("vmem", "hbm")]
         for a, b in zip(*fits):
             assert torch.equal(a, b)
-    squeeze = sum(ops.engine_vmem_bytes(61, 50, b_tile=8).values()) - 1
+    squeeze = sum(SCAN_SMEM.values()) - 1  # under the vmem path's smallest layout
     auto = ops.streamsvm_fit_many(X, Y, cs, device=cuda, b_tile=8, vmem_budget_bytes=squeeze)
     vmem = ops.streamsvm_fit_many(X, Y, cs, device=cuda, b_tile=8, bank_resident="vmem")
     for a, b in zip(auto, vmem):
@@ -490,13 +753,14 @@ def test_hbm_end_to_end_equals_vmem_on_the_card(cuda):
 
 @pytest.mark.parametrize("lookahead", [None, 3])
 def test_auto_squeezed_at_a_real_width_runs_the_cycling_ring(cuda, lookahead):
-    """Under a budget just below B1's 25,888 B at D = 784, "auto" launches
-    the ring in its cycling layout (owned slots would need 67,008 B) and
-    equals "vmem" bit for bit."""
+    """Under a budget just below the vmem path's smallest layout (the
+    chunked kernels, 25,888 B) at D = 784, "auto" launches the ring in its
+    cycling layout (owned slots would need 67,008 B) and equals "vmem" bit
+    for bit."""
     X, Y, cs = _bank_data(61, 500, 784, seed=9)
     kw = {} if lookahead is None else dict(variant="lookahead", lookahead=lookahead)
     ring = streamsvm_scan_many_ring if lookahead is None else streamsvm_scan_lookahead_many_ring
-    squeeze = sum(ops.engine_vmem_bytes(61, 784).values()) - 1
+    squeeze = sum(SCAN_SMEM.values()) - 1
     before = ring.launches
     auto = ops.streamsvm_fit_many(X, Y, cs, device=cuda, vmem_budget_bytes=squeeze, **kw)
     assert ring.launches == before + 1
@@ -705,7 +969,37 @@ def test_byte_models_equal_what_the_kernels_allocate(cuda):
     assert _build.static_smem("streamsvm_scan", "scan_kernel") == {25_888}
     assert _build.static_smem("streamsvm_scan", "lookahead_kernel") == {25_888}
     assert _build.static_smem("predict", "predict_kernel") == {46_096}
-    assert sum(ops.engine_vmem_bytes(600, 784).values()) == 25_888
+    assert sum(ops.engine_vmem_bytes(600, 784).values()) == 64_032
+    # The resident and small layouts: no static bytes, their dynamic
+    # request equal to the byte model at every shape and stream dtype.
+    assert _build.static_smem("streamsvm_scan", "scan_res_kernel") == {0}
+    assert _build.static_smem("streamsvm_scan", "lookahead_small_kernel") == {0}
+    for dt in (torch.float32, torch.bfloat16):
+        bf = int(dt == torch.bfloat16)
+        for d in (20, 130, 784, 4096, 12_288):
+            for mpc in (4, 8):
+                for look in (0, 1):
+                    assert lib.streamsvm_scan_resident_dyn_bytes(d, mpc, look, bf) == sum(
+                        resident_smem(d, mpc, lookahead=bool(look), dtype=dt).values())
+            for lmax, win in ((2, 1), (50, 1), (50, 0), (1024, 0)):
+                assert lib.streamsvm_scan_small_dyn_bytes(d, lmax, win, bf) == sum(
+                    small_smem(d, lmax, window_in_smem=bool(win), dtype=dt).values())
+    for b, d, la, budget in ((600, 784, None, None), (600, 784, 10, None), (1, 784, 50, None),
+                             (1536, 4096, None, None), (1536, 8192, None, None),
+                             (16, 12_288, None, None), (600, 784, None, 60_000),
+                             (600, 784, 10, 60_000), (1, 784, 10, 60_000),
+                             (600, 784, 10, 25_888)):
+        plan = scan_plan(-(-b // 8) * 8, d, lookahead_max=la, n_live=b, smem_budget=budget)
+        if plan["layout"] == "chunked":
+            static, dyn = SCAN_SMEM, 0
+        elif plan["layout"] == "small":
+            static, dyn = {}, lib.streamsvm_scan_small_dyn_bytes(
+                d, la, int(plan["window"] == "smem"), 0)
+        else:
+            static, dyn = {}, lib.streamsvm_scan_resident_dyn_bytes(
+                d, plan["models_per_cta"], int(la is not None), 0)
+        assert sum(static.values()) + dyn == sum(ops.engine_vmem_bytes(
+            b, d, lookahead_max=la, smem_budget=budget).values()) <= (budget or 232_448)
     (ring_static,) = _build.static_smem("streamsvm_scan", "scan_ring_kernel")
     for b, d, la, budget in ((600, 784, None, None), (600, 784, None, 25_887),
                              (600, 784, 10, 25_887), (1536, 4096, None, None),

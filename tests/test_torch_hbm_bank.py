@@ -47,6 +47,7 @@ from repro_torch.kernels.predict import (
 )
 from repro_torch.kernels.streamsvm_scan import (
     SCAN_SMEM,
+    resident_smem,
     streamsvm_scan_lookahead_many_plain,
     streamsvm_scan_lookahead_many_ring_plain,
     streamsvm_scan_many_plain,
@@ -298,22 +299,28 @@ def test_predict_hbm_matches_reference_and_vmem(epilogue, kw):
 
 
 def test_auto_routes_at_budget_boundary():
-    """auto is vmem exactly at the vmem layout's bytes and hbm one byte
-    under, where the ring (a 64-column chunk) still fits."""
-    model = lambda res: ops.engine_vmem_bytes(64, 64, block_n=128, b_tile=8, bank_resident=res)
-    total = sum(model("vmem").values())
-    res, by = ops.resolve_bank_resident("auto", model, vmem_budget=total, what="t", shapes="s")
-    assert res == "vmem" and by == model("vmem")
-    res, by = ops.resolve_bank_resident("auto", model, vmem_budget=total - 1, what="t",
+    """auto is vmem exactly at the vmem path's smallest layout (the chunked
+    kernels, SCAN_SMEM) and hbm one byte under, where the ring (a 64-column
+    chunk) still fits. The byte model is evaluated at the budget, as
+    streamsvm_fit_many evaluates it."""
+    model = lambda budget: lambda res: ops.engine_vmem_bytes(
+        64, 64, block_n=128, b_tile=8, bank_resident=res, smem_budget=budget)
+    total = sum(SCAN_SMEM.values())
+    res, by = ops.resolve_bank_resident("auto", model(total), vmem_budget=total, what="t",
                                         shapes="s")
-    assert res == "hbm" and by == model("hbm")
+    assert res == "vmem" and by == model(total)("vmem") == SCAN_SMEM
+    res, by = ops.resolve_bank_resident("auto", model(total - 1), vmem_budget=total - 1,
+                                        what="t", shapes="s")
+    assert res == "hbm" and by == model(total - 1)("hbm")
 
 
 def test_auto_routed_to_hbm_by_a_squeezed_budget_is_bit_exact():
     X, Y, cs = _bank_data(24, 300, 20, seed=23)
     vmem = _port(X, Y, cs, block_n=64, b_tile=8, bank_resident="vmem")
-    model = lambda res: ops.engine_vmem_bytes(24, 20, block_n=64, b_tile=8, bank_resident=res)
-    squeeze = sum(model("vmem").values()) - 1
+    squeeze = sum(SCAN_SMEM.values()) - 1  # under the vmem path's smallest layout
+    model = lambda res: ops.engine_vmem_bytes(24, 20, block_n=64, b_tile=8, bank_resident=res,
+                                              smem_budget=squeeze)
+    assert sum(model("vmem").values()) > squeeze  # no vmem layout fits
     assert sum(model("hbm").values()) <= squeeze  # hbm fits where vmem does not
     auto = _port(X, Y, cs, block_n=64, b_tile=8, bank_resident="auto",
                  vmem_budget_bytes=squeeze)
@@ -333,14 +340,16 @@ def test_auto_routed_to_hbm_by_a_squeezed_budget_is_bit_exact():
 @pytest.mark.parametrize("lookahead", [None, 3])
 def test_auto_squeezed_at_a_real_width_cycles_chunks(lookahead):
     """At D = 784 two owned whole-row slots (67,008 B) do not fit a budget
-    just under B1's 25,888 B, but the ring's cycling 64-column chunks do:
-    "auto" lands on "hbm" in that layout, bit-equal to "vmem"."""
+    just under the vmem path's smallest layout (the chunked kernels,
+    25,888 B), but the ring's cycling 64-column chunks do: "auto" lands on
+    "hbm" in that layout, bit-equal to "vmem"."""
     b, d = 16, 784
     X, Y, cs = _bank_data(b, 200, d, seed=31)
     la = {} if lookahead is None else dict(variant="lookahead", lookahead=lookahead)
     model = lambda res, budget=None: ops.engine_vmem_bytes(
         b, d, block_n=64, lookahead_max=lookahead, bank_resident=res, smem_budget=budget)
-    squeeze = sum(model("vmem").values()) - 1
+    squeeze = sum(SCAN_SMEM.values()) - 1
+    assert sum(model("vmem", squeeze).values()) > squeeze  # no vmem layout fits
     assert sum(model("hbm").values()) > squeeze  # owned slots at the card's limit
     cycling = model("hbm", squeeze)
     assert cycling["bank"] == 2 * 8 * 64 * 4 and sum(cycling.values()) <= squeeze
@@ -410,8 +419,11 @@ def test_byte_models_follow_the_card_layouts():
     with D only while each tile owns a whole-row slot."""
     vm = [sum(ops.engine_vmem_bytes(b, 784, bank_resident="vmem").values())
           for b in (8, 600, 100_000)]
-    assert vm == [sum(SCAN_SMEM.values())] * 3 == [25_888] * 3
-    assert sum(ops.engine_vmem_bytes(8, 784, lookahead_max=10).values()) == 25_888
+    assert vm == [sum(resident_smem(784, 8, lookahead=False).values())] * 3 == [64_032] * 3
+    assert sum(ops.engine_vmem_bytes(8, 784, lookahead_max=10).values()) == 72_704
+    for la in (None, 10):  # under a budget below every tile: the chunked kernels
+        assert sum(ops.engine_vmem_bytes(600, 784, lookahead_max=la,
+                                         smem_budget=25_888).values()) == 25_888
     h = lambda b, d=128, **kw: sum(ops.engine_vmem_bytes(b, d, b_tile=8, bank_resident="hbm",
                                                          **kw).values())
     assert h(64) == h(512) == h(1056)  # one tile per CTA (132 SMs)
