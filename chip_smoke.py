@@ -18,7 +18,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernel's static shared memory beside its byte model's static terms;
   2. each kernel against its plain PyTorch version on the card: B1 (one
      pass of Algorithm 1 for a bank), B2 (fused bank predict, all three
-     epilogues), B4 (Algorithm 1 for one model) and B3 (the fused
+     epilogues), B4 (Algorithm 1 for one model; also at D = 65,536, where
+     its w row stays in device memory) and B3 (the fused
      Algorithm 2 for a bank); top-k at every list layout in B2 and B6 serve
      (k = B on phase 3's bank shape; k = 728 and k = B = 1,536, the lists in
      device memory); B5 (the Gram block, with its row-norms kernel) bit for
@@ -277,11 +278,10 @@ def phase_device(dev):
 
 def smem_models():
     """(source, kernel, static bytes by the byte models) for every kernel the
-    byte models describe; the ring's dynamic terms are checked in phase 7."""
+    byte models describe; the dynamic terms are checked in phases 2 and 7."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.streamsvm_scan import SCAN_SMEM, ring_plan
+    from repro_torch.kernels.streamsvm_scan import SCAN_SMEM
 
-    ring = ring_plan(8, 8, lookahead=False)["smem"]
     pring = ops.predict_vmem_bytes(8, 8, bank_resident="hbm")
     chunked = sum(SCAN_SMEM.values())
     return (
@@ -289,7 +289,8 @@ def smem_models():
         ("streamsvm_scan", "lookahead_kernel", chunked),
         ("streamsvm_scan", "scan_res_kernel", 0),  # all dynamic, checked in phase 7
         ("streamsvm_scan", "lookahead_small_kernel", 0),
-        ("streamsvm_scan", "scan_ring_kernel", ring["stream_tile"] + ring["block_gram"]),
+        ("streamsvm_scan", "scan_ring_kernel", 0),  # all dynamic, checked in phase 7
+        ("streamsvm_single", "single_kernel", 0),  # all dynamic, checked in phase 2
         ("predict", "predict_kernel", sum(ops.predict_vmem_bytes(8, 8).values())),
         ("predict", "predict_ring_kernel", pring["stages"]),
         ("gram", "gram_kernel", ops.kernel_engine_vmem_bytes(8, 8, coreset_size=1)["gram_tiles"]),
@@ -343,11 +344,39 @@ def check_state(name, got, want, live=None):
 
 
 def check_single(dev, args, rng):
+    """B4 against its plain version at phase 3's width and at D = 65,536,
+    where the w row does not fit shared memory (it stays in device memory);
+    on the card, its dynamic shared memory against the byte model."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import streamsvm_scan as scan_mod
+
+    for n, d in ((args.check_n, args.d), (300, 65_536)):
+        print(f"[2] B4 against its plain version: N={n} (ragged), D={d}, "
+              f"{single_note(scan_mod.single_plan(d), d)}")
+        check_single_at(dev, rng, n, d)
+    if dev.type == "cuda":
+        lib = scan_mod._single_lib()
+        if _build.static_smem("streamsvm_single", "single_kernel") != {0}:
+            raise AssertionError("single_kernel: static shared memory beside the byte model's 0")
+        for d in (args.d, 784, 4096, 65_536):
+            plan = scan_mod.single_plan(d)
+            have = lib.streamsvm_single_dyn_bytes(d, int(plan["w_in_smem"]), plan["chunk"])
+            model = sum(plan["smem"].values())
+            if have != model or model > scan_mod.SMEM_PER_BLOCK:
+                raise AssertionError(f"B4 D={d}: requests {have} B, model {model} B")
+            print(f"  B4 D={d} ({single_note(plan, d)}): {have} B requested = byte model")
+
+
+def single_note(plan, d):
+    """B4's layout, as printed."""
+    staged = "whole blocks" if plan["chunk"] >= d else f"{plan['chunk']}-column chunks"
+    return f"{staged} staged, w in {'shared' if plan['w_in_smem'] else 'device'} memory"
+
+
+def check_single_at(dev, rng, n, d):
     from repro_torch.kernels import ops
     from repro_torch.kernels.streamsvm_scan import streamsvm_scan, streamsvm_scan_plain
 
-    n, d = args.check_n, args.d
-    print(f"[2] B4 against its plain version: N={n} (ragged), D={d}")
     start = None
     for label in ("ragged N, a zero row, sign-0 rows", "continue from the ball"):
         X = rng.normal(size=(n, d)).astype(np.float32)
@@ -533,6 +562,15 @@ def layout_note(plan):
             + (f", window in {plan['window'].replace('smem', 'shared')} memory"
                if plan["window"] else "")
             + f", {by} B {'static' if plan['layout'] == 'chunked' else 'dynamic'}")
+
+
+def ring_note(Y, bp, d, lookahead):
+    """B6's layout at a launch of its wrapper's defaults, as printed."""
+    from repro_torch.kernels.streamsvm_scan import ring_plan
+
+    plan = ring_plan(bp, d, lookahead=lookahead, dtype=Y.dtype)
+    return (f"the ring {plan['layout']}, {plan['n_ctas']} CTAs, J <= {plan['jmax']}, "
+            f"{plan['group']} tiles a step, {sum(plan['smem'].values())} B")
 
 
 def check_layouts(dev, args, rng):
@@ -823,6 +861,7 @@ def phase_main_path(dev, args):
     compare_ids("rows scored after the swap vs the new bank", torch.as_tensor(swap_reqs[4].result[0]),
                 new_cls, new_s.sort(dim=-1, descending=True).values, 1)
     return dict(chunk=chunks[0], chunks=chunks, cs=cs, bank=bank, launches=launches, acc=acc1,
+                fit_s=t_fit,
                 data=(Xtr, Y, Xte, yte), served=(cls, margin))
 
 
@@ -1012,7 +1051,8 @@ def phase_algorithms(dev, args, main):
         raise AssertionError(f"a kernel of phase 4 was never launched: {launches}")
     b3 = dict(inputs=in3, kw=kw3, err=err3, plain_ms=plain3, pushes=float((bank.m - 1).sum()),
               bank_launches=bank_b3, fig3_launches=fig3_b3, fig3_by_L=fig3_by_L)
-    return dict(launches=launches, fig3=(Xp, yp), bank=bank, b3=b3, data4b=(Xd, Yd, cs6))
+    return dict(launches=launches, fig3=(Xp, yp), bank=bank, b3=b3, data4b=(Xd, Yd, cs6),
+                fit_s=t_fit)
 
 
 def make_rings(n, d, seed):
@@ -1300,9 +1340,10 @@ def phase_ring(dev, args, main, algos):
     sync(dev)
     t_la_a = time.perf_counter() - t0
     check_equal('7a "hbm" Algorithm-2 bank against phase 4b\'s', la, algos["bank"])
-    print(f"  fit {t_fit_a:.3f} s, bit-equal to phase 3's bank; served {len(Xte3)} queries in "
-          f"{stats.steps} steps, {t_serve_a:.3f} s, ids and margins bit-equal to phase 3's; "
-          f"Algorithm 2 {t_la_a:.3f} s, bit-equal to phase 4b's bank")
+    print(f"  fit {t_fit_a:.3f} s (vmem, phase 3: {main['fit_s']:.3f} s), bit-equal to phase 3's "
+          f"bank; served {len(Xte3)} queries in {stats.steps} steps, {t_serve_a:.3f} s, ids and "
+          f"margins bit-equal to phase 3's; Algorithm 2 {t_la_a:.3f} s (vmem, phase 4b: "
+          f"{algos['fit_s']:.3f} s), bit-equal to phase 4b's bank")
     step_ms, kernel_ms = served_kernel_ms(dev, res.ball.w, Xte3, n_classes, stats.steps, ring=True)
     print(f"  served steps' kernel (B6 serve): {stats.steps} x {step_ms:.4f} ms = {kernel_ms:.2f} "
           f"ms of the {t_serve_a * 1e3:.2f} ms serve wall ({kernel_ms / (t_serve_a * 1e3):.1%})")
@@ -1391,8 +1432,8 @@ def phase_ring(dev, args, main, algos):
             raise AssertionError(f"n_ctas={n_ctas} gives {jmax} tiles per CTA, not {j}")
         check_equal(f"the ring at J={jmax} against B1", streamsvm_scan_many_ring(
             *in_c, n_valid=n_c, n_ctas=n_ctas), ref)
-        js.append(jmax)
-    print(f"  the first {n_c} rows: the ring at J = {js} tiles per CTA bit-equal to B1")
+        js.append(f"{jmax} ({ring_plan(bp, d, lookahead=False, n_ctas=n_ctas)['layout']})")
+    print(f"  the first {n_c} rows: the ring at J = {', '.join(js)} tiles per CTA bit-equal to B1")
     in_p, n_p, _ = seeded_bank_inputs(Xtr[: args.ring_plain_n], Y[:, : args.ring_plain_n], cs, bp)
     kernel = lambda nv: streamsvm_scan_many_ring(*in_p, n_valid=nv)
     plain = lambda nv: streamsvm_scan_many_ring_plain(*in_p, n_valid=nv, ring_tile=bp // 2,
@@ -1427,19 +1468,24 @@ def phase_ring(dev, args, main, algos):
     if dev.type == "cuda":  # the byte models against what the kernels allocate
         lib, plib = scan_mod._lib(), predict_mod._lib()
         (ring_static,) = _build.static_smem("streamsvm_scan", "scan_ring_kernel")
-        shapes = [(640, 784, False, None), (640, 784, True, None), (bp, d, False, None),
-                  (bp, d, True, None)] + [(bp, d, False, -(-tiles // j)) for j in (1, 2, 3, 4)]
-        for sbp, sd, look, n_ctas in shapes:
-            plan = ring_plan(sbp, sd, lookahead=look, n_ctas=n_ctas)
+        squeeze = sum(scan_mod.SCAN_SMEM.values()) - 1  # below every vmem layout
+        shapes = [(640, 784, False, None, None), (640, 784, True, None, None),
+                  (640, 784, False, None, squeeze), (640, 784, True, None, squeeze),
+                  (bp, d, False, None, None), (bp, d, True, None, None),
+                  (bp, d, True, None, squeeze)] + [
+                      (bp, d, False, -(-tiles // j), None) for j in (1, 2, 3, 4)]
+        for sbp, sd, look, n_ctas, by in shapes:
+            plan = ring_plan(sbp, sd, lookahead=look, n_ctas=n_ctas, smem_budget=by)
             have = ring_static + lib.streamsvm_scan_ring_dyn_bytes(
-                sd, plan["jmax"], int(plan["owned"]), int(look))
+                sd, plan["jmax"], scan_mod._RING_LAYOUTS[plan["layout"]], int(look), 0)
             model = sum(plan["smem"].values()) if n_ctas else sum(ops.engine_vmem_bytes(
-                sbp, sd, lookahead_max=10 if look else None, bank_resident="hbm").values())
+                sbp, sd, lookahead_max=10 if look else None, bank_resident="hbm",
+                smem_budget=by).values())
             if have != model:
                 raise AssertionError(f"ring B={sbp} D={sd}: allocates {have} B, model {model} B")
-            print(f"  ring B={sbp} D={sd} lookahead={look} J={plan['jmax']} owned="
-                  f"{plan['owned']}: {have} B allocated (static {ring_static} + dynamic "
-                  f"{have - ring_static}) = byte model")
+            print(f"  ring B={sbp} D={sd} lookahead={look} J={plan['jmax']} {plan['layout']} "
+                  f"({plan['group']} tiles a step) under {by or 'the card'}: {have} B allocated "
+                  f"(static {ring_static} + dynamic {have - ring_static}) = byte model")
         (pr_static,) = _build.static_smem("predict", "predict_ring_kernel")
         for ep, k in (("ovr", None), ("scores", None), ("topk", 5), ("topk", 727),
                       ("topk", 728)):
@@ -1494,6 +1540,7 @@ def phase_ring(dev, args, main, algos):
 
 def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     from repro_torch.kernels import ops
+    from repro_torch.kernels import streamsvm_scan as scan_mod
     from repro_torch.kernels.predict import (
         predict_bank_fused,
         predict_bank_plain,
@@ -1605,8 +1652,8 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     err4 = check_state("B4 at the Fig 3 shape", got4, want4)
     ms4 = time_ms(lambda: streamsvm_scan(*args4, n_valid=n4), dev, 10 * reps)
     d4 = Xf.shape[1]
-    # g = <w, y x> per row, the 32-row block Gram, and the AXPY per update.
-    flops4 = 2.0 * n4 * d4 + 2.0 * n4 * 32 * d4 + 3.0 * d4 * float(got4[3] - 1)
+    # g = <w, y x> per row, the 32-row block Gram, and the deferred update.
+    flops4 = 2.0 * n4 * d4 + 2.0 * n4 * 32 * d4 + 2.0 * n4 * d4
     bytes4 = 4.0 * (n4 * d4 + n4 + 2 * d4 + 6)
     # B2 at the main path's server step: 256 query slots against the bank.
     W = main["bank"].w
@@ -1675,7 +1722,9 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
         row("streamsvm_single", "src/repro_torch/kernels/csrc/streamsvm_single.cu",
             "src/repro/kernels/streamsvm_scan.py:639", algos["launches"]["streamsvm_scan"],
             err4, ms4, plain4, flops4, bytes4, None,
-            f"N={n4} D={d4} one model f32, {int(got4[3]) - 1} updates"),
+            f"N={n4} D={d4} one model f32, {int(got4[3]) - 1} updates, "
+            f"{single_note(scan_mod.single_plan(d4), d4)} (B3's small layout on "
+            f"this stream at L = 10: {f10['ms']:.4f} ms)"),
     ]
     # The scores epilogue against the library product, at the held-out size.
     Qs = torch.as_tensor(make_blobs(args.n_test, args.classes, d, seed=args.seed + 4)[0], device=dev)
@@ -1706,11 +1755,13 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
         row("streamsvm_scan_ring", ring_src, "src/repro/kernels/streamsvm_scan.py:899",
             ring["launches_a"]["streamsvm_scan_many_ring"], err_r, ms_r, plain_r, flops1, bytes1,
             None, f"phase 7a's first launch: N={n} D={d} B={b} (bank padded to {bp}) f32, "
-            "Algorithm 1; plain: one ring tile"),
+            f"Algorithm 1 ({ring_note(args1[1], bp, d, False)}; B1 here {ms1:.4f} ms); plain: "
+            "one ring tile"),
         row("streamsvm_scan_ring_lookahead", ring_src, "src/repro/kernels/streamsvm_scan.py:899",
             ring["launches_a"]["streamsvm_scan_lookahead_many_ring"], err_r3, ms_r3, plain_r3,
             flops3, bytes3, None, f"phase 7a's Algorithm-2 launch: N={n3} D={d} B={b} (bank "
-            f"padded to {bp}) L=10 f32, {pushes:.0f} pushes; plain: one ring tile"),
+            f"padded to {bp}) L=10 f32, {pushes:.0f} pushes ({ring_note(in3[1], bp, d, True)}; "
+            f"B3 here {ms3:.4f} ms); plain: one ring tile"),
         row("predict_bank_ring", "src/repro_torch/kernels/csrc/predict.cu",
             "src/repro/kernels/predict.py:321", ring["launches_a"]["predict_bank_ring"], err_r2,
             ms_r2, plain_r2, flops2, bytes2, None,
@@ -1721,10 +1772,12 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
             "torch.matmul (library_ms): no path of this run launches the scores epilogue"),
     ]
     kernels += ring_7b_rows(dev, args, ring, row)
-    print(f"  B6 train (Algorithm 1): kernel {ms_r:.4f} ms (B1 {ms1:.4f}), plain {plain_r:.1f} ms; "
-          f"(Algorithm 2): kernel {ms_r3:.4f} ms (B3 {ms3:.4f}), plain {plain_r3:.1f} ms; B3 at "
-          f"Fig 3's shape {f10['ms']:.4f} ms; B6 serve: ovr step {ms_r2:.4f} ms (B2 {ms2:.4f}), "
-          f"scores at Q={len(Qs)} {ms_rs:.4f} ms (B2 {ms_s:.4f})")
+    print(f"  B6 train (Algorithm 1): kernel {ms_r:.4f} ms ({ring_note(args1[1], bp, d, False)}; "
+          f"B1 {ms1:.4f}), plain {plain_r:.1f} ms; (Algorithm 2): kernel {ms_r3:.4f} ms "
+          f"({ring_note(in3[1], bp, d, True)}; B3 {ms3:.4f}), plain {plain_r3:.1f} ms; B4 at "
+          f"Fig 3's shape {ms4:.4f} ms (B3's small layout there, L=10: {f10['ms']:.4f}); B6 "
+          f"serve: ovr step {ms_r2:.4f} ms (B2 {ms2:.4f}), scores at Q={len(Qs)} {ms_rs:.4f} ms "
+          f"(B2 {ms_s:.4f})")
     print(f"  B1 at phase 3's chunk {ms1:.4f} ms ({layout_note(plan1)}); B3 at 4b's launch "
           f"{ms3:.4f} ms ({layout_note(plan3)}, {pushes:.0f} pushes, {flushes3} flushes); B3 at "
           f"Fig 3's launch L=10 {f10['ms']:.4f} ms ({layout_note(f10['plan'])}, "
@@ -1786,10 +1839,11 @@ def ring_7b_rows(dev, args, ring, row):
         "streamsvm_scan_ring[7b]", src, ref, lb["streamsvm_scan_many_ring"], err, ms, plain,
         4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32,
         4.0 * (n * d + b * n + 2 * b * d + 6 * b), None,
-        f"phase 7b's Algorithm-1 launch: N={n} D={d} B={b} f32 (B1 at this launch {ms_b1:.3f} "
-        f"ms: {layout_note(plan_b1)}); max_abs_err over the {b - len(parted)} models "
-        "whose m the plain version matches"))
-    notes.append(f"Algorithm 1 {ms:.3f} ms (B1 {ms_b1:.3f}: {layout_note(plan_b1)}), "
+        f"phase 7b's Algorithm-1 launch: N={n} D={d} B={b} f32, {ring_note(inp[1], bp, d, False)} "
+        f"(B1 at this launch {ms_b1:.3f} ms: {layout_note(plan_b1)}); max_abs_err over the "
+        f"{b - len(parted)} models whose m the plain version matches"))
+    notes.append(f"Algorithm 1 {ms:.3f} ms ({ring_note(inp[1], bp, d, False)}; B1 {ms_b1:.3f}: "
+                 f"{layout_note(plan_b1)}), "
                  f"plain {plain / 1e3:.1f} s, {len(parted)} models part on ties: {parted}")
     if b7["la_m"] is not None:
         kw = dict(lookahead=torch.where(live, 10, 1).to(torch.int32), lookahead_max=10,
@@ -1809,9 +1863,11 @@ def ring_7b_rows(dev, args, ring, row):
             2.0 * b * n * d + 2.0 * n * d + 3.0 * d * pushes,
             4.0 * (n * d + b * n + 2 * b * d + 6 * b), None,
             f"phase 7b's Algorithm-2 launch: N={n} D={d} B={b} L=10 f32, {pushes:.0f} pushes, "
-            f"{flushes} flushes (B3 at this launch {ms_b3:.3f} ms: {layout_note(plan_b3)}); "
+            f"{flushes} flushes, {ring_note(inp[1], bp, d, True)} (B3 at this launch "
+            f"{ms_b3:.3f} ms: {layout_note(plan_b3)}); "
             f"max_abs_err over the {b - len(parted)} models whose m the plain version matches"))
-        notes.append(f"Algorithm 2 {ms:.3f} ms (B3 {ms_b3:.3f}: {layout_note(plan_b3)}), plain "
+        notes.append(f"Algorithm 2 {ms:.3f} ms ({ring_note(inp[1], bp, d, True)}; B3 "
+                     f"{ms_b3:.3f}: {layout_note(plan_b3)}), plain "
                      f"{plain / 1e3:.1f} s, {len(parted)} models part on ties: {parted}")
     # The ovr serve of 7b's held-out rows, as ops.predict_bank hands it over.
     nc = b7["n_classes"]

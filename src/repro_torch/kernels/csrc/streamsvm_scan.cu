@@ -71,28 +71,27 @@
 // D) slabs cycled through a 2-slot VMEM ring. Here the loops are inverted
 // as on the TPU: persistent CTAs (n_ctas, by default one per SM) each own
 // J tiles of LANES models (tile j of CTA c is c + j n_ctas) and walk the
-// stream once for all of them. Per 32-row block a CTA stages each RDC-column
-// chunk of the stream into shared memory once per pass over D and uses it
-// for all J tiles: the h pass, then (Algorithm 1) the deferred update pass.
-// The tiles' w chunks are the ring's unit: a pass is a sequence of steps
-// (chunk-major, tile-minor), and the (LANES, RDC) chunk of step t + 1 is
-// copied into the other of two shared-memory slots by cp.async before the
-// compute on step t starts (the counterpart of pltpu.make_async_copy). New
-// w values go from registers straight to device memory: a store does not
-// hold the thread, and the slot it came from is free once the step's
-// closing barrier passes. When J <= 2 and two whole (LANES, D) tiles fit,
-// each tile owns a slot instead ("owned"): loaded once at the start,
-// updated in shared memory, stored once at the end, as the TPU kernel does
-// with <= 2 tiles. h and then alpha * y of each tile (LANES x 32 floats)
-// and its scalars (r, xi2, |w|^2, decay, m, cnt) stay in shared memory
-// between the passes. The lookahead branch (Algorithm 2) has the h pass
-// only; its pushes and flushes are B3's flush_window on the w row in place
-// (the owned slot, or device memory) and the windows stay in device memory
-// as in B3. Each model's arithmetic is B1's / B3's operation for operation
-// (h over d ascending, the row recursion, the deferred update's k order),
-// so the ring equals B1 / B3 bit for bit at every J. Bound: B1's / B3's
-// work; the ring saves the stream's re-reads (each block once per CTA, not
-// once per 8 models) at the cost of barriers per step.
+// stream once for all of them: each staged stream chunk serves every tile
+// of the CTA, so the stream is read once per CTA, not once per 8 models.
+// The passes are the resident layout's: the stream copied a chunk ahead by
+// cp.async (stage_chunk), the Gram from the block's first step
+// (stage_gram), the h pass register-tiled (h_tile) and the deferred update
+// (update_chunk) on a warp pair per tile, the row recursion B1's / B3's
+// (alg1_rows, alg2_rows_warp), a step loop that does not divide. Three
+// layouts (the wrapper's ring_plan picks the first that fits the budget):
+// "owned", J <= 2 tiles' whole rows in shared memory for the launch (with
+// J = 1 the resident layout's work); "cycling", the w chunks of each step
+// copied into one of three slots two steps ahead (16-byte copies where the
+// rows are aligned), the new w written straight to device memory, up to 4
+// tiles a step; and "lean", the cycling layout with 32-column chunks and
+// one tile a step, at most 16,640 + 1,216 J bytes (1,024 more with
+// lookahead) at J tiles per CTA, for budgets below the chunked kernels'.
+// B3's windows stay in device memory, and its flushes rewrite w in place
+// (the owned rows, or device memory). Each
+// model's arithmetic is B1's / B3's operation for operation (h one
+// ascending chain over d from 0.f, the recursion, the update's k order),
+// so the ring equals B1 / B3 bit for bit at every J and in every layout.
+// Bound: B1's / B3's work; what the ring saves is the stream's re-reads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -465,309 +464,6 @@ int launch(const void* X, const void* Y, void* G, void* W, void* R, void* XI2,
 }
 
 // ---------------------------------------------------------------------------
-// B6 train: the ring
-// ---------------------------------------------------------------------------
-
-constexpr int RDC = 64;     // ring columns per chunk
-constexpr int RING_ST = 6;  // scalars per model: r, xi2, wsq, decay, m, cnt
-
-// Dynamic shared memory of scan_ring_kernel, in bytes: the two slots, then
-// per tile h / alpha*y (LANES x BN) and the scalars, then (lookahead) the
-// flush masks. Static: xs and gs.
-size_t ring_dyn_bytes(int d, int jmax, int owned, int look) {
-  const long dp = (long)(d + RDC - 1) / RDC * RDC;
-  const long pitch = owned ? dp : RDC;
-  return sizeof(float) * (2 * LANES * pitch + (long)jmax * LANES * (BN + RING_ST) +
-                          (look ? LANES * 32 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start the copy of columns [c0, c0 + cols) of the LANES rows from lane0
-// into dst (row pitch `pitch`), as one cp.async group of every thread;
-// columns past d are zero-filled.
-__device__ __forceinline__ void ring_load(float* dst, int pitch, const float* W,
-                                          long lane0, int d, int c0, int cols,
-                                          int tid) {
-  for (int e = tid; e < LANES * cols; e += THREADS) {
-    const int l = e / cols, c = e % cols;
-    const int col = c0 + c;
-    const bool ok = col < d;
-    cp_async4(dst + l * pitch + c, W + (lane0 + l) * d + (ok ? col : 0), ok);
-  }
-  cp_async_commit();
-}
-
-template <typename T>
-__device__ __forceinline__ void stage_x(float (*xs)[RDC + 1], const T* X,
-                                        long row0, int n, int d, int c0, int tid) {
-  for (int e = tid; e < BN * RDC; e += THREADS) {
-    const int j = e / RDC, c = e % RDC;
-    const int col = c0 + c;
-    xs[j][c] = (row0 + j < n && col < d) ? ld(X, (row0 + j) * d + col) : 0.f;
-  }
-}
-
-template <typename T, bool LOOK>
-__global__ void __launch_bounds__(THREADS)
-scan_ring_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-                 const float* __restrict__ G, float* W, float* __restrict__ R,
-                 float* __restrict__ XI2, int* __restrict__ M,
-                 const float* __restrict__ CINV, const float* __restrict__ GAIN,
-                 const int* __restrict__ LA, float* __restrict__ BUF, int n,
-                 int n_valid, int d, int tiles, int jmax, int owned, int l_max) {
-  __shared__ float xs[BN][RDC + 1];
-  __shared__ float gs[BN][BN + 1];
-  extern __shared__ float dyn[];
-  const int dp = (d + RDC - 1) / RDC * RDC;
-  const int pitch = owned ? dp : RDC;
-  float* slots = dyn;                       // [2][LANES][pitch]
-  float* hs = slots + 2 * LANES * pitch;    // [jmax][LANES][BN]
-  float* st = hs + jmax * LANES * BN;       // [jmax][RING_ST][LANES]
-  int* sti = (int*)st;
-  unsigned* rmask = (unsigned*)(st + jmax * RING_ST * LANES);  // [LANES][32]
-  float (*xsv)[RDC + 1] = xs;  // the lambdas below take it by value
-  const int tid = threadIdx.x;
-  const int wl = tid >> 5;  // model within a tile
-  const int t = tid & 31;   // row within the block
-  const int nct = gridDim.x;
-  const int J = (tiles - (int)blockIdx.x + nct - 1) / nct;
-  const int nchunks = dp / RDC;
-  const int steps = nchunks * J;
-  auto lane0 = [&](int j) { return (long)(blockIdx.x + j * nct) * LANES; };
-  auto sv = [&](int j, int k) -> float& { return st[(j * RING_ST + k) * LANES + wl]; };
-  auto si = [&](int j, int k) -> int& { return sti[(j * RING_ST + k) * LANES + wl]; };
-  // The w row of model wl of tile j: its owned slot, or device memory.
-  auto wrow = [&](int j) -> float* {
-    return owned ? slots + (j * LANES + wl) * pitch : W + (lane0(j) + wl) * d;
-  };
-
-  for (int j = 0; j < J; ++j) {
-    const long lane = lane0(j) + wl;
-    const float* w = W + lane * d;
-    float wsq = 0.f;
-    for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
-    wsq = warp_sum(wsq);
-    if (t == 0) {
-      sv(j, 0) = R[lane];
-      sv(j, 1) = XI2[lane];
-      sv(j, 2) = wsq;
-      si(j, 4) = M[lane];
-      si(j, 5) = 0;
-    }
-  }
-  if (owned) {
-    for (int j = 0; j < J; ++j)
-      ring_load(slots + j * LANES * pitch, pitch, W, lane0(j), d, 0, dp, tid);
-    cp_async_wait<0>();
-  }
-  __syncthreads();
-
-  // One pass over D: for every step (chunk ch, tile j), body(j, c0, wsrc)
-  // with the tile's (LANES, RDC) w chunk at wsrc (row pitch `pitch`).
-  auto pass = [&](auto&& body, long row0) {
-    if (!owned) ring_load(slots, RDC, W, lane0(0), d, 0, RDC, tid);
-    int step = 0;
-    for (int ch = 0; ch < nchunks; ++ch) {
-      const int c0 = ch * RDC;
-      stage_x(xsv, X, row0, n, d, c0, tid);
-      for (int j = 0; j < J; ++j, ++step) {
-        float* wsrc;
-        if (owned) {
-          wsrc = slots + j * LANES * pitch + c0;
-        } else {
-          if (step + 1 < steps) {  // prefetch step + 1 before computing step
-            const int nj = (step + 1) % J, nc = (step + 1) / J;
-            ring_load(slots + ((step + 1) & 1) * LANES * RDC, RDC, W, lane0(nj),
-                      d, nc * RDC, RDC, tid);
-            cp_async_wait<1>();
-          } else {
-            cp_async_wait<0>();
-          }
-          wsrc = slots + (step & 1) * LANES * RDC;
-        }
-        __syncthreads();  // xs and this step's slot are in place
-        body(j, c0, wsrc);
-        __syncthreads();  // the slot (and xs) may be refilled
-      }
-    }
-  };
-
-  const int nblocks = (n + BN - 1) / BN;
-  for (int blk = 0; blk < nblocks; ++blk) {
-    const long row0 = (long)blk * BN;
-    const long row = row0 + t;
-
-    // h = <w, x_row> for every tile, summed over D in ascending order.
-    for (int j = 0; j < J; ++j) hs[(j * LANES + wl) * BN + t] = 0.f;
-    pass(
-        [&](int j, int c0, float* wsrc) {
-          const float* wr = wsrc + wl * pitch;
-          float h = hs[(j * LANES + wl) * BN + t];
-#pragma unroll 8
-          for (int c = 0; c < RDC; ++c) h = fmaf(wr[c], xsv[t][c], h);
-          hs[(j * LANES + wl) * BN + t] = h;
-        },
-        row0);
-    for (int e = tid; e < BN * BN; e += THREADS)
-      gs[e / BN][e % BN] = G[row0 * BN + e];
-    __syncthreads();
-
-    const int left = n - (int)row0;
-    const int kmax = left < BN ? left : BN;
-    for (int j = 0; j < J; ++j) {
-      const long lane = lane0(j) + wl;
-      float* hj = hs + (j * LANES + wl) * BN;
-      const float ys = row < n ? ld(Y, lane * n + row) : 0.f;
-      float r = sv(j, 0), xi2 = sv(j, 1), wsq = sv(j, 2);
-      int m = si(j, 4);
-      const float cinv = CINV[lane], gain = GAIN[lane];
-      float g = ys * hj[t];
-      if constexpr (!LOOK) {
-        float alpha = 0.f, decay = 1.f;
-        for (int j2 = 0; j2 < BN; ++j2) {
-          const float gj = __shfl_sync(FULL, g, j2);
-          const float yj = __shfl_sync(FULL, ys, j2);
-          const float gjj = gs[j2][j2];
-          const float d2 = wsq - 2.0f * gj + gjj + xi2 + cinv;
-          const float dist = sqrtf(fmaxf(d2, 1e-12f));
-          const bool upd = dist >= r && row0 + j2 < n_valid && yj != 0.0f;
-          float s = 0.f;
-          if (upd) s = 0.5f * (1.0f - r / dist);
-          const float one_s = 1.0f - s;
-          g = one_s * g + (s * yj) * (ys * gs[j2][t]);
-          alpha = (t == j2) ? s : one_s * alpha;
-          decay = decay * one_s;
-          wsq = one_s * one_s * wsq + 2.0f * s * one_s * gj + s * s * gjj;
-          if (upd) {
-            r = r + 0.5f * (dist - r);
-            m += 1;
-          }
-          xi2 = xi2 * one_s * one_s + s * s * gain;
-        }
-        hj[t] = alpha * ys;
-        if (t == 0) sv(j, 3) = decay;
-      } else {
-        const int L = LA[lane];
-        int cnt = si(j, 5);
-        float* w = wrow(j);
-        float* win = BUF + lane * (long)l_max * d;
-        for (int j2 = 0; j2 < BN; ++j2) {
-          const float gj = __shfl_sync(FULL, g, j2);
-          const float yj = __shfl_sync(FULL, ys, j2);
-          const float gjj = gs[j2][j2];
-          const float d2 = wsq - 2.0f * gj + gjj + xi2 + cinv;
-          const float dist = sqrtf(fmaxf(d2, 1e-12f));
-          // Uniform across the warp: every lane holds the model's scalars.
-          if (!(dist >= r && row0 + j2 < n_valid && yj != 0.0f)) continue;
-          float* p = win + (long)cnt * d;
-          for (int c = t; c < d; c += 32) p[c] = yj * ld(X, (row0 + j2) * d + c);
-          __syncwarp();
-          cnt += 1;
-          m += 1;  // counted at push
-          if (cnt >= L) {
-            flush_window(w, win, cnt, rmask + wl * 32, r, xi2, cinv, gain, g, ys,
-                         X, row0, j2 + 1, kmax, d, t);
-            cnt = 0;
-            wsq = 0.f;
-            for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
-            wsq = warp_sum(wsq);
-          }
-        }
-        if (t == 0) si(j, 5) = cnt;
-      }
-      if (t == 0) {
-        sv(j, 0) = r;
-        sv(j, 1) = xi2;
-        sv(j, 2) = wsq;
-        si(j, 4) = m;
-      }
-    }
-    __syncthreads();  // alpha*y, decay and flushed w rows are read next
-
-    if constexpr (!LOOK) {
-      // Deferred update: w <- decay * w + sum_k (alpha_k y_k) x_k.
-      pass(
-          [&](int j, int c0, float* wsrc) {
-            const float* ay = hs + (j * LANES + wl) * BN;
-            const float decay = sv(j, 3);
-            float* wr = wsrc + wl * pitch;
-            float* wout = W + (lane0(j) + wl) * d + c0;
-            for (int cc = t; cc < RDC && c0 + cc < d; cc += 32) {
-              float acc = 0.f;
-              for (int k = 0; k < kmax; ++k) acc = fmaf(ay[k], xsv[k][cc], acc);
-              const float nw = decay * wr[cc] + acc;
-              if (owned) wr[cc] = nw;
-              else wout[cc] = nw;
-            }
-          },
-          row0);
-    }
-  }
-  for (int j = 0; j < J; ++j) {
-    const long lane = lane0(j) + wl;
-    float r = sv(j, 0), xi2 = sv(j, 1);
-    if constexpr (LOOK) {
-      const int cnt = si(j, 5);
-      if (cnt > 0) {  // the partial window, after the call's last row
-        float g = 0.f;
-        flush_window(wrow(j), BUF + lane * (long)l_max * d, cnt, rmask + wl * 32,
-                     r, xi2, CINV[lane], GAIN[lane], g, 0.f, X, 0, 0, 0, d, t);
-      }
-    }
-    if (t == 0) {
-      R[lane] = r;
-      XI2[lane] = xi2;
-      M[lane] = si(j, 4);
-    }
-  }
-  if (owned) {
-    __syncthreads();
-    for (int j = 0; j < J; ++j)
-      for (int e = tid; e < LANES * d; e += THREADS) {
-        const int l = e / d, c = e % d;
-        W[(lane0(j) + l) * d + c] = slots[(j * LANES + l) * pitch + c];
-      }
-  }
-}
-
-template <typename T, bool LOOK>
-int launch_ring(const void* X, const void* Y, void* G, void* W, void* R, void* XI2,
-                void* M, const void* CINV, const void* GAIN, const void* LA,
-                void* BUF, int n, int n_valid, int d, int bp, int l_max,
-                int n_ctas, int owned, cudaStream_t s) {
-  const int tiles = bp / LANES;
-  const int jmax = (tiles + n_ctas - 1) / n_ctas;
-  const size_t dyn = ring_dyn_bytes(d, jmax, owned, LOOK);
-  cudaError_t err = cudaFuncSetAttribute((const void*)scan_ring_kernel<T, LOOK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dyn);
-  if (err != cudaSuccess) return (int)err;
-  const int nblocks = (n + BN - 1) / BN;
-  block_gram_kernel<T><<<nblocks, THREADS, 0, s>>>((const T*)X, (float*)G, n, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_ring_kernel<T, LOOK><<<n_ctas, THREADS, dyn, s>>>(
-      (const T*)X, (const T*)Y, (const float*)G, (float*)W, (float*)R,
-      (float*)XI2, (int*)M, (const float*)CINV, (const float*)GAIN,
-      (const int*)LA, (float*)BUF, n, n_valid, d, tiles, jmax, owned, l_max);
-  return (int)cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
 // B1 and B3 with the CTA's bank tile resident (the "resident" layout), and
 // B3 for a small bank (the "small" layout: one CTA for each live model)
 // ---------------------------------------------------------------------------
@@ -776,20 +472,22 @@ constexpr int SMALL_THREADS = 256;  // the small layout's CTA
 constexpr int SMALL_WARPS = SMALL_THREADS / 32;
 
 // Elements of T in one 16-byte copy, and the row pitch (in elements) of a
-// staged (BN, DC) chunk of the stream: one copy more than DC, so that the
-// 16-byte reads of 8 consecutive rows by a quarter warp fall in distinct
-// banks.
+// staged (BN, CW) chunk of the stream (CW = DC, or the ring's lean chunk):
+// one copy more than CW, so that the 16-byte reads of 8 consecutive rows by
+// a quarter warp fall in distinct banks.
 template <typename T>
 __host__ __device__ constexpr int vec_of() { return 16 / (int)sizeof(T); }
-template <typename T>
-__host__ __device__ constexpr int xpitch() { return DC + vec_of<T>(); }
+template <typename T, int CW = DC>
+__host__ __device__ constexpr int xpitch() { return CW + vec_of<T>(); }
 
 // A w row in shared memory: D rounded up to 8 floats, zero past D (the h
 // pass reads 4 or 8 columns at a time).
 __host__ __device__ inline int wpitch(int d) { return (d + 7) / 8 * 8; }
 
-template <typename T>
-__host__ __device__ constexpr size_t chunk_bytes() { return (size_t)BN * xpitch<T>() * sizeof(T); }
+template <typename T, int CW = DC>
+__host__ __device__ constexpr size_t chunk_bytes() {
+  return (size_t)BN * xpitch<T, CW>() * sizeof(T);
+}
 
 // Dynamic shared memory of the resident layout, in bytes: two stream
 // chunks, the MPC-row bank tile, the block Gram, h / alpha*y (MPC x BN),
@@ -816,6 +514,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
                "r"(ok ? 16 : 0)
                : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 template <typename T>
 __device__ __forceinline__ T zero_of();
@@ -826,27 +531,27 @@ __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// Start the copy of rows [row0, row0 + BN) x columns [c0, c0 + DC) of X
-// into dst (pitch xpitch<T>()), raw (bf16 stays bf16), zero past n and d.
-// vec16: rows and base 16-byte aligned (and so d a multiple of a copy):
+// Start the copy of rows [row0, row0 + BN) x columns [c0, c0 + CW) of X
+// into dst (pitch xpitch<T, CW>()), raw (bf16 stays bf16), zero past n and
+// d. vec16: rows and base 16-byte aligned (and so d a multiple of a copy):
 // cp.async of 16 bytes, which the caller commits and waits for; otherwise
 // plain element loads, complete at the caller's next barrier.
-template <typename T, int NT>
+template <typename T, int NT, int CW = DC>
 __device__ __forceinline__ void stage_chunk(T* dst, const T* __restrict__ X, long row0,
                                             int n, int d, int c0, int vec16, int tid) {
   constexpr int V = vec_of<T>();
-  constexpr int P = xpitch<T>();
+  constexpr int P = xpitch<T, CW>();
   if (vec16) {
-    for (int e = tid; e < BN * (DC / V); e += NT) {
-      const int j = e / (DC / V), c = e % (DC / V) * V;
+    for (int e = tid; e < BN * (CW / V); e += NT) {
+      const int j = e / (CW / V), c = e % (CW / V) * V;
       const long row = row0 + j;
       const int col = c0 + c;
       const bool ok = row < n && col < d;
       cp_async16(dst + j * P + c, X + (ok ? row * d + col : 0), ok);
     }
   } else {
-    for (int e = tid; e < BN * DC; e += NT) {
-      const int j = e / DC, c = e % DC;
+    for (int e = tid; e < BN * CW; e += NT) {
+      const int j = e / CW, c = e % CW;
       const long row = row0 + j;
       const int col = c0 + c;
       dst[j * P + c] = (row < n && col < d) ? X[row * d + col] : zero_of<T>();
@@ -947,18 +652,21 @@ __device__ __forceinline__ void h_tile(float (&acc)[RM][RR], const float* ws, in
   }
 }
 
-// The deferred update of one staged chunk for 4 models (w rows wt + i * wp,
-// alpha*y rows ay + i * BN, decay dec[i]) and UC columns per thread,
-// c0 + cbase + lane + 32 u: each (model, column) one fmaf chain over the
-// block's rows k ascending from 0.f, then w <- decay * w + acc. One read of
-// x serves 4 models; one 16-byte read of alpha*y (4 rows of one model)
+// The deferred update of one staged (BN, CW) chunk for 4 models (alpha*y
+// rows ay + i * BN, decay dec[i]) and UC columns per thread, cbase + lane +
+// 32 u of the chunk: each (model, column) one fmaf chain over the block's
+// rows k ascending from 0.f, then w <- decay * w + acc, read from the rows
+// wt + i * wp and written to wo + i * wop (the same rows, or the models' rows
+// in device memory); wt and wo point at the chunk's first column, and only
+// the chunk's first `cols` columns (those before D) are written. One read
+// of x serves 4 models; one 16-byte read of alpha*y (4 rows of one model)
 // serves UC columns. The reads of 4 rows are issued 4 rows ahead of their
 // fmafs (and may pass kmax, inside the shared allocation; unused there).
-template <typename T, int UC>
-__device__ __forceinline__ void update_chunk(float* wt, int wp, const float* ay,
-                                             const float* dec, const T* xc, int c0, int cbase,
-                                             int kmax, int d, int lane) {
-  constexpr int P = xpitch<T>();
+template <typename T, int UC, int CW = DC>
+__device__ __forceinline__ void update_chunk(const float* wt, int wp, float* wo, long wop,
+                                             const float* ay, const float* dec, const T* xc,
+                                             int cbase, int cols, int kmax, int lane) {
+  constexpr int P = xpitch<T, CW>();
   const T* xl = xc + cbase + lane;
   float acc[4][UC];
 #pragma unroll
@@ -1009,13 +717,10 @@ __device__ __forceinline__ void update_chunk(float* wt, int wp, const float* ay,
   }
 #pragma unroll
   for (int u = 0; u < UC; ++u) {
-    const int col = c0 + cbase + lane + 32 * u;
-    if (col >= d) continue;
+    const int cc = cbase + lane + 32 * u;
+    if (cc >= cols) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* wr = wt + i * wp;
-      wr[col] = dec[i] * wr[col] + acc[i][u];
-    }
+    for (int i = 0; i < 4; ++i) wo[i * wop + cc] = dec[i] * wt[i * wp + cc] + acc[i][u];
   }
 }
 
@@ -1129,8 +834,9 @@ scan_res_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float* _
       // MPC / 2 columns a thread: w <- decay * w + sum_k (alpha_k y_k) x_k.
       const int q = MPC == 8 ? wl : 0, cbase = MPC == 8 ? 0 : 64 * wl;
       const int left = n - (int)row0;
-      update_chunk<T, MPC / 2>(wt + 4 * q * wp, wp, hs + 4 * q * BN, dec + 4 * q, xc, c0, cbase,
-                               left < BN ? left : BN, d, t);
+      float* wq = wt + 4 * q * wp + c0;
+      update_chunk<T, MPC / 2>(wq, wp, wq, wp, hs + 4 * q * BN, dec + 4 * q, xc, cbase, d - c0,
+                               left < BN ? left : BN, t);
     }
     if (last_h) {  // the row recursion of the block, one warp per model
       cp_async_wait<1>();  // the Gram (the next chunk may still be in flight)
@@ -1407,6 +1113,365 @@ int launch_small(const void* X, const void* Y, void* G, void* W, void* R, void* 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// B6 train: the ring
+// ---------------------------------------------------------------------------
+
+constexpr int RING_ST = 6;       // scalars per model: r, xi2, |w|^2, decay, m, cnt
+constexpr int RING_SLOTS = 3;    // w slots: a step's, and two steps copied ahead
+constexpr int RING_LEAN_DC = 32; // the lean layout's chunk columns
+constexpr int RING_OWNED = 0, RING_CYCLING = 1, RING_LEAN = 2;  // the layouts
+constexpr int RING_MAX_GROUP = 4;  // tiles a cycling step: one per warp pair
+
+// Tiles a step of the cycling and lean layouts, whose w slots hold that
+// many tiles' chunks (the owned layout holds every tile whole).
+__host__ __device__ inline int ring_group(int layout, int jmax) {
+  return layout == RING_LEAN ? 1 : (jmax < RING_MAX_GROUP ? jmax : RING_MAX_GROUP);
+}
+
+// Row pitch of a w slot: the cycling layout pads a row by one 16-byte copy,
+// so that the 4 models a quarter warp reads fall in distinct banks; the lean
+// layout does not, to stay within 16,640 + 1,216 J bytes.
+template <int CW>
+__host__ __device__ constexpr int ring_spitch() { return CW == DC ? CW + 4 : CW; }
+
+// Dynamic shared memory of scan_ring_kernel, in bytes (it has no static
+// bytes): two stream chunks (the lean layout's narrower), the block Gram,
+// the w storage (owned: jmax whole tiles; else RING_SLOTS slots of
+// ring_group tiles' chunks), h / alpha*y and the scalars of each tile, then
+// (lookahead) the flush masks.
+size_t ring_dyn_bytes(int d, int jmax, int layout, int look, int bf16) {
+  const bool lean = layout == RING_LEAN;
+  const size_t x = 2 * (lean ? (bf16 ? chunk_bytes<__nv_bfloat16, RING_LEAN_DC>()
+                                     : chunk_bytes<float, RING_LEAN_DC>())
+                             : (bf16 ? chunk_bytes<__nv_bfloat16>() : chunk_bytes<float>()));
+  const size_t bank = layout == RING_OWNED ? (size_t)jmax * LANES * wpitch(d)
+                      : (size_t)RING_SLOTS * ring_group(layout, jmax) * LANES *
+                            (lean ? ring_spitch<RING_LEAN_DC>() : ring_spitch<DC>());
+  return x + sizeof(float) * (BN * BN + bank + (size_t)jmax * LANES * (BN + RING_ST) +
+                              (look ? LANES * 32 : 0));
+}
+
+// B6 train, Algorithm 1 (LOOK false) or 2, on the resident layout's passes.
+// CTA c owns J tiles of LANES models (tile j is c + j * gridDim.x) and walks
+// the stream once for all of them, in steps: per 32-row block the h pass
+// over the (BN, CW) stream chunks, the row recursion of every tile, then
+// (Algorithm 1) the deferred update over the same chunks again; each chunk
+// is a step for every group of gt tiles (the warp pair q = wl / 2 takes
+// the group's tile q, as warps 0 and 1 take the resident layout's 8
+// models). The stream is copied one chunk ahead (stage_chunk), the Gram
+// from the block's first step (stage_gram). owned: the tiles' whole rows
+// live in shared memory for the launch (loaded once, stored once). Else the
+// w chunk of each step is copied into one of RING_SLOTS slots two steps
+// ahead, 16 bytes a copy where the rows allow it, and the update writes the
+// new w straight to device memory; the copies start anew at each block
+// (after a barrier), because the block's update or flushes rewrite w there.
+// Each tile's h accumulates in hs between its chunks. The row recursion is
+// B1's / B3's (alg1_rows, alg2_rows_warp), warp wl serving model wl of
+// every tile, each tile's sign and scalars read one tile ahead.
+template <typename T, bool LOOK, int CW>
+__global__ void __launch_bounds__(THREADS)
+scan_ring_kernel(const T* __restrict__ X, const T* __restrict__ Y, const float* __restrict__ G,
+                 float* W, float* __restrict__ R, float* __restrict__ XI2, int* __restrict__ M,
+                 const float* __restrict__ CINV, const float* __restrict__ GAIN,
+                 const int* __restrict__ LA, float* __restrict__ BUF, int n, int n_valid, int d,
+                 int tiles, int jmax, int layout, int l_max, int xvec16) {
+  constexpr int P = xpitch<T, CW>();
+  constexpr int V = vec_of<T>();
+  constexpr int SP = ring_spitch<CW>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int wp = wpitch(d);
+  const bool owned = layout == RING_OWNED;
+  const int slot_sz = ring_group(layout, jmax) * LANES * SP;
+  T* xb = reinterpret_cast<T*>(smem);                                     // [2][BN][P]
+  float* gs = reinterpret_cast<float*>(smem + 2 * chunk_bytes<T, CW>());  // [BN][BN]
+  float* wb = gs + BN * BN;  // owned: [jmax][LANES][wp]; else [RING_SLOTS][tiles][LANES][SP]
+  float* hs = wb + (owned ? jmax * LANES * wp : RING_SLOTS * slot_sz);  // [jmax][LANES][BN]
+  float* st = hs + jmax * LANES * BN;                                    // [jmax][RING_ST][LANES]
+  int* sti = reinterpret_cast<int*>(st);
+  unsigned* rmask = reinterpret_cast<unsigned*>(st + jmax * RING_ST * LANES);  // [LANES][32]
+  const int tid = threadIdx.x;
+  const int wl = tid >> 5;  // model within a tile
+  const int t = tid & 31;   // row within the block
+  const int nct = gridDim.x;
+  const int J = (tiles - (int)blockIdx.x + nct - 1) / nct;
+  const int gt = owned ? J : min(ring_group(layout, jmax), J);  // tiles a step
+  const int ngrp = (J + gt - 1) / gt;
+  const int nc = (d + CW - 1) / CW;
+  const int nblocks = (n + BN - 1) / BN;
+  const int steps = nblocks * (LOOK ? 1 : 2) * nc * ngrp;
+  const bool wvec16 = (d & 3) == 0;
+  auto lane0 = [&](int j) { return (long)(blockIdx.x + j * nct) * LANES; };
+  auto sv = [&](int j, int k) -> float& { return st[(j * RING_ST + k) * LANES + wl]; };
+  auto si = [&](int j, int k) -> int& { return sti[(j * RING_ST + k) * LANES + wl]; };
+  auto wrow = [&](int j) -> float* {  // the w row of model wl of tile j
+    return owned ? wb + (j * LANES + wl) * wp : W + (lane0(j) + wl) * d;
+  };
+  auto stage = [&](int blk, int ch, int buf) {
+    stage_chunk<T, THREADS, CW>(xb + buf * BN * P, X, (long)blk * BN, n, d, ch * CW, xvec16,
+                                tid);
+  };
+  // Start the copy of w chunk ch of the tiles of group grp into slot sl,
+  // zero past d: 16-byte cp.async where the rows are 16-byte aligned, else
+  // element loads (complete at the caller's next barrier).
+  auto load_w = [&](int grp, int ch, int sl) {
+    const int j0 = grp * gt;
+    const int rows = min(gt, J - j0) * LANES;
+    float* dst = wb + sl * slot_sz;
+    const int c0 = ch * CW;
+    if (wvec16) {
+      for (int e = tid; e < rows * (CW / 4); e += THREADS) {
+        const int r = e / (CW / 4), c = e % (CW / 4) * 4;
+        const int col = c0 + c;
+        const bool ok = col < d;
+        cp_async16(dst + r * SP + c, W + (lane0(j0 + r / LANES) + r % LANES) * d + (ok ? col : 0),
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < rows * CW; e += THREADS) {
+        const int r = e / CW, c = e % CW;
+        const int col = c0 + c;
+        dst[r * SP + c] = col < d ? W[(lane0(j0 + r / LANES) + r % LANES) * d + col] : 0.f;
+      }
+    }
+  };
+  // Step (ph, ch, grp) -> the next one in the block; false past its end.
+  auto next = [&](int& ph, int& ch, int& grp) {
+    if (++grp < ngrp) return true;
+    grp = 0;
+    if (++ch < nc) return true;
+    ch = 0;
+    if (LOOK || ph == 1) return false;
+    ph = 1;
+    return true;
+  };
+
+  stage(0, 0, 0);
+  cp_async_commit();
+  if (owned)
+    for (int j = 0; j < J; ++j)
+      for (int e = tid; e < LANES * wp; e += THREADS) {
+        const int l = e / wp, c = e % wp;
+        wb[j * LANES * wp + e] = c < d ? W[(lane0(j) + l) * d + c] : 0.f;
+      }
+  __syncthreads();
+  for (int j = 0; j < J; ++j) {
+    const long lane = lane0(j) + wl;
+    const float* w = wrow(j);
+    float wsq = 0.f;
+    for (int c = t; c < d; c += 32) wsq = fmaf(w[c], w[c], wsq);
+    wsq = warp_sum(wsq);
+    if (t == 0) {
+      sv(j, 0) = R[lane];
+      sv(j, 1) = XI2[lane];
+      sv(j, 2) = wsq;
+      si(j, 4) = M[lane];
+      si(j, 5) = 0;
+    }
+  }
+
+  // Step s is group grp of chunk ch of pass ph (0: h, 1: update) of block
+  // blk; its stream chunk is in buffer xbuf, its w chunks in slot sl.
+  int blk = 0, ph = 0, ch = 0, grp = 0, xbuf = 0, sl = 0;
+  float ys = 0.f, cinv = 0.f, gain = 0.f;  // tile 0's, read ahead of the rows
+  int L = 1;
+  for (int s = 0; s < steps; ++s) {
+    const long row0 = (long)blk * BN;
+    const bool first = ph == 0 && ch == 0 && grp == 0;
+    const bool last_h = ph == 0 && ch == nc - 1 && grp == ngrp - 1;
+    const int sl1 = sl == RING_SLOTS - 1 ? 0 : sl + 1;
+    const int sl2 = sl1 == RING_SLOTS - 1 ? 0 : sl1 + 1;
+    if (!owned && first) {  // the block's first two steps' w, after its writers
+      __syncthreads();
+      load_w(0, 0, sl);
+      cp_async_commit();
+      int p1 = 0, c1 = 0, g1 = 0;
+      if (next(p1, c1, g1)) load_w(g1, c1, sl1);
+      cp_async_commit();
+    }
+    cp_async_wait<1>();  // all but the newest group: step s's chunks are in
+    __syncthreads();     // and every thread is past step s - 1
+    if (first) stage_gram<THREADS>(gs, G, row0, tid);
+    if (grp == 0) {  // the next stream chunk, into the other buffer
+      int nb = blk, nch = ch + 1;
+      if (nch == nc) {
+        nch = 0;
+        if (LOOK || ph == 1) ++nb;
+      }
+      if (nb < nblocks) stage(nb, nch, xbuf ^ 1);
+    }
+    cp_async_commit();
+    if (!owned) {  // step s + 2's w, when it lies in this block
+      int p2 = ph, c2 = ch, g2 = grp;
+      if (next(p2, c2, g2) && next(p2, c2, g2)) load_w(g2, c2, sl2);
+    }
+    cp_async_commit();
+    if (last_h) {
+      const long lane = lane0(0) + wl;
+      ys = row0 + t < n ? ld(Y, lane * n + row0 + t) : 0.f;
+      cinv = CINV[lane];
+      gain = GAIN[lane];
+      if constexpr (LOOK) L = LA[lane];
+    }
+    const T* xc = xb + xbuf * BN * P;
+    const int c0 = ch * CW;
+    const int q = wl >> 1, pl = wl & 1;
+    const int j = grp * gt + q;
+    if (q < gt && j < J) {
+      float* wsrc = owned ? wb + j * LANES * wp + c0 : wb + sl * slot_sz + q * LANES * SP;
+      const int wstr = owned ? wp : SP;
+      if (ph == 0) {
+        // h of tile j: warp pl of the pair takes rows 16 pl + rg + 8 r of
+        // lane 8 mg + rg, models mg + 4 i.
+        const int mg = t >> 3, rg = t & 7, row = 16 * pl + rg;
+        float* hj = hs + j * LANES * BN;
+        float acc[2][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[i][0] = ch == 0 ? 0.f : hj[(mg + 4 * i) * BN + row];
+          acc[i][1] = ch == 0 ? 0.f : hj[(mg + 4 * i) * BN + row + 8];
+        }
+        const int cols = (min(CW, d - c0) + V - 1) / V * V;
+        h_tile<T, 2, 2>(acc, wsrc + mg * wstr, 4 * wstr, xc + row * P, 8 * P, cols);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          hj[(mg + 4 * i) * BN + row] = acc[i][0];
+          hj[(mg + 4 * i) * BN + row + 8] = acc[i][1];
+        }
+      } else {
+        // The deferred update of tile j: warp pl of the pair takes models
+        // 4 pl .. 4 pl + 3, every column of the chunk.
+        const int left = n - (int)row0;
+        const int kmax = left < BN ? left : BN;
+        const float* ay = hs + (j * LANES + 4 * pl) * BN;
+        const float* dec = st + (j * RING_ST + 3) * LANES + 4 * pl;
+        float* wr = wsrc + 4 * pl * wstr;
+        if (owned)
+          update_chunk<T, CW / 32, CW>(wr, wstr, wr, wstr, ay, dec, xc, 0, d - c0, kmax, t);
+        else
+          update_chunk<T, CW / 32, CW>(wr, wstr, W + (lane0(j) + 4 * pl) * d + c0, d, ay, dec,
+                                       xc, 0, d - c0, kmax, t);
+      }
+    }
+    if (last_h) {  // the row recursion of every tile, warp wl serving model wl
+      cp_async_wait<1>();  // the Gram (the next chunk may still be in flight)
+      __syncthreads();     // and every tile's h
+      for (int jj = 0; jj < J; ++jj) {
+        const long lane = lane0(jj) + wl;
+        const float ysj = ys, cinvj = cinv, gainj = gain;
+        const int Lj = L;
+        if (jj + 1 < J) {  // the next tile's, read ahead of this tile's rows
+          const long nl = lane0(jj + 1) + wl;
+          ys = row0 + t < n ? ld(Y, nl * n + row0 + t) : 0.f;
+          cinv = CINV[nl];
+          gain = GAIN[nl];
+          if constexpr (LOOK) L = LA[nl];
+        }
+        float* hj = hs + (jj * LANES + wl) * BN;
+        float r = sv(jj, 0), xi2 = sv(jj, 1), wsq = sv(jj, 2);
+        int m = si(jj, 4);
+        float g = ysj * hj[t];
+        if constexpr (!LOOK) {
+          float alpha = 0.f, decay = 1.f;
+          alg1_rows(g, alpha, decay, wsq, r, xi2, m, ysj, gs, BN, cinvj, gainj, row0, n_valid, t);
+          hj[t] = alpha * ysj;
+          if (t == 0) sv(jj, 3) = decay;
+        } else {
+          int cnt = si(jj, 5);
+          float* win = BUF + lane * (long)l_max * d;
+          if (owned)  // two calls, so each knows where its w row lives
+            alg2_rows_warp(wb + (jj * LANES + wl) * wp, win, cnt, m, rmask + wl * 32, wsq, r,
+                           xi2, g, ysj, gs, BN, cinvj, gainj, Lj, X, row0, n, n_valid, d, t);
+          else
+            alg2_rows_warp(W + lane * d, win, cnt, m, rmask + wl * 32, wsq, r, xi2, g, ysj, gs,
+                           BN, cinvj, gainj, Lj, X, row0, n, n_valid, d, t);
+          if (t == 0) si(jj, 5) = cnt;
+        }
+        if (t == 0) {
+          sv(jj, 0) = r;
+          sv(jj, 1) = xi2;
+          sv(jj, 2) = wsq;
+          si(jj, 4) = m;
+        }
+      }
+    }
+    sl = sl1;
+    if (++grp == ngrp) {
+      grp = 0;
+      xbuf ^= 1;
+      if (++ch == nc) {
+        ch = 0;
+        if (LOOK || ph == 1) {
+          ph = 0;
+          ++blk;
+        } else {
+          ph = 1;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  for (int j = 0; j < J; ++j) {
+    const long lane = lane0(j) + wl;
+    float r = sv(j, 0), xi2 = sv(j, 1);
+    if constexpr (LOOK) {
+      const int cnt = si(j, 5);
+      if (cnt > 0) {  // the partial window, after the call's last row
+        float g = 0.f;
+        flush_window(wrow(j), BUF + lane * (long)l_max * d, cnt, rmask + wl * 32, r, xi2,
+                     CINV[lane], GAIN[lane], g, 0.f, X, 0, 0, 0, d, t);
+      }
+    }
+    if (t == 0) {
+      R[lane] = r;
+      XI2[lane] = xi2;
+      M[lane] = si(j, 4);
+    }
+  }
+  if (owned) {
+    __syncthreads();
+    for (int j = 0; j < J; ++j)
+      for (int e = tid; e < LANES * d; e += THREADS) {
+        const int l = e / d, c = e % d;
+        W[(lane0(j) + l) * d + c] = wb[(j * LANES + l) * wp + c];
+      }
+  }
+}
+
+template <typename T, bool LOOK, int CW>
+int launch_ring(const void* X, const void* Y, void* G, void* W, void* R, void* XI2, void* M,
+                const void* CINV, const void* GAIN, const void* LA, void* BUF, int n,
+                int n_valid, int d, int bp, int l_max, int n_ctas, int layout, int xvec16,
+                cudaStream_t s) {
+  const int tiles = bp / LANES;
+  const int jmax = (tiles + n_ctas - 1) / n_ctas;
+  const size_t dyn = ring_dyn_bytes(d, jmax, layout, LOOK, sizeof(T) == 2);
+  cudaError_t err = cudaFuncSetAttribute((const void*)scan_ring_kernel<T, LOOK, CW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  const int nblocks = (n + BN - 1) / BN;
+  block_gram_kernel<T><<<nblocks, THREADS, 0, s>>>((const T*)X, (float*)G, n, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  scan_ring_kernel<T, LOOK, CW><<<n_ctas, THREADS, dyn, s>>>(
+      (const T*)X, (const T*)Y, (const float*)G, (float*)W, (float*)R, (float*)XI2, (int*)M,
+      (const float*)CINV, (const float*)GAIN, (const int*)LA, (float*)BUF, n, n_valid, d, tiles,
+      jmax, layout, l_max, xvec16);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool LOOK>
+int dispatch_ring(const void* X, const void* Y, void* G, void* W, void* R, void* XI2, void* M,
+                  const void* CINV, const void* GAIN, const void* LA, void* BUF, int n,
+                  int n_valid, int d, int bp, int l_max, int n_ctas, int layout, int xvec16,
+                  cudaStream_t s) {
+  if (layout == RING_LEAN)
+    return launch_ring<T, LOOK, RING_LEAN_DC>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                              n_valid, d, bp, l_max, n_ctas, layout, xvec16, s);
+  return launch_ring<T, LOOK, DC>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid, d, bp,
+                                  l_max, n_ctas, layout, xvec16, s);
+}
+
 template <typename T>
 int dispatch_res(const void* X, const void* Y, void* G, void* W, void* R, void* XI2, void* M,
                  const void* CINV, const void* GAIN, const void* LA, void* BUF, int n,
@@ -1467,42 +1532,42 @@ int streamsvm_scan_lookahead_max() { return LMAX; }
 
 // B6 train: as streamsvm_scan_many (l_max == 0, Algorithm 1) or
 // streamsvm_scan_lookahead (l_max >= 1, Algorithm 2; LA and BUF as there),
-// on n_ctas persistent CTAs (1 <= n_ctas <= bp / LANES) that cycle their
-// tiles through the ring; owned != 0 gives each tile its own slot (at most
-// two tiles per CTA). Returns the CUDA error of the launches; a layout
-// beyond the card's shared memory is refused there and never runs.
-int streamsvm_scan_ring(const void* X, const void* Y, void* G, void* W, void* R,
-                        void* XI2, void* M, const void* CINV, const void* GAIN,
-                        const void* LA, void* BUF, int n, int n_valid, int d,
-                        int bp, int l_max, int n_ctas, int owned, int bf16,
-                        void* stream) {
+// on n_ctas persistent CTAs (1 <= n_ctas <= bp / LANES), each walking the
+// stream once for its tiles. layout: RING_OWNED (each tile's whole rows in
+// shared memory; at most two tiles per CTA), RING_CYCLING (the w chunks
+// copied through the slots, ring_group tiles a step) or RING_LEAN (the same
+// with 32-column chunks, one tile a step). xvec16 as streamsvm_scan_
+// resident's vec16. Returns the CUDA error of the launches; a layout beyond
+// the card's shared memory is refused there and never runs.
+int streamsvm_scan_ring(const void* X, const void* Y, void* G, void* W, void* R, void* XI2,
+                        void* M, const void* CINV, const void* GAIN, const void* LA, void* BUF,
+                        int n, int n_valid, int d, int bp, int l_max, int n_ctas, int layout,
+                        int xvec16, int bf16, void* stream) {
   const int tiles = bp / LANES;
   if (n <= 0 || d <= 0 || bp <= 0 || bp % LANES != 0 || l_max < 0 || l_max > LMAX ||
-      n_ctas < 1 || n_ctas > tiles || (owned && (tiles + n_ctas - 1) / n_ctas > 2))
+      n_ctas < 1 || n_ctas > tiles || layout < RING_OWNED || layout > RING_LEAN ||
+      (layout == RING_OWNED && (tiles + n_ctas - 1) / n_ctas > 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (l_max > 0) {
     if (bf16)
-      return launch_ring<__nv_bfloat16, true>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
-                                              n_valid, d, bp, l_max, n_ctas, owned, s);
-    return launch_ring<float, true>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid,
-                                    d, bp, l_max, n_ctas, owned, s);
+      return dispatch_ring<__nv_bfloat16, true>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                                n_valid, d, bp, l_max, n_ctas, layout, xvec16, s);
+    return dispatch_ring<float, true>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid, d,
+                                      bp, l_max, n_ctas, layout, xvec16, s);
   }
   if (bf16)
-    return launch_ring<__nv_bfloat16, false>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
-                                             n_valid, d, bp, 0, n_ctas, owned, s);
-  return launch_ring<float, false>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid, d,
-                                   bp, 0, n_ctas, owned, s);
+    return dispatch_ring<__nv_bfloat16, false>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n,
+                                               n_valid, d, bp, 0, n_ctas, layout, xvec16, s);
+  return dispatch_ring<float, false>(X, Y, G, W, R, XI2, M, CINV, GAIN, LA, BUF, n, n_valid, d,
+                                     bp, 0, n_ctas, layout, xvec16, s);
 }
 
-// Dynamic shared memory the ring requests for jmax tiles per CTA.
-long streamsvm_scan_ring_dyn_bytes(int d, int jmax, int owned, int look) {
-  return (long)ring_dyn_bytes(d, jmax, owned, look);
+// Dynamic shared memory the ring requests for jmax tiles per CTA (its only
+// shared memory), per layout as streamsvm_scan_ring takes it.
+long streamsvm_scan_ring_dyn_bytes(int d, int jmax, int layout, int look, int bf16) {
+  return (long)ring_dyn_bytes(d, jmax, layout, look, bf16);
 }
-
-// The ring's column chunk.
-int streamsvm_scan_ring_chunk() { return RDC; }
-
 
 // The resident layout (B1 for l_max == 0, B3's bank layout for l_max >= 1;
 // arguments as streamsvm_scan_many / streamsvm_scan_lookahead): mpc (4 or

@@ -140,14 +140,15 @@ def engine_vmem_bytes(
     whatever B and D). It depends on the stream dtype (the chunks are staged
     raw), never on block_n. ``"hbm"``: B6's
     ``scan_ring_kernel`` at the layout ``ring_plan`` gives the padded bank
-    (B to whole ``b_tile`` tiles): its bytes grow with the tiles per CTA and,
-    for owned slots, with D, never with B at a fixed number of tiles per CTA.
-    ``smem_budget`` (the port's own keyword; default the card's limit): B1
-    and B3 take a layout only where it fits it (``scan_plan``: 8 models per
-    CTA, then 4, then the chunked kernels, whose bytes are the floor); the
-    ring takes owned whole-row slots only where they fit it, else it
-    cycles column chunks. The ring's lookahead windows stay in device
-    memory.
+    (B to whole ``b_tile`` tiles), also staged raw: its bytes grow with the
+    tiles per CTA and, for owned rows, with D, never with B at a fixed number
+    of tiles per CTA. ``smem_budget`` (the port's own keyword; default the
+    card's limit): B1 and B3 take a layout only where it fits it
+    (``scan_plan``: 8 models per CTA, then 4, then the chunked kernels, whose
+    bytes are the floor); the ring takes owned whole rows only where they
+    fit it, else it cycles 128-column chunks, else 32-column chunks (the
+    lean layout, below the chunked kernels' bytes). The ring's lookahead
+    windows stay in device memory.
     """
     _check_resident(bank_resident)
     bt, n_tiles = bank_tiling(b, b_tile)
@@ -157,7 +158,8 @@ def engine_vmem_bytes(
             dtype=_resolve_stream_dtype(stream_dtype), smem_budget=smem_budget,
         )["smem"]
     return ring_plan(
-        bt * n_tiles, d, lookahead=lookahead_max is not None, smem_budget=smem_budget
+        bt * n_tiles, d, lookahead=lookahead_max is not None,
+        dtype=_resolve_stream_dtype(stream_dtype), smem_budget=smem_budget,
     )["smem"]
 
 

@@ -9,12 +9,14 @@ B3  ``streamsvm_scan_lookahead_many`` (``streamsvm_scan_many`` with
     windows flushed farthest-first. The port of the lookahead branch of
     ``_block_update`` with ``_bank_flush``.
 B4  ``streamsvm_scan``: Algorithm 1 for one model on label-signed rows, the
-    port of ``_kernel`` / ``streamsvm_scan_pallas``.
+    port of ``_kernel`` / ``streamsvm_scan_pallas``, with B1's deferred
+    update; its w row in shared memory where it fits (``single_plan``).
 B6  ``streamsvm_scan_many_ring`` (and ``streamsvm_scan_lookahead_many_ring``):
     B1 and B3 for ``bank_resident="hbm"``, the port of ``_kernel_many_hbm``
     (``_call_many_hbm``): persistent CTAs that stage each stream chunk once
-    for all their bank tiles and cycle the tiles' w through a 2-slot
-    shared-memory ring. Equal to B1 / B3 bit for bit.
+    for all their bank tiles, on B1's passes, with the tiles' whole rows in
+    shared memory or their w chunks cycled through shared-memory slots
+    (``ring_plan``). Equal to B1 / B3 bit for bit.
 
 The kernels are CUDA C++ for Hopper, B1, B3 and B6 in
 ``csrc/streamsvm_scan.cu``, B4 in ``csrc/streamsvm_single.cu``; their headers
@@ -47,8 +49,6 @@ LANE_GROUP = 8
 
 #: Rows per internal block of the kernels (``BN`` in csrc/streamsvm_scan.cu).
 BLOCK_ROWS = 32
-#: Columns per chunk of B6's ring (``RDC`` in csrc/streamsvm_scan.cu).
-RING_DC = 64
 #: Shared memory one CTA may use on an H100: 227 KB, the per-block opt-in
 #: limit (cudaDevAttrMaxSharedMemoryPerBlockOptin).
 SMEM_PER_BLOCK = 232_448
@@ -64,6 +64,14 @@ SCAN_SMEM = {"stream_tile": 16_512, "bank_tile": 4_128, "block_gram": 4_224,
              "row_state": 1_024}
 #: Columns of a staged stream chunk (``DC`` in csrc/streamsvm_scan.cu).
 STREAM_DC = 128
+#: Columns of a chunk of B6's lean layout (``RING_LEAN_DC``), the ring's
+#: layout for budgets below the chunked kernels' bytes.
+RING_LEAN_DC = 32
+#: w slots of the ring's cycling layouts (``RING_SLOTS``): a step's, and two
+#: steps copied ahead.
+RING_SLOTS = 3
+#: Most tiles one step of the cycling layout takes: one per warp pair.
+RING_MAX_GROUP = 4
 #: Threads of the small layout's CTA (``SMALL_THREADS``): 8 warps.
 SMALL_THREADS = 256
 #: Models per CTA the resident layout can take (its instantiations).
@@ -83,9 +91,9 @@ def _lib() -> ctypes.CDLL:
     lib.streamsvm_scan_many.restype = ctypes.c_int
     lib.streamsvm_scan_lookahead.argtypes = [_P] * 11 + [_I] * 6 + [_P]
     lib.streamsvm_scan_lookahead.restype = ctypes.c_int
-    lib.streamsvm_scan_ring.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    lib.streamsvm_scan_ring.argtypes = [_P] * 11 + [_I] * 9 + [_P]
     lib.streamsvm_scan_ring.restype = ctypes.c_int
-    lib.streamsvm_scan_ring_dyn_bytes.argtypes = [_I] * 4
+    lib.streamsvm_scan_ring_dyn_bytes.argtypes = [_I] * 5
     lib.streamsvm_scan_ring_dyn_bytes.restype = ctypes.c_long
     lib.streamsvm_scan_resident.argtypes = [_P] * 11 + [_I] * 8 + [_P]
     lib.streamsvm_scan_resident.restype = ctypes.c_int
@@ -102,11 +110,11 @@ def _wpitch(d: int) -> int:
     return -(-d // 8) * 8
 
 
-def _chunks_bytes(dtype) -> int:
-    """Two staged (32, DC) stream chunks, raw in the stream dtype, at a row
-    pitch of DC plus one 16-byte copy."""
+def _chunks_bytes(dtype, cols=STREAM_DC) -> int:
+    """Two staged (32, cols) stream chunks, raw in the stream dtype, at a row
+    pitch of cols plus one 16-byte copy."""
     es = 2 if dtype == torch.bfloat16 else 4
-    return 2 * BLOCK_ROWS * (STREAM_DC + 16 // es) * es
+    return 2 * BLOCK_ROWS * (cols + 16 // es) * es
 
 
 def resident_smem(d: int, mpc: int, *, lookahead: bool, dtype=torch.float32) -> dict:
@@ -185,9 +193,43 @@ def _vec16(X: torch.Tensor) -> int:
 
 def _single_lib() -> ctypes.CDLL:
     lib = _build.load("streamsvm_single")
-    lib.streamsvm_single.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.streamsvm_single.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.streamsvm_single.restype = ctypes.c_int
+    lib.streamsvm_single_dyn_bytes.argtypes = [_I] * 3
+    lib.streamsvm_single_dyn_bytes.restype = ctypes.c_long
     return lib
+
+
+#: Columns of B4's staged stream chunk where no whole 32-row block fits
+#: (``SDC`` in csrc/streamsvm_single.cu).
+SINGLE_DC = 256
+
+
+def single_smem(d: int, *, w_in_smem: bool, chunk: int = SINGLE_DC) -> dict:
+    """Dynamic shared memory of B4, bytes by term (it has no static bytes):
+    two f32 stream chunks of ``chunk`` columns at a pitch of 4 more, the
+    block Gram, h and alpha*y, the chunks' two mbarriers (16 B), and the w
+    row when it lives there."""
+    return {
+        "stream_chunks": 2 * BLOCK_ROWS * (chunk + 4) * 4,
+        "block_gram": BLOCK_ROWS * BLOCK_ROWS * 4,
+        "row_state": 2 * BLOCK_ROWS * 4,
+        "mbarriers": 16,
+        "w_row": _wpitch(d) * 4 if w_in_smem else 0,
+    }
+
+
+def single_plan(d: int) -> dict:
+    """B4's layout at D features, the first that fits the card's
+    SMEM_PER_BLOCK: whole 32-row blocks (``chunk`` = D rounded up to 4, one
+    copy a block, a block ahead) with the w row in shared memory, else
+    SINGLE_DC-column chunks with the w row in shared memory, else with w in
+    device memory (any D). Returns ``chunk``, ``w_in_smem`` and ``smem``."""
+    for chunk, ws in ((-(-d // 4) * 4, True), (SINGLE_DC, True), (SINGLE_DC, False)):
+        smem = single_smem(d, w_in_smem=ws, chunk=chunk)
+        if sum(smem.values()) <= SMEM_PER_BLOCK:
+            return dict(chunk=chunk, w_in_smem=ws, smem=smem)
+    raise AssertionError("unreachable: the last layout does not grow with D")
 
 
 def _check_args(X, Y, W0, r0, xi20, c_inv, m0, gain, block_n):
@@ -541,37 +583,68 @@ def sm_count() -> int:
     return H100_SMS
 
 
+def ring_group(layout: str, jmax: int) -> int:
+    """Tiles one step of B6's ring takes (``ring_group`` in csrc): every
+    tile when they are owned, up to RING_MAX_GROUP (one per warp pair) in
+    the cycling layout, one in the lean layout."""
+    return {"owned": jmax, "cycling": min(jmax, RING_MAX_GROUP), "lean": 1}[layout]
+
+
+def ring_smem(d: int, jmax: int, layout: str, *, lookahead: bool, dtype=torch.float32) -> dict:
+    """Dynamic shared memory of B6's ring, bytes by term (it has no static
+    bytes), for ``jmax`` tiles per CTA: two stream chunks (32 columns in the
+    lean layout, else STREAM_DC), the block Gram, the bank (``"owned"``:
+    jmax tiles' whole rows; ``"cycling"``: RING_SLOTS slots of ``ring_group``
+    tiles' chunks, rows padded by a 16-byte copy; ``"lean"``: RING_SLOTS
+    slots of one tile's 32-column chunks), h / alpha*y and six scalars per
+    model, then (lookahead) the flush masks."""
+    lean = layout == "lean"
+    cols = RING_LEAN_DC if lean else STREAM_DC
+    if layout == "owned":
+        bank = jmax * LANE_GROUP * _wpitch(d)
+    else:
+        bank = RING_SLOTS * ring_group(layout, jmax) * LANE_GROUP * (cols if lean else cols + 4)
+    return {
+        "stream_chunks": _chunks_bytes(dtype, cols),
+        "block_gram": BLOCK_ROWS * BLOCK_ROWS * 4,
+        "bank": bank * 4,
+        "h_alpha": jmax * LANE_GROUP * BLOCK_ROWS * 4,
+        "state": jmax * LANE_GROUP * 6 * 4,  # r, xi2, |w|^2, decay, m, cnt
+        "window_masks": LANE_GROUP * 32 * 4 if lookahead else 0,
+    }
+
+
 def ring_plan(
-    bp: int, d: int, *, lookahead: bool, n_ctas: int | None = None,
+    bp: int, d: int, *, lookahead: bool, n_ctas: int | None = None, dtype=torch.float32,
     smem_budget: int | None = None,
 ) -> dict:
-    """B6's launch layout for ``bp`` lanes of D features: ``n_ctas``
-    persistent CTAs (default: one per SM, at most one per tile of
-    LANE_GROUP models), ``jmax`` tiles on the busiest one, whether each tile
-    ``owned`` a whole-row slot (at most 2 tiles per CTA, and two whole tiles
-    fit ``smem_budget``, capped at the card's SMEM_PER_BLOCK), and ``smem``,
-    the shared memory per CTA by term: static (stream_tile, block_gram) and
-    dynamic (the rest). Both layouts give the same bits."""
+    """B6's launch layout for ``bp`` lanes of D features and a stream of
+    ``dtype``: ``n_ctas`` persistent CTAs (default: one per SM, at most one
+    per tile of LANE_GROUP models), ``jmax`` tiles on the busiest one, and
+    the first layout that fits ``smem_budget`` (capped at the card's
+    SMEM_PER_BLOCK): ``"owned"`` (at most 2 tiles per CTA, their whole rows
+    in shared memory), ``"cycling"`` (the w chunks copied through slots,
+    ``group`` = ``ring_group`` tiles a step) or ``"lean"`` (32-column
+    chunks, one tile a step: at most 16,640 + 1,216 jmax bytes, 1,024 more
+    with lookahead, for budgets below the chunked kernels'); the lean
+    layout where none fits (the preflight then refuses it). Returns
+    ``n_ctas``, ``jmax``, ``layout``, ``group`` and ``smem``
+    (``ring_smem``). Every layout gives the same bits."""
     tiles = bp // LANE_GROUP
     n_ctas = min(tiles, sm_count()) if n_ctas is None else int(n_ctas)
     if not 1 <= n_ctas <= tiles:
         raise ValueError(f"n_ctas must lie in [1, {tiles}] for {tiles} tiles: got {n_ctas}")
     jmax = -(-tiles // n_ctas)
-    dp = -(-d // RING_DC) * RING_DC
-
-    def terms(owned):
-        return {
-            "stream_tile": BLOCK_ROWS * (RING_DC + 1) * 4,
-            "block_gram": BLOCK_ROWS * (BLOCK_ROWS + 1) * 4,
-            "bank": 2 * LANE_GROUP * (dp if owned else RING_DC) * 4,  # the 2-slot ring
-            "h_alpha": jmax * LANE_GROUP * BLOCK_ROWS * 4,
-            "state": jmax * LANE_GROUP * 6 * 4,  # r, xi2, |w|^2, decay, m, cnt
-            "window_masks": LANE_GROUP * 32 * 4 if lookahead else 0,
-        }
-
     limit = SMEM_PER_BLOCK if smem_budget is None else min(int(smem_budget), SMEM_PER_BLOCK)
-    owned = jmax <= 2 and sum(terms(True).values()) <= limit
-    return dict(n_ctas=n_ctas, jmax=jmax, owned=owned, smem=terms(owned))
+    for layout in (("owned",) if jmax <= 2 else ()) + ("cycling", "lean"):
+        smem = ring_smem(d, jmax, layout, lookahead=lookahead, dtype=dtype)
+        if sum(smem.values()) <= limit:
+            break
+    return dict(n_ctas=n_ctas, jmax=jmax, layout=layout, group=ring_group(layout, jmax),
+                smem=smem)
+
+
+_RING_LAYOUTS = {"owned": 0, "cycling": 1, "lean": 2}  # as csrc/streamsvm_scan.cu numbers them
 
 
 def _ring_tiles(bp, ring_tile, n_ctas):
@@ -689,7 +762,7 @@ def streamsvm_scan_many_ring(
     ``streamsvm_scan_many`` (with ``lookahead`` it runs Algorithm 2,
     ``streamsvm_scan_lookahead_many_ring``). ``n_ctas``: the persistent
     CTAs (default one per SM, see ``ring_plan``), which sets the tiles each
-    cycles through its ring; ``smem_budget``: the shared memory per CTA the
+    walks the stream with; ``smem_budget``: the shared memory per CTA the
     layout may take (``ring_plan``). Neither changes a bit of the result."""
     if lookahead is not None:
         return streamsvm_scan_lookahead_many_ring(
@@ -712,7 +785,8 @@ def streamsvm_scan_many_ring(
     dev = X.device
     n, d = X.shape
     bp = Y.shape[0]
-    plan = ring_plan(bp, d, lookahead=False, n_ctas=n_ctas, smem_budget=smem_budget)
+    plan = ring_plan(bp, d, lookahead=False, n_ctas=n_ctas, dtype=X.dtype,
+                     smem_budget=smem_budget)
     X, Y = X.contiguous(), Y.contiguous()
     W, r, xi2, m, c_inv, gain = _ring_state(W0, r0, xi20, c_inv, m0, gain, dev)
     G = torch.empty(-(-n // BLOCK_ROWS) * BLOCK_ROWS * BLOCK_ROWS, device=dev,
@@ -720,8 +794,8 @@ def streamsvm_scan_many_ring(
     err = _lib().streamsvm_scan_ring(
         X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(), xi2.data_ptr(),
         m.data_ptr(), c_inv.data_ptr(), gain.data_ptr(), None, None, n, int(n_valid), d, bp,
-        0, plan["n_ctas"], int(plan["owned"]), int(X.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream,
+        0, plan["n_ctas"], _RING_LAYOUTS[plan["layout"]], _vec16(X),
+        int(X.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "streamsvm_scan_ring")
     streamsvm_scan_many_ring.launches += 1
@@ -766,7 +840,8 @@ def streamsvm_scan_lookahead_many_ring(
     if int(L.max()) > lookahead_max or int(L.min()) < 1:
         raise ValueError(f"every lookahead must lie in [1, lookahead_max={lookahead_max}]")
     n = X.shape[0]
-    plan = ring_plan(bp, d, lookahead=True, n_ctas=n_ctas, smem_budget=smem_budget)
+    plan = ring_plan(bp, d, lookahead=True, n_ctas=n_ctas, dtype=X.dtype,
+                     smem_budget=smem_budget)
     X, Y = X.contiguous(), Y.contiguous()
     W, r, xi2, m, c_inv, gain = _ring_state(W0, r0, xi20, c_inv, m0, gain, dev)
     G = torch.empty(-(-n // BLOCK_ROWS) * BLOCK_ROWS * BLOCK_ROWS, device=dev,
@@ -775,8 +850,9 @@ def streamsvm_scan_lookahead_many_ring(
     err = lib.streamsvm_scan_ring(
         X.data_ptr(), Y.data_ptr(), G.data_ptr(), W.data_ptr(), r.data_ptr(), xi2.data_ptr(),
         m.data_ptr(), c_inv.data_ptr(), gain.data_ptr(), L.data_ptr(), buf.data_ptr(), n,
-        int(n_valid), d, bp, int(lookahead_max), plan["n_ctas"], int(plan["owned"]),
-        int(X.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+        int(n_valid), d, bp, int(lookahead_max), plan["n_ctas"], _RING_LAYOUTS[plan["layout"]],
+        _vec16(X), int(X.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "streamsvm_scan_ring (lookahead)")
     streamsvm_scan_lookahead_many_ring.launches += 1
@@ -812,14 +888,17 @@ def _scalar(v, device) -> torch.Tensor:
 
 
 def streamsvm_scan_plain(X, y, w0, r0, xi20, c_inv, m0, gain, *, n_valid, block_n=256):
-    """Plain PyTorch version of B4: the TPU kernel ``_kernel``.
+    """Plain PyTorch version of B4: the TPU kernel ``_kernel`` in the CUDA
+    kernel's blocked form.
 
     Per block of ``block_n`` label-signed rows ``yx``: the Gram of ``yx`` and
     ``g = yx w``; then, row by row, the Gram-form distance, the update when
-    ``d >= r`` (row valid, sign != 0), the rank-1 maintenance of ``g`` and
-    ``w <- (1-s) w + s yx_j``. ``gain`` is the slack gain (1/C for the
-    exact variant, 1 for the paper's listing). Returns ``(w, r, xi2, m)``,
-    the scalars 0-d (m int32).
+    ``d >= r`` (row valid, sign != 0), the rank-1 maintenance of ``g``, and
+    the row's step kept as ``alpha`` and ``decay``; finally the deferred
+    ``w <- decay * w + alpha yx``, the TPU kernel's per-row
+    ``w <- (1-s) w + s yx_j`` in another order. ``gain`` is the slack gain
+    (1/C for the exact variant, 1 for the paper's listing). Returns
+    ``(w, r, xi2, m)``, the scalars 0-d (m int32).
     """
     _check_single_args(X, y, w0, block_n)
     torch.backends.cuda.matmul.allow_tf32 = False  # TF32 flips d >= r decisions
@@ -835,8 +914,11 @@ def streamsvm_scan_plain(X, y, w0, r0, xi20, c_inv, m0, gain, *, n_valid, block_
         yx = X[i0 : i0 + block_n].float() * yb[:, None]
         gram = yx @ yx.T
         g = yx @ w
+        rows = min(block_n, n - i0)
+        alpha = torch.zeros(rows, dtype=torch.float32, device=dev)
+        decay = torch.ones((), dtype=torch.float32, device=dev)
         signs = yb.tolist()
-        for jr in range(min(block_n, n - i0)):
+        for jr in range(rows):
             gj, gjj = g[jr], gram[jr, jr]
             d = torch.sqrt(torch.clamp(wsq - 2.0 * gj + gjj + xi2 + c_inv, min=1e-12))
             # A row that does not update leaves every quantity exactly as it
@@ -846,11 +928,14 @@ def streamsvm_scan_plain(X, y, w0, r0, xi20, c_inv, m0, gain, *, n_valid, block_
             s = 0.5 * (1.0 - r / d)
             one_s = 1.0 - s
             g = one_s * g + s * gram[jr]
-            w = one_s * w + s * yx[jr]
+            alpha = one_s * alpha
+            alpha[jr] = s
+            decay = decay * one_s
             wsq = one_s**2 * wsq + 2.0 * s * one_s * gj + s**2 * gjj
             r = r + 0.5 * (d - r)
             xi2 = xi2 * one_s**2 + s**2 * gain
             m = m + 1
+        w = decay * w + alpha @ yx[:rows]
     return w, r, xi2, m
 
 
@@ -876,12 +961,14 @@ def streamsvm_scan(X, y, w0, r0, xi20, c_inv, m0, gain, *, n_valid, block_n=256)
     w = w0.to(dev, torch.float32).contiguous().clone()
     S = torch.stack([_scalar(v, dev) for v in (r0, xi20, c_inv, gain)])
     m = torch.as_tensor(m0, dtype=torch.int32, device=dev).reshape(1).clone()
+    plan = single_plan(d)
     lib = _single_lib()
     bn = lib.streamsvm_single_block_rows()
     G = torch.empty(((n + bn - 1) // bn) * bn * bn, device=dev, dtype=torch.float32)
     err = lib.streamsvm_single(
         X.data_ptr(), y.data_ptr(), G.data_ptr(), w.data_ptr(), S.data_ptr(), m.data_ptr(),
-        n, int(n_valid), d, torch.cuda.current_stream(dev).cuda_stream,
+        n, int(n_valid), d, int(plan["w_in_smem"]), plan["chunk"], _vec16(X),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "streamsvm_single")
     streamsvm_scan.launches += 1

@@ -142,9 +142,16 @@ def _assert_ball_close(got, want):
     assert torch.equal(got[3], want.m)
 
 
-@pytest.mark.parametrize("n,d", [(1000, 784), (777, 90), (300, 20)])
+@pytest.mark.parametrize("n,d", [(1000, 784), (777, 90), (300, 20), (300, 4096), (100, 65_536),
+                                 (300, 1000), (300, 1001)])
 def test_single_kernel_matches_plain(cuda, n, d):
-    """B4: ragged N, a zero feature row, sign-0 rows, and a continuation."""
+    """B4: ragged N, a zero feature row, sign-0 rows, and a continuation;
+    whole 32-row blocks staged where two fit (D <= 784 here), else 256-column
+    chunks; the w row in shared memory, or in device memory where it does
+    not fit (D = 65,536)."""
+    plan = scan_mod.single_plan(d)
+    assert (plan["w_in_smem"], plan["chunk"] >= d) == (d < 65_536, d <= 784)
+    # (D = 1000 and 1001: a partial last chunk, with and without bulk copies.)
     rng = np.random.default_rng(n)
     X = rng.normal(size=(n, d)).astype(np.float32)
     X /= np.linalg.norm(X, axis=1, keepdims=True)
@@ -159,6 +166,21 @@ def test_single_kernel_matches_plain(cuda, n, d):
     got = ops.streamsvm_fit(X[n // 2 :], y[n // 2 :], 3.0, got, block_n=64)
     want = ops.streamsvm_fit(X[n // 2 :], y[n // 2 :], 3.0, want, block_n=64)
     assert streamsvm_scan.launches == before + 2
+    _assert_ball_close(got, want)
+
+
+@pytest.mark.parametrize("d", [784, 1000])
+def test_single_kernel_rows_past_n_in_a_block(cuda, d):
+    """B4 with block_n = 50: N is not a multiple of the kernel's 32-row
+    block, so the last block's rows past N are zeroed in shared memory
+    (whole blocks at D = 784, 256-column chunks at D = 1000)."""
+    rng = np.random.default_rng(d)
+    X = rng.normal(size=(437, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    y = np.sign(rng.normal(size=437)).astype(np.float32)
+    y[0] = 1.0
+    got = ops.streamsvm_fit(X, y, 3.0, device=cuda, block_n=50)
+    want = ops.streamsvm_fit(X, y, 3.0, device="cpu", block_n=50)
     _assert_ball_close(got, want)
 
 
@@ -429,6 +451,9 @@ def test_fit_kernel_bank_on_the_card_matches_the_cpu(cuda, eviction, stream_dtyp
 # ---------------------------------------------------------------------------
 
 
+_FLOOR = sum(SCAN_SMEM.values())  # the chunked kernels' bytes, whatever B and D
+
+
 def _ring_args(cuda, bp, n, d, seed, dtype=torch.float32):
     X, Y, cs = _bank_data(bp, n + 1, d, seed)
     t = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=cuda)
@@ -436,12 +461,16 @@ def _ring_args(cuda, bp, n, d, seed, dtype=torch.float32):
             t(1 / cs), t(1 / cs), t(np.ones(bp), torch.int32), t(1 / cs))
 
 
-@pytest.mark.parametrize("d", [20, 784, 1500])
+@pytest.mark.parametrize("d", [20, 90, 784, 1500, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lookahead", [False, True])
-def test_ring_equals_b1_b3_at_every_j(cuda, d, dtype, lookahead):
-    """n_ctas giving J = 1, 2, 3, 4 tiles per CTA: owned slots at J <= 2
-    (where two whole tiles fit), cycling 64-column chunks beyond."""
+@pytest.mark.parametrize("budget", [None, _FLOOR - 1])
+def test_ring_equals_b1_b3_at_every_j(cuda, d, dtype, lookahead, budget):
+    """n_ctas giving J = 1, 2, 3, 4, 5 tiles per CTA, ragged N and n_valid, in
+    each layout: owned rows at J <= 2 where they fit and cycling 128-column
+    chunks beyond (the card's budget), the lean 32-column layout under a
+    budget below the chunked kernels' bytes. D = 90 (and 1500 in bf16)
+    copies w and the stream without 16-byte copies."""
     bp, n = 32, 600
     args = _ring_args(cuda, bp, n, d, seed=d, dtype=dtype)
     kw = dict(n_valid=n - 7, block_n=n)
@@ -453,21 +482,30 @@ def test_ring_equals_b1_b3_at_every_j(cuda, d, dtype, lookahead):
     else:
         ref = streamsvm_scan_many(*args, **kw)
         ring, counter = streamsvm_scan_many_ring, streamsvm_scan_many_ring
+    layouts = []
     for n_ctas, j in ((4, 1), (2, 2), (1, 4)):
-        assert ring_plan(bp, d, lookahead=lookahead, n_ctas=n_ctas)["jmax"] == j
+        plan = ring_plan(bp, d, lookahead=lookahead, n_ctas=n_ctas, dtype=dtype,
+                         smem_budget=budget)
+        assert plan["jmax"] == j and sum(plan["smem"].values()) <= (budget or 232_448)
+        layouts.append(plan["layout"])
         before = counter.launches
-        got = ring(*args, n_ctas=n_ctas, **kw)
+        got = ring(*args, n_ctas=n_ctas, smem_budget=budget, **kw)
         assert counter.launches == before + 1
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
-    args3 = _ring_args(cuda, 24, n, d, seed=d + 1, dtype=dtype)  # J = 3: odd, cycling
-    if lookahead:
-        kw["lookahead"] = kw["lookahead"][:24]
-        ref3 = streamsvm_scan_lookahead_many(*args3, **kw)
-    else:
-        ref3 = streamsvm_scan_many(*args3, **kw)
-    for a, b in zip(ring(*args3, n_ctas=1, **kw), ref3):
-        assert torch.equal(a, b)
+    assert layouts[2] == ("cycling" if budget is None else "lean")
+    # J = 3 (odd) and J = 5 (cycling: a step of 4 tiles, then one of 1).
+    for bj in (24, 40):
+        argsj = _ring_args(cuda, bj, n, d, seed=d + bj, dtype=dtype)
+        kwj = dict(kw)
+        if lookahead:
+            kwj["lookahead"] = torch.tensor([(1, 2, 3, 7)[i % 4] for i in range(bj)],
+                                            dtype=torch.int32, device=cuda)
+            refj = streamsvm_scan_lookahead_many(*argsj, **kwj)
+        else:
+            refj = streamsvm_scan_many(*argsj, **kwj)
+        for a, b in zip(ring(*argsj, n_ctas=1, smem_budget=budget, **kwj), refj):
+            assert torch.equal(a, b)
 
 
 def _padded_args(cuda, b, n, d, seed, dtype=torch.float32):
@@ -532,9 +570,6 @@ def test_b1_equals_the_ring_in_its_layout(cuda, monkeypatch, b, d, n, dtype):
     for a, c in zip(got, ref):
         assert torch.equal(a, c)
     _assert_state_close(got, streamsvm_scan_many_plain(*args, **kw), b)
-
-
-_FLOOR = sum(SCAN_SMEM.values())  # the chunked kernels' bytes, whatever B and D
 
 
 @pytest.mark.parametrize("d,budget,want", [
@@ -755,8 +790,8 @@ def test_hbm_end_to_end_equals_vmem_on_the_card(cuda):
 def test_auto_squeezed_at_a_real_width_runs_the_cycling_ring(cuda, lookahead):
     """Under a budget just below the vmem path's smallest layout (the
     chunked kernels, 25,888 B) at D = 784, "auto" launches the ring in its
-    cycling layout (owned slots would need 67,008 B) and equals "vmem" bit
-    for bit."""
+    lean layout (32-column chunks cycled; owned rows and 128-column chunks
+    do not fit) and equals "vmem" bit for bit."""
     X, Y, cs = _bank_data(61, 500, 784, seed=9)
     kw = {} if lookahead is None else dict(variant="lookahead", lookahead=lookahead)
     ring = streamsvm_scan_many_ring if lookahead is None else streamsvm_scan_lookahead_many_ring
@@ -946,7 +981,7 @@ def test_served_step_equals_the_whole_launch(cuda, epilogue):
 def test_ring_beyond_the_cards_shared_memory_is_refused(cuda):
     """A budget above the card's 232,448 B lets the preflight pass a layout
     the card cannot hold; the launch is then refused with a RuntimeError and
-    nothing runs (here 200 tiles on one CTA: ~250 KB)."""
+    nothing runs (here 200 tiles on one CTA: ~260 KB in the lean layout)."""
     bp = 1600
     args = _ring_args(cuda, bp, 64, 16, seed=1)
     assert sum(ring_plan(bp, 16, lookahead=False, n_ctas=1)["smem"].values()) > 232_448
@@ -1000,14 +1035,36 @@ def test_byte_models_equal_what_the_kernels_allocate(cuda):
                 d, plan["models_per_cta"], int(la is not None), 0)
         assert sum(static.values()) + dyn == sum(ops.engine_vmem_bytes(
             b, d, lookahead_max=la, smem_budget=budget).values()) <= (budget or 232_448)
-    (ring_static,) = _build.static_smem("streamsvm_scan", "scan_ring_kernel")
+    # The ring: no static bytes, its dynamic request equal to the byte model
+    # in every layout and stream dtype.
+    assert _build.static_smem("streamsvm_scan", "scan_ring_kernel") == {0}
+    layouts = set()
     for b, d, la, budget in ((600, 784, None, None), (600, 784, None, 25_887),
                              (600, 784, 10, 25_887), (1536, 4096, None, None),
-                             (1536, 4096, 10, None), (64, 20, 3, None)):
-        plan = ring_plan(-(-b // 8) * 8, d, lookahead=la is not None, smem_budget=budget)
-        dyn = lib.streamsvm_scan_ring_dyn_bytes(d, plan["jmax"], int(plan["owned"]), int(la is not None))
-        assert ring_static + dyn == sum(ops.engine_vmem_bytes(
-            b, d, lookahead_max=la, bank_resident="hbm", smem_budget=budget).values())
+                             (1536, 4096, 10, None), (64, 20, 3, None), (1536, 784, 10, None),
+                             (4224, 784, None, None), (600, 90, None, 60_000)):
+        for dt, sdt in ((torch.float32, None), (torch.bfloat16, "bf16")):
+            plan = ring_plan(-(-b // 8) * 8, d, lookahead=la is not None, dtype=dt,
+                             smem_budget=budget)
+            layouts.add(plan["layout"])
+            dyn = lib.streamsvm_scan_ring_dyn_bytes(
+                d, plan["jmax"], scan_mod._RING_LAYOUTS[plan["layout"]], int(la is not None),
+                int(dt == torch.bfloat16))
+            assert dyn == sum(ops.engine_vmem_bytes(
+                b, d, lookahead_max=la, bank_resident="hbm", stream_dtype=sdt,
+                smem_budget=budget).values())
+    assert layouts == {"owned", "cycling", "lean"}
+    # B4: no static bytes; its request with w in shared or device memory.
+    slib = scan_mod._single_lib()
+    assert _build.static_smem("streamsvm_single", "single_kernel") == {0}
+    for d in (20, 90, 784, 4096, 65_536):
+        plan = scan_mod.single_plan(d)
+        assert slib.streamsvm_single_dyn_bytes(d, int(plan["w_in_smem"]), plan["chunk"]) == sum(
+            plan["smem"].values()) <= 232_448
+        for ws in (0, 1):
+            assert slib.streamsvm_single_dyn_bytes(d, ws, scan_mod.SINGLE_DC) == sum(
+                scan_mod.single_smem(d, w_in_smem=bool(ws)).values())
+    assert slib.streamsvm_single_chunk() == scan_mod.SINGLE_DC
     (pr_static,) = _build.static_smem("predict", "predict_ring_kernel")
     for ep, k in (("scores", None), ("topk", 9)):
         dyn = plib.predict_bank_ring_dyn_bytes({"scores": 0, "topk": 2}[ep], k or 0)

@@ -46,8 +46,13 @@ from repro_torch.kernels.predict import (
     predict_bank_ring_plain,
 )
 from repro_torch.kernels.streamsvm_scan import (
+    RING_LEAN_DC,
+    RING_SLOTS,
     SCAN_SMEM,
+    SMEM_PER_BLOCK,
     resident_smem,
+    ring_plan,
+    ring_smem,
     streamsvm_scan_lookahead_many_plain,
     streamsvm_scan_lookahead_many_ring_plain,
     streamsvm_scan_many_plain,
@@ -300,9 +305,9 @@ def test_predict_hbm_matches_reference_and_vmem(epilogue, kw):
 
 def test_auto_routes_at_budget_boundary():
     """auto is vmem exactly at the vmem path's smallest layout (the chunked
-    kernels, SCAN_SMEM) and hbm one byte under, where the ring (a 64-column
-    chunk) still fits. The byte model is evaluated at the budget, as
-    streamsvm_fit_many evaluates it."""
+    kernels, SCAN_SMEM) and hbm one byte under, where the ring (its lean
+    32-column layout) still fits. The byte model is evaluated at the budget,
+    as streamsvm_fit_many evaluates it."""
     model = lambda budget: lambda res: ops.engine_vmem_bytes(
         64, 64, block_n=128, b_tile=8, bank_resident=res, smem_budget=budget)
     total = sum(SCAN_SMEM.values())
@@ -339,9 +344,9 @@ def test_auto_routed_to_hbm_by_a_squeezed_budget_is_bit_exact():
 
 @pytest.mark.parametrize("lookahead", [None, 3])
 def test_auto_squeezed_at_a_real_width_cycles_chunks(lookahead):
-    """At D = 784 two owned whole-row slots (67,008 B) do not fit a budget
-    just under the vmem path's smallest layout (the chunked kernels,
-    25,888 B), but the ring's cycling 64-column chunks do: "auto" lands on
+    """At D = 784 the owned whole rows do not fit a budget just under the
+    vmem path's smallest layout (the chunked kernels, 25,888 B), but the
+    ring's lean layout, cycling 32-column chunks, does: "auto" lands on
     "hbm" in that layout, bit-equal to "vmem"."""
     b, d = 16, 784
     X, Y, cs = _bank_data(b, 200, d, seed=31)
@@ -352,7 +357,7 @@ def test_auto_squeezed_at_a_real_width_cycles_chunks(lookahead):
     assert sum(model("vmem", squeeze).values()) > squeeze  # no vmem layout fits
     assert sum(model("hbm").values()) > squeeze  # owned slots at the card's limit
     cycling = model("hbm", squeeze)
-    assert cycling["bank"] == 2 * 8 * 64 * 4 and sum(cycling.values()) <= squeeze
+    assert cycling["bank"] == RING_SLOTS * 8 * RING_LEAN_DC * 4 and sum(cycling.values()) <= squeeze
     res, by = ops.resolve_bank_resident(
         "auto", lambda r: model(r, squeeze), vmem_budget=squeeze, what="t", shapes="s")
     assert (res, by) == ("hbm", cycling)
@@ -361,17 +366,42 @@ def test_auto_squeezed_at_a_real_width_cycles_chunks(lookahead):
     _assert_equal(auto, vmem)
 
 
+@pytest.mark.parametrize("lookahead", [False, True])
+@pytest.mark.parametrize("b", [600, 1_536])
+def test_ring_plan_fits_every_budget_down_to_the_lean_bound(b, lookahead):
+    """At D = 784, ring_plan gives a layout that fits every budget from
+    16,640 + 1,216 jmax bytes (1,024 more with the window masks: 18,880 B at
+    one tile per CTA with lookahead) to the card's limit: owned where the
+    whole rows fit, else cycling 128-column chunks, else the lean 32-column
+    layout, whose bytes stay within that bound at any number of tiles per
+    CTA."""
+    bound = lambda jmax: 16_640 + jmax * 1_216 + (1_024 if lookahead else 0)
+    bp = -(-b // 64) * 64
+    jmax = ring_plan(bp, 784, lookahead=lookahead)["jmax"]
+    assert jmax == (1 if b == 600 else 2)
+    seen = set()
+    for budget in range(bound(jmax), SMEM_PER_BLOCK + 1):
+        plan = ring_plan(bp, 784, lookahead=lookahead, smem_budget=budget)
+        assert sum(plan["smem"].values()) <= budget
+        seen.add(plan["layout"])
+    assert seen == {"owned", "cycling", "lean"}
+    for j in range(1, 200):
+        assert sum(ring_smem(784, j, "lean", lookahead=lookahead).values()) <= bound(j)
+
+
 def test_hbm_without_a_tile_keeps_the_whole_bank_on_the_card():
     """With b_tile=None, "hbm" and an "auto" squeezed past vmem train with
     the bank in one tile: the card's ring unit is a lane group, so the
     derived tile stays None (the TPU derives a smaller slab)."""
     X, Y, cs = _bank_data(64, 256, 64, seed=29)
     ref = _port(X, Y, cs, block_n=64, bank_resident="vmem")
-    model = lambda res, bt: ops.engine_vmem_bytes(64, 64, block_n=64, b_tile=bt,
-                                                  bank_resident=res)
-    squeeze = sum(model("hbm", 8).values()) + 1
-    assert sum(model("vmem", None).values()) > squeeze
-    assert ops.derive_hbm_b_tile(64, lambda bt: model("hbm", bt), vmem_budget=squeeze) is None
+    model = lambda res, bt, budget=None: ops.engine_vmem_bytes(
+        64, 64, block_n=64, b_tile=bt, bank_resident=res, smem_budget=budget)
+    under = sum(SCAN_SMEM.values()) - 1  # below every vmem layout
+    squeeze = sum(model("hbm", 8, under).values()) + 1
+    assert sum(model("vmem", None, squeeze).values()) > squeeze
+    assert ops.derive_hbm_b_tile(64, lambda bt: model("hbm", bt, squeeze),
+                                 vmem_budget=squeeze) is None
     for residency in ("auto", "hbm"):
         got = _port(X, Y, cs, block_n=64, bank_resident=residency, vmem_budget_bytes=squeeze)
         _assert_equal(got, ref)
@@ -428,9 +458,9 @@ def test_byte_models_follow_the_card_layouts():
                                                          **kw).values())
     assert h(64) == h(512) == h(1056)  # one tile per CTA (132 SMs)
     assert h(2 * 1056) > h(1056)  # two tiles per CTA
-    assert h(64, d=2048) > h(64, d=784) > h(64, d=128)  # owned slots hold whole rows
-    assert h(64, d=4096) < h(64, d=784)  # two whole tiles do not fit: chunks cycle
-    assert h(1584, d=4096) == h(2112, d=4096)  # past two tiles: 64-column chunks cycle
+    assert h(64, d=4096) > h(64, d=2048) > h(64, d=784) > h(64, d=128)  # owned: whole rows
+    assert h(1584, d=4096) < h(1056, d=4096)  # two whole tiles do not fit: chunks cycle
+    assert h(1584, d=4096) == h(2112, d=4096)  # two tiles a CTA either way
     assert h(64, lookahead_max=10) == h(64) + 1_024  # the flush masks; windows in HBM
     res, _ = ops.resolve_bank_resident(
         "auto", lambda r: ops.engine_vmem_bytes(10**6, 4096, bank_resident=r),
