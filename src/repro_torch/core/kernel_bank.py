@@ -98,12 +98,14 @@ def _finish(Xf, state) -> KernelBank:
 
 
 def _fit_kernel_bank(X, Y, cs, gamma, *, kernel, coreset_size, eviction, variant, block_n,
-                     s_tile, stream_dtype, device=None, plain=False) -> KernelBank:
+                     s_tile, stream_dtype, device=None, plain=False,
+                     smem_budget=None) -> KernelBank:
     """Engine core of ``fit_kernel_bank`` (no validation of the seed signs).
 
     ``plain=True`` runs the plain versions of B5 and R1 on the same path
     whatever the device (the card's check of the kernels); otherwise their
-    wrappers dispatch on the device.
+    wrappers dispatch on the device, R1 in the layout ``rows_plan`` picks at
+    ``smem_budget``.
     """
     from ..kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
     from ..kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
@@ -159,7 +161,7 @@ def _fit_kernel_bank(X, Y, cs, gamma, *, kernel, coreset_size, eviction, variant
         k_tt = gram_fn(x_stream, x_stream.float(), an, an, gamma, epilogue=kernel)
         kbb = _pair_gram(xc, xc, kernel, gamma).contiguous() if farthest else None
         rows_fn(k_cs.contiguous(), k_tt, y_tile, idx, coef, q, r, xi2, m, c_inv, gain,
-                base=lo, n_valid=hi - lo, kbb=kbb)
+                base=lo, n_valid=hi - lo, kbb=kbb, smem_budget=smem_budget)
     return _finish(Xf, (idx, coef, q, r, xi2, m))
 
 
@@ -200,9 +202,12 @@ def fit_kernel_bank(
 
     vmem_budget_bytes: the preflight's budget (else ``ops.vmem_budget_bytes()``):
     every call holds ``ops.kernel_engine_vmem_bytes``, the shared memory per
-    CTA of B5 and R1, to it and raises with the breakdown before any launch.
-    What ``s_tile`` caps (the K_cs block, the gathered core-set operand)
-    lives in device memory, which that budget does not see.
+    CTA of B5's launches and of R1's, each on its own (they are separate
+    launches), to it and raises with the breakdown before any launch. R1
+    takes the layout ``rows_plan`` picks under the same budget, which is
+    never more than the budget, so only B5's tiles can refuse. What
+    ``s_tile`` caps (the K_cs block, the gathered core-set operand) lives
+    in device memory, which that budget does not see.
 
     ``mesh=`` (a sharded stream) is not ported yet and raises.
     """
@@ -233,20 +238,20 @@ def fit_kernel_bank(
     from ..kernels.ops import kernel_engine_vmem_bytes, vmem_budget_bytes as _vmem_budget
 
     b, d = Y.shape[0], X.shape[-1]
+    budget = _vmem_budget(vmem_budget_bytes)
     by = kernel_engine_vmem_bytes(
         b, d, coreset_size=coreset_size, block_n=block_n, s_tile=s_tile,
-        stream_dtype=stream_dtype,
+        stream_dtype=stream_dtype, eviction=eviction, smem_budget=budget,
     )
-    budget = _vmem_budget(vmem_budget_bytes)
-    if sum(by.values()) > budget:
+    if max(by.values()) > budget:
         raise ValueError(
             f"fit_kernel_bank with B={b}, D={d}, S={coreset_size}, "
-            f"block_n={block_n}, s_tile={s_tile} needs {sum(by.values())} bytes "
-            f"of shared memory per CTA (breakdown: {by}), exceeding the budget "
-            f"of {budget} bytes — raise the budget: the card's Gram tiles do not "
-            "shrink with s_tile or block_n. The budget follows "
-            "vmem_budget_bytes(): pass vmem_budget_bytes= or set "
-            "REPRO_VMEM_BUDGET_BYTES."
+            f"block_n={block_n}, s_tile={s_tile} needs {max(by.values())} bytes "
+            f"of shared memory per CTA in one launch (breakdown: {by}; B5 and R1 "
+            f"launch separately), exceeding the budget of {budget} bytes — raise "
+            "the budget: the card's Gram tiles do not shrink with s_tile or "
+            "block_n. The budget follows vmem_budget_bytes(): pass "
+            "vmem_budget_bytes= or set REPRO_VMEM_BUDGET_BYTES."
         )
     if mesh is not None:
         raise NotImplementedError(
@@ -255,7 +260,7 @@ def fit_kernel_bank(
     return _fit_kernel_bank(
         X, Y, cs, gamma, kernel=kernel, coreset_size=coreset_size, eviction=eviction,
         variant=variant, block_n=block_n, s_tile=s_tile, stream_dtype=stream_dtype,
-        device=device,
+        device=device, smem_budget=budget,
     )
 
 

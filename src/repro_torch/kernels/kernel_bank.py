@@ -18,22 +18,35 @@ Both advance the state tensors in place from the tile's Gram blocks:
 
 Rows at or past ``n_valid`` are inert; ``base`` is the stream index of the
 tile's row 0. Sums over slots are ``gram.tree_sum`` trees in both versions,
-and each operation is rounded on its own, so on the same K blocks the kernel
-and the plain version agree bit for bit. Any S >= 1 runs: the kernel keeps
-a model's slots in registers up to 256 (padded to a power of two), past that
-in a device-memory scratch the wrapper allocates. Neither takes shared
-memory.
+and each operation is rounded on its own, so on the same K blocks every
+layout of the kernel and the plain version agree bit for bit.
+
+``rows_plan`` picks the launch's layout by bytes, before the launch: the
+"staged" layout (the stream side copied into shared memory a 32-row block
+ahead, a block of rows evaluated at once against one state, one ballot per
+update) where S pads to at most 256 slots and its shared memory fits the
+budget, 2 models per CTA; else the first port's layouts, which
+take no shared memory: "registers" (S padded to at most 256) or "wide" (the
+slots in a device-memory scratch the wrapper allocates). So any S >= 1 runs
+under any budget.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .gram import tree_sum
+from .streamsvm_scan import SMEM_PER_BLOCK
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: Rows of a staged block (``BLK`` in csrc/kernel_bank.cu), blocks in
+#: flight (``NBUF``), the largest padded S the staged kernel unrolls
+#: (``STAGED_MAX_SP``) and its models per CTA (``MPC``).
+STAGED_BLOCK, STAGED_BUFFERS, STAGED_MAX_SP, STAGED_MPC = 32, 2, 256, 2
 
 
 def _lib() -> ctypes.CDLL:
@@ -42,7 +55,68 @@ def _lib() -> ctypes.CDLL:
     lib.kernel_bank_rows.restype = ctypes.c_int
     lib.kernel_bank_rows_scratch_bytes.argtypes = [_I, _I]
     lib.kernel_bank_rows_scratch_bytes.restype = ctypes.c_long
+    lib.kernel_bank_rows_staged.argtypes = [_P] * 12 + [_I] * 5 + [_P]
+    lib.kernel_bank_rows_staged.restype = ctypes.c_int
+    lib.kernel_bank_rows_staged_bytes.argtypes = [_I, _I]
+    lib.kernel_bank_rows_staged_bytes.restype = ctypes.c_long
     return lib
+
+
+def _padded(s: int) -> int:
+    return 1 << max(int(s) - 1, 0).bit_length()
+
+
+def staged_smem(s: int, *, farthest: bool = False) -> dict:
+    """Dynamic shared memory of the staged layout (its only shared memory),
+    bytes by term, as ``kernel_bank_rows_staged_bytes`` in csrc computes it:
+    two blocks of 32 rows, each row the CTA's 2 models' S values padded to
+    whole 16-byte units and pitched to an odd number of them; per model the
+    coefs, idx, in-tile rows and in-tile list (S padded to 4 words each);
+    for "farthest-point" each model's S x S Kbb slab at the same pitch rule;
+    and 32 bytes of barriers and counters."""
+    quad = lambda w: (w + 3) // 4 * 4
+    odd = lambda w: w if (w // 4) % 2 else w + 4
+    s4 = quad(int(s))
+    rp, kp = odd(STAGED_MPC * s4), odd(s4)
+    return {
+        "staged_blocks": 4 * STAGED_BUFFERS * STAGED_BLOCK * rp,
+        "slot_state": 4 * 4 * STAGED_MPC * s4,
+        "buffer_gram": 4 * STAGED_MPC * int(s) * kp if farthest else 0,
+        "barriers": 32,
+    }
+
+
+@functools.lru_cache(maxsize=256)
+def rows_plan(b: int, s: int, *, farthest: bool = False, smem_budget: int | None = None) -> dict:
+    """R1's launch layout for B models of S slots, by bytes alone (a shared
+    dict: do not change it).
+
+    "staged" where S pads to at most ``STAGED_MAX_SP`` slots and its shared
+    memory (``staged_smem``) fits ``smem_budget`` (capped at the card's
+    SMEM_PER_BLOCK); otherwise "registers" (S padded to at most 256) or
+    "wide" (the slots in a device scratch), which take no shared memory, so
+    every S runs under every budget. Returns ``layout``, ``models_per_cta``,
+    ``ctas`` and ``smem`` by term. Every layout gives the same bits."""
+    limit = SMEM_PER_BLOCK if smem_budget is None else min(int(smem_budget), SMEM_PER_BLOCK)
+    if _padded(s) <= STAGED_MAX_SP:
+        smem = staged_smem(s, farthest=farthest)
+        if sum(smem.values()) <= limit:
+            return dict(layout="staged", models_per_cta=STAGED_MPC,
+                        ctas=-(-int(b) // STAGED_MPC), smem=smem)
+    return dict(layout="registers" if _padded(s) <= STAGED_MAX_SP else "wide",
+                models_per_cta=4, ctas=-(-int(b) // 4), smem={})
+
+
+def rows_layouts(b: int, s: int, *, farthest: bool = False) -> list[dict]:
+    """Every layout ``rows_plan`` picks for B models of S slots as the budget
+    falls from the card's limit to 0: "staged" where it fits the card, then
+    the first port's. A budget of a plan's own bytes
+    (``sum(plan["smem"].values())``) launches it: tests and chip_smoke.py
+    force each layout so."""
+    out = [rows_plan(b, s, farthest=farthest)]
+    if out[0]["layout"] == "staged":
+        out.append(rows_plan(b, s, farthest=farthest, smem_budget=0))
+    return out
 
 
 def _check_args(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, kbb):
@@ -63,9 +137,10 @@ def _check_args(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, kbb):
 
 
 def kernel_bank_rows_plain(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, *,
-                           base: int, n_valid: int, kbb=None) -> None:
+                           base: int, n_valid: int, kbb=None, smem_budget=None) -> None:
     """Plain PyTorch version of R1: ``row_body`` row by row, every model at
-    once, with the reference's wheres, clamp and first-minimum argmins."""
+    once, with the reference's wheres, clamp and first-minimum argmins.
+    ``smem_budget`` is the kernel's and changes nothing here."""
     _check_args(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, kbb)
     bn, b, s_size = k_cs.shape
     farthest = kbb is not None
@@ -116,10 +191,11 @@ def kernel_bank_rows_plain(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, 
 
 
 def kernel_bank_rows(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, *,
-                     base: int, n_valid: int, kbb=None) -> None:
+                     base: int, n_valid: int, kbb=None, smem_budget=None) -> None:
     """R1 on the device of ``k_cs``: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. Arguments as in the module docstring;
-    the state (and ``kbb``) is advanced in place."""
+    the state (and ``kbb``) is advanced in place. The kernel launches the
+    layout ``rows_plan`` picks under ``smem_budget``."""
     if k_cs.device.type == "cpu":
         return kernel_bank_rows_plain(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain,
                                       base=base, n_valid=n_valid, kbb=kbb)
@@ -136,17 +212,20 @@ def kernel_bank_rows(k_cs, k_tt, y, idx, coef, q, r, xi2, m, c_inv, gain, *,
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != k_cs.device:
             raise ValueError("R1 takes contiguous int32 idx and m on the device of k_cs")
     dev = k_cs.device
-    nbytes = lib.kernel_bank_rows_scratch_bytes(b, s_size)  # slots past the registers
-    scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8) if nbytes else None
-    err = lib.kernel_bank_rows(
-        k_cs.data_ptr(), k_tt.data_ptr(), y.data_ptr(), c_inv.data_ptr(), gain.data_ptr(),
-        idx.data_ptr(), coef.data_ptr(), q.data_ptr(), r.data_ptr(), xi2.data_ptr(),
-        m.data_ptr(), kbb.data_ptr() if kbb is not None else None,
-        b, s_size, bn, int(min(n_valid, bn)), int(base),
-        None if scratch is None else scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "kernel_bank_rows")
+    plan = rows_plan(b, s_size, farthest=kbb is not None, smem_budget=smem_budget)
+    ptrs = (k_cs.data_ptr(), k_tt.data_ptr(), y.data_ptr(), c_inv.data_ptr(), gain.data_ptr(),
+            idx.data_ptr(), coef.data_ptr(), q.data_ptr(), r.data_ptr(), xi2.data_ptr(),
+            m.data_ptr(), kbb.data_ptr() if kbb is not None else None)
+    ints = (b, s_size, bn, int(min(n_valid, bn)), int(base))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan["layout"] == "staged":
+        err = lib.kernel_bank_rows_staged(*ptrs, *ints, stream)
+    else:  # the first port's layouts: registers, or the slots in a scratch
+        nbytes = lib.kernel_bank_rows_scratch_bytes(b, s_size)
+        scratch = torch.empty(nbytes, device=dev, dtype=torch.uint8) if nbytes else None
+        err = lib.kernel_bank_rows(*ptrs, *ints, None if scratch is None else scratch.data_ptr(),
+                                   stream)
+    _build.check(err, f"kernel_bank_rows ({plan['layout']})")
     kernel_bank_rows.launches += 1
 
 

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from .._device import as_tensor, pick_device
 from ..core.meb import Ball
 from .gram import GRAM_SMEM, gram_fused, row_norms, tree_sum
+from .kernel_bank import rows_plan
 from .predict import (
     NEG_MASK,
     PREDICT_RING_SMEM,
@@ -198,15 +199,22 @@ def kernel_engine_vmem_bytes(
     block_n: int = 256,
     s_tile: int | None = None,
     stream_dtype=None,
+    eviction: str = "smallest-coef",
+    smem_budget: int | None = None,
 ) -> dict:
     """Shared memory per CTA of the kernelized bank engine, bytes by term:
     B5's Gram tiles (``gram_kernel``, ``GRAM_SMEM``) and R1's row recursion
-    (``rows_kernel``, which keeps its slots in registers, or past S = 256 in
-    a device-memory scratch: 0). What ``s_tile`` caps, the
+    in the layout ``kernel_bank.rows_plan`` picks for B, S and ``eviction``
+    under ``smem_budget`` (the staged layout's blocks, slot state and, for
+    "farthest-point", the Kbb slabs; 0 for the first port's layouts, which
+    keep their slots in registers or a device scratch). The two are separate
+    launches, each held to the budget on its own. What ``s_tile`` caps, the
     (block_n, B * s_tile) K_cs block and the gathered (B * s_tile, D)
     core-set operand, lives in device memory, which no shared-memory budget
     sees."""
-    return {"gram_tiles": GRAM_SMEM, "row_recursion": 0}
+    plan = rows_plan(b, coreset_size, farthest=eviction == "farthest-point",
+                     smem_budget=smem_budget)
+    return {"gram_tiles": GRAM_SMEM, "row_recursion": sum(plan["smem"].values())}
 
 
 def derive_hbm_b_tile(b: int, byte_model_at, *, vmem_budget: int):

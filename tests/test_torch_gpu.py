@@ -26,8 +26,15 @@ from repro_torch.core.meb import _pair_gram
 from repro_torch.kernels import ops
 from repro_torch.kernels.gram import gram_fused, gram_plain, row_norms, row_norms_plain
 from repro_torch.core.kernel_bank import _fit_kernel_bank
-from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
+from repro_torch.kernels.kernel_bank import (
+    kernel_bank_rows,
+    kernel_bank_rows_plain,
+    rows_layouts,
+    rows_plan,
+    staged_smem,
+)
 from repro_torch.kernels import _build
+from repro_torch.kernels import kernel_bank as kb_mod
 from repro_torch.kernels import streamsvm_scan as scan_mod
 from repro_torch.kernels.predict import (
     TOPK_SMEM_MAX_K,
@@ -395,6 +402,171 @@ def test_rows_kernel_slots_in_device_memory(cuda):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[5] - state[5]).sum()) > 0
+
+
+def _run_rows(fn, inp, kbb, **kw):
+    """One R1 call on copies of the state (and kbb); returns them."""
+    k_cs, k_tt, y, state, c_inv, base, n_valid = inp
+    st = [t.clone() for t in state]
+    kb = None if kbb is None else kbb.clone()
+    fn(k_cs, k_tt, y, *st, c_inv, c_inv, base=base, n_valid=n_valid, kbb=kb, **kw)
+    return st, kb
+
+
+def _rows_plan_spy(monkeypatch):
+    """The plans R1's wrapper takes, recorded as it launches."""
+    seen, real = [], kb_mod.rows_plan
+
+    def spy(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(kb_mod, "rows_plan", spy)
+    return seen
+
+
+def _assert_layouts_equal_plain(monkeypatch, inp, kbb, b, s):
+    """Every layout R1 can launch at (B, S), forced in turn, against the
+    plain version bit for bit: idx, coef, q, r, xi2, m and kbb. Returns the
+    plain version's state and the layouts."""
+    want, kb_w = _run_rows(kernel_bank_rows_plain, inp, kbb)
+    layouts = rows_layouts(b, s, farthest=kbb is not None)
+    seen = _rows_plan_spy(monkeypatch)
+    for plan in layouts:
+        before = kernel_bank_rows.launches
+        got, kb_g = _run_rows(kernel_bank_rows, inp, kbb, smem_budget=sum(plan["smem"].values()))
+        assert kernel_bank_rows.launches == before + 1
+        assert seen[-1] == plan
+        torch.cuda.synchronize()
+        for leaf, g, w in zip(("idx", "coef", "q", "r", "xi2", "m"), got, want):
+            assert torch.equal(g, w), (plan["layout"], leaf)
+        if kbb is not None:
+            assert torch.equal(kb_g, kb_w), (plan["layout"], "kbb")
+    return want, [p["layout"] for p in layouts]
+
+
+@pytest.mark.parametrize("farthest", [False, True])
+@pytest.mark.parametrize("s", [1, 16, 64, 129, 256, 300])
+def test_rows_every_layout_matches_plain_and_parent(cuda, monkeypatch, farthest, s):
+    """Each layout ``rows_layouts`` offers (staged where it fits the card,
+    and the first port's registers or wide layout), forced by a budget of
+    its own bytes, equals the plain version, and so the parent's layout,
+    bit for bit on a tile of real RBF blocks whose valid rows (77 of 100)
+    are not a multiple of 32, for a bank of 9 models (the last staged CTA
+    of 2 holds one)."""
+    b, bn = 9, 100
+    k_cs, k_tt, y, state, c_inv, kbb, n0 = _tile_inputs(cuda, b, s, bn, 12, 40 + s, farthest)
+    want, names = _assert_layouts_equal_plain(
+        monkeypatch, (k_cs, k_tt, y, state, c_inv, n0, 77), kbb, b, s)
+    assert int((want[5] - state[5]).sum()) > 0
+    assert names[-1] == ("wide" if s > 256 else "registers")
+    # The staged layout wherever S pads to 256 or less and fits: all but
+    # farthest-point's 256 x 256 slab.
+    assert ("staged" in names) == (s <= 129 or not farthest and s <= 256)
+
+
+_SPIKES = (0, 31, 32, 33, 63, 64, 76)  # a block's first and last rows, consecutive rows
+
+
+def _synthetic_tile(cuda, case, b, s, bn, n_valid, seed):
+    """R1's inputs built to put the updates where a case wants them (no
+    kernel need be positive definite for the recursion). Every 7th row from
+    row 1 is inert. "none": a radius no row reaches. "spikes": each model
+    updates on the spike rows (_SPIKES) it keeps live, whose K_cs values
+    grow 4x a spike. "every": fresh models whose rows' k(x, x) grow 2.5x a
+    row, so every live row updates (the seed first), evicting all along.
+    "seeding": fresh models whose first 3 + 9 b rows are inert. Returns the
+    inputs and each model's expected absorbs (-1: not fixed)."""
+    rng = np.random.default_rng(seed)
+    k_cs = rng.uniform(0.0, 0.02, size=(bn, b, s)).astype(np.float32)
+    k_tt = rng.uniform(0.0, 0.02, size=(bn, bn)).astype(np.float32)
+    k_tt = (k_tt + k_tt.T) / 2
+    np.fill_diagonal(k_tt, 1.0)
+    y = np.ones((b, bn), np.float32)
+    y[:, 1::7] = 0.0
+    idx = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    coef = np.full((b, s), 0.1, np.float32)
+    q, r, xi2 = (np.full(b, v, np.float32) for v in (1.0, 50.0, 0.1))
+    m = np.full(b, s, np.int32)
+    want = np.full(b, -1)
+    if case == "none":
+        r[:] = 1e6
+        want[:] = 0
+    elif case == "spikes":
+        y[:, list(_SPIKES)] = 1.0
+        for bi in range(b):
+            for k, i in enumerate(_SPIKES):
+                k_cs[i, bi, :] = -1000.0 * 4.0 ** k
+                if (bi + i) % 5 == 4:
+                    y[bi, i] = 0.0  # a spike on an inert row changes nothing
+            want[bi] = sum(1 for i in _SPIKES if i < n_valid and y[bi, i] != 0)
+    else:
+        idx[:] = -1
+        coef[:] = 0.0
+        q[:] = r[:] = xi2[:] = 0.0
+        m[:] = 0
+        if case == "every":
+            k_tt = np.zeros((bn, bn), np.float32)
+            np.fill_diagonal(k_tt, 2.5 ** np.minimum(np.arange(bn), 90.0))
+            k_cs[:] = 0.0
+            want[:] = (y[:, :n_valid] != 0).sum(1)
+        else:
+            for bi in range(b):
+                y[bi, : 3 + 9 * bi] = 0.0
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    state = [t(idx), t(coef), t(q), t(r), t(xi2), t(m)]
+    return (t(k_cs), t(k_tt), t(y), state, torch.full((b,), 0.5, device=cuda), 500, n_valid), want
+
+
+@pytest.mark.parametrize("farthest", [False, True])
+@pytest.mark.parametrize("n_valid", [100, 77])
+@pytest.mark.parametrize("s", [4, 16])
+@pytest.mark.parametrize("case", ["none", "spikes", "every", "seeding"])
+def test_rows_layouts_at_block_boundaries(cuda, monkeypatch, case, s, n_valid, farthest):
+    """Every layout against the plain version bit for bit where the updates
+    fall on a block's first and last rows, on consecutive rows, on every
+    live row (a tile that seeds and evicts all along), on no row, after
+    inert leading rows, with inert (sign 0) rows throughout and spikes on
+    inert rows, over 100 or 77 valid rows."""
+    b = 6
+    inp, want = _synthetic_tile(cuda, case, b, s, 100, n_valid, 7 + s)
+    kbb = None
+    if farthest:
+        kbb = torch.as_tensor(np.random.default_rng(s).uniform(0, 1, size=(b, s, s)).astype(
+            np.float32), device=cuda)
+    got, _ = _assert_layouts_equal_plain(monkeypatch, inp, kbb, b, s)
+    absorbed = (got[5] - inp[3][5]).cpu().numpy()
+    if case in ("none", "every") or (case == "spikes" and s >= 8):
+        np.testing.assert_array_equal(absorbed, want)
+    else:
+        assert (absorbed > 0).all()
+
+
+@pytest.mark.parametrize("eviction", ["smallest-coef", "farthest-point"])
+def test_rows_layouts_over_an_evicting_pass(cuda, monkeypatch, eviction):
+    """S = 4 over 6 tiles: the buffers fill in the first tile and evict in
+    every later one. The pass through each R1 layout, reached through the
+    budget (staged, then the registers layout), equals the plain path bit
+    for bit, one launch a tile."""
+    X, Y, cs = _bank_data(10, 6 * 64 - 5, 12, 11)
+    Xd, Yd, csd = (torch.as_tensor(a, device=cuda) for a in (X, Y, cs))
+    kw = dict(kernel="rbf", coreset_size=4, eviction=eviction, variant="exact", block_n=64,
+              s_tile=None, stream_dtype=None)
+    want = _fit_kernel_bank(Xd, Yd, csd, 1.0, plain=True, **kw)
+    far = eviction == "farthest-point"
+    names = []
+    spy = _rows_plan_spy(monkeypatch)
+    for plan in rows_layouts(10, 4, farthest=far):
+        budget = sum(plan["smem"].values())
+        before = kernel_bank_rows.launches
+        got = _fit_kernel_bank(Xd, Yd, csd, 1.0, smem_budget=budget, **kw)
+        assert kernel_bank_rows.launches == before + 6
+        assert spy[-6:] == [plan] * 6
+        names.append(plan["layout"])
+        for leaf in got._fields:
+            assert torch.equal(getattr(got, leaf), getattr(want, leaf)), (names[-1], leaf)
+    assert names == ["staged", "registers"]
+    assert int(want.m.sum()) > int((want.idx >= 0).sum())  # evictions ran
 
 
 @pytest.mark.parametrize("eviction", ["smallest-coef", "farthest-point"])
@@ -1071,13 +1243,24 @@ def test_byte_models_equal_what_the_kernels_allocate(cuda):
         assert pr_static + dyn == sum(ops.predict_vmem_bytes(
             96, 100, epilogue=ep, k=k, bank_resident="hbm").values())
     assert _build.static_smem("gram", "gram_kernel") == {46_080}
+    # R1: no static bytes in any layout; the staged layout's dynamic request
+    # equal to the byte model for every S it takes, and the byte model's
+    # R1 term that of the planned layout.
     assert _build.static_smem("kernel_bank", "rows_kernel") == {0}
-    assert sum(ops.kernel_engine_vmem_bytes(600, 784, coreset_size=64).values()) == 46_080
     assert _build.static_smem("kernel_bank", "rows_wide_kernel") == {0}
+    assert _build.static_smem("kernel_bank", "rows_staged_kernel") == {0}
+    assert sum(ops.kernel_engine_vmem_bytes(600, 784, coreset_size=64).values()) == 46_080 + 35_872
     klib = kb_mod._lib()
-    for s in (1, 128, 256, 257, 300, 1100, 9000):
-        assert ops.kernel_engine_vmem_bytes(600, 784, coreset_size=s)["row_recursion"] == 0
+    for s in (1, 2, 3, 16, 64, 100, 128, 129, 256, 257, 300, 1100, 9000):
         sp = 1 << (s - 1).bit_length()
+        for far in (False, True):
+            assert klib.kernel_bank_rows_staged_bytes(s, int(far)) == (
+                sum(staged_smem(s, farthest=far).values()) if sp <= 256 else -1)
+            plan = rows_plan(600, s, farthest=far)
+            dyn = klib.kernel_bank_rows_staged_bytes(s, int(far)) if (
+                plan["layout"] == "staged") else 0
+            assert ops.kernel_engine_vmem_bytes(600, 784, coreset_size=s, eviction=(
+                "farthest-point" if far else "smallest-coef"))["row_recursion"] == dyn <= 232_448
         assert klib.kernel_bank_rows_scratch_bytes(600, s) == (0 if sp <= 256 else 600 * 6 * sp * 4)
     assert plib.predict_bank_max_k() == TOPK_SMEM_MAX_K
     for k in (TOPK_SMEM_MAX_K, TOPK_SMEM_MAX_K + 1, 1536):

@@ -503,10 +503,12 @@ def test_unknown_residency_raises():
 
 
 def test_fit_kernel_bank_budget_preflight():
-    """The kernel bank's preflight holds B5's tiles (R1 keeps none) to the
-    budget on every call."""
+    """The kernel bank's preflight holds B5's tiles and R1's staged layout
+    (2 models per CTA at S = 8: two 32-row blocks of 20 words a row, the
+    slot state, the barriers) to the budget on every call, each launch on
+    its own."""
     by = ops.kernel_engine_vmem_bytes(3, 10, coreset_size=8)
-    assert by == {"gram_tiles": 46_080, "row_recursion": 0}
+    assert by == {"gram_tiles": 46_080, "row_recursion": 5_408}
     rng = np.random.default_rng(1)
     X = rng.normal(size=(40, 10)).astype(np.float32)
     Y = np.sign(rng.normal(size=(3, 40))).astype(np.float32)

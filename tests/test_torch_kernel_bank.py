@@ -45,7 +45,14 @@ from repro_torch.core import (
 from repro_torch.core.kernel_bank import _kdiag
 from repro_torch.kernels import ops, predict_kernel_bank
 from repro_torch.kernels.gram import GRAM_SMEM, row_norms
-from repro_torch.kernels.kernel_bank import kernel_bank_rows, kernel_bank_rows_plain
+from repro_torch.kernels.kernel_bank import (
+    kernel_bank_rows,
+    kernel_bank_rows_plain,
+    rows_layouts,
+    rows_plan,
+    staged_smem,
+)
+from repro_torch.kernels.streamsvm_scan import SMEM_PER_BLOCK
 from repro_torch.serve import BankServer
 
 TIE_REL = 1e-5  # ids are compared where the margins are separated by more than this * max|score|
@@ -352,11 +359,19 @@ def test_full_buffer_beyond_128_slots_is_the_dense_fit(eviction):
 
 
 def test_preflight_passes_any_core_set_size():
-    """R1 takes no shared memory at any S (registers up to 256, past that a
-    device scratch), so the byte model is B5's tiles alone at S = 256, 300
-    and 9,000, and fits at S = 256 and 300 pass at exactly GRAM_SMEM and are
-    refused one byte below it."""
+    """The preflight holds B5's and R1's launches to the budget each on its
+    own, and R1 takes the layout rows_plan picks under that budget: the
+    staged layout where it fits (S = 256 for 3 models: 2 models per CTA,
+    140,320 B at the card's limit), else the first port's layouts, which
+    take no shared memory (S = 256 under GRAM_SMEM; S = 300 and 9,000 pad
+    past the staged layout's 256 slots). So fits at S = 256 and 300 pass at
+    exactly GRAM_SMEM and are refused one byte below it, by B5's tiles."""
+    assert ops.kernel_engine_vmem_bytes(3, 10, coreset_size=256) == {
+        "gram_tiles": GRAM_SMEM, "row_recursion": 140_320}
     for s in (256, 300, 9000):
+        assert ops.kernel_engine_vmem_bytes(3, 10, coreset_size=s, smem_budget=GRAM_SMEM) == {
+            "gram_tiles": GRAM_SMEM, "row_recursion": 0}
+    for s in (300, 9000):
         assert ops.kernel_engine_vmem_bytes(3, 10, coreset_size=s) == {
             "gram_tiles": GRAM_SMEM, "row_recursion": 0}
     X, Y, cs = _data(3, 40, 10, seed=2)
@@ -367,6 +382,59 @@ def test_preflight_passes_any_core_set_size():
         with pytest.raises(ValueError, match=str(GRAM_SMEM - 1)):
             fit_kernel_bank(X, Y, cs, coreset_size=s, block_n=16,
                             vmem_budget_bytes=GRAM_SMEM - 1, device="cpu")
+
+
+@pytest.mark.parametrize("s", [1, 16, 64, 129, 256, 300, 9000])
+def test_rows_plan_fits_every_budget(s):
+    """rows_plan over budgets from GRAM_SMEM to the card's 232,448 B (every
+    97th byte and the staged layout's exact bytes, and one below): its
+    bytes never exceed the budget; it stages (2 models per CTA) exactly
+    where the staged layout fits (S padded to at most 256); else the first
+    port's layouts (registers to S = 256, then wide) with no shared memory.
+    So the preflight never refuses R1 at a budget B5 passes, for 600 models
+    or 3."""
+    for b in (600, 3):
+        for far in (False, True):
+            staged = sum(staged_smem(s, farthest=far).values())
+            budgets = set(range(GRAM_SMEM, SMEM_PER_BLOCK + 1, 97)) | {SMEM_PER_BLOCK}
+            budgets |= {staged + dv for dv in (0, -1)
+                        if GRAM_SMEM <= staged + dv <= SMEM_PER_BLOCK}
+            seen = set()
+            for budget in sorted(budgets):
+                plan = rows_plan(b, s, farthest=far, smem_budget=budget)
+                nbytes = sum(plan["smem"].values())
+                assert nbytes <= budget
+                if s <= 256 and staged <= budget:
+                    assert plan["layout"] == "staged" and plan["models_per_cta"] == 2
+                    assert nbytes == staged and plan["ctas"] == -(-b // 2)
+                else:
+                    assert plan == rows_plan(b, s, farthest=far, smem_budget=0)
+                    assert plan["layout"] == ("registers" if s <= 256 else "wide")
+                    assert nbytes == 0
+                by = ops.kernel_engine_vmem_bytes(
+                    b, 10, coreset_size=s, eviction="farthest-point" if far else "smallest-coef",
+                    smem_budget=budget)
+                assert by == {"gram_tiles": GRAM_SMEM, "row_recursion": nbytes}
+                seen.add(plan["layout"])
+            assert ("staged" in seen) == (s <= 129 or (s == 256 and not far))
+
+
+def test_rows_plan_at_the_kernel_bank_pass():
+    """Phase 6b's tiles (B = 600, S = 64) at the card's limit: the staged
+    layout, 300 CTAs of 2 models, 35,872 B a CTA for smallest-coef and
+    70,688 B with farthest-point's Kbb slabs; under a budget below that the
+    registers layout. S = 256 stages smallest-coef only (farthest-point's
+    slabs would need 532,480 B), and S = 300 takes the wide layout."""
+    for far, nbytes in ((False, 35_872), (True, 70_688)):
+        plan = rows_plan(600, 64, farthest=far)
+        assert plan["layout"] == "staged" and plan["ctas"] == 300
+        assert sum(plan["smem"].values()) == nbytes
+        assert [p["layout"] for p in rows_layouts(600, 64, farthest=far)] == [
+            "staged", "registers"]
+        assert rows_plan(600, 64, farthest=far, smem_budget=nbytes - 1)["layout"] == "registers"
+    assert rows_plan(600, 256)["layout"] == "staged"
+    assert [p["layout"] for p in rows_layouts(600, 256, farthest=True)] == ["registers"]
+    assert [p["layout"] for p in rows_layouts(600, 300)] == ["wide"]
 
 
 def test_kdiag_is_the_gram_diagonal():

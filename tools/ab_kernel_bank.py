@@ -9,9 +9,10 @@ on the import path, while the stream, R1's inputs and their timing are
 card by running this once per checkout, in turns (parent, change, change,
 parent, ...). On phase 6b's stream at chip_smoke.py's defaults it fits the
 RBF bank (S = 64, block_n 256) once per eviction after a warm-up on its
-first 8 tiles, and times R1 at tile 8 of the pass (``time_rows_ms``: 20
-launches after one). Prints one line: the checkout, the fit seconds and the
-R1 milliseconds per eviction.
+first 8 tiles, and times R1 at tile 8 of the pass as phase 5 does
+(``time_rows_ms``: 20 launches back to back after one, by CUDA events, and
+the same launches queued behind a spin, the card alone). Prints one line:
+the checkout, the fit seconds and the two R1 milliseconds per eviction.
 """
 import argparse
 import sys
@@ -49,7 +50,8 @@ def main(root):
         secs = time.perf_counter() - t0
         inp = smoke.rows_inputs(dev, kb, st, t, ev == "farthest-point")
         ms = smoke.time_rows_ms(kernel_bank_rows, inp, dev, 20)
-        out.append(f"{ev}: fit {secs:.3f} s, R1 {ms:.4f} ms")
+        card_ms = smoke.time_rows_ms(kernel_bank_rows, inp, dev, 20, card_only=True)
+        out.append(f"{ev}: fit {secs:.3f} s, R1 {ms:.4f} ms (the card alone {card_ms:.4f} ms)")
     print(root, "; ".join(out), flush=True)
 
 
