@@ -5,7 +5,7 @@
     python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
         --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
 
-The second form rehearses phases 2-7 on the CPU at a tiny size, through the
+The second form rehearses phases 2-9 on the CPU at a tiny size, through the
 kernels' plain versions; a run on the card never takes that path (add
 --fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
 phase 4 too, --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
@@ -29,7 +29,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      evictions, at S = --coreset and at --kb-evict-coreset (whose buffers
      fill and evict) in every R1 layout (staged at 4, 2 and 1 models per
      CTA, and the first port's), each bit-equal to the plain path, and
-     over 2 tiles at S = 256 and 300 (slots in a device scratch);
+     over 2 tiles at S = 256 and 300 (slots in a device scratch); M1 (the
+     Sec 4.3 multi-ball recursion) bit for bit at L = 1, 2, 3, 8, both
+     variants, D = 30, 32, 33, on random rows and on a stream whose updates
+     fall on block edges (with blocks of none and pair merges), in every
+     layout (the stream staged or read in place, the tables in shared or
+     device memory);
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
@@ -66,6 +71,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      tiles per CTA equal to B1 over the first --ring-check-n rows, and
      against its plain version over the first --ring-plain-n; every byte
      model equal to ptxas's static bytes plus the launch's dynamic bytes;
+  8. the multi-ball (paper Sec 4.3) on benchmarks/beyond.py's path at full
+     width: mnist89 (11,800 x 784), C = 10, L = 1, 2, 4, 8 through M1, the
+     launch count read around the path; each fit bit-equal to M1's plain
+     version, m equal to the reference's, L = 1 equal to Algorithm 1's m;
+     held-out accuracy and M1's ms a fit per L;
+  9. the sharded fits on torch.distributed: 2 gloo ranks spawned on the
+     card run fit_bank_sharded over phase 3's 600-model bank and
+     fit_sharded(lookahead=10) over mnist89; both ranks bit-equal to each
+     other and to the per-range fits folded by fold_merge; accuracy beside
+     phase 3's unsharded bank;
   5. (printed last) kernel times at the main path's shapes against their
      bounds, printed as one JSON line {"kernels": [...]}, with torch.matmul's
      bare product (no epilogue) at the server step and at 7b's serve; R1 at
@@ -313,6 +328,7 @@ def smem_models():
         ("kernel_bank", "rows_kernel", 0),  # the first port's R1 layouts: no shared memory
         ("kernel_bank", "rows_wide_kernel", 0),  # (slots in registers or a device scratch)
         ("kernel_bank", "rows_staged_kernel", 0),  # all dynamic, checked in phase 7
+        ("multiball", "multiball_kernel", 0),  # all dynamic, checked in phase 7
     )
 
 
@@ -414,6 +430,92 @@ def check_single_at(dev, rng, n, d):
         start = got
 
 
+def edge_stream(n, d, seed):
+    """A quiet cloud (norm ~0.05 sqrt(D)) with loud rows (unit directions,
+    each 3x the last) on the first and last scan row of every other 32-row
+    block from block 2 on (scan row p is stream row p + 1): M1's updates on
+    block edges, blocks without any, and pair merges (C) for L >= 2; the
+    same stream tests/test_torch_multiball.py holds to a row-at-a-time loop
+    and checks for those properties."""
+    rng = np.random.default_rng(seed)
+    X = 0.05 * rng.normal(size=(n, d))
+    y = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    scale = 1.0
+    for b in range(2, (n - 1) // 32, 2):
+        for p in (32 * b, 32 * b + 31):
+            v = rng.normal(size=d)
+            X[p + 1] = scale * v / np.linalg.norm(v)
+            scale *= 3.0
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def multiball_state(X, y, L, slack0):
+    """fit_multiball's state after row 0 (slot 0 opened at y0 x0)."""
+    dev, d = X.device, X.shape[1]
+    w = torch.zeros((L, d), device=dev)
+    w[0] = y[0] * X[0]
+    r, xi2 = torch.zeros(L, device=dev), torch.zeros(L, device=dev)
+    xi2[0] = slack0
+    m = torch.zeros(L, dtype=torch.int32, device=dev)
+    m[0] = 1
+    act = torch.zeros(L, dtype=torch.bool, device=dev)
+    act[0] = True
+    return [w, r, xi2, m, act]
+
+
+def run_multiball(fn, X, y, L, c_inv, slack0, **kw):
+    """One M1 pass (kernel or plain) over rows 1.. of (X, y) from the seeded
+    state; returns the state (w, r, xi2, m, active)."""
+    st = multiball_state(X, y, L, slack0)
+    fn(X[1:], y[1:], *st, c_inv, slack0, **kw)
+    return st
+
+
+def check_multiball(dev):
+    """M1 against its plain version, bit for bit in every leaf, in every
+    layout multiball_plan reaches (each forced by a budget of its own
+    bytes: the stream staged or read in place, the tables in shared or
+    device memory; the centers always in device memory): L = 1, 2, 3, 8,
+    both variants, D = 30 and 33 (rows not 16-byte aligned: element loads)
+    and 32, on random unit rows and on the edge stream."""
+    from repro_torch.kernels.multiball import (
+        multiball_layouts,
+        multiball_scan,
+        multiball_scan_plain,
+    )
+
+    print("[2] M1 against its plain version: L = 1, 2, 3, 8, both variants, every layout")
+    n_cases = 0
+    for L in (1, 2, 3, 8):
+        for d in (30, 32, 33):
+            for stream in ("random", "edges"):
+                if stream == "random":
+                    g = np.random.default_rng(100 * L + d)
+                    Xn = g.normal(size=(300, d)).astype(np.float32)
+                    Xn /= np.linalg.norm(Xn, axis=1, keepdims=True)
+                    yn = np.where(g.random(300) < 0.5, -1.0, 1.0).astype(np.float32)
+                    c = 10.0
+                else:
+                    Xn, yn = edge_stream(300, d, L)
+                    c = 1e4
+                X, y = torch.as_tensor(Xn, device=dev), torch.as_tensor(yn, device=dev)
+                c_inv = float(np.float32(1.0 / c))
+                for variant, slack0 in (("exact", c_inv), ("paper-listing", 1.0)):
+                    want = run_multiball(multiball_scan_plain, X, y, L, c_inv, slack0)
+                    for plan in multiball_layouts(L, d):
+                        got = run_multiball(multiball_scan, X, y, L, c_inv, slack0,
+                                            smem_budget=sum(plan["smem"].values()))
+                        sync(dev)
+                        for leaf, a, b in zip(("w", "r", "xi2", "m", "active"), got, want):
+                            bit_equal(f"M1 L={L} D={d} {stream} {variant} {plan['x_smem']}/"
+                                      f"{plan['tables_smem']} {leaf}", a, b)
+                        n_cases += 1
+        print(f"  L={L}: D = 30, 32, 33, random and edge streams, both variants, "
+              f"{len(multiball_layouts(L, 32))} layouts each: bit-equal (m of the last "
+              f"case {want[3].tolist()})")
+    print(f"  {n_cases} kernel runs, each bit-equal to the plain version")
+
+
 def check_lookahead(dev, args, rng):
     from repro_torch.kernels import ops
     from repro_torch.kernels.streamsvm_scan import (
@@ -513,6 +615,7 @@ def phase_kernels(dev, args, rng):
     print("  b_tile 8 / 16 / 64: bit-identical")
 
     check_single(dev, args, rng)
+    check_multiball(dev)
     check_lookahead(dev, args, rng)
     check_layouts(dev, args, rng)
     print(f"[2] B2 and B6 serve top-k at any k: Q=250 (ragged), D={d}")
@@ -1334,6 +1437,7 @@ def phase_ring(dev, args, main, algos):
     from repro_torch.core import fit_bank, fit_chunked_many, ovr_signs
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import kernel_bank as kb_mod
+    from repro_torch.kernels import multiball as mb_mod
     from repro_torch.kernels import predict as predict_mod
     from repro_torch.kernels import streamsvm_scan as scan_mod
     from repro_torch.kernels.predict import TOPK_SMEM_MAX_K, predict_bank_ring
@@ -1587,6 +1691,19 @@ def phase_ring(dev, args, main, algos):
                                          f"{model} B")
                 print(f"  R1 B=600 S={s} {ev}: {plan['layout']}: {static + dyn} B "
                       "allocated = byte model")
+        # M1: every layout's static bytes (ptxas) plus its dynamic request
+        # against the byte model, at phase 8's widths, phase 2's and D = 4,096.
+        mlib = mb_mod._lib()
+        (m_static,) = _build.static_smem("multiball", "multiball_kernel")
+        for L, md in ((1, 784), (2, 784), (4, 784), (8, 784), (3, 30), (8, 33), (8, 4096)):
+            for plan in mb_mod.multiball_layouts(L, md):
+                have = m_static + mlib.multiball_dyn_bytes(md, L, int(plan["x_smem"]),
+                                                           int(plan["tables_smem"]))
+                if have != sum(plan["smem"].values()):
+                    raise AssertionError(f"M1 L={L} D={md} {plan}: allocates {have} B, model "
+                                         f"{sum(plan['smem'].values())} B")
+            print(f"  M1 L={L} D={md}: {len(mb_mod.multiball_layouts(L, md))} layouts, each "
+                  "allocates its byte model")
         for src, kern, model in smem_models():
             if kern in ("scan_ring_kernel", "predict_ring_kernel"):
                 continue  # checked above with their dynamic bytes
@@ -1598,6 +1715,194 @@ def phase_ring(dev, args, main, algos):
               la_m=la["hbm"].m if la else None)
     return dict(launches_a=launches_a, launches_b=launches_b, secs=secs, fit_a=t_fit_a,
                 serve_a=t_serve_a, la_a=t_la_a, b7=b7)
+
+
+#: fit_multiball's slot counts on mnist89 (C = 10) by the JAX reference,
+#: repro.core.multiball on the CPU (tests/test_torch_multiball.py holds the
+#: port's CPU path to the reference at this size).
+MULTIBALL_REFERENCE_M = {1: [18], 2: [14, 17], 4: [12, 17, 10, 14],
+                         8: [13, 8, 11, 9, 8, 8, 14, 16]}
+
+
+def phase_multiball(dev, args):
+    """Phase 8: the paper's Sec 4.3 multi-ball on benchmarks/beyond.py's
+    path at full width (mnist89, 11,800 x 784, C = 10), L = 1, 2, 4, 8,
+    through M1; the launch count read around the path; then each L's fit
+    against M1's plain version on the same rows, and M1 timed."""
+    from repro_torch.core import fit
+    from repro_torch.core.multiball import decision_function, fit_multiball
+    from repro_torch.data import load_dataset, preprocess_for
+    from repro_torch.kernels.multiball import multiball_plan, multiball_scan, multiball_scan_plain
+
+    Xtr, ytr, Xte, yte = load_dataset("mnist89")
+    Xtr, Xte = preprocess_for("mnist89", Xtr, Xte)
+    n = min(len(ytr), args.fig3_n_train)
+    X, y = torch.as_tensor(Xtr[:n], device=dev), torch.as_tensor(ytr[:n], device=dev)
+    Xt = torch.as_tensor(Xte, device=dev)
+    d = X.shape[1]
+    Ls = (1, 2, 4, 8)
+    print(f"[8] multi-ball (Sec 4.3) on beyond.py's path: mnist89, N={n}, D={d}, C=10, "
+          f"L in {Ls}")
+    multiball_scan.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    fits = {L: fit_multiball(X, y, 10.0, n_balls=L) for L in Ls}
+    accs = {L: float((torch.sign(decision_function(fits[L], Xt)).cpu().numpy() == yte).mean())
+            for L in Ls}
+    sync(dev)
+    t_path = time.perf_counter() - t0
+    launches = multiball_scan.launches
+    print(f"  the path: {len(Ls)} fits and their readouts in {t_path:.3f} s; M1 launches "
+          f"{launches}")
+    if dev.type == "cuda" and launches != len(Ls):
+        raise AssertionError(f"phase 8: M1 launched {launches} times for {len(Ls)} fits")
+    c_inv = float(np.float32(1.0 / 10.0))
+    ms_by_L = {}
+    for L in Ls:
+        got = fits[L]
+        for leaf in ("w", "r", "xi2"):
+            if not torch.isfinite(getattr(got, leaf)).all():
+                raise AssertionError(f"M1 L={L}: non-finite {leaf}")
+        t1 = time.perf_counter()
+        want = run_multiball(multiball_scan_plain, X, y, L, c_inv, c_inv)
+        sync(dev)
+        plain = (time.perf_counter() - t1) * 1e3
+        for leaf, a, b in zip(("w", "r", "xi2", "m", "active"), got, want):
+            bit_equal(f"M1 L={L} at full width {leaf}", a, b)
+        st = [multiball_state(X, y, L, c_inv) for _ in range(args.reps + 1)]
+        it = iter(st)
+        ms = time_ms(lambda: multiball_scan(X[1:], y[1:], *next(it), c_inv, c_inv), dev,
+                     args.reps)
+        ms_by_L[L] = (ms, plain)
+        m = got.m.tolist()
+        if n == 11_800 and m != MULTIBALL_REFERENCE_M[L]:
+            raise AssertionError(f"M1 L={L}: m {m}, the reference's {MULTIBALL_REFERENCE_M[L]}")
+        plan = multiball_plan(L, d)
+        print(f"  L={L}: m {m}, active {got.active.tolist()}, r "
+              f"{[round(v, 4) for v in got.r.tolist()]}, held-out acc {accs[L]:.4f}; bit-equal "
+              f"to the plain version; M1 {ms:.4f} ms a fit (stream staged "
+              f"{plan['x_smem']}, tables in shared memory {plan['tables_smem']}), plain "
+              f"{plain:.1f} ms")
+    ball = fit(X, y, 10.0)
+    if int(ball.m) != int(fits[1].m[0]):
+        raise AssertionError(f"M1 L=1: m {int(fits[1].m[0])}, Algorithm 1's {int(ball.m)}")
+    print(f"  L=1 equals Algorithm 1's m ({int(ball.m)}, fit through B4)")
+    L = Ls[-1]
+    ms, plain = ms_by_L[L]
+    flops = 3.0 * (n - 1) * L * d  # each row against each slot once: sub, mul, add over D
+    nbytes = 4.0 * ((n - 1) * (d + 1) + 2 * L * (d + 4))
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": "multiball_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/multiball.cu",
+        "replaces": "src/repro/core/multiball.py:131", "launches": launches,
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        "shape": f"phase 8's fits: N={n} D={d} L={L} (ms at L = 1, 2, 4: "
+                 + ", ".join(f"{ms_by_L[k][0]:.4f}" for k in Ls[:-1]) + ")",
+        "launches_by_phase": {"8": launches},
+    }
+
+
+def sharded_rank(rank, world, store, device):
+    """Phase 9, one rank: the sharded fits on ``device`` over a gloo group;
+    saves its results under ``store``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import fit_bank_sharded, fit_sharded
+
+    dist.init_process_group("gloo", init_method=f"file://{store}/pg", rank=rank,
+                            world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+        dev = torch.device(device)
+        X, Y, cs, Xf, yf = (torch.as_tensor(np.load(f"{store}/{k}.npy"), device=dev)
+                            for k in ("X", "Y", "cs", "Xf", "yf"))
+        t0 = time.perf_counter()
+        bank = fit_bank_sharded(X, Y, cs, mesh, b_tile=64)
+        sync(dev)
+        t_bank = time.perf_counter() - t0
+        ball = fit_sharded(Xf, yf, 10.0, mesh, lookahead=10)
+        np.savez(f"{store}/rank{rank}.npz", *(v.cpu().numpy() for v in (*bank, *ball)),
+                 t_bank=t_bank)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(dev, args, main, world=2):
+    """Phase 9: the sharded fits on torch.distributed, ``world`` gloo ranks
+    spawned on the one card (NCCL takes one rank a card): fit_bank_sharded
+    on phase 3's 600-model bank and fit_sharded(lookahead=10) on mnist89.
+    Every rank must hold the per-range single-process fits folded by
+    fold_merge, bit for bit."""
+    import multiprocessing
+
+    from repro_torch.core import fit_bank, fit_lookahead, fold_merge, predict_c_grid, stack_banks
+    from repro_torch.core import Ball, shard_ranges
+    from repro_torch.data import load_dataset, preprocess_for
+
+    Xtr, Y, Xte, yte = main["data"]
+    Xf, yf, _, _ = load_dataset("mnist89")
+    Xf, _ = preprocess_for("mnist89", Xf, Xf[:1])
+    nf = (min(len(yf), args.fig3_n_train) // world) * world
+    print(f"[9] sharded fits: {world} gloo ranks on {dev}: fit_bank_sharded over phase 3's "
+          f"{Y.shape[0]} models x {len(Xtr)} rows, fit_sharded(lookahead=10) over mnist89's "
+          f"{nf} rows")
+    with tempfile.TemporaryDirectory() as store:
+        for k, v in (("X", Xtr), ("Y", Y), ("cs", main["cs"]), ("Xf", Xf[:nf]), ("yf", yf[:nf])):
+            np.save(f"{store}/{k}.npy", np.ascontiguousarray(v, np.float32))
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=sharded_rank, args=(r, world, store, str(dev)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        t_ranks = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"phase 9: a rank failed or hung (exit codes {codes})")
+        outs = [np.load(f"{store}/rank{r}.npz") for r in range(world)]
+        res = [[o[f"arr_{i}"] for i in range(8)] for o in outs]
+        t_bank = [float(o["t_bank"]) for o in outs]
+    for r in range(1, world):
+        for i, (a, b) in enumerate(zip(res[0], res[r])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"phase 9: rank {r} differs from rank 0 in leaf {i}")
+    X, Yd = torch.as_tensor(Xtr, device=dev), torch.as_tensor(Y, device=dev)
+    cs = torch.as_tensor(main["cs"], device=dev)
+    shard_n = -(-len(Xtr) // world)
+    banks = []
+    for lo, hi in shard_ranges(len(Xtr), world):
+        if lo < hi:
+            pad = shard_n - (hi - lo)
+            banks.append(fit_bank(torch.nn.functional.pad(X[lo:hi], (0, 0, 0, pad)),
+                                  torch.nn.functional.pad(Yd[:, lo:hi], (0, pad)), cs, b_tile=64))
+    want = fold_merge(stack_banks(banks))
+    Xfd, yfd = torch.as_tensor(Xf[:nf], device=dev), torch.as_tensor(yf[:nf], device=dev)
+    balls = [fit_lookahead(Xfd[lo:hi], yfd[lo:hi], 10.0, 10) for lo, hi in shard_ranges(nf, world)]
+    want_ball = fold_merge(Ball(*(torch.stack(v) for v in zip(*balls))))
+    for i, (a, b) in enumerate(zip(res[0], [*want, *want_ball])):
+        if not np.array_equal(a, b.cpu().numpy()):
+            raise AssertionError(f"phase 9: leaf {i} differs from the folded per-range fits")
+    n_classes = args.classes
+    cls, _ = predict_c_grid(Ball(*(torch.as_tensor(v, device=dev) for v in res[0][:4])),
+                            torch.as_tensor(Xte, device=dev), n_classes)
+    acc = [float((cls[:, g].cpu().numpy() == yte).mean()) for g in range(cls.shape[1])]
+    print(f"  {world} ranks in {t_ranks:.1f} s (spawn to exit; the bank's sharded fit "
+          f"{max(t_bank):.3f} s on the slowest rank); every rank bit-equal to rank 0 and to the "
+          f"per-range fits folded by fold_merge (bank: m sum {int(res[0][3].sum())}; "
+          f"fit_sharded: m {int(res[0][7])}, r {float(res[0][5]):.4f})")
+    print("  held-out accuracy per C, sharded against phase 3's unsharded bank: "
+          + ", ".join(f"C={c:g}: {a:.4f} / {b:.4f}" for c, a, b in zip((1.0, 10.0, 100.0), acc,
+                                                                         main["acc"])))
+    return dict(acc=acc, t_ranks=t_ranks)
 
 
 def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
@@ -2178,8 +2483,10 @@ def main(argv=None):
     phase_rings(dev, args)
     kbres = phase_kernel_bank(dev, args, kb, main_out)
     ring = phase_ring(dev, args, main_out, algos)
+    m1 = phase_multiball(dev, args)
+    phase_sharded(dev, args, main_out)
     print("[5] kernel times at the main path's shapes")
-    kernels = phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring)
+    kernels = phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring) + [m1]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if smi is not None:

@@ -209,7 +209,9 @@ def fit_kernel_bank(
     ``s_tile`` caps (the K_cs block, the gathered core-set operand) lives
     in device memory, which that budget does not see.
 
-    ``mesh=`` (a sharded stream) is not ported yet and raises.
+    ``mesh=`` (a ``torch.distributed`` DeviceMesh) shards the stream over
+    its ``shard_axis`` axes: per-range fits folded with the kernelized
+    Sec-4.3 merge (``distributed.fit_kernel_bank_sharded``).
     """
     if kernel not in _KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}; expected one of {_KERNELS}")
@@ -254,8 +256,12 @@ def fit_kernel_bank(
             "vmem_budget_bytes= or set REPRO_VMEM_BUDGET_BYTES."
         )
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the stream sharded across devices) is not ported yet: ROADMAP A10"
+        from .distributed import fit_kernel_bank_sharded  # lazy: module cycle
+
+        return fit_kernel_bank_sharded(
+            X, Y, cs, mesh, axis=shard_axis, kernel=kernel, gamma=gamma,
+            coreset_size=coreset_size, eviction=eviction, variant=variant, block_n=block_n,
+            s_tile=s_tile, stream_dtype=stream_dtype, device=device,
         )
     return _fit_kernel_bank(
         X, Y, cs, gamma, kernel=kernel, coreset_size=coreset_size, eviction=eviction,

@@ -11,6 +11,8 @@ gram           — B5, a Gram block with the linear / RBF epilogue fused
                  (csrc/gram.cu)
 kernel_bank    — R1, the kernelized bank's core-set row recursion over a
                  stream tile (csrc/kernel_bank.cu)
+multiball      — M1, the Sec 4.3 multi-ball recursion of one model's L ball
+                 slots over a stream (csrc/multiball.cu)
 
 ops.py carries the public wrappers (padding, bank tiling, dtype policy);
 _build.py compiles csrc/ with nvcc at first use.

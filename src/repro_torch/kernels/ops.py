@@ -284,6 +284,16 @@ def bank_tiling(b: int, b_tile: int | None):
     return bt, -(-b // bt)
 
 
+def gram_tiling(m: int, n: int, bm: int, bn: int):
+    """The reference's tile resolver for its Gram kernel: the requested
+    ``(bm, bn)`` shrunk to the data, bm a multiple of 8 and bn of 128.
+    Kept as the public policy the reference's harnesses read; B5's CTA
+    tiles on the card are chosen in csrc/gram.cu and do not follow it."""
+    bm_ = -(-min(bm, max(8, m)) // 8) * 8
+    bn_ = -(-min(bn, max(128, n)) // 128) * 128
+    return bm_, bn_
+
+
 def ovr_group_tiling(b: int, n_classes: int, b_tile: int | None):
     """Resolve the ovr epilogue's tiling: ``(nc_pad, g_tile, padded_groups)``.
 

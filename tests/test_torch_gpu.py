@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1-B6, R1) against their plain versions, on the card.
+"""The port's CUDA kernels (B1-B6, R1, M1) against their plain versions, on the card.
 
 Marked ``gpu``: each test needs a CUDA card and skips without one. Whether
 there is a card is decided inside the fixture, so every pytest worker
@@ -58,6 +58,8 @@ from repro_torch.kernels.streamsvm_scan import (
     streamsvm_scan_many_ring,
     streamsvm_scan_many_ring_plain,
 )
+
+from test_torch_multiball import _start, edge_stream  # M1's state and edge stream (no JAX)
 
 pytestmark = pytest.mark.gpu
 
@@ -1267,3 +1269,79 @@ def test_byte_models_equal_what_the_kernels_allocate(cuda):
         assert pr_static + plib.predict_bank_ring_dyn_bytes(2, k) == sum(ops.predict_vmem_bytes(
             1536, 100, epilogue="topk", k=k, bank_resident="hbm").values())
 
+
+# ---------------------------------------------------------------------------
+# M1: the Sec 4.3 multi-ball recursion
+# ---------------------------------------------------------------------------
+
+
+def _mb_run(fn, X, y, L, c_inv, slack0, **kw):
+    st = _start(X, y, L, slack0)
+    fn(X[1:], y[1:], *st, c_inv, slack0, **kw)
+    return st
+
+
+@pytest.mark.parametrize("stream", ["random", "edges"])
+@pytest.mark.parametrize("d", [30, 33, 64, 784])
+@pytest.mark.parametrize("L", [1, 2, 3, 8, 11])
+def test_multiball_every_layout_matches_plain(cuda, L, d, stream):
+    """M1 equals its plain version bit for bit in every leaf, both variants,
+    in every layout the plan reaches (each forced by its own bytes)."""
+    from repro_torch.kernels.multiball import (
+        multiball_layouts, multiball_scan, multiball_scan_plain)
+
+    if stream == "random":
+        X = _bank_data(1, 400, d, seed=L * 31 + d)[0]
+        y = np.where(np.random.default_rng(d).random(400) < 0.5, -1.0, 1.0).astype(np.float32)
+        c = 10.0
+    else:
+        X, y = edge_stream(400, d, L)
+        c = 1e4
+    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+    c_inv = float(np.float32(1.0 / c))
+    for slack0 in (c_inv, 1.0):
+        want = _mb_run(multiball_scan_plain, X, y, L, c_inv, slack0)
+        for plan in multiball_layouts(L, d):
+            got = _mb_run(multiball_scan, X, y, L, c_inv, slack0,
+                          smem_budget=sum(plan["smem"].values()))
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), plan
+
+
+@pytest.mark.parametrize("L", [2, 8])
+def test_multiball_unaligned_rows_and_a_ragged_last_block(cuda, L):
+    """X[1:] of a D = 33 stream starts off a 16-byte boundary (element
+    loads); N - 1 = 300 leaves a last block of 12 rows."""
+    from repro_torch.kernels.multiball import multiball_scan, multiball_scan_plain
+
+    X, y = edge_stream(301, 33, 5)
+    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+    assert X[1:].data_ptr() % 16 != 0
+    want = _mb_run(multiball_scan_plain, X, y, L, 1e-4, 1e-4)
+    got = _mb_run(multiball_scan, X, y, L, 1e-4, 1e-4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_fit_multiball_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core import fit_multiball
+
+    X, y = edge_stream(500, 40, 9)
+    for L in (1, 4):
+        got = fit_multiball(X, y, 1e4, n_balls=L)
+        want = fit_multiball(X, y, 1e4, n_balls=L, device="cpu")
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_multiball_byte_model_equals_the_request(cuda):
+    from repro_torch.kernels import multiball as mb_mod
+
+    lib = mb_mod._lib()
+    assert _build.static_smem("multiball", "multiball_kernel") == {0}
+    for L, d in ((1, 784), (8, 784), (3, 30), (11, 33), (8, 4096), (300, 16)):
+        for plan in mb_mod.multiball_layouts(L, d):
+            assert lib.multiball_dyn_bytes(d, L, int(plan["x_smem"]), int(plan["tables_smem"])) \
+                == sum(plan["smem"].values()) <= 232_448
+    assert lib.multiball_scratch_bytes(8) == 4 * (32 * 8 + 64)

@@ -240,3 +240,16 @@ def test_rbf_kernel_clamps_like_the_gram():
     np.testing.assert_allclose(
         K.numpy(), np.asarray(jrbf_kernel(2.5)(jnp.asarray(A), jnp.asarray(A))), rtol=1e-4, atol=1e-4
     )
+
+
+@pytest.mark.parametrize("m,n,bm,bn", [
+    (1, 1, 256, 256), (7, 129, 256, 256), (100, 200, 256, 256), (1000, 1000, 256, 256),
+    (37, 513, 64, 128), (9, 1, 8, 128), (300, 5000, 100, 300),
+])
+def test_gram_tiling_is_the_references(m, n, bm, bn):
+    """ops.gram_tiling keeps the reference's public tile policy."""
+    from repro.kernels.ops import gram_tiling as jgram_tiling
+
+    got = ops.gram_tiling(m, n, bm, bn)
+    assert got == jgram_tiling(m, n, bm, bn)
+    assert got[0] % 8 == 0 and got[1] % 128 == 0

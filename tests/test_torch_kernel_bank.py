@@ -485,7 +485,7 @@ def test_fit_kernel_bank_validation():
     with pytest.raises(ValueError) as err:
         _port(X, Yb4, 1.0)
     assert "Y[:, 0]" in str(err.value) and "[1, 3]" in str(err.value)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= takes a DeviceMesh (A10)
         _port(X, Y, cs, mesh=object())
     with pytest.raises(ValueError, match="breakdown"):  # below B5's 16,640 B of tiles
         _port(X, Y, cs, vmem_budget_bytes=16_639)

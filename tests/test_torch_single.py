@@ -231,3 +231,33 @@ def test_without_cuda_a_call_without_device_cpu_raises():
     with pytest.raises((AssertionError, RuntimeError)):
         fit(X, y, 1.0)
     assert fit(_t(X), _t(y), 1.0).w.device == CPU  # CPU tensors: CPU
+
+
+@pytest.mark.parametrize("n,d,c,seed", [
+    (20, 1, 0.1, 11),
+    (57, 3, 1.0, 202),
+    (120, 8, 10.0, 3033),
+    (200, 16, 100.0, 4044),
+    (199, 5, 10.0, 5055),
+])
+def test_fit_explicit_is_the_references_and_fit_matches_it(n, d, c, seed):
+    """core.oracle.fit_explicit (the float64 augmented-space simulator,
+    copied) gives the reference copy's numbers, and the port's fit (B4's
+    plain version here) reproduces it as the reference's fit does."""
+    from repro.core.oracle import fit_explicit as jfit_explicit
+    from repro_torch.core.oracle import fit_explicit
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = np.sign(rng.normal(size=n) + X[:, 0]).astype(np.float32)
+    y[y == 0] = 1
+    for variant in ("exact", "paper-listing"):
+        ref, want = fit_explicit(X, y, c, variant=variant), jfit_explicit(X, y, c, variant=variant)
+        for key in ("w", "r", "xi2", "m", "sigma"):
+            np.testing.assert_array_equal(ref[key], want[key])
+    ref = fit_explicit(X, y, c, variant="exact")
+    ball = fit(X, y, c, device="cpu")
+    np.testing.assert_allclose(ball.w.numpy(), ref["w"], rtol=2e-4, atol=2e-5)
+    assert abs(float(ball.r) - ref["r"]) < 1e-3 * max(1.0, ref["r"])
+    assert abs(float(ball.xi2) - ref["xi2"]) < 1e-3 * max(1.0, ref["xi2"])
+    assert int(ball.m) == ref["m"]

@@ -168,17 +168,18 @@ def test_kernel_wrapper_runs_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(variant="lookahead", mesh=object()), "A10"),
+    pytest.param(dict(variant="lookahead", mesh=object()), "DeviceMesh", id="kw0-A10"),
     (dict(variant="lookahead-paper", lookahead=3, bank_resident="hbm"), None),
     (dict(bank_resident="hbm"), None),
-    (dict(mesh=object()), "A10"),
+    pytest.param(dict(mesh=object()), "DeviceMesh", id="kw3-A10"),
 ])
 def test_unported_options_raise(kw, what):
-    """mesh= (A10) still raises; bank_resident="hbm" (B6, the ring) runs and
+    """mesh= takes a torch.distributed DeviceMesh (A10, ported) and raises
+    TypeError on anything else; bank_resident="hbm" (B6, the ring) runs and
     gives the bits of "vmem"."""
     X, Y, cs = _bank_data(4, 20, 4, seed=1)
     if what is not None:
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(TypeError, match=what):
             fit_bank(X, Y, cs, device="cpu", **kw)
         return
     hbm = fit_bank(X, Y, cs, device="cpu", **kw)
