@@ -33,8 +33,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      Sec 4.3 multi-ball recursion) bit for bit at L = 1, 2, 3, 8, both
      variants, D = 30, 32, 33, on random rows and on a stream whose updates
      fall on block edges (with blocks of none and pair merges), in every
-     layout (the stream staged or read in place, the tables in shared or
-     device memory);
+     layout (the grid of one CTA an SM; one CTA with the stream read in
+     place and the tables in shared or device memory) and in a grid forced
+     to 2 CTAs of one row;
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
@@ -72,10 +73,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      against its plain version over the first --ring-plain-n; every byte
      model equal to ptxas's static bytes plus the launch's dynamic bytes;
   8. the multi-ball (paper Sec 4.3) on benchmarks/beyond.py's path at full
-     width: mnist89 (11,800 x 784), C = 10, L = 1, 2, 4, 8 through M1, the
-     launch count read around the path; each fit bit-equal to M1's plain
-     version, m equal to the reference's, L = 1 equal to Algorithm 1's m;
-     held-out accuracy and M1's ms a fit per L;
+     width: mnist89 (11,800 x 784), C = 10, L = 1, 2, 4, 8 through M1 (the
+     grid layout: 132 CTAs x 45 rows, 2 windows), the launch count read
+     around the path; each fit bit-equal to M1's plain version, m and
+     active equal to the reference's, L = 1 equal to Algorithm 1's m;
+     held-out accuracy, the layout, the updates, and M1's ms a fit per L
+     by events and on the card alone;
   9. the sharded fits on torch.distributed: 2 gloo ranks spawned on the
      card run fit_bank_sharded over phase 3's 600-model bank and
      fit_sharded(lookahead=10) over mnist89; both ranks bit-equal to each
@@ -249,24 +252,21 @@ def run_rows(fn, inp):
     return st + ([] if kbb is None else [kbb])
 
 
-def time_rows_ms(fn, inp, dev, reps, card_only=False):
-    """Mean ms of one R1 launch over ``reps`` launches back to back, each on
-    its own copy of the state made beforehand, after one warm-up: CUDA
-    events around them, as ``time_ms`` times the other kernels (the host
-    clock on the CPU). ``card_only``: the launches are queued behind a spin
-    kernel that outlasts their queuing, so the events time the card alone,
-    without the wrapper's host time between launches; raises where the spin
-    did not outlast it."""
-    copies = [([x.clone() for x in inp["state"]],
-               None if inp["kbb"] is None else inp["kbb"].clone()) for _ in range(reps + 1)]
-    call = lambda st, kbb: fn(*inp["args"], *st, inp["c_inv"], inp["c_inv"], base=inp["base"],
-                              n_valid=inp["n_valid"], kbb=kbb)
-    call(*copies[0])
+def time_states_ms(call, states, dev, card_only=False):
+    """Mean ms of ``call(state)`` over ``states[1:]`` back to back, each a
+    copy of the inputs made beforehand, after ``call(states[0])`` as a
+    warm-up: CUDA events around them, as ``time_ms`` times the other kernels
+    (the host clock on the CPU). ``card_only``: the launches are queued
+    behind a spin kernel that outlasts their queuing, so the events time the
+    card alone, without the wrapper's host time between launches; raises
+    where the spin did not outlast it."""
+    call(states[0])
     sync(dev)
+    reps = len(states) - 1
     if dev.type != "cuda":
         t0 = time.perf_counter()
-        for c in copies[1:]:
-            call(*c)
+        for st in states[1:]:
+            call(st)
         return (time.perf_counter() - t0) * 1e3 / reps
     spin, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     t0 = time.perf_counter()
@@ -274,15 +274,25 @@ def time_rows_ms(fn, inp, dev, reps, card_only=False):
         spin.record()
         torch.cuda._sleep(SPIN_CYCLES)
     e0.record()
-    for c in copies[1:]:
-        call(*c)
+    for st in states[1:]:
+        call(st)
     e1.record()
     queued = (time.perf_counter() - t0) * 1e3
     e1.synchronize()
     if card_only and spin.elapsed_time(e0) <= queued:
-        raise AssertionError(f"R1 timing: the spin ({spin.elapsed_time(e0):.2f} ms) ended before "
+        raise AssertionError(f"timing: the spin ({spin.elapsed_time(e0):.2f} ms) ended before "
                              f"the {reps} launches were queued ({queued:.2f} ms)")
     return e0.elapsed_time(e1) / reps
+
+
+def time_rows_ms(fn, inp, dev, reps, card_only=False):
+    """Mean ms of one R1 launch over ``reps`` launches back to back, each on
+    its own copy of the state (``time_states_ms``)."""
+    copies = [([x.clone() for x in inp["state"]],
+               None if inp["kbb"] is None else inp["kbb"].clone()) for _ in range(reps + 1)]
+    call = lambda c: fn(*inp["args"], *c[0], inp["c_inv"], inp["c_inv"], base=inp["base"],
+                        n_valid=inp["n_valid"], kbb=c[1])
+    return time_states_ms(call, copies, dev, card_only)
 
 
 # ----------------------------------------------------------------------------
@@ -329,6 +339,7 @@ def smem_models():
         ("kernel_bank", "rows_wide_kernel", 0),  # (slots in registers or a device scratch)
         ("kernel_bank", "rows_staged_kernel", 0),  # all dynamic, checked in phase 7
         ("multiball", "multiball_kernel", 0),  # all dynamic, checked in phase 7
+        ("multiball", "multiball_grid_kernel", 0),  # all dynamic, checked in phase 7
     )
 
 
@@ -471,14 +482,30 @@ def run_multiball(fn, X, y, L, c_inv, slack0, **kw):
     return st
 
 
+def multiball_note(plan):
+    """One M1 layout in words."""
+    if plan["layout"] == "grid":
+        return (f"grid of {plan['n_ctas']} CTAs x {plan['rows']} rows, "
+                f"{plan['windows']} window(s)")
+    return f"one CTA, stream staged {plan['x_smem']}, tables in shared memory {plan['tables_smem']}"
+
+
 def check_multiball(dev):
     """M1 against its plain version, bit for bit in every leaf, in every
     layout multiball_plan reaches (each forced by a budget of its own
-    bytes: the stream staged or read in place, the tables in shared or
-    device memory; the centers always in device memory): L = 1, 2, 3, 8,
-    both variants, D = 30 and 33 (rows not 16-byte aligned: element loads)
-    and 32, on random unit rows and on the edge stream."""
+    bytes: the grid of one CTA an SM, then one CTA with the stream staged
+    or read in place and the tables in shared or device memory; the
+    centers in device memory), the grid forced small (2 CTAs of one row: a
+    window a row pair), and each one-CTA layout the plan does not reach at
+    these shapes (below the grid's one-row bytes), launched in its own
+    plan: L = 1, 2, 3, 8, both variants, D = 30 and 33 (rows not 16-byte
+    aligned: element loads) and 32, on random unit rows and on the edge
+    stream."""
     from repro_torch.kernels.multiball import (
+        LAYOUTS,
+        _launch,
+        cta_plan,
+        grid_smem,
         multiball_layouts,
         multiball_scan,
         multiball_scan_plain,
@@ -500,19 +527,30 @@ def check_multiball(dev):
                     c = 1e4
                 X, y = torch.as_tensor(Xn, device=dev), torch.as_tensor(yn, device=dev)
                 c_inv = float(np.float32(1.0 / c))
+                one_row = sum(grid_smem(d, L, 1).values())
                 for variant, slack0 in (("exact", c_inv), ("paper-listing", 1.0)):
                     want = run_multiball(multiball_scan_plain, X, y, L, c_inv, slack0)
-                    for plan in multiball_layouts(L, d):
-                        got = run_multiball(multiball_scan, X, y, L, c_inv, slack0,
-                                            smem_budget=sum(plan["smem"].values()))
+                    reached = multiball_layouts(L, d, n=299)
+                    runs = [(multiball_note(p), multiball_scan,
+                             dict(smem_budget=sum(p["smem"].values()))) for p in reached]
+                    runs.append(("grid of 2 CTAs x 1 row", multiball_scan,
+                                 dict(smem_budget=one_row, n_ctas=2)))
+                    for xs, ts in LAYOUTS if dev.type == "cuda" else ():  # the kernel's plans
+                        plan = cta_plan(L, d, xs, ts)
+                        if plan not in reached:
+                            runs.append((multiball_note(plan) + " (its own plan)",
+                                         lambda *a, plan=plan: _launch(plan, *a), {}))
+                    for label, fn, kw in runs:
+                        got = run_multiball(fn, X, y, L, c_inv, slack0, **kw)
                         sync(dev)
                         for leaf, a, b in zip(("w", "r", "xi2", "m", "active"), got, want):
-                            bit_equal(f"M1 L={L} D={d} {stream} {variant} {plan['x_smem']}/"
-                                      f"{plan['tables_smem']} {leaf}", a, b)
+                            bit_equal(f"M1 L={L} D={d} {stream} {variant} {label} {leaf}", a, b)
                         n_cases += 1
-        print(f"  L={L}: D = 30, 32, 33, random and edge streams, both variants, "
-              f"{len(multiball_layouts(L, 32))} layouts each: bit-equal (m of the last "
-              f"case {want[3].tolist()})")
+        print(f"  L={L}: D = 30, 32, 33, random and edge streams, both variants: "
+              + "; ".join(multiball_note(p) for p in multiball_layouts(L, 32, n=299))
+              + "; a grid of 2 CTAs x 1 row"
+              + ("; the other one-CTA layouts in their own plans" if dev.type == "cuda" else "")
+              + f": bit-equal (m of the last case {want[3].tolist()})")
     print(f"  {n_cases} kernel runs, each bit-equal to the plain version")
 
 
@@ -1692,18 +1730,25 @@ def phase_ring(dev, args, main, algos):
                 print(f"  R1 B=600 S={s} {ev}: {plan['layout']}: {static + dyn} B "
                       "allocated = byte model")
         # M1: every layout's static bytes (ptxas) plus its dynamic request
-        # against the byte model, at phase 8's widths, phase 2's and D = 4,096.
+        # against the byte model, at phase 8's widths (and its N), phase 2's,
+        # D = 4,096 and where the grid does not fit (L = 72 at D = 768).
         mlib = mb_mod._lib()
         (m_static,) = _build.static_smem("multiball", "multiball_kernel")
-        for L, md in ((1, 784), (2, 784), (4, 784), (8, 784), (3, 30), (8, 33), (8, 4096)):
-            for plan in mb_mod.multiball_layouts(L, md):
-                have = m_static + mlib.multiball_dyn_bytes(md, L, int(plan["x_smem"]),
-                                                           int(plan["tables_smem"]))
+        (g_static,) = _build.static_smem("multiball", "multiball_grid_kernel")
+        for L, md in ((1, 784), (2, 784), (4, 784), (8, 784), (3, 30), (8, 33), (8, 4096),
+                      (72, 768)):
+            for plan in mb_mod.multiball_layouts(L, md, n=11_799 if md == 784 else None):
+                if plan["layout"] == "grid":
+                    have = g_static + mlib.multiball_grid_dyn_bytes(md, L, plan["rows"])
+                else:
+                    have = m_static + mlib.multiball_dyn_bytes(md, L, int(plan["x_smem"]),
+                                                               int(plan["tables_smem"]))
                 if have != sum(plan["smem"].values()):
                     raise AssertionError(f"M1 L={L} D={md} {plan}: allocates {have} B, model "
                                          f"{sum(plan['smem'].values())} B")
-            print(f"  M1 L={L} D={md}: {len(mb_mod.multiball_layouts(L, md))} layouts, each "
-                  "allocates its byte model")
+            print(f"  M1 L={L} D={md}: {len(mb_mod.multiball_layouts(L, md))} layouts ("
+                  + "; ".join(multiball_note(p) for p in mb_mod.multiball_layouts(L, md))
+                  + "), each allocates its byte model")
         for src, kern, model in smem_models():
             if kern in ("scan_ring_kernel", "predict_ring_kernel"):
                 continue  # checked above with their dynamic bytes
@@ -1728,11 +1773,14 @@ def phase_multiball(dev, args):
     """Phase 8: the paper's Sec 4.3 multi-ball on benchmarks/beyond.py's
     path at full width (mnist89, 11,800 x 784, C = 10), L = 1, 2, 4, 8,
     through M1; the launch count read around the path; then each L's fit
-    against M1's plain version on the same rows, and M1 timed."""
+    against M1's plain version on the same rows, its layout and updates,
+    and M1 timed two ways (events around launches back to back, and the
+    card alone behind a spin)."""
     from repro_torch.core import fit
     from repro_torch.core.multiball import decision_function, fit_multiball
     from repro_torch.data import load_dataset, preprocess_for
     from repro_torch.kernels.multiball import multiball_plan, multiball_scan, multiball_scan_plain
+    from repro_torch.kernels.ops import vmem_budget_bytes
 
     Xtr, ytr, Xte, yte = load_dataset("mnist89")
     Xtr, Xte = preprocess_for("mnist89", Xtr, Xte)
@@ -1769,26 +1817,30 @@ def phase_multiball(dev, args):
         plain = (time.perf_counter() - t1) * 1e3
         for leaf, a, b in zip(("w", "r", "xi2", "m", "active"), got, want):
             bit_equal(f"M1 L={L} at full width {leaf}", a, b)
-        st = [multiball_state(X, y, L, c_inv) for _ in range(args.reps + 1)]
-        it = iter(st)
-        ms = time_ms(lambda: multiball_scan(X[1:], y[1:], *next(it), c_inv, c_inv), dev,
-                     args.reps)
-        ms_by_L[L] = (ms, plain)
+        # fit_multiball's budget, so the plan printed and timed is the one that ran
+        budget = vmem_budget_bytes()
+        launch = lambda st: multiball_scan(X[1:], y[1:], *st, c_inv, c_inv, smem_budget=budget)
+        ms, card_ms = (time_states_ms(launch, [multiball_state(X, y, L, c_inv)
+                                               for _ in range(2 * args.reps + 1)], dev, card)
+                       for card in (False, True))
+        ms_by_L[L] = (ms, plain, card_ms)
         m = got.m.tolist()
-        if n == 11_800 and m != MULTIBALL_REFERENCE_M[L]:
-            raise AssertionError(f"M1 L={L}: m {m}, the reference's {MULTIBALL_REFERENCE_M[L]}")
-        plan = multiball_plan(L, d)
+        if n == 11_800 and (m != MULTIBALL_REFERENCE_M[L] or not bool(got.active.all())):
+            raise AssertionError(f"M1 L={L}: m {m}, active {got.active.tolist()}; the "
+                                 f"reference's m {MULTIBALL_REFERENCE_M[L]}, all active")
+        plan = multiball_plan(L, d, n=n - 1, smem_budget=budget)
         print(f"  L={L}: m {m}, active {got.active.tolist()}, r "
               f"{[round(v, 4) for v in got.r.tolist()]}, held-out acc {accs[L]:.4f}; bit-equal "
-              f"to the plain version; M1 {ms:.4f} ms a fit (stream staged "
-              f"{plan['x_smem']}, tables in shared memory {plan['tables_smem']}), plain "
+              f"to the plain version; {sum(m) - 1} updates in {multiball_note(plan)}; M1 "
+              f"{ms:.4f} ms a fit by events, {card_ms:.4f} "
+              f"{'on the card alone' if dev.type == 'cuda' else 'again (host clock)'}; plain "
               f"{plain:.1f} ms")
     ball = fit(X, y, 10.0)
     if int(ball.m) != int(fits[1].m[0]):
         raise AssertionError(f"M1 L=1: m {int(fits[1].m[0])}, Algorithm 1's {int(ball.m)}")
     print(f"  L=1 equals Algorithm 1's m ({int(ball.m)}, fit through B4)")
     L = Ls[-1]
-    ms, plain = ms_by_L[L]
+    ms, plain, card_ms = ms_by_L[L]
     flops = 3.0 * (n - 1) * L * d  # each row against each slot once: sub, mul, add over D
     nbytes = 4.0 * ((n - 1) * (d + 1) + 2 * L * (d + 4))
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -1796,10 +1848,12 @@ def phase_multiball(dev, args):
         "name": "multiball_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/multiball.cu",
         "replaces": "src/repro/core/multiball.py:131", "launches": launches,
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": max(t_ops, t_bytes),
+        "max_abs_err": 0.0, "ms": ms, "device_ms": card_ms, "plain_ms": plain,
+        "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
-        "shape": f"phase 8's fits: N={n} D={d} L={L} (ms at L = 1, 2, 4: "
-                 + ", ".join(f"{ms_by_L[k][0]:.4f}" for k in Ls[:-1]) + ")",
+        "shape": f"phase 8's fits: N={n} D={d} L={L}, {multiball_note(multiball_plan(L, d, n=n - 1, smem_budget=budget))} "
+                 "(ms, device_ms at L = 1, 2, 4: "
+                 + ", ".join(f"{ms_by_L[k][0]:.4f} / {ms_by_L[k][2]:.4f}" for k in Ls[:-1]) + ")",
         "launches_by_phase": {"8": launches},
     }
 

@@ -47,9 +47,31 @@
 //
 // Bound. The stream is read once (N D 4 bytes) and each row needs L
 // distances over D (~3 L D flops), so the card is bound by its memory
-// rate. One CTA on one SM evaluates every row against every slot, so this
-// kernel runs far from that bound; spreading the evaluation over the card
-// is left for a later redesign.
+// rate. One CTA on one SM (multiball_kernel) evaluates every row against
+// every slot, so it runs far from that bound.
+//
+// The grid layout (multiball_grid_kernel) spreads the rows over the card:
+// one CTA an SM, launched cooperatively (all CTAs resident, or the launch
+// is refused). The CTAs hold a window of the stream between them in shared
+// memory, `rows` consecutive rows each (bulk copies onto an mbarrier, each
+// row scaled by its sign in place), and every CTA holds a replica of the
+// whole state (centers, scalars, P). Per window, each CTA computes S for
+// its rows; then each update is one round: every CTA finds its first row
+// past the last update that no active ball encloses (a warp a row), writes
+// that row's S entries to its slot of a device scratch, and posts the row
+// in the grid's exchange (grid_max: a post a CTA on a line of its own,
+// tagged with the round, every CTA polling all posts, so the exchange is
+// the round's only grid barrier and every CTA reads the winner from it).
+// Every CTA then loads the winner's S entries and y_j x_j at once, applies
+// the same update to its replica with the same intrinsics in the same
+// order, so the replicas hold the same bits, and computes again the P
+// entries and its own rows' S entries of the changed slots. A round whose
+// exchange finds no row ends the window. Values written in the kernel are
+// read with acquire loads or ld.global.cg (L2), never through the
+// non-coherent path. Cost: one exchange per update and per window (1.2 us
+// on an H100 at 132 CTAs), beside each update's ~6 us of dependent steps
+// (loads from L2, the decision, the recomputed entries, the search) and
+// each window's load and S.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -455,6 +477,387 @@ int launch(const void* X, const void* Y, void* W, void* R, void* XI2, void* M, v
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The grid layout: one CTA an SM, launched cooperatively.
+// ---------------------------------------------------------------------------
+
+// Fixed shared memory of multiball_grid_kernel: the mbarrier (16 B), the
+// argmin scratch (a cost and an index for B and for C a warp) and a word a
+// warp for the search and the exchange.
+constexpr int GHEAD = 16 + 16 * WARPS + 4 * WARPS;
+
+// Dynamic shared memory of multiball_grid_kernel (its only shared memory):
+// the head, the state replica (centers L x wp, P L x L, r, xi2, m, active
+// and the acting row's S entries: 5 words a slot), the acting row (wp),
+// and `rows` signed rows with their S entries.
+size_t grid_dyn_bytes(int d, int l, int rows) {
+  const size_t wp = pitch(d);
+  return GHEAD + sizeof(float) * ((size_t)l * wp + wp + (size_t)l * l + 5 * (size_t)l +
+                                  (size_t)rows * (wp + l));
+}
+
+// The device scratch at g CTAs: two sets of g posts (by round parity), a
+// post on a 128-byte line of its own, zeroed before the launch; then two
+// [g][L] tables of the candidates' S rows.
+constexpr int POST_STRIDE = 16;  // words of 8 bytes between two posts
+__host__ __device__ inline size_t grid_posts_bytes(int g) {
+  return 2 * sizeof(unsigned long long) * POST_STRIDE * (size_t)g;
+}
+size_t grid_scratch_bytes(int l, int g) { return grid_posts_bytes(g) + sizeof(float) * 2 * (size_t)g * l; }
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The grid's exchange of round `round`: CTA `cta` posts `val` in its slot
+// of the round's set (tagged with round + 1 in the high word), then every
+// thread returns the largest val over all G CTAs, once all have posted: a
+// grid barrier that also reduces. The CTA's writes before it (shared or
+// device memory, by any thread) are visible to every CTA after it: the
+// post is a release after the CTA's barrier, each poll an acquire before
+// it. A set is written again two rounds on, after every CTA has read it.
+// A wait past 10 s traps: a fault, not a hang. red: a word a warp.
+__device__ __forceinline__ unsigned grid_max(unsigned long long* posts, int G, int cta,
+                                             unsigned round, unsigned val, unsigned* red) {
+  unsigned long long* set = posts + (size_t)(round & 1) * G * POST_STRIDE;
+  const unsigned long long tag = (unsigned long long)(round + 1) << 32;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(set + (size_t)cta * POST_STRIDE),
+                 "l"(tag | val)
+                 : "memory");
+  unsigned best = 0;
+  for (int c = threadIdx.x; c < G; c += THREADS) {
+    unsigned long long v;
+    const unsigned long long t0 = global_ns();
+    for (int spin = 0;; ++spin) {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(set + (size_t)c * POST_STRIDE) : "memory");
+      if ((v & 0xffffffff00000000ull) == tag) break;
+      if ((spin & 255) == 255 && global_ns() - t0 > 10000000000ull) __trap();
+    }
+    best = max(best, (unsigned)v);
+  }
+  best = __reduce_max_sync(FULL, best);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = best;
+  __syncthreads();
+  const int t = threadIdx.x & 31;
+  return __reduce_max_sync(FULL, t < WARPS ? red[t] : 0u);
+}
+
+// |a - b|^2 over wp columns for lane k of an 8-lane group, both padded
+// rows in shared memory (the same chains and tree as sq_dist). Every lane
+// of the warp calls it (the tree's shuffles take all 32); a group without
+// work passes on = false and reads nothing.
+__device__ __forceinline__ float sq_dist_rows(const float* a, const float* b, int k, int wp, bool on) {
+  float acc = 0.f;
+  const int lim = on ? wp : 0;
+#pragma unroll 2
+  for (int c = 4 * k; c < lim; c += 32)
+    acc = chain4(acc, *reinterpret_cast<const float4*>(a + c), *reinterpret_cast<const float4*>(b + c));
+  return tree8(acc);
+}
+
+// X (n, d) stream rows, Y (n,) signs; W (L, wp) the centers (zero past d),
+// R, XI2 (L,), M, ACT (L,) int32: the state, read by every CTA at the start
+// and written back by CTA 0 at the end. scratch: grid_scratch_bytes(L,
+// gridDim.x) bytes, its posts zeroed. Each window of
+// gridDim.x * rows rows gives CTA c its rows c * rows .. c * rows + rows - 1.
+__global__ void __launch_bounds__(THREADS, 1)
+multiball_grid_kernel(const float* __restrict__ X, const float* __restrict__ Y, float* W, float* R,
+                      float* XI2, int* M, int* ACT, unsigned char* scratch, int n, int d, int L,
+                      float cinv, float slack0, int rows, int vec16) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem_raw);
+  float* red_c = reinterpret_cast<float*>(smem_raw + 16);  // [WARPS][2] costs (B, C)
+  int* red_i = reinterpret_cast<int*>(red_c + 2 * WARPS);  // [WARPS][2] indices
+  int* first = red_i + 2 * WARPS;                          // [WARPS] the search's rows
+  const int wp = pitch(d);
+  float* w = reinterpret_cast<float*>(smem_raw + GHEAD);  // [L][wp] the centers
+  float* xj = w + (size_t)L * wp;                         // [wp] the acting row, signed
+  float* xs = xj + wp;                                    // [rows][wp] signed rows
+  float* S = xs + (size_t)rows * wp;                      // [rows][L]
+  float* P = S + (size_t)rows * L;                        // [L][L]
+  float* r = P + (size_t)L * L;
+  float* xi2 = r + L;
+  int* m = reinterpret_cast<int*>(xi2 + L);
+  int* act = m + L;
+  float* sj = reinterpret_cast<float*>(act + L);  // [L] the acting row's S entries
+  const int G = gridDim.x, cta = blockIdx.x;
+  unsigned long long* posts = reinterpret_cast<unsigned long long*>(scratch);  // [2][G] posts
+  float* srow = reinterpret_cast<float*>(scratch + grid_posts_bytes(G));       // [2][G][L]
+  const int tid = threadIdx.x, t = tid & 31, wq = tid >> 5;
+  const int k = t & 7, g = tid >> 3;  // lane in an 8-lane group; the group
+  constexpr int GROUPS = THREADS / 8;
+
+  if (tid == 0 && vec16) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int s = tid; s < L; s += THREADS) r[s] = R[s], xi2[s] = XI2[s], m[s] = M[s], act[s] = ACT[s];
+  for (int e = tid; e < L * wp / 4; e += THREADS)
+    reinterpret_cast<float4*>(w)[e] = reinterpret_cast<const float4*>(W)[e];
+  if (vec16 && wp > d)  // the columns past d, which the copies never write
+    for (int e = tid; e < rows * (wp - d); e += THREADS) xs[(e / (wp - d)) * wp + d + e % (wp - d)] = 0.f;
+  __syncthreads();
+  // P for every pair of slots, GROUPS pairs a pass.
+  for (int base = 0; base < L * L; base += GROUPS) {
+    const int q = base + g;
+    const int i = q / L, j = q % L;
+    const bool mine = q < L * L && i < j;
+    const float v = sq_dist_rows(w + (size_t)i * wp * mine, w + (size_t)j * wp * mine, k, wp, mine);
+    if (mine && k == 0) P[i * L + j] = v, P[j * L + i] = v;
+  }
+
+  unsigned round = 0, phase = 0;
+  const long span = (long)G * rows;
+  for (long w0 = 0; w0 < n; w0 += span) {
+    const long base = w0 + (long)cta * rows;  // this CTA's first row
+    const int nv = (int)max(0L, min((long)rows, (long)n - base));
+    // Stage the CTA's rows: one bulk copy a row onto the mbarrier, then
+    // each row scaled by its sign in place; else element loads, scaled.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the last window's rows are no longer read
+    if (vec16 && nv > 0) {
+      if (tid == 0) mbar_expect_tx(bar, 4u * d * nv);
+      __syncthreads();
+      for (int j = tid; j < nv; j += THREADS) bulk_copy(xs + (size_t)j * wp, X + (base + j) * d, 4u * d, bar);
+      mbar_wait(bar, phase);
+      phase ^= 1u;
+      for (int j = wq; j < nv; j += WARPS) {
+        const float yj = __ldg(Y + base + j);
+        for (int c = t; c < d; c += 32) xs[(size_t)j * wp + c] = __fmul_rn(yj, xs[(size_t)j * wp + c]);
+      }
+    } else if (nv > 0) {
+      for (int j = wq; j < nv; j += WARPS) {
+        const float yj = __ldg(Y + base + j);
+        for (int c = t; c < wp; c += 32)
+          xs[(size_t)j * wp + c] = c < d ? __fmul_rn(yj, __ldg(X + (base + j) * d + c)) : 0.f;
+      }
+    }
+    __syncthreads();
+    // S for the rows and every slot: a task is a row and a quad of slots
+    // (rows fastest); GROUPS tasks a pass, every lane in every pass (the
+    // tree's shuffles take all 32).
+    {
+      const int nq = (L + QUAD - 1) / QUAD, tasks = nv * nq;
+      for (int b0 = 0; b0 < tasks; b0 += GROUPS) {
+        const int q = b0 + g;
+        const bool mine = q < tasks;
+        const int j = mine ? q % nv : 0, s0 = mine ? QUAD * (q / nv) : 0;
+        const float* xr = xs + (size_t)j * wp;
+        float acc[QUAD];
+#pragma unroll
+        for (int e = 0; e < QUAD; ++e) acc[e] = 0.f;
+        const int lim = mine ? wp : 0;
+#pragma unroll 2
+        for (int c = 4 * k; c < lim; c += 32) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xr + c);
+#pragma unroll
+          for (int e = 0; e < QUAD; ++e)
+            if (s0 + e < L)
+              acc[e] = chain4(acc[e], *reinterpret_cast<const float4*>(w + (size_t)(s0 + e) * wp + c), x4);
+        }
+#pragma unroll
+        for (int e = 0; e < QUAD; ++e) {
+          const float v = tree8(acc[e]);
+          if (mine && k == 0 && s0 + e < L) S[j * L + s0 + e] = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    for (long j0 = w0;;) {
+      // This CTA's first row at or past j0 outside every active ball: a
+      // warp takes 32 / lp rows at once, lp lanes a row over its slots (lp:
+      // L rounded up to a power of two, at most 32), one ballot for them.
+      int mine = 0x7fffffff;
+      {
+        const int lp = L >= 32 ? 32 : 1 << (32 - __clz(L - 1)), rpp = 32 / lp;
+        const int sub = t / lp, lane = t % lp;
+        const unsigned group = lp == 32 ? FULL : (1u << lp) - 1u;
+        for (int r0 = (int)max(0L, j0 - base) + wq * rpp; r0 < nv; r0 += WARPS * rpp) {
+          const int jl = r0 + sub;
+          bool in = jl >= nv;  // past the rows: never out
+          for (int s = lane; s < L && !in; s += lp)
+            if (act[s]) {
+              const float d2 = __fadd_rn(__fadd_rn(S[jl * L + s], xi2[s]), cinv);
+              in = __fsqrt_rn(fmaxf(d2, 1e-12f)) <= r[s];
+            }
+          const unsigned ins = __ballot_sync(FULL, in);
+          int hit = -1;
+          for (int q = 0; q < rpp && hit < 0; ++q)
+            if (((ins >> (q * lp)) & group) == 0u) hit = q;
+          if (hit >= 0) {
+            mine = r0 + hit;
+            break;
+          }
+        }
+      }
+      if (t == 0) first[wq] = mine;
+      __syncthreads();
+      const int best = __reduce_min_sync(FULL, t < WARPS ? first[t] : 0x7fffffff);
+      // Post the complement of the row (0: none), so the largest post is the
+      // round's first row, with its S entries in the CTA's slot.
+      const int par = round & 1;
+      if (best != 0x7fffffff)
+        for (int s = tid; s < L; s += THREADS) srow[((size_t)par * G + cta) * L + s] = S[best * L + s];
+      const unsigned key = grid_max(posts, G, cta, round, best != 0x7fffffff ? 0xffffffffu - (unsigned)(base + best) : 0u,
+                                    reinterpret_cast<unsigned*>(first));
+      ++round;
+      if (key == 0u) break;  // no row acts: the window is done
+      // The acting row j: its S entries from the winner's slot of the
+      // scratch, and y_j x_j from the stream, all loads in flight at once.
+      const long j = (long)(0xffffffffu - key);
+      const int wc = (int)((j - w0) / rows);
+      for (int s = tid; s < L; s += THREADS) sj[s] = __ldcg(srow + ((size_t)par * G + wc) * L + s);
+      {
+        const float yj = __ldg(Y + j);
+        for (int c = tid; c < wp; c += THREADS) xj[c] = c < d ? __fmul_rn(yj, __ldg(X + j * d + c)) : 0.f;
+      }
+      int free_slot = -1;
+      for (int s = 0; s < L; ++s)
+        if (!act[s]) {
+          free_slot = s;
+          break;
+        }
+      __syncthreads();  // sj, xj
+      // The slots the update writes (ch1 for C's point ball) and their new
+      // scalars, the same in every thread of every CTA.
+      int ch0, ch1 = -1;
+      float nr0 = 0.f, nx0 = slack0;
+      int nm0 = 1;
+      if (free_slot >= 0) {
+        ch0 = free_slot;
+        for (int c = tid; c < wp; c += THREADS) w[(size_t)ch0 * wp + c] = xj[c];
+      } else {
+        // Every option's cost: B_s (p < L), C_(i,j) (p = L + i L + j, i < j).
+        float cb = CUDART_INF_F, cc = CUDART_INF_F;
+        int ib = 0x7fffffff, ic = 0x7fffffff;
+        for (int p = tid; p < L + L * L; p += THREADS) {
+          if (p < L) {
+            const Merge mg = merge(sj[p], r[p], xi2[p], 0.f, slack0);
+            if (better(mg.r, p, cb, ib)) cb = mg.r, ib = p;
+          } else {
+            const int q = p - L, a = q / L, b = q % L;
+            if (a < b) {
+              const Merge mg = merge(P[q], r[a], xi2[a], r[b], xi2[b]);
+              if (better(mg.r, q, cc, ic)) cc = mg.r, ic = q;
+            }
+          }
+        }
+        warp_argmin(cb, ib);
+        warp_argmin(cc, ic);
+        if (t == 0) red_c[2 * wq] = cb, red_i[2 * wq] = ib, red_c[2 * wq + 1] = cc, red_i[2 * wq + 1] = ic;
+        __syncthreads();
+        // The warps' minima, a lane each, reduced again (any order gives
+        // the first minimum: `better` orders (cost, index) totally).
+        cb = t < WARPS ? red_c[2 * t] : CUDART_INF_F, ib = t < WARPS ? red_i[2 * t] : 0x7fffffff;
+        cc = t < WARPS ? red_c[2 * t + 1] : CUDART_INF_F, ic = t < WARPS ? red_i[2 * t + 1] : 0x7fffffff;
+        warp_argmin(cb, ib);
+        warp_argmin(cc, ic);
+        if (cc < cb) {  // C: balls a and b merge into a; the point opens b
+          const int a = ic / L, b = ic % L;
+          const Merge mg = merge(P[ic], r[a], xi2[a], r[b], xi2[b]);
+          ch0 = a, ch1 = b;
+          nr0 = mg.r, nx0 = mg.xi2, nm0 = m[a] + m[b];
+          float* wa = w + (size_t)a * wp;
+          float* wb = w + (size_t)b * wp;
+          for (int c = tid; c < wp; c += THREADS) {
+            const float va = wa[c], vb = wb[c];
+            wa[c] = mg.one_in_two ? vb
+                    : mg.two_in_one ? va
+                                    : __fadd_rn(va, __fmul_rn(mg.t, __fsub_rn(vb, va)));
+            wb[c] = xj[c];
+          }
+        } else {  // B: the point merges into ball ib
+          const Merge mg = merge(sj[ib], r[ib], xi2[ib], 0.f, slack0);
+          ch0 = ib;
+          nr0 = mg.r, nx0 = mg.xi2, nm0 = m[ib] + 1;
+          float* wa = w + (size_t)ib * wp;
+          for (int c = tid; c < wp; c += THREADS) {
+            const float va = wa[c], vb = xj[c];
+            wa[c] = mg.one_in_two ? vb
+                    : mg.two_in_one ? va
+                                    : __fadd_rn(va, __fmul_rn(mg.t, __fsub_rn(vb, va)));
+          }
+        }
+      }
+      __syncthreads();  // every thread has read the old state
+      if (tid == 0) {
+        r[ch0] = nr0, xi2[ch0] = nx0, m[ch0] = nm0, act[ch0] = 1;
+        if (ch1 >= 0) r[ch1] = 0.f, xi2[ch1] = slack0, m[ch1] = 1, act[ch1] = 1;
+      }
+      // The entries that touch a changed slot, GROUPS tasks a pass: S of
+      // this CTA's rows past j (a task a row, its x read once for both
+      // changed slots), then P (ch, e), a task a pair.
+      const int lo = (int)max(0L, min((long)nv, j + 1 - base)), nrow = nv - lo;
+      const int nch = ch1 >= 0 ? 2 : 1, tasks = nrow + nch * L;
+      for (int b0 = 0; b0 < tasks; b0 += GROUPS) {
+        const int q = b0 + g, p = q - nrow;
+        const bool row = q < nrow, ch_b = !row && p >= L;
+        const int e = row ? 0 : p % L, ch = ch_b ? ch1 : ch0;
+        const bool on = row || (q < tasks && e != ch), two = row && nch > 1;
+        const float* a0 = w + (size_t)(on ? ch : 0) * wp;
+        const float* a1 = w + (size_t)(two ? ch1 : 0) * wp;
+        const float* b = row ? xs + (size_t)(lo + q) * wp : w + (size_t)(on ? e : 0) * wp;
+        float v0 = 0.f, v1 = 0.f;
+        const int lim = on ? wp : 0;
+#pragma unroll 2
+        for (int c = 4 * k; c < lim; c += 32) {
+          const float4 b4 = *reinterpret_cast<const float4*>(b + c);
+          v0 = chain4(v0, *reinterpret_cast<const float4*>(a0 + c), b4);
+          if (two) v1 = chain4(v1, *reinterpret_cast<const float4*>(a1 + c), b4);
+        }
+        v0 = tree8(v0);
+        v1 = tree8(v1);
+        if (on && k == 0) {
+          if (row) {
+            S[(lo + q) * L + ch0] = v0;
+            if (two) S[(lo + q) * L + ch1] = v1;
+          } else {
+            P[ch * L + e] = v0, P[e * L + ch] = v0;
+          }
+        }
+      }
+      __syncthreads();
+      j0 = j + 1;
+    }
+  }
+  if (cta == 0) {
+    for (int e = tid; e < L * wp / 4; e += THREADS)
+      reinterpret_cast<float4*>(W)[e] = reinterpret_cast<const float4*>(w)[e];
+    for (int s = tid; s < L; s += THREADS) R[s] = r[s], XI2[s] = xi2[s], M[s] = m[s], ACT[s] = act[s];
+  }
+}
+
+// k rounds of the grid's exchange and nothing else: the cost of one, timed
+// by tools/multiball_layouts.py at the grid layout's CTAs and shared memory.
+__global__ void __launch_bounds__(THREADS, 1) grid_barrier_kernel(unsigned long long* posts, int k) {
+  __shared__ unsigned red[WARPS];
+  for (int i = 0; i < k; ++i) grid_max(posts, gridDim.x, blockIdx.x, (unsigned)i, blockIdx.x, red);
+}
+
+// Launch `kernel` cooperatively on g CTAs with dyn bytes of dynamic shared
+// memory, or refuse (cudaErrorCooperativeLaunchTooLarge) where the card
+// cannot hold all g at once.
+int cooperative(const void* kernel, int g, size_t dyn, void** args, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, dyn)) != cudaSuccess)
+    return (int)err;
+  if (g < 1 || (long)per_sm * sms < g) return (int)cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(g), dim3(THREADS), args, dyn, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -483,6 +886,47 @@ int multiball_scan(const void* X, const void* Y, void* W, void* R, void* XI2, vo
   cudaStream_t s = (cudaStream_t)stream;
   return xs ? launch<true>(X, Y, W, R, XI2, M, ACT, scratch, n, d, l, cinv, slack0, ts, vec16, s)
             : launch<false>(X, Y, W, R, XI2, M, ACT, scratch, n, d, l, cinv, slack0, ts, vec16, s);
+}
+
+// Dynamic shared memory of the grid layout at `rows` rows a CTA (its only
+// shared memory).
+long multiball_grid_dyn_bytes(int d, int l, int rows) { return (long)grid_dyn_bytes(d, l, rows); }
+
+// Bytes of the grid layout's device scratch at g CTAs.
+long multiball_grid_scratch_bytes(int l, int g) { return (long)grid_scratch_bytes(l, g); }
+
+// The grid layout: g CTAs (one an SM), `rows` rows a CTA a window, launched
+// cooperatively; arguments as multiball_scan's, scratch
+// multiball_grid_scratch_bytes(l, g) bytes (zeroed here where needed).
+// Returns the CUDA error of the launch: cudaErrorCooperativeLaunchTooLarge
+// where the card cannot hold the g CTAs at once (nothing runs).
+int multiball_grid_scan(const void* X, const void* Y, void* W, void* R, void* XI2, void* M,
+                        void* ACT, void* scratch, int n, int d, int l, float cinv, float slack0,
+                        int rows, int g, int vec16, void* stream) {
+  if (n < 0 || d <= 0 || l <= 0 || rows <= 0 || (vec16 && d % 4 != 0) || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, grid_posts_bytes(g), s);
+  if (err != cudaSuccess) return (int)err;
+  const float* x = (const float*)X;
+  const float* y = (const float*)Y;
+  float *w = (float*)W, *r = (float*)R, *xi2 = (float*)XI2;
+  int *m = (int*)M, *act = (int*)ACT;
+  unsigned char* sc = (unsigned char*)scratch;
+  void* args[] = {&x, &y, &w, &r, &xi2, &m, &act, &sc, &n, &d, &l, &cinv, &slack0, &rows, &vec16};
+  return cooperative((const void*)multiball_grid_kernel, g, grid_dyn_bytes(d, l, rows), args, s);
+}
+
+// k rounds of the grid's exchange on g CTAs of THREADS threads with dyn
+// bytes of dynamic shared memory (posts: multiball_grid_scratch_bytes(0,
+// g) bytes of device memory, zeroed here).
+int multiball_grid_barriers(void* posts, int g, int k, long dyn, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(posts, 0, grid_posts_bytes(g), s);
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long* c = (unsigned long long*)posts;
+  void* args[] = {&c, &k};
+  return cooperative((const void*)grid_barrier_kernel, g, (size_t)dyn, args, s);
 }
 
 }  // extern "C"

@@ -19,13 +19,17 @@ active ball acts, and only the table entries of the slots it changed are
 computed again. Every sum over D is ``sq_dist``'s, every scalar step is
 rounded on its own, so the kernel gives the plain version's bits.
 
-``multiball_plan`` picks the launch's layout by bytes, before the launch:
-the stream staged in shared memory a block ahead, and the tables (S, the
-block's row-to-slot distances; P, the slot-to-slot ones) with the slot
-scalars, each in shared memory where the budget allows and else in device
-memory. The L centers stay in device memory (faster on an H100 than in
-shared memory beside the staged blocks: see csrc). Every layout gives the
-same bits.
+``multiball_plan`` picks the launch's layout by bytes, before the launch.
+First the grid: one CTA an SM, launched cooperatively, each CTA holding
+``rows`` rows of a window of the stream and a replica of the whole state
+in shared memory, one grid-wide search for the first row outside every
+active ball per update (see csrc). Where the state and one row do not fit
+the budget, one CTA walks the stream: the stream staged in shared memory a
+block ahead, and the tables (S, the block's row-to-slot distances; P, the
+slot-to-slot ones) with the slot scalars, each in shared memory where the
+budget allows and else in device memory; its L centers stay in device
+memory. Every layout gives the same bits: how the rows are grouped into
+blocks, CTAs or windows changes none.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .streamsvm_scan import SMEM_PER_BLOCK
+from .streamsvm_scan import SMEM_PER_BLOCK, sm_count
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -47,6 +51,9 @@ BLOCK_ROWS, HEAD_BYTES = 32, 400
 #: The layouts ``multiball_plan`` tries, in order: (stream staged, tables)
 #: in shared memory. The last takes only the head.
 LAYOUTS = ((True, True), (True, False), (False, True), (False, False))
+#: Bytes of the grid kernel's fixed shared memory (``GHEAD``: the mbarrier,
+#: the argmin scratch and the search's first row a warp).
+GRID_HEAD_BYTES = 336
 
 
 def _lib() -> ctypes.CDLL:
@@ -57,6 +64,14 @@ def _lib() -> ctypes.CDLL:
     lib.multiball_dyn_bytes.restype = ctypes.c_long
     lib.multiball_scratch_bytes.argtypes = [_I]
     lib.multiball_scratch_bytes.restype = ctypes.c_long
+    lib.multiball_grid_scan.argtypes = [_P] * 8 + [_I] * 3 + [_F, _F] + [_I] * 3 + [_P]
+    lib.multiball_grid_scan.restype = ctypes.c_int
+    lib.multiball_grid_dyn_bytes.argtypes = [_I] * 3
+    lib.multiball_grid_dyn_bytes.restype = ctypes.c_long
+    lib.multiball_grid_scratch_bytes.argtypes = [_I] * 2
+    lib.multiball_grid_scratch_bytes.restype = ctypes.c_long
+    lib.multiball_grid_barriers.argtypes = [_P, _I, _I, ctypes.c_long, _P]
+    lib.multiball_grid_barriers.restype = ctypes.c_int
     return lib
 
 
@@ -78,31 +93,77 @@ def multiball_smem(d: int, n_balls: int, *, x_smem: bool, tables_smem: bool) -> 
     }
 
 
+def grid_smem(d: int, n_balls: int, rows: int) -> dict:
+    """Dynamic shared memory of the grid layout (its only shared memory) at
+    ``rows`` rows a CTA, bytes by term, as ``multiball_grid_dyn_bytes`` in
+    csrc computes it: the head, the state replica (L padded centers, the
+    acting row, P: L x L, 5 words a slot) and the rows with their S
+    entries."""
+    wp, l = pitch(d), int(n_balls)
+    return {
+        "head": GRID_HEAD_BYTES,
+        "state": 4 * ((l + 1) * wp + l * l + 5 * l),
+        "rows": 4 * int(rows) * (wp + l),
+    }
+
+
+def cta_plan(n_balls: int, d: int, x_smem: bool, tables_smem: bool) -> dict:
+    """The one-CTA layout ``(x_smem, tables_smem)`` of ``LAYOUTS`` as a plan.
+    ``_launch`` runs it whatever ``multiball_plan`` would pick: tests and
+    chip_smoke.py hold every one-CTA layout to the plain version so."""
+    return dict(layout="cta", x_smem=x_smem, tables_smem=tables_smem,
+                smem=multiball_smem(d, n_balls, x_smem=x_smem, tables_smem=tables_smem))
+
+
 @functools.lru_cache(maxsize=256)
-def multiball_plan(n_balls: int, d: int, *, smem_budget: int | None = None) -> dict:
-    """M1's launch layout for L slots at D features, by bytes alone (a
-    shared dict: do not change it): the first of ``LAYOUTS`` whose shared
-    memory fits ``smem_budget`` (capped at the card's SMEM_PER_BLOCK), else
-    the last, which takes the head's 400 bytes, so every L and D runs.
-    Returns ``x_smem``, ``tables_smem`` and ``smem`` by term."""
+def multiball_plan(n_balls: int, d: int, *, n: int | None = None, n_ctas: int | None = None,
+                   smem_budget: int | None = None) -> dict:
+    """M1's launch layout for L slots at D features over ``n`` rows, by
+    bytes alone (a shared dict: do not change it), under ``smem_budget``
+    (capped at the card's SMEM_PER_BLOCK).
+
+    The grid (``layout`` "grid") where the state and one row fit: ``n_ctas``
+    CTAs (default one per SM), each with ``rows`` rows of a window, as many
+    as fit, evened out over the ``windows`` windows that ``n`` rows take
+    (``n`` None: as many as fit, ``windows`` None). Else the first of
+    ``LAYOUTS`` (``layout`` "cta") whose shared memory fits, else the last,
+    which takes the head's 400 bytes, so every L and D runs. Returns
+    ``layout``, ``x_smem``, ``tables_smem`` and ``smem`` by term, and for the
+    grid ``n_ctas``, ``rows`` and ``windows``."""
     limit = SMEM_PER_BLOCK if smem_budget is None else min(int(smem_budget), SMEM_PER_BLOCK)
+    per_row = sum(grid_smem(d, n_balls, 1).values()) - sum(grid_smem(d, n_balls, 0).values())
+    rows = (limit - sum(grid_smem(d, n_balls, 0).values())) // per_row
+    if rows >= 1:
+        g = sm_count() if n_ctas is None else int(n_ctas)
+        if g < 1:
+            raise ValueError(f"n_ctas must be at least 1: got {n_ctas}")
+        windows = None
+        if n is not None:
+            windows = max(1, -(-int(n) // (g * rows)))
+            rows = max(1, -(-int(n) // (g * windows)))
+        return dict(layout="grid", x_smem=True, tables_smem=True, n_ctas=g, rows=rows,
+                    windows=windows, smem=grid_smem(d, n_balls, rows))
     for xs, ts in LAYOUTS:
-        smem = multiball_smem(d, n_balls, x_smem=xs, tables_smem=ts)
-        if sum(smem.values()) <= limit or (xs, ts) == LAYOUTS[-1]:
-            return dict(x_smem=xs, tables_smem=ts, smem=smem)
+        plan = cta_plan(n_balls, d, xs, ts)
+        if sum(plan["smem"].values()) <= limit or (xs, ts) == LAYOUTS[-1]:
+            return plan
     raise AssertionError("unreachable")
 
 
-def multiball_layouts(n_balls: int, d: int) -> list[dict]:
-    """Every layout ``multiball_plan`` picks for L slots at D as the budget
-    falls from the card's limit to 0. A budget of a plan's own bytes
-    (``sum(plan["smem"].values())``) launches it: tests and chip_smoke.py
-    force each layout so."""
+def multiball_layouts(n_balls: int, d: int, *, n: int | None = None) -> list[dict]:
+    """Every layout ``multiball_plan`` picks for L slots at D (over ``n``
+    rows) as the budget falls from the card's limit to 0: the grid where it
+    fits, then each one-CTA layout below the grid's bytes for one row. A
+    budget of a plan's own bytes (``sum(plan["smem"].values())``) launches
+    it: tests and chip_smoke.py force each layout so."""
     out = []
+    top = multiball_plan(n_balls, d, n=n)
+    if top["layout"] == "grid":
+        out.append(top)
     for xs, ts in LAYOUTS:
         budget = sum(multiball_smem(d, n_balls, x_smem=xs, tables_smem=ts).values())
-        plan = multiball_plan(n_balls, d, smem_budget=budget)
-        if budget <= SMEM_PER_BLOCK and plan not in out:
+        plan = multiball_plan(n_balls, d, n=n, smem_budget=budget)
+        if budget <= SMEM_PER_BLOCK and plan["layout"] == "cta" and plan not in out:
             out.append(plan)
     return out
 
@@ -227,11 +288,14 @@ def multiball_scan_plain(X, y, w, r, xi2, m, active, c_inv, slack0, *,
         dst.copy_(src)
 
 
-def multiball_scan(X, y, w, r, xi2, m, active, c_inv, slack0, *, smem_budget=None) -> None:
+def multiball_scan(X, y, w, r, xi2, m, active, c_inv, slack0, *, smem_budget=None,
+                   n_ctas=None) -> None:
     """M1 on the device of ``X``: the CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor. Arguments as in the module docstring;
     the state is advanced in place. The kernel launches the layout
-    ``multiball_plan`` picks under ``smem_budget``."""
+    ``multiball_plan`` picks under ``smem_budget``; ``n_ctas`` (private, for
+    tests) sets the grid's CTAs, one per SM by default. A grid the card
+    cannot hold at once is refused at launch and raises."""
     if X.device.type == "cpu":
         return multiball_scan_plain(X, y, w, r, xi2, m, active, c_inv, slack0)
     if X.device.type != "cuda":
@@ -243,28 +307,48 @@ def multiball_scan(X, y, w, r, xi2, m, active, c_inv, slack0, *, smem_budget=Non
     if m.dtype != torch.int32 or active.dtype != torch.bool or not m.is_contiguous():
         raise ValueError("M1 takes an int32 m and a bool active")
     n, d = X.shape
-    n_balls = w.shape[0]
     if n == 0:
         return
-    dev = X.device
-    lib = _lib()
-    plan = multiball_plan(n_balls, d, smem_budget=smem_budget)
-    W = F.pad(w, (0, pitch(d) - d)).contiguous()
-    act = active.to(torch.int32)
-    scratch = None
-    if not plan["tables_smem"]:
-        scratch = torch.empty(lib.multiball_scratch_bytes(n_balls), device=dev, dtype=torch.uint8)
-    vec16 = int(X.data_ptr() % 16 == 0 and d % 4 == 0)
-    err = lib.multiball_scan(
-        X.data_ptr(), y.data_ptr(), W.data_ptr(), r.data_ptr(), xi2.data_ptr(), m.data_ptr(),
-        act.data_ptr(), None if scratch is None else scratch.data_ptr(), n, d, n_balls,
-        float(c_inv), float(slack0), int(plan["x_smem"]), int(plan["tables_smem"]), vec16,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "multiball_scan")
-    w.copy_(W[:, :d])
-    active.copy_(act.bool())
+    _launch(multiball_plan(w.shape[0], d, n=n, n_ctas=n_ctas, smem_budget=smem_budget),
+            X, y, w, r, xi2, m, active, c_inv, slack0)
     multiball_scan.launches += 1
 
 
+def _launch(plan, X, y, w, r, xi2, m, active, c_inv, slack0) -> None:
+    """Launch M1 in the layout ``plan`` (checked arguments, n > 0)."""
+    n, d = X.shape
+    n_balls = w.shape[0]
+    dev = X.device
+    lib = _lib()
+    W = F.pad(w, (0, pitch(d) - d)).contiguous()
+    act = active.to(torch.int32)
+    vec16 = int(X.data_ptr() % 16 == 0 and d % 4 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan["layout"] == "grid":
+        g = plan["n_ctas"]
+        scratch = torch.empty(lib.multiball_grid_scratch_bytes(n_balls, g), device=dev,
+                              dtype=torch.uint8)
+        err = lib.multiball_grid_scan(
+            X.data_ptr(), y.data_ptr(), W.data_ptr(), r.data_ptr(), xi2.data_ptr(),
+            m.data_ptr(), act.data_ptr(), scratch.data_ptr(), n, d, n_balls, float(c_inv),
+            float(slack0), plan["rows"], g, vec16, stream,
+        )
+        _build.check(err, f"multiball_scan (grid of {g} CTAs)")
+    else:
+        scratch = None
+        if not plan["tables_smem"]:
+            scratch = torch.empty(lib.multiball_scratch_bytes(n_balls), device=dev,
+                                  dtype=torch.uint8)
+        err = lib.multiball_scan(
+            X.data_ptr(), y.data_ptr(), W.data_ptr(), r.data_ptr(), xi2.data_ptr(),
+            m.data_ptr(), act.data_ptr(), None if scratch is None else scratch.data_ptr(), n,
+            d, n_balls, float(c_inv), float(slack0), int(plan["x_smem"]),
+            int(plan["tables_smem"]), vec16, stream,
+        )
+        _build.check(err, "multiball_scan")
+    w.copy_(W[:, :d])
+    active.copy_(act.bool())
+
+
 multiball_scan.launches = 0  # kernel launches, read by chip_smoke.py
+

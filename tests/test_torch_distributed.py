@@ -13,13 +13,24 @@ saves what it got; the test then holds:
 * the result to the reference's per-range fits folded by
   ``repro.core.meb.fold_merge`` within the engine tolerance (rtol 2e-4,
   atol 2e-5 on weights), with ``m`` exact (no multi-device XLA flag: the
-  reference's folds run on one device).
+  reference's folds run on one device);
+* the result to the reference's own mesh path (``fit_sharded``,
+  ``fit_bank_sharded``, ``fit_kernel_bank_sharded`` on a CPU mesh of W
+  devices forced by ``XLA_FLAGS``, run in a subprocess): ``m`` and ``idx``
+  exact, floats within the engine tolerance (the reference folds the
+  kernel bank inside jit, the port eagerly: the last ulp of q / xi2 may
+  differ).
 
-JAX is imported inside the tests, so the spawned ranks import only the
-port. Each child is joined with a timeout: a hung rank fails its test.
+JAX is imported inside the tests and the reference's subprocess, so the
+spawned ranks import only the port. Each child is joined with a timeout: a
+hung rank or reference run fails its test.
 """
 import multiprocessing
+import os
 import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -48,6 +59,8 @@ from repro_torch.core.kernel_bank import _fit_kernel_bank
 
 B, D, N, N_EVEN, S = 4, 6, 61, 60, 8
 JOIN_S = 240  # a rank that has not finished by then is hung
+REFERENCE_S = 300  # the reference's mesh run, JAX's compiles included
+TOL = dict(rtol=2e-4, atol=2e-5)  # the engine tolerance
 GRID = (0.5, 2.0, 8.0)
 
 
@@ -228,6 +241,83 @@ def test_bank_sharded_equals_the_folded_ranges_and_the_reference(ranks, key, kw)
                       jnp.asarray(cs), **kw) for lo, hi in ranges if lo < hi]
     stacked = type(refs[0])(*(jnp.stack(v) for v in zip(*refs)))
     _near_reference(outs[0][key], jfold_merge(stacked))
+
+
+# The reference's mesh path on W forced CPU devices: argv path, W, N_EVEN, S;
+# reads path/stream.npz, writes path/reference.pkl (leaves as numpy).
+_MESH_REFERENCE = r"""
+import pickle, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from repro.core import fit_bank_sharded, fit_sharded
+from repro.core.distributed import fit_kernel_bank_sharded
+
+path, world, n_even, s = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+data = np.load(f"{path}/stream.npz")
+X, y, Y, cs = (jnp.asarray(data[k]) for k in ("X", "y", "Y", "cs"))
+assert jax.device_count() == world, jax.devices()
+mesh = jax.make_mesh((world,), ("data",))
+kw = dict(kernel="rbf", gamma=1.0, coreset_size=s, block_n=16)
+out = {
+    "sharded": fit_sharded(X[:n_even], y[:n_even], 4.0, mesh),
+    "sharded_la": fit_sharded(X[:n_even], y[:n_even], 4.0, mesh, lookahead=3),
+    "bank": fit_bank_sharded(X, Y, cs, mesh),
+    "bank_la": fit_bank_sharded(X, Y, cs, mesh, variant="lookahead", lookahead=3),
+    "kbank": fit_kernel_bank_sharded(X, Y, cs, mesh, **kw),
+    "kbank_fp": fit_kernel_bank_sharded(X, Y, cs, mesh, eviction="farthest-point", **kw),
+}
+with open(f"{path}/reference.pkl", "wb") as f:
+    pickle.dump({k: [np.asarray(v) for v in val] for k, val in out.items()}, f)
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_reference(ranks, tmp_path_factory):
+    """The reference's sharded fits on its own mesh path, W forced CPU
+    devices (W of the ranks), on the same stream."""
+    world, _ = ranks
+    path = tmp_path_factory.mktemp(f"mesh{world}")
+    X, y, Y, cs = _stream()
+    np.savez(path / "stream.npz", X=X, y=y, Y=Y, cs=cs)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={world}",
+               PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    run = subprocess.run([sys.executable, "-c", _MESH_REFERENCE, str(path), str(world),
+                          str(N_EVEN), str(S)], env=env, capture_output=True, text=True,
+                         timeout=REFERENCE_S)
+    assert run.returncode == 0, f"stdout:{run.stdout[-2000:]}\nstderr:{run.stderr[-4000:]}"
+    with open(path / "reference.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.mark.parametrize("key", ["sharded", "sharded_la", "bank", "bank_la"])
+def test_sharded_fits_match_the_references_mesh_path(ranks, mesh_reference, key):
+    """fit_sharded (Algorithm 1 and 2) and fit_bank_sharded (B1, B3) on W
+    ranks against the reference's shard_map over W devices: m exact, w, r
+    and xi2 within the engine tolerance."""
+    _, outs = ranks
+    (w, r, xi2, m), (rw, rr, rxi2, rm) = outs[0][key], mesh_reference[key]
+    np.testing.assert_array_equal(m, rm)
+    for got, want in ((w, rw), (r, rr), (xi2, rxi2)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("key", ["kbank", "kbank_fp"])
+def test_kernel_bank_sharded_matches_the_references_mesh_path(ranks, mesh_reference, key):
+    """fit_kernel_bank_sharded, both evictions, on W ranks against the
+    reference's: idx and m exact, coef, points, q, r and xi2 within the
+    engine tolerance (the reference folds inside jit)."""
+    _, outs = ranks
+    got, want = outs[0][key], mesh_reference[key]
+    assert len(got) == len(want) == 7
+    idx, coef, points, q, r, xi2, m = got
+    ridx, rcoef, rpoints, rq, rr, rxi2, rm = want
+    np.testing.assert_array_equal(idx, ridx)
+    np.testing.assert_array_equal(m, rm)
+    for a, b in ((coef, rcoef), (points, rpoints), (q, rq), (r, rr), (xi2, rxi2)):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, **TOL)
 
 
 def test_bank_sharded_folds_a_prior_last(ranks):

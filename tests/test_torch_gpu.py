@@ -1281,24 +1281,55 @@ def _mb_run(fn, X, y, L, c_inv, slack0, **kw):
     return st
 
 
+def _grid_budget(L, d, rows):
+    """A budget that gives the grid ``rows`` rows a CTA (None: the card's)."""
+    from repro_torch.kernels.multiball import grid_smem
+
+    return None if rows is None else sum(grid_smem(d, L, rows).values())
+
+
+def _mb_forced(plan):
+    """M1's kernel in ``plan``, whatever ``multiball_plan`` would pick; called
+    as ``multiball_scan`` is."""
+    from repro_torch.kernels.multiball import _launch
+
+    return lambda *a: _launch(plan, *a)
+
+
+def _mb_one_cta_plans(L, d):
+    """Every one-CTA layout of ``LAYOUTS`` as a plan."""
+    from repro_torch.kernels.multiball import LAYOUTS, cta_plan
+
+    return [cta_plan(L, d, xs, ts) for xs, ts in LAYOUTS]
+
+
+def _mb_stream(cuda, L, d, stream, n=400):
+    """Random unit rows at C = 10 or the edge stream at C = 1e4; returns X,
+    y on the card and 1/C as an f32 value."""
+    if stream == "random":
+        X = _bank_data(1, n, d, seed=L * 31 + d)[0]
+        y = np.where(np.random.default_rng(d).random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+        c = 10.0
+    else:
+        X, y = edge_stream(n, d, L)
+        c = 1e4
+    return (torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda),
+            float(np.float32(1.0 / c)))
+
+
 @pytest.mark.parametrize("stream", ["random", "edges"])
 @pytest.mark.parametrize("d", [30, 33, 64, 784])
 @pytest.mark.parametrize("L", [1, 2, 3, 8, 11])
 def test_multiball_every_layout_matches_plain(cuda, L, d, stream):
     """M1 equals its plain version bit for bit in every leaf, both variants,
-    in every layout the plan reaches (each forced by its own bytes)."""
+    in every layout the plan reaches (each forced by its own bytes), and in
+    each of the four one-CTA layouts launched in its own plan (the grid
+    takes these shapes, so the plan reaches the staged ones nowhere here;
+    D = 30 and 33 stage by element loads)."""
     from repro_torch.kernels.multiball import (
         multiball_layouts, multiball_scan, multiball_scan_plain)
 
-    if stream == "random":
-        X = _bank_data(1, 400, d, seed=L * 31 + d)[0]
-        y = np.where(np.random.default_rng(d).random(400) < 0.5, -1.0, 1.0).astype(np.float32)
-        c = 10.0
-    else:
-        X, y = edge_stream(400, d, L)
-        c = 1e4
-    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
-    c_inv = float(np.float32(1.0 / c))
+    X, y, c_inv = _mb_stream(cuda, L, d, stream)
     for slack0 in (c_inv, 1.0):
         want = _mb_run(multiball_scan_plain, X, y, L, c_inv, slack0)
         for plan in multiball_layouts(L, d):
@@ -1307,21 +1338,30 @@ def test_multiball_every_layout_matches_plain(cuda, L, d, stream):
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert torch.equal(a, b), plan
+        for plan in _mb_one_cta_plans(L, d):
+            got = _mb_run(_mb_forced(plan), X, y, L, c_inv, slack0)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), plan
 
 
 @pytest.mark.parametrize("L", [2, 8])
 def test_multiball_unaligned_rows_and_a_ragged_last_block(cuda, L):
     """X[1:] of a D = 33 stream starts off a 16-byte boundary (element
-    loads); N - 1 = 300 leaves a last block of 12 rows."""
+    loads); N - 1 = 300 leaves a last block of 12 rows. Every one-CTA
+    layout, each launched in its own plan, and the planned layout (the
+    grid) equal the plain version."""
     from repro_torch.kernels.multiball import multiball_scan, multiball_scan_plain
 
     X, y = edge_stream(301, 33, 5)
     X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
     assert X[1:].data_ptr() % 16 != 0
     want = _mb_run(multiball_scan_plain, X, y, L, 1e-4, 1e-4)
-    got = _mb_run(multiball_scan, X, y, L, 1e-4, 1e-4)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for fn in [_mb_forced(p) for p in _mb_one_cta_plans(L, 33)] + [multiball_scan]:
+        got = _mb_run(fn, X, y, L, 1e-4, 1e-4)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_fit_multiball_on_the_card_matches_the_cpu(cuda):
@@ -1340,8 +1380,122 @@ def test_multiball_byte_model_equals_the_request(cuda):
 
     lib = mb_mod._lib()
     assert _build.static_smem("multiball", "multiball_kernel") == {0}
-    for L, d in ((1, 784), (8, 784), (3, 30), (11, 33), (8, 4096), (300, 16)):
-        for plan in mb_mod.multiball_layouts(L, d):
-            assert lib.multiball_dyn_bytes(d, L, int(plan["x_smem"]), int(plan["tables_smem"])) \
-                == sum(plan["smem"].values()) <= 232_448
+    assert _build.static_smem("multiball", "multiball_grid_kernel") == {0}
+    for L, d in ((1, 784), (8, 784), (3, 30), (11, 33), (8, 4096), (300, 16), (72, 768)):
+        for n in (None, 11_799, 399):
+            for plan in mb_mod.multiball_layouts(L, d, n=n):
+                if plan["layout"] == "grid":
+                    have = lib.multiball_grid_dyn_bytes(d, L, plan["rows"])
+                else:
+                    have = lib.multiball_dyn_bytes(d, L, int(plan["x_smem"]), int(plan["tables_smem"]))
+                assert have == sum(plan["smem"].values()) <= 232_448
     assert lib.multiball_scratch_bytes(8) == 4 * (32 * 8 + 64)
+    assert lib.multiball_grid_scratch_bytes(8, 132) == 2 * 132 * 128 + 4 * 2 * 132 * 8
+
+
+@pytest.mark.parametrize("stream", ["random", "edges"])
+@pytest.mark.parametrize("d", [30, 32, 33, 784])
+@pytest.mark.parametrize("L", [1, 2, 3, 8])
+def test_multiball_grid_matches_plain(cuda, L, d, stream):
+    """The grid layout equals the plain version bit for bit in every leaf,
+    both variants, on 1, 2, 7 CTAs and one an SM, with as many rows a CTA as
+    fit, one row a CTA, and 32 (a window a CTA count times 32 rows): 399
+    rows leave a ragged last window in each."""
+    from repro_torch.kernels.multiball import multiball_plan, multiball_scan, multiball_scan_plain
+
+    X, y, c_inv = _mb_stream(cuda, L, d, stream)
+    for slack0 in (c_inv, 1.0):
+        want = _mb_run(multiball_scan_plain, X, y, L, c_inv, slack0)
+        for n_ctas in (1, 2, 7, None):
+            for rows in (None, 1, 32):
+                budget = _grid_budget(L, d, rows)
+                plan = multiball_plan(L, d, n=399, n_ctas=n_ctas, smem_budget=budget)
+                assert plan["layout"] == "grid" and (rows is None or plan["rows"] <= rows)
+                got = _mb_run(multiball_scan, X, y, L, c_inv, slack0, smem_budget=budget,
+                              n_ctas=n_ctas)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), plan
+
+
+@pytest.mark.parametrize("L", [2, 8])
+def test_multiball_grid_updates_on_cta_and_window_edges(cuda, L, monkeypatch):
+    """On 2 CTAs of 32 rows (windows of 64 over 384 rows), the edge
+    stream's updates fall on a window's first row and on a CTA's last row
+    (checked on the plain version's updates), and the grid equals the
+    plain version."""
+    from repro_torch.kernels import multiball as mb_mod
+
+    X, y, c_inv = _mb_stream(cuda, L, 33, "edges", n=385)
+    rows, orig = [], mb_mod.absorb
+
+    def spy(W, r, xi2, m, act, P, s_row, x, slack0):
+        rows.append(x[:33].clone())
+        return orig(W, r, xi2, m, act, P, s_row, x, slack0)
+
+    monkeypatch.setattr(mb_mod, "absorb", spy)
+    want = _mb_run(mb_mod.multiball_scan_plain, X, y, L, c_inv, c_inv)
+    monkeypatch.setattr(mb_mod, "absorb", orig)
+    yx = y[1:, None] * X[1:]
+    pos = [int(torch.nonzero((yx == x).all(1))[0]) for x in rows]
+    budget = _grid_budget(L, 33, 32)
+    plan = mb_mod.multiball_plan(L, 33, n=384, n_ctas=2, smem_budget=budget)
+    assert (plan["rows"], plan["windows"]) == (32, 6)
+    assert any(p % 64 == 0 and p > 0 for p in pos), pos  # a window's first row
+    assert any(p % 32 == 31 for p in pos), pos  # a CTA's last row
+    got = _mb_run(mb_mod.multiball_scan, X, y, L, c_inv, c_inv, smem_budget=budget, n_ctas=2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L", [2, 8])
+def test_multiball_grid_unaligned_rows_and_a_ragged_last_window(cuda, L):
+    """X[1:] of a D = 33 stream starts off a 16-byte boundary (element
+    loads); 300 rows on 7 CTAs of 5 rows leave a last window of 20 rows."""
+    from repro_torch.kernels.multiball import multiball_plan, multiball_scan, multiball_scan_plain
+
+    X, y = edge_stream(301, 33, 5)
+    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+    assert X[1:].data_ptr() % 16 != 0
+    budget = _grid_budget(L, 33, 5)
+    assert multiball_plan(L, 33, n=300, n_ctas=7, smem_budget=budget)["windows"] == 9
+    want = _mb_run(multiball_scan_plain, X, y, L, 1e-4, 1e-4)
+    got = _mb_run(multiball_scan, X, y, L, 1e-4, 1e-4, smem_budget=budget, n_ctas=7)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_multiball_grid_the_card_cannot_hold_is_refused(cuda):
+    """More CTAs than the card holds at once (512 threads a CTA: at most 4
+    an SM) are refused at launch and raise; nothing ran, and no other layout
+    was launched in its place."""
+    from repro_torch.kernels.multiball import multiball_scan
+    from repro_torch.kernels.streamsvm_scan import sm_count
+
+    X, y, c_inv = _mb_stream(cuda, 4, 784, "random")
+    st = _start(X, y, 4, c_inv)
+    before = [v.clone() for v in st]
+    launches = multiball_scan.launches
+    with pytest.raises(RuntimeError, match="grid of"):
+        multiball_scan(X[1:], y[1:], *st, c_inv, c_inv, n_ctas=4 * sm_count() + 1)
+    torch.cuda.synchronize()
+    assert multiball_scan.launches == launches
+    for a, b in zip(st, before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L,d", [(72, 768), (300, 16)])
+def test_multiball_one_cta_layouts_where_the_grid_does_not_fit(cuda, L, d):
+    """Where the state replica and a row pass the card's limit, the plan
+    takes the one-CTA layouts, each bit-equal to the plain version."""
+    from repro_torch.kernels.multiball import (
+        multiball_layouts, multiball_scan, multiball_scan_plain)
+
+    plans = multiball_layouts(L, d)
+    assert plans and all(p["layout"] == "cta" for p in plans)
+    X, y, c_inv = _mb_stream(cuda, L, d, "random", n=300)
+    want = _mb_run(multiball_scan_plain, X, y, L, c_inv, c_inv)
+    for plan in plans:
+        got = _mb_run(multiball_scan, X, y, L, c_inv, c_inv, smem_budget=sum(plan["smem"].values()))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), plan

@@ -18,7 +18,10 @@ from repro_torch.core.multiball import MultiBall, decision_function
 from repro_torch.kernels import multiball as mb_kernel
 from repro_torch.kernels.multiball import (
     BLOCK_ROWS,
+    GRID_HEAD_BYTES,
     HEAD_BYTES,
+    cta_plan,
+    grid_smem,
     multiball_layouts,
     multiball_plan,
     multiball_scan,
@@ -246,25 +249,68 @@ def test_full_size_beyond_path_matches_the_reference(L):
 
 
 def test_plan_takes_the_first_layout_that_fits():
-    # mnist89's width: the stream staged and the tables in shared memory.
+    # mnist89's width: the grid, one CTA an SM, as many rows as fit.
     plan = multiball_plan(8, 784)
-    assert plan["x_smem"] and plan["tables_smem"]
-    assert sum(plan["smem"].values()) == HEAD_BYTES + 2 * 32 * 800 * 4 + 4 * (32 * 8 + 64 + 32)
-    assert sum(plan["smem"].values()) <= SMEM_PER_BLOCK
-    # D = 4,096: two staged blocks need 1 MiB, so the stream is read in place.
-    assert multiball_plan(8, 4096)["x_smem"] is False
-    # Every layout a budget reaches, each launched by its own bytes.
+    assert plan["layout"] == "grid" and plan["n_ctas"] == 132 and plan["windows"] is None
+    fixed = GRID_HEAD_BYTES + 4 * (9 * 800 + 64 + 40)
+    assert plan["rows"] == (SMEM_PER_BLOCK - fixed) // (4 * 808) == 62
+    assert sum(plan["smem"].values()) == fixed + 62 * 4 * 808 <= SMEM_PER_BLOCK
+    # D = 4,096: the state takes 8 padded centers and the acting row, and 5
+    # rows fit beside them.
+    assert multiball_plan(8, 4096)["rows"] == 5
+    # Every layout a budget reaches, each launched by its own bytes: the
+    # grid, then the one-CTA layouts below the grid's bytes for one row.
     for L, d in ((1, 30), (8, 784), (3, 33)):
         plans = multiball_layouts(L, d)
-        assert [(p["x_smem"], p["tables_smem"]) for p in plans] == [
-            (True, True), (True, False), (False, True), (False, False)]
+        assert [(p["layout"], p["x_smem"], p["tables_smem"]) for p in plans] == [
+            ("grid", True, True), ("cta", False, True), ("cta", False, False)]
         for p in plans:
             assert multiball_plan(L, d, smem_budget=sum(p["smem"].values())) == p
+        assert sum(plans[1]["smem"].values()) < sum(grid_smem(d, L, 1).values())
     # Under any budget the last layout runs (the head alone).
     assert multiball_plan(8, 784, smem_budget=0)["smem"] == multiball_smem(
         784, 8, x_smem=False, tables_smem=False)
-    # 300 slots: the tables alone pass the card's limit.
+    # 300 slots: the tables alone pass the card's limit, and the grid's state.
     assert not any(p["tables_smem"] for p in multiball_layouts(300, 16))
+
+
+def test_grid_plan_rows_and_windows_at_mnist89():
+    """11,799 rows on 132 CTAs: as many rows as fit (62 at L = 8, 70 at L =
+    1) take 2 windows, evened out to 45 rows a CTA; a budget of 3 rows a CTA
+    takes 30 windows of 132 x 3."""
+    for L, fit in ((1, 70), (8, 62)):
+        assert multiball_plan(L, 784)["rows"] == fit
+        plan = multiball_plan(L, 784, n=11_799)
+        assert (plan["n_ctas"], plan["rows"], plan["windows"]) == (132, 45, 2)
+        assert plan["smem"] == grid_smem(784, L, 45)
+        assert plan["smem"]["rows"] == 45 * 4 * (800 + L)
+        small = multiball_plan(L, 784, n=11_799, smem_budget=sum(grid_smem(784, L, 3).values()))
+        assert (small["layout"], small["rows"], small["windows"]) == ("grid", 3, 30)
+        # Forcing a grid by its own bytes gives it back.
+        assert multiball_plan(L, 784, n=11_799, smem_budget=sum(plan["smem"].values())) == plan
+    # Fewer CTAs: more windows, the rows evened out; fewer rows than CTAs:
+    # one row a CTA, one window.
+    plan = multiball_plan(8, 784, n=11_799, n_ctas=7)
+    assert (plan["rows"], plan["windows"]) == (61, 28)
+    assert multiball_plan(2, 784, n=100)["rows"] == 1
+    with pytest.raises(ValueError, match="n_ctas"):
+        multiball_plan(2, 784, n=100, n_ctas=0)
+
+
+@pytest.mark.parametrize("L,d,want", [
+    (72, 768, [(True, True), (True, False), (False, True), (False, False)]),
+    (300, 16, [(True, False), (False, False)]),
+    (1, 65_536, [(False, True), (False, False)]),
+])
+def test_one_cta_layouts_where_the_grid_does_not_fit(L, d, want):
+    """The grid needs the state replica and one row; where they pass the
+    card's limit, the plan takes the one-CTA layouts as before."""
+    assert sum(grid_smem(d, L, 1).values()) > SMEM_PER_BLOCK
+    plans = multiball_layouts(L, d, n=11_799)
+    assert [(p["layout"], p["x_smem"], p["tables_smem"]) for p in plans] == [
+        ("cta",) + xt for xt in want]
+    assert plans == [cta_plan(L, d, *xt) for xt in want]
+    assert multiball_plan(L, d, n=11_799) == plans[0]
 
 
 def test_wrapper_validation_and_dispatch():
