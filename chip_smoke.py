@@ -5,12 +5,13 @@
     python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
         --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
 
-The second form rehearses phases 2-9 on the CPU at a tiny size, through the
-kernels' plain versions; a run on the card never takes that path (add
+The second form rehearses phases 2-10 on the CPU at a tiny size, through
+the kernels' plain versions; a run on the card never takes that path (add
 --fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
 phase 4 too, --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
-the kernelized bank, and --ring-classes 16 --ring-d 40 --ring-n-train 2000
---ring-n-test 300 --ring-check-n 512 --ring-plain-n 256 for phase 7b).
+the kernelized bank, --ring-classes 16 --ring-d 40 --ring-n-train 2000
+--ring-n-test 300 --ring-check-n 512 --ring-plain-n 256 for phase 7b, and
+--live-chunk 200 --live-kb-rows 1024 --live-kb-chunk 256 for phase 10).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: name, count, power limit, versions; build every kernel from
@@ -84,6 +85,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      fit_sharded(lookahead=10) over mnist89; both ranks bit-equal to each
      other and to the per-range fits folded by fold_merge; accuracy beside
      phase 3's unsharded bank;
+  10. the live loop (repro_torch.live: train -> fold -> hot swap, a commit
+     every fold), with the launch counts read around (a) and (b): (a) phase
+     3's 600-model bank over 60,000 drifting class-blob rows in 4,096-row
+     chunks, K = 4, rotate_every 4, FlakySource transient faults and a
+     poison chunk, a BankServer (ovr) answering ragged requests between
+     chunks; crashed once at each of the 7 PHASES through
+     run_live_with_restarts, bit-identical to the clean run (bank, served
+     ids and margins, durable stats); K = 1 bit-equal to fit_bank chunk by
+     chunk; "hbm" bit-equal to "vmem"; (b) the kernel bank's loop (600
+     models, RBF, S = --coreset) over the first 30,720 rows in 7,680-row
+     chunks, crashed at post_fold and mid_checkpoint, bit-identical, and
+     BankServer.from_checkpoint on its live checkpoint serving the loop's
+     last pushed bank bit for bit; (c) the loop of (a) SPMD on 2 gloo ranks
+     sharing the card, run to the end and killed at a chunk: every rank
+     bit-equal, equal to the per-range run, and the killed run resumed
+     without a mesh (one remesh) bit-equal to it; a seeded chaos_schedule
+     bit-identical to chaos_reference. Per-chunk train and fold ms (events),
+     swap, commit and resume ms, commit bytes, served queries/s;
   5. (printed last) kernel times at the main path's shapes against their
      bounds, printed as one JSON line {"kernels": [...]}, with torch.matmul's
      bare product (no epilogue) at the server step and at 7b's serve; R1 at
@@ -1959,6 +1978,457 @@ def phase_sharded(dev, args, main, world=2):
     return dict(acc=acc, t_ranks=t_ranks)
 
 
+LIVE_SOURCE_FAULTS = {2: 2, 6: 1, 9: -1}  # chunk -> transient faults; -1: poison (phase 10a)
+#: Phase 10a's crashes: one at each boundary of PHASES, each on a chunk where
+#: it fires (rotations at every 4th chunk, a fold and a commit every chunk).
+LIVE_FAILPOINTS = (("fetch", 1), ("post_train", 3), ("post_fold", 5), ("post_rotate", 7),
+                   ("post_swap", 8), ("mid_checkpoint", 10), ("post_checkpoint", 12))
+LIVE_KILL = ("post_train", 6)  # where phase 10c's ranks are killed
+LIVE_KB_FAILPOINTS = (("post_fold", 1), ("mid_checkpoint", 2))  # phase 10b
+
+
+def drifting_blobs(n, chunk, n_classes, d, seed, n_test):
+    """Phase 10's stream: unit-norm class blobs whose prototypes move a
+    little every ``chunk`` rows (examples/live_bank.py's drift), and
+    ``n_test`` held-out rows drawn at the last chunk's prototypes."""
+    rng = np.random.default_rng(seed)
+    proto = (rng.normal(size=(n_classes, d)) * 3).astype(np.float32)
+    drift = (rng.normal(size=(n_classes, d)) * 0.15).astype(np.float32)
+    n_chunks = -(-n // chunk)
+
+    def draw(m, t):
+        labels = rng.integers(0, n_classes, size=m)
+        X = rng.normal(size=(m, d)).astype(np.float32) + (proto + t * drift)[labels]
+        X /= np.linalg.norm(X, axis=1, keepdims=True)
+        return X, labels
+
+    parts = [draw(min(chunk, n - t * chunk), t) for t in range(n_chunks)]
+    X, labels = np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+    Xte, yte = draw(n_test, n_chunks - 1)
+    return X, labels, Xte, yte
+
+
+def live_linear(X, Y, cs, chunk, ckpt_dir, device, **kw):
+    """Phase 10a's loop over ``X``, ``Y`` in ``chunk``-row chunks: K = 4,
+    rotate_every 4, retire "merge", a fold, a hot swap and a commit every
+    chunk, b_tile 64 (phase 3's), the source with LIVE_SOURCE_FAULTS."""
+    from repro_torch.live import ArraySource, FlakySource, LiveBank
+
+    kw.setdefault("cls", LiveBank)
+    cls = kw.pop("cls")
+    return cls(FlakySource(ArraySource(X, Y, chunk), LIVE_SOURCE_FAULTS), cs,
+               ckpt_dir=ckpt_dir, n_sub_banks=4, rotate_every=4, retire="merge", swap_every=1,
+               checkpoint_every_folds=1, b_tile=64, sleep=lambda s: None, device=device, **kw)
+
+
+def live_timed_class():
+    """LiveBank with timers around its phases, and ragged requests served
+    after every hot swap (phase 10). Train and fold: CUDA events around the
+    call (the host clock on the CPU); swap, commit and resume: the host
+    clock around the call and a synchronize. What it adds changes no bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.live import LiveBank
+
+    class TimedLive(LiveBank):
+        def __init__(self, *a, queries=None, **kw):
+            super().__init__(*a, **kw)
+            self.times = {k: [] for k in ("train", "fold", "swap", "save", "resume", "serve")}
+            self.save_bytes, self.max_age, self.served_rows = [], 0, 0
+            self.queries, self._req_rng = queries, np.random.default_rng(17)
+
+        def _timed(self, key, fn, *a, events=False):
+            dev = self.device
+            if events and dev.type == "cuda":
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a)
+                e1.record()
+                e1.synchronize()
+                self.times[key].append(e0.elapsed_time(e1))
+                return out
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync(dev)
+            self.times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def _train(self, X, y):
+            return self._timed("train", super()._train, X, y, events=True)
+
+        def _merged(self):
+            return self._timed("fold", super()._merged, events=True)
+
+        def _restore(self):
+            return self._timed("resume", super()._restore)
+
+        def _checkpoint(self, i):
+            before = self.stats.checkpoints
+            self._timed("save", super()._checkpoint, i)
+            if self.stats.checkpoints == before:
+                self.times["save"].pop()  # nothing durable yet: no commit was made
+            elif self._leader():
+                arrays = ckpt.load_manifest(self.ckpt_dir)["arrays_file"]
+                self.save_bytes.append(Path(self.ckpt_dir, arrays).stat().st_size)
+
+        def _push(self, merged):
+            self._timed("swap", super()._push, merged)
+            if self.queries is None or self.server is None:
+                return
+            reqs, lo = [], 0
+            while lo < 1024:  # ragged client batches between chunks
+                m = int(self._req_rng.integers(1, 200))
+                at = (self.chunk_idx * 1024 + lo) % (len(self.queries) - m)
+                reqs.append(self.server.submit(self.queries[at : at + m]))
+                lo += m
+            self._timed("serve", self.server.run)
+            self.served_rows += lo
+
+        def _cadences(self, i):
+            super()._cadences(i)
+            self.max_age = max(self.max_age, self.stats.bank_age_chunks)
+
+    return TimedLive
+
+
+def bank_leaves_equal(name, got, want):
+    """Two banks (Ball or KernelBank) equal bit for bit in every leaf."""
+    for leaf, a, b in zip(want._fields, got, want):
+        bit_equal(f"{name} {leaf}", a, b)
+
+
+def live_rank(rank, world, store, device, chunk):
+    """Phase 10c, one rank: the linear loop of 10a SPMD over a DeviceMesh of
+    ``world`` gloo ranks (n_stream_shards = world), first to the end, then
+    killed at LIVE_KILL; saves what this rank holds each time."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.runtime import InjectedFailure
+
+    dist.init_process_group("gloo", init_method=f"file://{store}/pg", rank=rank,
+                            world_size=world)
+    try:
+        mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+        X, Y, cs = (np.load(f"{store}/{k}.npy") for k in ("X", "Y", "cs"))
+        t0 = time.perf_counter()
+        live = live_linear(X, Y, cs, chunk, f"{store}/mesh", device, mesh=mesh)
+        stats = live.run()
+        sync(torch.device(device))
+        t_run = time.perf_counter() - t0
+        full = [v.cpu().numpy() for v in live.serving_bank()]
+        killed = live_linear(X, Y, cs, chunk, f"{store}/kill", device, mesh=mesh,
+                             failpoints=[LIVE_KILL])
+        try:
+            killed.run()
+        except InjectedFailure:
+            pass
+        else:
+            raise AssertionError(f"phase 10c: the kill at {LIVE_KILL} never fired")
+        at_kill = [v.cpu().numpy() for v in killed.serving_bank()]
+        np.savez(f"{store}/rank{rank}.npz", *full, *at_kill, t_run=t_run,
+                 stats=json.dumps(stats.durable()), shards=live.n_stream_shards)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_live(dev, args, smi):
+    """Phase 10: the live loop (repro_torch.live) at the main path's width:
+    (a) the linear loop, crashed at every phase, K = 1 and "hbm"; (b) the
+    kernel bank's loop; (c) the loop SPMD on 2 gloo ranks, killed and resumed
+    without a mesh, and a chaos schedule."""
+    import multiprocessing
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import fit_bank, ovr_signs
+    from repro_torch.kernels.gram import gram_fused, row_norms
+    from repro_torch.kernels.kernel_bank import kernel_bank_rows
+    from repro_torch.kernels.predict import predict_bank_fused
+    from repro_torch.kernels.streamsvm_scan import streamsvm_scan_many, streamsvm_scan_many_ring
+    from repro_torch.live import (
+        ArraySource,
+        LiveBank,
+        chaos_reference,
+        chaos_schedule,
+        run_chaos,
+        run_live_with_restarts,
+    )
+    from repro_torch.runtime import StragglerPolicy
+    from repro_torch.serve import BankServer
+
+    t_phase = time.perf_counter()
+    n_classes, c_pts, d, chunk = args.classes, (1.0, 10.0, 100.0), args.d, args.live_chunk
+    card = smi or "cpu"
+    X, labels, Xte, yte = drifting_blobs(args.n_train, chunk, n_classes, d, args.seed + 21,
+                                         args.n_test)
+    Y = np.tile(ovr_signs(labels, n_classes, device="cpu").numpy(), (len(c_pts), 1))
+    cs = np.repeat(np.asarray(c_pts, np.float32), n_classes)
+    n_chunks = -(-len(X) // chunk)
+    print(f"[10] live loop ({card}): {len(cs)} models, D={d}, {len(X)} drifting rows in "
+          f"{n_chunks} chunks of {chunk} (last {len(X) - (n_chunks - 1) * chunk}); K=4, "
+          f"rotate_every 4, retire merge, a fold, swap and commit every chunk; source faults "
+          f"{LIVE_SOURCE_FAULTS} (-1: poison)")
+    counters = (streamsvm_scan_many, streamsvm_scan_many_ring, predict_bank_fused, gram_fused,
+                row_norms, kernel_bank_rows)
+    for f in counters:
+        f.launches = 0
+    by_run, last = {}, {f.__name__: 0 for f in counters}
+
+    def count(run):
+        """The launches since the last count, filed under ``run``."""
+        now = {f.__name__: f.launches for f in counters}
+        by_run[run] = {k: now[k] - last[k] for k in now if now[k] > last[k]}
+        last.update(now)
+        return by_run[run]
+
+    TimedLive = live_timed_class()
+    server_factory = lambda bank: BankServer(bank, epilogue="ovr", n_classes=n_classes,
+                                             q_block=256, b_tile=200, device=dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        # (a) the clean run (with the source faults), timed, serving between chunks
+        clean = live_linear(X, Y, cs, chunk, f"{td}/a", dev, cls=TimedLive, queries=Xte,
+                            server_factory=server_factory)
+        sync(dev)
+        t0 = time.perf_counter()
+        stats = clean.run()
+        sync(dev)
+        t_clean = time.perf_counter() - t0
+        bank = clean.serving_bank()
+        for name, leaf in zip(("w", "r", "xi2"), bank[:3]):
+            if not torch.isfinite(leaf).all():
+                raise AssertionError(f"phase 10a: the serving bank has non-finite {name}")
+        steps_between = clean.server.stats.steps  # the steps that served between chunks
+        ids, margins = clean.server.score(Xte)
+        clean_launches = count("10a clean run, its requests and the held-out score")
+        acc = [float((ids[:, g] == yte).mean()) for g in range(len(c_pts))]
+        # crashes at every phase of PHASES, with the same source faults
+        crashy = live_linear(X, Y, cs, chunk, f"{td}/a_crash", dev, cls=TimedLive,
+                             server_factory=server_factory, failpoints=list(LIVE_FAILPOINTS))
+        t0 = time.perf_counter()
+        cstats = run_live_with_restarts(crashy, sleep=lambda s: None)
+        sync(dev)
+        t_crash = time.perf_counter() - t0
+        if cstats.restarts != len(LIVE_FAILPOINTS):
+            raise AssertionError(f"phase 10a: {cstats.restarts} restarts for "
+                                 f"{len(LIVE_FAILPOINTS)} failpoints")
+        bank_leaves_equal("10a crashed run's bank against the clean run's", crashy.serving_bank(),
+                          bank)
+        cids, cmargins = crashy.server.score(Xte)
+        count("10a crashed 7 times, and its held-out score")
+        if not (np.array_equal(cids, ids) and np.array_equal(cmargins, margins)):
+            raise AssertionError("phase 10a: the crashed run serves other ids or margins")
+        if cstats.durable() != stats.durable():
+            raise AssertionError(f"phase 10a: durable stats differ: {cstats.durable()} "
+                                 f"against {stats.durable()}")
+        # K = 1 against fit_bank continued chunk by chunk
+        k1 = LiveBank(ArraySource(X, Y, chunk), cs, ckpt_dir=f"{td}/a_k1", n_sub_banks=1,
+                      rotate_every=10**9, swap_every=1, b_tile=64, device=dev)
+        k1.run()
+        count("10a K=1")
+        ref = None
+        csd = torch.as_tensor(cs, device=dev)
+        for lo in range(0, len(X), chunk):
+            ref = fit_bank(torch.as_tensor(X[lo : lo + chunk], device=dev),
+                           torch.as_tensor(Y[:, lo : lo + chunk], device=dev), csd, ref, b_tile=64)
+        count("10a fit_bank chunk by chunk (the K=1 check)")
+        bank_leaves_equal("10a K=1 against fit_bank chunk by chunk", k1.serving_bank(), ref)
+        # the clean run with bank_resident="hbm" (B6, the ring)
+        hbm = live_linear(X, Y, cs, chunk, f"{td}/a_hbm", dev, bank_resident="hbm")
+        hbm.run()
+        hbm_launches = count('10a "hbm"')
+        bank_leaves_equal('10a "hbm" against "vmem"', hbm.serving_bank(), bank)
+        served_ms, served_kernel = served_kernel_ms(dev, bank.w, Xte, n_classes, steps_between,
+                                                    ring=False)
+        serve_wall = sum(clean.times["serve"])
+        print(f"  (a) [{card}] clean run {t_clean:.3f} s: {stats.chunks_ingested} chunks, "
+              f"{stats.folds} folds, {stats.swaps} swaps, {stats.rotations} rotations, {stats.retirements} "
+              f"retirements, {stats.checkpoints} commits; retries {stats.retries}, quarantined "
+              f"{stats.quarantined}, largest bank_age_chunks {clean.max_age}")
+        print(f"      train ms per chunk (events): {[round(t, 3) for t in clean.times['train']]}")
+        print(f"      fold ms per chunk (events): {[round(t, 3) for t in clean.times['fold']]}")
+        print(f"      swap ms: median {np.median(clean.times['swap']):.3f} (max "
+              f"{max(clean.times['swap']):.3f}); commit ms: median "
+              f"{np.median(clean.times['save']):.1f} (max {max(clean.times['save']):.1f}), bytes "
+              f"{min(clean.save_bytes)}..{max(clean.save_bytes)}")
+        print(f"      served between chunks: {clean.served_rows} queries in "
+              f"{steps_between} steps, {serve_wall:.2f} ms, "
+              f"{clean.served_rows / (serve_wall / 1e3):.0f} queries/s; the steps' kernel (B2) "
+              f"{steps_between} x {served_ms:.4f} ms = {served_kernel:.2f} ms of the "
+              f"serve wall ({served_kernel / serve_wall:.1%})")
+        print(f"      held-out accuracy at the last chunk's prototypes per C: "
+              + ", ".join(f"C={c:g}: {a:.4f}" for c, a in zip(c_pts, acc)))
+        print(f"  (a) crashed at {len(LIVE_FAILPOINTS)} phases "
+              f"({', '.join(p for p, _ in LIVE_FAILPOINTS)}): {cstats.restarts} restarts in "
+              f"{t_crash:.3f} s, retries {cstats.retries}, "
+              f"quarantined {cstats.quarantined}, largest bank_age_chunks {crashy.max_age}; "
+              f"resume ms (restore + fold) {[round(t, 1) for t in crashy.times['resume']]}; bank, "
+              "served ids and margins, durable stats bit-identical to the clean run")
+        print("  (a) K=1 bit-equal to fit_bank continued chunk by chunk; \"hbm\" bit-equal to "
+              "\"vmem\"")
+        out["a"] = dict(train=clean.times["train"], fold=clean.times["fold"],
+                        save=clean.times["save"], bytes=clean.save_bytes,
+                        resume=crashy.times["resume"], qps=clean.served_rows / (serve_wall / 1e3))
+
+        # (b) the kernel bank's loop
+        kb_rows = min(args.live_kb_rows, len(X))
+        kchunk = args.live_kb_chunk
+        Xk, Yk = X[:kb_rows], Y[:, :kb_rows]
+        print(f"  (b) [{card}] kernel bank: {len(cs)} models, RBF gamma {KB_GAMMA}, "
+              f"S={args.coreset}, block_n 256, {kb_rows} rows in chunks of {kchunk}, K=2, rotate_every 2, a commit "
+              "every fold")
+        kserver = lambda b: BankServer(b, kernel="rbf", gamma=KB_GAMMA, epilogue="ovr",
+                                       n_classes=n_classes, q_block=256, device=dev)
+
+        def kernel_live(name, **kw):
+            return TimedLive(ArraySource(Xk, Yk, kchunk), cs, ckpt_dir=f"{td}/{name}",
+                             bank_kind="kernel", kernel="rbf", gamma=KB_GAMMA,
+                             coreset_size=args.coreset, block_n=256, n_sub_banks=2,
+                             rotate_every=2, swap_every=1, server_factory=kserver,
+                             sleep=lambda s: None, device=dev, **kw)
+
+        kclean = kernel_live("b")
+        t0 = time.perf_counter()
+        kstats = kclean.run()
+        sync(dev)
+        t_kclean = time.perf_counter() - t0
+        kbank = kclean.serving_bank()
+        q = Xte[:2048]
+        kids, kmargins = kclean.server.score(q)
+        kernel_launches = count("10b clean run and the held-out score")
+        kcrash = kernel_live("b_crash", failpoints=list(LIVE_KB_FAILPOINTS))
+        t0 = time.perf_counter()
+        kcstats = run_live_with_restarts(kcrash, sleep=lambda s: None)
+        sync(dev)
+        t_kcrash = time.perf_counter() - t0
+        if kcstats.restarts != len(LIVE_KB_FAILPOINTS):
+            raise AssertionError(f"phase 10b: {kcstats.restarts} restarts")
+        bank_leaves_equal("10b crashed kernel run against the clean run", kcrash.serving_bank(),
+                          kbank)
+        if kcstats.durable() != kstats.durable():
+            raise AssertionError(f"phase 10b: durable stats differ: {kcstats.durable()} "
+                                 f"against {kstats.durable()}")
+        t0 = time.perf_counter()
+        from_ckpt = BankServer.from_checkpoint(f"{td}/b_crash", epilogue="ovr",
+                                               n_classes=n_classes, q_block=256, device=dev)
+        sync(dev)
+        t_from = time.perf_counter() - t0
+        manifest = ckpt.load_manifest(f"{td}/b_crash")
+        folded = BankServer._fold_live_checkpoint(f"{td}/b_crash", manifest, manifest["meta"], {},
+                                                  dev)
+        bank_leaves_equal("10b live checkpoint folded against the loop's last pushed bank",
+                          folded, kbank)
+        fids, fmargins = from_ckpt.score(q)
+        count("10b crashed twice, and from_checkpoint's score")
+        if not (np.array_equal(kids, fids) and np.array_equal(kmargins, fmargins)):
+            raise AssertionError("phase 10b: from_checkpoint serves other bits than the loop")
+        kacc = [float((kids[:, g] == yte[:2048]).mean()) for g in range(len(c_pts))]
+        print(f"      clean run {t_kclean:.3f} s, crashed at {[p for p, _ in LIVE_KB_FAILPOINTS]} "
+              f"{t_kcrash:.3f} s ({kcstats.restarts} restarts), bit-identical; dropped |coef| "
+              f"mass {kstats.merge_dropped_mass:.4f}")
+        print(f"      train ms per chunk (events): {[round(t, 3) for t in kclean.times['train']]}; "
+              f"fold ms: {[round(t, 3) for t in kclean.times['fold']]}")
+        print(f"      commit ms {[round(t, 1) for t in kclean.times['save']]}, bytes "
+              f"{kclean.save_bytes}; resume ms (restore + fold) "
+              f"{[round(t, 1) for t in kcrash.times['resume']]}; swap ms median "
+              f"{np.median(kclean.times['swap']):.3f}")
+        print(f"      BankServer.from_checkpoint on the live checkpoint {t_from * 1e3:.1f} ms, "
+              f"serving the loop's last pushed bank bit for bit; held-out accuracy per C: "
+              + ", ".join(f"C={c:g}: {a:.4f}" for c, a in zip(c_pts, kacc)))
+        out["b"] = dict(train=kclean.times["train"], fold=kclean.times["fold"],
+                        save=kclean.times["save"], bytes=kclean.save_bytes,
+                        resume=kcrash.times["resume"])
+        print("  launches in phase 10 (a, b), by run: " + "; ".join(
+            f"{run}: {n}" for run, n in by_run.items()))
+        path = {"streamsvm_scan_many": clean_launches, "predict_bank_fused": clean_launches,
+                "streamsvm_scan_many_ring": hbm_launches, "gram_fused": kernel_launches,
+                "row_norms": kernel_launches, "kernel_bank_rows": kernel_launches}
+        missing = [k for k, run in path.items() if not run.get(k)]
+        if dev.type == "cuda" and missing:
+            raise AssertionError(f"kernels of phase 10's path were never launched: {missing} "
+                                 f"({by_run})")
+
+        # (c) elastic: 2 gloo ranks SPMD on the card, killed, resumed without a mesh
+        world = 2
+        store = f"{td}/c"
+        Path(store).mkdir()
+        for k, v in (("X", X), ("Y", Y), ("cs", cs)):
+            np.save(f"{store}/{k}.npy", np.ascontiguousarray(v, np.float32))
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=live_rank, args=(r, world, store, str(dev), chunk))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        t_ranks = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"phase 10c: a rank failed or hung (exit codes {codes})")
+        outs = [np.load(f"{store}/rank{r}.npz") for r in range(world)]
+        n_leaves = len(bank)
+        for r in range(1, world):
+            for i in range(2 * n_leaves):
+                if not np.array_equal(outs[0][f"arr_{i}"], outs[r][f"arr_{i}"]):
+                    raise AssertionError(f"phase 10c: rank {r} differs from rank 0 in leaf {i}")
+            if str(outs[r]["stats"]) != str(outs[0]["stats"]):
+                raise AssertionError("phase 10c: the ranks' durable stats differ")
+        per_range = live_linear(X, Y, cs, chunk, f"{td}/c_ref", dev, n_stream_shards=world)
+        pstats = per_range.run()
+        for i, want in enumerate(per_range.serving_bank()):
+            if not np.array_equal(outs[0][f"arr_{i}"], want.cpu().numpy()):
+                raise AssertionError(f"phase 10c: the mesh run differs from the per-range run in "
+                                     f"leaf {i}")
+        if json.loads(str(outs[0]["stats"])) != json.loads(json.dumps(pstats.durable())):
+            raise AssertionError("phase 10c: the mesh run's durable stats differ")
+        resumed = live_linear(X, Y, cs, chunk, f"{store}/kill", dev, cls=TimedLive)
+        rstats = resumed.run()
+        if resumed.n_stream_shards != world or rstats.remeshes != 1:
+            raise AssertionError(f"phase 10c: the resume took {resumed.n_stream_shards} shards "
+                                 f"and {rstats.remeshes} remeshes")
+        bank_leaves_equal("10c killed on 2 ranks, resumed without a mesh, against the per-range "
+                          "run", resumed.serving_bank(), per_range.serving_bank())
+        if rstats.durable() != pstats.durable():
+            raise AssertionError("phase 10c: the resumed run's durable stats differ")
+        # a seeded chaos schedule, no mesh
+        sched = chaos_schedule(args.seed, n_chunks=n_chunks, n_shards=world, kills=3)
+
+        def make_live(mesh, failpoints, faults, name):
+            return LiveBank(ArraySource(X, Y, chunk), cs, ckpt_dir=f"{td}/{name}", n_sub_banks=4,
+                            rotate_every=4, swap_every=1, b_tile=64, mesh=mesh,
+                            n_stream_shards=world, shard_faults=faults, failpoints=failpoints,
+                            straggler_policy=StragglerPolicy(), sleep=lambda s: None, device=dev)
+
+        t0 = time.perf_counter()
+        chaos = run_chaos(functools.partial(make_live, name="c_chaos"), sched)
+        cref = chaos_reference(functools.partial(make_live, name="c_chaos_ref"), sched)
+        sync(dev)
+        t_chaos = time.perf_counter() - t0
+        bank_leaves_equal("10c chaos run against chaos_reference", chaos.serving_bank(),
+                          cref.serving_bank())
+        if chaos.stats.durable() != cref.stats.durable():
+            raise AssertionError("phase 10c: the chaos run's durable stats differ")
+        print(f"  (c) [{card}] {world} gloo ranks on {dev}, n_stream_shards {world}: the mesh run and the "
+              f"run killed at {LIVE_KILL} in {t_ranks:.1f} s (spawn to exit; the mesh run "
+              f"{max(float(o['t_run']) for o in outs):.3f} s on the slowest rank); every rank "
+              f"bit-equal to rank 0 and to the per-range run; resumed without a mesh "
+              f"({rstats.remeshes} remesh, resume ms {[round(t, 1) for t in resumed.times['resume']]}"
+              f"), bit-equal to the per-range run")
+        print(f"      chaos schedule (seed {args.seed}): kills {list(sched.kills)}, lost "
+              f"{sched.lost}, flaky/poison {sched.flaky}, slow {list(sched.slow)}: "
+              f"{chaos.stats.restarts} restarts, rows_lost {chaos.stats.rows_lost}, "
+              f"ranges_reissued {chaos.stats.ranges_reissued}, in {t_chaos:.3f} s with its "
+              "reference; bit-identical to chaos_reference")
+    print(f"  phase 10: {time.perf_counter() - t_phase:.1f} s ({card})")
+    out["launches"] = by_run
+    return out
+
+
 def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     from repro_torch.kernels import ops
     from repro_torch.kernels import streamsvm_scan as scan_mod
@@ -2512,6 +2982,10 @@ def main(argv=None):
                     help="phase 7b: rows of the ring-against-B1 checks at J = 1..4")
     ap.add_argument("--ring-plain-n", type=int, default=512,
                     help="phase 7b: rows of the ring-against-plain check")
+    ap.add_argument("--live-chunk", type=int, default=4096, help="phase 10: rows a chunk")
+    ap.add_argument("--live-kb-rows", type=int, default=30_720,
+                    help="phase 10b: the kernel loop's rows (the first of 10a's stream)")
+    ap.add_argument("--live-kb-chunk", type=int, default=7680, help="phase 10b: rows a chunk")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; nothing was run")
@@ -2539,6 +3013,7 @@ def main(argv=None):
     ring = phase_ring(dev, args, main_out, algos)
     m1 = phase_multiball(dev, args)
     phase_sharded(dev, args, main_out)
+    phase_live(dev, args, smi)
     print("[5] kernel times at the main path's shapes")
     kernels = phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring) + [m1]
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -7,10 +7,11 @@ ones share a step, so slots go idle only in the final partial batch.
 ``ServerStats`` counts busy and idle row slots.
 
 Train -> serve: ``BankServer.from_checkpoint`` loads the stacked-Ball bank
-a ``fit_chunked_many`` checkpoint callback saved with ``ckpt.save``, or the
+a ``fit_chunked_many`` checkpoint callback saved with ``ckpt.save``, the
 7-leaf KernelBank ``save_kernel_bank`` saved (``meta["bank_kind"] ==
-"kernel"``, with the kernel and gamma in the meta), taking ``n_classes``
-from the meta when serving OVR.
+"kernel"``, with the kernel and gamma in the meta), or a live loop's
+checkpoint (``meta["live_k"]``), folded into the bank the loop pushed at
+its last commit; it takes ``n_classes`` from the meta when serving OVR.
 
 Kernel mode: a ``KernelBank`` (its (B, S, D) core-set ``points`` and (B, S)
 ``coef``) is scored through ``kernels.ops.predict_kernel_bank`` (kernel
@@ -19,8 +20,6 @@ B5) with the ``kernel=`` and ``gamma=`` it was trained with.
 Hot swap: ``swap_bank`` replaces the bank between steps without dropping
 queued requests; rows already scored keep their results, every row scored
 after the swap sees the new bank.
-
-Live-loop checkpoints wait for their slice (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -240,19 +239,20 @@ class BankServer:
         Ball (a ``ckpt.save`` directory with the 4 leaves w, r, xi2, m), or,
         when ``meta["bank_kind"] == "kernel"``, the 7-leaf KernelBank of
         ``save_kernel_bank``, with ``kernel``/``gamma`` from the meta unless
-        given. ``meta["n_classes"]`` fills in OVR serving unless given."""
+        given. A live loop's checkpoint (``meta["live_k"]``, written by
+        ``repro_torch.live`` or by the JAX package's live loop) serves its
+        live sub-banks folded oldest first, linear or kernelized by the
+        meta's ``bank_kind``: the bank the loop pushed at its last commit.
+        ``meta["n_classes"]`` fills in OVR serving unless given."""
         from ..checkpoint import ckpt
 
         manifest = ckpt.load_manifest(path)
         shapes = manifest["shapes"]
         meta = manifest.get("meta", {})
-        if "live_k" in meta:
-            raise NotImplementedError(
-                f"checkpoint at {path!r} is a live-loop checkpoint (meta live_k): "
-                "serving it is not ported yet: ROADMAP A11"
-            )
         dev = pick_device(kwargs.get("device"))
-        if meta.get("bank_kind") == "kernel":
+        if "live_k" in meta:
+            bank = cls._fold_live_checkpoint(path, manifest, meta, kwargs, dev)
+        elif meta.get("bank_kind") == "kernel":
             if len(shapes) != len(KernelBank._fields):
                 raise ValueError(
                     f"kernel-bank checkpoint at {path!r} has {len(shapes)} "
@@ -262,6 +262,7 @@ class BankServer:
             target = KernelBank(*ckpt.zeros_like_manifest(manifest, device=dev))
             kwargs.setdefault("kernel", meta.get("kernel"))
             kwargs.setdefault("gamma", float(meta.get("gamma", 1.0)))
+            bank = ckpt.restore(path, target)
         elif len(shapes) != 4:
             raise ValueError(
                 f"checkpoint at {path!r} has {len(shapes)} leaves; expected "
@@ -269,8 +270,7 @@ class BankServer:
                 "checkpoint carries"
             )
         else:
-            target = Ball(*ckpt.zeros_like_manifest(manifest, device=dev))
-        bank = ckpt.restore(path, target)
+            bank = ckpt.restore(path, Ball(*ckpt.zeros_like_manifest(manifest, device=dev)))
         if (
             kwargs.get("epilogue") == "ovr"
             and "n_classes" not in kwargs
@@ -278,6 +278,31 @@ class BankServer:
         ):
             kwargs["n_classes"] = int(meta["n_classes"])
         return cls(bank, **kwargs)
+
+    @staticmethod
+    def _fold_live_checkpoint(path, manifest, meta, kwargs, dev):
+        """Fold a live loop's checkpoint into its serving bank on ``dev``:
+        the Sec-4.3 fold of the live slots, oldest (birth, slot) first, the
+        order and the fold the loop's own serving fold uses, so the result
+        is bit-identical to what the loop pushed at its last durable commit.
+        Kernel folds read kernel/gamma/eviction from the meta and seed the
+        server's ``kernel=``/``gamma=`` unless given.
+        """
+        from ..live.loop import fold_slots, read_slots  # lazy: live imports the engines
+
+        kw = {}
+        if meta.get("bank_kind", "linear") == "kernel":
+            kw = dict(kernel=meta.get("kernel"), gamma=float(meta.get("gamma", 1.0)),
+                      eviction=meta.get("eviction", "smallest-coef"))
+            kwargs.setdefault("kernel", kw["kernel"])
+            kwargs.setdefault("gamma", kw["gamma"])
+        bank, _ = fold_slots(*read_slots(path, manifest, dev), **kw)
+        if bank is None:
+            raise ValueError(
+                f"live checkpoint at {path!r} has no live sub-bank slots — "
+                "nothing to fold into a serving bank"
+            )
+        return bank
 
     # -- request lifecycle --------------------------------------------------
 

@@ -34,3 +34,11 @@ def test_svm_distributed_twin():
         ["--device", "cpu", "--ranks", "2", "--n-train", "600", "--n-bank", "300",
          "--classes", "20"])
     assert out["same"] and out["acc_dist"] > 0.5 and len(out["bank_acc"]) == 3
+
+
+def test_live_bank_twin():
+    out = _example("torch_live_bank").main(
+        ["--device", "cpu", "--n-chunks", "20", "--chunk", "64", "--d", "16", "--classes", "4",
+         "--ring-chunks", "6", "--ring-chunk", "64", "--coreset", "16"])
+    assert out["restarts"] == 4 and out["quarantined"] == [15]
+    assert out["remeshes"] == 1 and out["kernel_restarts"] == 3

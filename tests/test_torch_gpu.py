@@ -1499,3 +1499,77 @@ def test_multiball_one_cta_layouts_where_the_grid_does_not_fit(cuda, L, d):
         got = _mb_run(multiball_scan, X, y, L, c_inv, c_inv, smem_budget=sum(plan["smem"].values()))
         for a, b in zip(got, want):
             assert torch.equal(a, b), plan
+
+
+# ---------------------------------------------------------------------------
+# The live loop on the card: crash equivalence bit for bit (B1 / B6, B2, B5,
+# R1 between checkpoint writes and restores), and the card's bank against
+# the CPU's within the engine tolerance.
+# ---------------------------------------------------------------------------
+
+_LIVE_D, _LIVE_B, _LIVE_CHUNK, _LIVE_CHUNKS = 40, 24, 96, 8
+
+
+def _live_stream():
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(_LIVE_CHUNKS * _LIVE_CHUNK, _LIVE_D)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    Y = np.sign(rng.normal(size=(_LIVE_B, X.shape[0])) + X[:, :1].T).astype(np.float32)
+    Y[Y == 0] = 1.0
+    return X, Y
+
+
+def _live(tmp_path, name, device, kind, **kw):
+    from repro_torch.live import ArraySource, LiveBank
+
+    X, Y = _live_stream()
+    if kind == "kernel":
+        kw = dict(kernel="rbf", gamma=1.0, coreset_size=16, block_n=64, **kw)
+    cs = np.linspace(0.5, 8.0, _LIVE_B).astype(np.float32)
+    return LiveBank(ArraySource(X, Y, _LIVE_CHUNK), cs, ckpt_dir=str(tmp_path / name),
+                    bank_kind=kind, n_sub_banks=2, rotate_every=2, swap_every=1,
+                    sleep=lambda s: None, device=device, **kw)
+
+
+def _live_scores(bank, device):
+    from repro_torch.core import kernel_bank_decision
+
+    q = torch.as_tensor(_live_stream()[0][:64], device=device)
+    if hasattr(bank, "coef"):
+        return kernel_bank_decision(bank, q, kernel="rbf", gamma=1.0)
+    return ops.predict_bank(q, bank.w)
+
+
+@pytest.mark.parametrize("kind,resident", [("linear", "vmem"), ("linear", "hbm"),
+                                           ("kernel", "auto")])
+def test_live_crash_at_every_phase_is_bit_identical_on_the_card(cuda, tmp_path, kind, resident):
+    from repro_torch.live import PHASES, run_live_with_restarts
+
+    kw = {} if kind == "kernel" else {"bank_resident": resident}
+    clean = _live(tmp_path, "clean", cuda, kind, **kw)
+    ref_stats = clean.run()
+    ref_bank = clean.serving_bank()
+    for phase in PHASES:  # chunk 3: rotation, fold, swap and checkpoint all fire
+        live = _live(tmp_path, phase, cuda, kind, failpoints=[(phase, 3)], **kw)
+        stats = run_live_with_restarts(live, sleep=lambda s: None)
+        assert stats.restarts == 1, phase
+        for name, a, b in zip(ref_bank._fields, live.serving_bank(), ref_bank):
+            assert torch.equal(a, b), (phase, name)
+        assert torch.equal(_live_scores(live.serving_bank(), cuda), _live_scores(ref_bank, cuda))
+        assert stats.durable() == ref_stats.durable(), phase
+
+
+@pytest.mark.parametrize("kind", ["linear", "kernel"])
+def test_live_loop_on_the_card_matches_the_cpu(cuda, tmp_path, kind):
+    """The card's loop against the same loop on the CPU (plain versions):
+    m and idx exact, floats within the engine tolerance."""
+    card = _live(tmp_path, "card", cuda, kind)
+    card.run()
+    cpu = _live(tmp_path, "cpu", "cpu", kind)
+    cpu.run()
+    assert card.stats.durable()["folds"] == cpu.stats.durable()["folds"]
+    for name, a, b in zip(cpu.serving_bank()._fields, card.serving_bank(), cpu.serving_bank()):
+        if a.dtype == torch.int32:
+            assert torch.equal(a.cpu(), b), name
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-5, msg=name)

@@ -195,8 +195,9 @@ def test_unported_banks_and_checkpoints_raise(tmp_path):
     class KernelBankLike:
         points = coef = None
 
-    # Kernel banks are served now (tests/test_torch_kernel_bank.py); what is
-    # still refused names its ROADMAP item or the argument that is missing.
+    # Kernel banks are served now (tests/test_torch_kernel_bank.py), and live
+    # checkpoints (tests/test_torch_live_loop.py); what is refused names the
+    # argument or the leaves that are missing.
     with pytest.raises(ValueError, match="kernel="):
         BankServer(KernelBankLike(), device="cpu")
     with pytest.raises(ValueError, match="only applies to a KernelBank"):
@@ -207,7 +208,7 @@ def test_unported_banks_and_checkpoints_raise(tmp_path):
     np.testing.assert_array_equal(BankServer(w, bank_resident="hbm").score(q),
                                   BankServer(w, bank_resident="vmem").score(q))
     ckpt.save(str(tmp_path), (torch.zeros(2),), meta={"live_k": 2})
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="live checkpoint .* has 1 leaves"):
         BankServer.from_checkpoint(str(tmp_path), device="cpu")
     ckpt.save(str(tmp_path), (torch.zeros(2),), meta={"bank_kind": "kernel"})
     with pytest.raises(ValueError, match="7-leaf"):
