@@ -10,8 +10,10 @@ the kernels' plain versions; a run on the card never takes that path (add
 --fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
 phase 4 too, --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
 the kernelized bank, --ring-classes 16 --ring-d 40 --ring-n-train 2000
---ring-n-test 300 --ring-check-n 512 --ring-plain-n 256 for phase 7b, and
---live-chunk 200 --live-kb-rows 1024 --live-kb-chunk 256 for phase 10).
+--ring-n-test 300 --ring-check-n 512 --ring-plain-n 256 for phase 7b,
+--live-chunk 200 --live-kb-rows 1024 --live-kb-chunk 256 for phase 10, and
+--table1-runs 1 --table1-datasets synthetic_a,waveform --lasvm-cap 300
+--cvm-passes 4 --cvm-n-train 600 for phase 11).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: name, count, power limit, versions; build every kernel from
@@ -36,7 +38,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      fall on block edges (with blocks of none and pair merges), in every
      layout (the grid of one CTA an SM; one CTA with the stream read in
      place and the tables in shared or device memory) and in a grid forced
-     to 2 CTAs of one row;
+     to 2 CTAs of one row; P1 (the perceptron, on B4's walk) and P2 (Pegasos)
+     at mnist89's D = 784 and synthetic_a's D = 2 (--fig3-n-train rows), P2
+     at k = 1, 20 and 7 (N not whole steps), staged (a ring of two steps) and
+     in place: the same decisions row for row and w within the engine
+     tolerance, or a first parting certified as an f32 tie;
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
@@ -103,12 +109,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      without a mesh (one remesh) bit-equal to it; a seeded chaos_schedule
      bit-identical to chaos_reference. Per-chunk train and fold ms (events),
      swap, commit and resume ms, commit bytes, served queries/s;
+  11. the paper's baselines (repro_torch.baselines), with the launch counts
+     of P1, P2, B1, B3 and B4 read around (a): (a) Table 1 on the 8 datasets
+     of PAPER_TABLE1 at their generators' full sizes from --seed
+     (benchmarks/table1.py's protocol): C* from (1, 10, 100) by one
+     fit_c_grid pass (B1) on the validation tail, the per-model
+     streamsvm_fit loop (B4) timed beside it; over --table1-runs stream
+     orders the perceptron (P1), Pegasos k = 1 and 20 (P2, lambda =
+     1/(C* N)), Algorithm 1 (B4) and Algorithm 2 with L = 10 (B3); once a
+     dataset LASVM (its C from {1, 10} on a 2,000-row prefix, then on
+     --lasvm-cap rows) and the batch l2-SVM (2,000 iterations); the seven
+     held-out accuracies beside the paper's and each baseline's seconds; the
+     first --table1-checks orders' P1, P2, Algorithm 1 (B4) and Algorithm 2
+     (B3) fits, through their entry points, against the same entry points
+     on the host's CPU (the plain versions), every parting certified as an
+     f32 tie or failing; (b) Fig 2
+     (fig2_cvm.py's protocol): CVM on mnist89, C = 10, eps 1e-4, up to
+     --cvm-passes passes of solver_iters 1,000, the accuracy after each pass
+     beside one pass of Algorithms 1 and 2, the passes to match Algorithm 2,
+     the seconds a pass; (c) examples/torch_quickstart.py's main at its
+     default size; wall seconds of each;
   5. (printed last) kernel times at the main path's shapes against their
      bounds, printed as one JSON line {"kernels": [...]}, with torch.matmul's
      bare product (no epilogue) at the server step and at 7b's serve; R1 at
      tile --kb-check-tiles and at tile 0 (the seeding tile) per eviction,
      every layout bit-equal to the plain version and timed in turns, the
-     planned layout's device time (torch.profiler) the median of 5 rounds.
+     planned layout's device time (torch.profiler) the median of 5 rounds;
+     P1 and P2 (k = 1, with k = 20 beside it) at mnist89's first stream
+     order of phase 11, by events and on the card alone.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -345,6 +373,7 @@ def smem_models():
     pring = ops.predict_vmem_bytes(8, 8, bank_resident="hbm")
     chunked = sum(SCAN_SMEM.values())
     return (
+        ("baselines", "pegasos_kernel", 0),  # all dynamic, checked in phase 2
         ("streamsvm_scan", "scan_kernel", chunked),
         ("streamsvm_scan", "lookahead_kernel", chunked),
         ("streamsvm_scan", "scan_res_kernel", 0),  # all dynamic, checked in phase 7
@@ -672,6 +701,7 @@ def phase_kernels(dev, args, rng):
     print("  b_tile 8 / 16 / 64: bit-identical")
 
     check_single(dev, args, rng)
+    check_baselines(dev, args)
     check_multiball(dev)
     check_lookahead(dev, args, rng)
     check_layouts(dev, args, rng)
@@ -2429,6 +2459,19 @@ def phase_live(dev, args, smi):
     return out
 
 
+def kernel_row(name, src, replaces, launches, err, ms, plain, flops, nbytes, lib, shape):
+    """One row of phase 5's {"kernels": [...]} line; the bound is the larger
+    of the operations at F32_PEAK and the bytes at HBM_BYTES_PER_S."""
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib, "shape": shape,
+    }
+
+
 def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     from repro_torch.kernels import ops
     from repro_torch.kernels import streamsvm_scan as scan_mod
@@ -2571,16 +2614,7 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
           f"{W.shape[0]} x {d}): {mm2:.4f} ms (B2 ovr {ms2:.4f} ms, B6 serve ovr {ms_r2:.4f} ms)")
     bytes2 = 4.0 * (Q.shape[0] * d + W.shape[0] * (d + 1) + 2 * Q.shape[0] * (W.shape[0] // nc))
 
-    def row(name, src, replaces, launches, err, ms, plain, flops, nbytes, lib, shape):
-        t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        return {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib, "shape": shape,
-        }
-
+    row = kernel_row
     by_L = b3["fig3_by_L"]
     f10, f50 = fig3_rows[10], fig3_rows[50]
     kernels = [
@@ -2952,6 +2986,389 @@ def kernel_bank_rows_json(dev, kb, kbc, kbres, row, reps, t):
     return out
 
 
+# ----------------------------------------------------------------------------
+# P1 and P2 (the perceptron and Pegasos), and phase 11: the paper's baselines
+
+
+def check_p1(label, X, y, plain_dev=None):
+    """P1 against its plain version on X, y (run on ``plain_dev``, default
+    X's device): the same mistakes row for row (n_updates equal) and w within
+    the engine tolerance, or a first parting certified as an f32 tie
+    (``perceptron_parting``). Returns the w max|err| (None after a tie) and
+    the plain version's ms (one host-clocked call)."""
+    from repro_torch.kernels.baselines import perceptron_scan, perceptron_scan_plain
+    from repro_torch.kernels.partings import perceptron_parting
+
+    pd = X.device if plain_dev is None else torch.device(plain_dev)
+    fk = torch.zeros(X.shape[0], dtype=torch.uint8, device=X.device)
+    wk, mk = perceptron_scan(X, y, flags=fk)
+    X, y, fk, wk, mk = (t.to(pd) for t in (X, y, fk, wk, mk))
+    fp = torch.zeros_like(fk)
+    sync(pd)
+    t0 = time.perf_counter()
+    wp, mp = perceptron_scan_plain(X, y, flags=fp)
+    sync(pd)
+    plain = (time.perf_counter() - t0) * 1e3
+    part = perceptron_parting(X, y, fk, fp)
+    if part is not None:
+        if not part["tie"]:
+            raise AssertionError(f"P1 {label}: parts from its plain version at {part}")
+        print(f"  P1 {label}: parts from its plain version at a certified f32 tie {part}")
+        return None, plain
+    if int(mk) != int(mp):
+        raise AssertionError(f"P1 {label}: {int(mk)} updates, plain {int(mp)}")
+    err = check_close(f"P1 {label} w", wk, wp, RTOL_W, ATOL_W)
+    print(f"  P1 {label}: the same {int(mk)} mistakes row for row, w max|err| {err:.3e}, plain "
+          f"{plain:.1f} ms on {pd.type}")
+    return err, plain
+
+
+def check_p2(label, X, y, lam, k, budget=None, plain_dev=None):
+    """P2 against its plain version (k rows a step, the trailing partial step
+    dropped; run on ``plain_dev``, default X's device): the same violations
+    row for row and w within the engine tolerance, or a first parting
+    certified as an f32 tie (``pegasos_parting``). Returns the w max|err|
+    (None after a tie) and the plain version's ms (one host-clocked call)."""
+    from repro_torch.kernels.baselines import pegasos_plan, pegasos_scan, pegasos_scan_plain
+    from repro_torch.kernels.partings import pegasos_parting
+
+    pd = X.device if plain_dev is None else torch.device(plain_dev)
+    n = X.shape[0] // k * k
+    Xk, yk = X[:n], y[:n]
+    fk = torch.zeros(n, dtype=torch.uint8, device=X.device)
+    wk = pegasos_scan(Xk, yk, lam, k, flags=fk, smem_budget=budget)
+    X, y, fk, wk = (t.to(pd) for t in (Xk, yk, fk, wk))
+    fp = torch.zeros_like(fk)
+    sync(pd)
+    t0 = time.perf_counter()
+    wp = pegasos_scan_plain(X, y, lam, k, flags=fp)
+    sync(pd)
+    plain = (time.perf_counter() - t0) * 1e3
+    plan = pegasos_plan(X.shape[1], k, smem_budget=budget)
+    note = plan["layout"]
+    states = lambda t: (pegasos_scan(Xk[: t * k], yk[: t * k], lam, k, smem_budget=budget).to(pd),
+                        pegasos_scan_plain(X[: t * k], y[: t * k], lam, k))
+    part = pegasos_parting(X, y, lam, k, fk, fp, states)
+    if part is not None:
+        if not part["tie"]:
+            raise AssertionError(f"P2 {label} ({note}): parts from its plain version at {part}")
+        print(f"  P2 {label} ({note}): parts from its plain version at a certified f32 tie "
+              f"{part}")
+        return None, plain
+    err = check_close(f"P2 {label} w", wk, wp, RTOL_W, ATOL_W)
+    print(f"  P2 {label} ({note}): the same {int(fk.sum())} violations row for row, w max|err| "
+          f"{err:.3e}, plain {plain:.1f} ms on {pd.type}")
+    return err, plain
+
+
+def check_baselines(dev, args):
+    """Phase 2: P1 and P2 against their plain versions on the card, at
+    mnist89's D = 784 and synthetic_a's D = 2 (--fig3-n-train rows of each),
+    P2 at k = 1, 20 and 7 (N not whole steps of 7), in its planned layout
+    (staged: a ring of two steps) and forced to the in-place layout; on the
+    card, P2's dynamic shared memory against its byte model."""
+    from repro_torch.data import load_dataset, preprocess_for
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.baselines import _pegasos_lib, pegasos_plan, pegasos_smem
+
+    for name in ("mnist89", "synthetic_a"):
+        Xtr, ytr, Xte, _ = load_dataset(name, seed=args.seed)
+        Xtr, _ = preprocess_for(name, Xtr, Xte)
+        n = min(len(ytr), args.fig3_n_train)
+        X, y = torch.as_tensor(Xtr[:n], device=dev), torch.as_tensor(ytr[:n], device=dev)
+        d = X.shape[1]
+        print(f"[2] P1 and P2 against their plain versions: {name}, N={n}, D={d}")
+        check_p1(name, X, y)
+        lam = 1.0 / (10.0 * n)  # Table 1's lambda at C = 10
+        for k in (1, 20, 7):
+            check_p2(f"{name} k={k} lam={lam:.3g}", X, y, lam, k)
+        for k in (1, 20):
+            budget = sum(pegasos_smem(d, k, False).values())
+            check_p2(f"{name} k={k} forced in place", X, y, lam, k, budget)
+    if dev.type == "cuda":
+        if _build.static_smem("baselines", "pegasos_kernel") != {0}:
+            raise AssertionError("pegasos_kernel: static shared memory beside the byte model's 0")
+        lib = _pegasos_lib()
+        for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (22, 20), (20_000, 1)):
+            plan = pegasos_plan(d, k)
+            have = lib.pegasos_dyn_bytes_c(d, k, plan["staged"])
+            model = sum(plan["smem"].values())
+            if have != model:
+                raise AssertionError(f"P2 D={d} k={k}: requests {have} B, byte model {model} B")
+        print("  P2's dynamic shared memory equals its byte model at D = 2 ... 20,000, "
+              "k = 1 and 20")
+
+
+def check_fit(label, Xp, yp, c, lookahead=None):
+    """Algorithm 1 (``fit``: B4) or 2 (``fit_lookahead`` at L = ``lookahead``:
+    B3) through the entry point on the card, against the same entry point on
+    the host's CPU, where it runs the kernel's plain version on the inputs
+    it builds the same way: m (the pushes) equal and w within the engine
+    tolerance, or a first parting certified as an f32 tie
+    (``partings.stream_parting``, from prefix runs of both). Returns the w
+    max|err| (None after a tie)."""
+    from repro_torch.core import fit, fit_lookahead
+    from repro_torch.kernels.partings import stream_parting
+
+    kernel = "B4" if lookahead is None else "B3"
+    run = ((lambda X, y: fit(X, y, c)) if lookahead is None
+           else (lambda X, y: fit_lookahead(X, y, c, lookahead)))
+    Xc, yc = Xp.cpu(), yp.cpu()
+    card = lambda nv: tuple(run(Xp[:nv], yp[:nv]))
+    host = lambda nv: tuple(run(Xc[:nv], yc[:nv]))
+    n = len(yc)
+    (wk, _, _, mk), (wp, _, _, mp) = card(n), host(n)
+    wk = wk.cpu()
+    if int(mk) == int(mp) and torch.allclose(wk, wp, rtol=RTOL_W, atol=ATOL_W):
+        err = float((wk - wp).abs().max())
+        print(f"  {kernel} {label}: m {int(mk)} as the plain version's, w max|err| {err:.3e}")
+        return err
+    c_inv = float(1.0 / torch.tensor(c, dtype=torch.float32))
+    part = stream_parting(card, host, yc[:, None] * Xc, c_inv, c_inv, lookahead,
+                          rtol=RTOL_W, atol=ATOL_W)
+    if part is None or not part["tie"]:
+        raise AssertionError(f"{kernel} {label}: m {int(mk)}, plain {int(mp)}, w max|err| "
+                             f"{float((wk - wp).abs().max()):.3e}; first parting {part}")
+    print(f"  {kernel} {label}: m {int(mk)}, plain {int(mp)}; the first parting is a "
+          f"certified f32 tie: {part}")
+    return None
+
+
+TABLE1_C_GRID = (1.0, 10.0, 100.0)  # benchmarks/table1.py's C grid
+TABLE1_COLUMNS = ("batch", "perceptron", "pegasos1", "pegasos20", "lasvm", "algo1", "algo2")
+
+
+def phase_baselines(dev, args):
+    """Phase 11: the paper's baselines on the card, Table 1 and Fig 2 at the
+    generators' full sizes, with the protocol of benchmarks/table1.py:39-127
+    and fig2_cvm.py:17-38; then examples/torch_quickstart.py's main. The
+    launch counts of P1, P2, B1, B3 and B4 are read around (a). Returns what
+    phase 5 needs for P1's and P2's rows."""
+    from repro_torch.baselines import (
+        fit_batch_l2svm, fit_cvm, fit_lasvm, fit_pegasos, fit_perceptron)
+    from repro_torch.core import fit, fit_c_grid, fit_lookahead
+    from repro_torch.data import PAPER_TABLE1, load_dataset, permuted, preprocess_for
+    from repro_torch.kernels import streamsvm_fit
+    from repro_torch.kernels.baselines import pegasos_scan, perceptron_scan
+    from repro_torch.kernels.streamsvm_scan import (
+        streamsvm_scan, streamsvm_scan_lookahead_many, streamsvm_scan_many)
+
+    t_phase = time.perf_counter()
+    names = [n for n in PAPER_TABLE1 if args.table1_datasets in (None, "all")
+             or n in args.table1_datasets.split(",")]
+    counted = {"P1": perceptron_scan, "P2": pegasos_scan, "B1": streamsvm_scan_many,
+               "B3": streamsvm_scan_lookahead_many, "B4": streamsvm_scan}
+    for f in counted.values():
+        f.launches = 0
+    print(f"[11] the paper's baselines: (a) Table 1 on {len(names)} datasets at full size, "
+          f"{args.table1_runs} stream orders, LASVM on up to {args.lasvm_cap} rows")
+
+    def timed(secs, key, fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        secs[key] += time.perf_counter() - t0
+        return out
+
+    rows, checked = [], {}
+    t_a = time.perf_counter()
+    for name in names:
+        Xtr0, ytr0, Xte, yte = load_dataset(name, seed=args.seed)
+        Xtr0, Xte = preprocess_for(name, Xtr0, Xte)
+        n, d = Xtr0.shape
+        n_val = max(500, n // 10)
+        X, y = torch.as_tensor(Xtr0, device=dev), torch.as_tensor(ytr0, device=dev)
+        Xva, yva = X[-n_val:], y[-n_val:]
+        Xt, yt = torch.as_tensor(Xte, device=dev), torch.as_tensor(yte, device=dev)
+
+        def acc(w, b=0.0, Xe=Xt, ye=yt):
+            return float(((Xe.to(w.dtype) @ w + b).sign() == ye.to(w.dtype)).double().mean()) * 100
+
+        secs = {k: 0.0 for k in ("grid", "loop", *TABLE1_COLUMNS)}
+        # C* over the grid by one fit_c_grid pass (B1); the per-model loop
+        # (B4, one stream read a C) timed beside it; both warmed up first.
+        grid = torch.tensor(TABLE1_C_GRID, device=dev)
+        fit_c_grid(X, y, grid)
+        bank = timed(secs, "grid", lambda: fit_c_grid(X, y, grid))
+        for c in TABLE1_C_GRID:
+            streamsvm_fit(X, y, c)
+        timed(secs, "loop", lambda: [streamsvm_fit(X, y, c) for c in TABLE1_C_GRID])
+        val = [acc(bank.w[i], Xe=Xva, ye=yva) for i in range(len(TABLE1_C_GRID))]
+        c_star = TABLE1_C_GRID[int(np.argmax(val))]
+        lam = 1.0 / (c_star * n)
+        accs = {k: [] for k in TABLE1_COLUMNS}
+        for r in range(args.table1_runs):
+            Xp0, yp0 = permuted(Xtr0, ytr0, seed=args.seed * 1000 + r)
+            Xp, yp = torch.as_tensor(Xp0, device=dev), torch.as_tensor(yp0, device=dev)
+            if r < args.table1_checks:
+                checked[name, r] = (Xp, yp, lam, c_star)
+            accs["perceptron"].append(acc(timed(secs, "perceptron",
+                                                lambda: fit_perceptron(Xp, yp))[0]))
+            accs["pegasos1"].append(acc(timed(secs, "pegasos1",
+                                              lambda: fit_pegasos(Xp, yp, lam, k=1))))
+            accs["pegasos20"].append(acc(timed(secs, "pegasos20",
+                                               lambda: fit_pegasos(Xp, yp, lam, k=20))))
+            if r == 0:  # LASVM once per dataset, its own C from {1, 10} on a prefix
+                best_l, c_l = -1.0, 1.0
+                cap = min(2000, args.lasvm_cap)
+                for c_try in (1.0, 10.0):
+                    w_try, b_try, _ = timed(secs, "lasvm", lambda: fit_lasvm(
+                        Xp[:cap], yp[:cap], C=c_try, return_bias=True))
+                    a_try = acc(w_try, b_try, Xe=Xva, ye=yva)
+                    if a_try > best_l:
+                        best_l, c_l = a_try, c_try
+                wl, bl, nsv = timed(secs, "lasvm", lambda: fit_lasvm(
+                    Xp[: args.lasvm_cap], yp[: args.lasvm_cap], C=c_l, return_bias=True))
+                accs["lasvm"].append(acc(wl, bl))
+            accs["algo1"].append(acc(timed(secs, "algo1", lambda: fit(Xp, yp, c_star)).w))
+            accs["algo2"].append(acc(timed(secs, "algo2",
+                                           lambda: fit_lookahead(Xp, yp, c_star, 10)).w))
+        wb, obj = timed(secs, "batch", lambda: fit_batch_l2svm(X, y, c_star, iters=2000))
+        accs["batch"].append(acc(wb))
+        if not torch.isfinite(obj) or not torch.isfinite(wb).all():
+            raise AssertionError(f"phase 11 {name}: the batch solver is not finite")
+        row = {k: float(np.mean(v)) for k, v in accs.items()}
+        for k, v in row.items():
+            if not 0.0 < v <= 100.0:
+                raise AssertionError(f"phase 11 {name}: {k} accuracy {v}")
+        rows.append(dict(dataset=name, n=n, d=d, C=c_star, lasvm_C=c_l, nsv=nsv, secs=secs,
+                         **row))
+        paper = PAPER_TABLE1[name]
+        print(f"  {name} (N={n}, D={d}, C*={c_star:g}, LASVM C={c_l:g}, {nsv} SVs): "
+              + ", ".join(f"{k} {row[k]:.2f} (paper {p})" for k, p in zip(TABLE1_COLUMNS, paper)))
+        print(f"    C-grid: one pass {secs['grid']:.4f} s, per-model loop {secs['loop']:.4f} s "
+              f"({secs['loop'] / max(secs['grid'], 1e-9):.2f}x); seconds: "
+              + ", ".join(f"{k} {secs[k]:.3f}" for k in TABLE1_COLUMNS)
+              + f" (LASVM's 3 fits, the others over {args.table1_runs} orders)")
+    t_a = time.perf_counter() - t_a
+    launches = {k: f.launches for k, f in counted.items()}
+    print(f"  launches in phase 11a: {launches}; (a) {t_a:.1f} s")
+    if dev.type == "cuda":
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"phase 11a: kernels of its path were never launched: {missing}")
+        want_p2 = 2 * args.table1_runs * len(names)
+        if launches["P1"] != args.table1_runs * len(names) or launches["P2"] != want_p2:
+            raise AssertionError(f"phase 11a: P1 / P2 launched {launches['P1']} / "
+                                 f"{launches['P2']} times")
+    t_c = time.perf_counter()
+    for (name, r), (Xp, yp, lam, c_star) in checked.items():  # after the launches were read
+        # the plain versions on the host's CPU: the same function, in a tenth
+        # of the card's time for a loop of small launches (phase 2 runs them
+        # on the card)
+        label = f"{name}, Table 1's order {r}"
+        check_p1(label, Xp, yp, plain_dev="cpu")
+        for k in (1, 20):
+            check_p2(f"{label}, k={k}", Xp, yp, lam, k, plain_dev="cpu")
+        check_fit(f"{label} (Algorithm 1, C={c_star:g})", Xp, yp, c_star)
+        check_fit(f"{label} (Algorithm 2, C={c_star:g}, L=10)", Xp, yp, c_star, 10)
+    t_c = time.perf_counter() - t_c
+    print(f"  the first {args.table1_checks} order(s)' P1, P2, B4 and B3 fits against their "
+          f"plain versions (on the CPU): {t_c:.1f} s")
+
+    # (b) Fig 2: CVM's passes against one pass of Algorithms 1 and 2.
+    t_b = time.perf_counter()
+    Xtr, ytr, Xte, yte = load_dataset("mnist89", seed=args.seed)
+    Xtr, Xte = preprocess_for("mnist89", Xtr, Xte)
+    nf = min(len(ytr), args.cvm_n_train)
+    X, y = torch.as_tensor(Xtr[:nf], device=dev), torch.as_tensor(ytr[:nf], device=dev)
+    Xt, yt = torch.as_tensor(Xte, device=dev), torch.as_tensor(yte, device=dev)
+    acc = lambda w: float(((Xt.to(w.dtype) @ w).sign() == yt.to(w.dtype)).double().mean()) * 100
+    a1, a2 = acc(fit(X, y, 10.0).w), acc(fit_lookahead(X, y, 10.0, 10).w)
+    sync(dev)
+    t0 = time.perf_counter()
+    res = fit_cvm(X, y, C=10.0, eps=1e-4, max_passes=args.cvm_passes, solver_iters=1000)
+    sync(dev)
+    t_cvm = time.perf_counter() - t0
+    curve = [acc(w) for w in res["w_per_pass"]]
+    match = next((i + 1 for i, a in enumerate(curve) if a >= a2), None)
+    t_b = time.perf_counter() - t_b
+    print(f"[11] (b) Fig 2: CVM on mnist89 (N={nf}, D={X.shape[1]}), C=10, eps 1e-4, "
+          f"{res['passes']} passes (at most {args.cvm_passes}), solver_iters 1000, "
+          f"{len(res['core_idx'])} core vectors, r {res['r']:.6f}; {t_cvm:.2f} s, "
+          f"{t_cvm / res['passes']:.3f} s a pass")
+    print("  accuracy after each pass: " + ", ".join(f"{a:.2f}" for a in curve))
+    print(f"  one pass of Algorithm 1: {a1:.2f}, of Algorithm 2 (L=10): {a2:.2f}; passes for "
+          f"CVM to match Algorithm 2: {match}")
+
+    # (c) the quickstart twin at its default size.
+    t_q = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart
+
+    q = torch_quickstart.main(["--device", dev.type]
+                              + (["--n-train", "2000", "--classes", "8", "--bank-n", "300",
+                                  "--bank-d", "16"] if dev.type == "cpu" else []))
+    t_q = time.perf_counter() - t_q
+    total = time.perf_counter() - t_phase
+    print(f"[11] wall seconds: (a) Table 1 {t_a:.1f}, its plain checks {t_c:.1f}, (b) Fig 2 "
+          f"{t_b:.1f}, (c) the quickstart twin {t_q:.1f} (accuracies {q['acc']}); phase 11 "
+          f"{total:.1f} s" + ("" if total < 60 else " (over a minute)"))
+    mn = checked.get(("mnist89", 0))
+    return dict(launches=launches, rows=rows, fig2=dict(curve=curve, match=match, a1=a1, a2=a2),
+                mnist89=mn, seconds=total)
+
+
+def baseline_rows(dev, args, res, row):
+    """Phase 5's rows for P1 and P2 at mnist89's first stream order of phase
+    11: ms by events around launches back to back and on the card alone
+    behind a spin (``device_ms``), the plain version's ms (one host-clocked
+    call), the launches on phase 11's path. P2's row is k = 1, with k = 20
+    beside it."""
+    from repro_torch.kernels.baselines import (
+        pegasos_scan, pegasos_scan_plain, perceptron_scan, perceptron_scan_plain)
+
+    if res["mnist89"] is None:
+        return []
+    X, y, lam, _ = res["mnist89"]
+    n, d = X.shape
+    reps = 2 * args.reps + 1 if dev.type == "cuda" else 2
+    none = [None] * reps
+    wk, mk = perceptron_scan(X, y)
+    err1 = check_close("P1 at phase 5", wk, perceptron_scan_plain(X, y)[0], RTOL_W, ATOL_W)
+    ms1, dev1 = (time_states_ms(lambda _: perceptron_scan(X, y), none, dev, card)
+                 for card in (False, True))
+    plain1 = time_ms(lambda: perceptron_scan_plain(X, y), dev, 1, warmup=0)
+    m = int(mk)
+    out = [dict(row("perceptron_scan", "src/repro_torch/kernels/csrc/streamsvm_single.cu",
+                    "src/repro/baselines/perceptron.py:12", res["launches"]["P1"], err1, ms1,
+                    plain1, 2.0 * n * d + m * d, 4.0 * (n * d + n + d), None,
+                    f"mnist89 in phase 11's first stream order: N={n} D={d}, {m} mistakes; "
+                    "B4's walk (whole blocks staged, w in shared memory); launches: every "
+                    "dataset and stream order of phase 11a (the reference's lax.scan has no "
+                    "pl.pallas_call: `replaces` names the scan)"), device_ms=dev1)]
+    by_k = {}
+    for k in (1, 20):
+        nk = n // k * k
+        Xk, yk = X[:nk], y[:nk]
+        flags = torch.zeros(nk, dtype=torch.uint8, device=dev)
+        wk = pegasos_scan(Xk, yk, lam, k, flags=flags)
+        err = check_close(f"P2 k={k} at phase 5", wk, pegasos_scan_plain(Xk, yk, lam, k),
+                          RTOL_W, ATOL_W)
+        ms, card = (time_states_ms(lambda _: pegasos_scan(Xk, yk, lam, k), none, dev, c)
+                    for c in (False, True))
+        plain = time_ms(lambda: pegasos_scan_plain(Xk, yk, lam, k), dev, 1, warmup=0)
+        viol = int(flags.sum())
+        flops = 2.0 * nk * d + 2.0 * viol * d + 5.0 * (nk // k) * d
+        by_k[k] = (err, ms, card, plain, flops, 4.0 * (nk * d + nk + d), viol)
+    err, ms, card, plain, flops, nbytes, viol = by_k[1]
+    e20, ms20, card20, plain20, _, _, viol20 = by_k[20]
+    out.append(dict(row("pegasos_scan", "src/repro_torch/kernels/csrc/baselines.cu",
+                        "src/repro/baselines/pegasos.py:28", res["launches"]["P2"], err, ms,
+                        plain, flops, nbytes, None,
+                        f"mnist89 in phase 11's first stream order: N={n} D={d} k=1, lam "
+                        f"{lam:.4g}, {viol} violations; k=20: ms {ms20:.4f}, device_ms "
+                        f"{card20:.4f}, plain {plain20:.1f}, {viol20} violations; launches: "
+                        "k = 1 and 20 over every dataset and stream order of phase 11a"),
+                    device_ms=card, ms_k20=ms20, device_ms_k20=card20, plain_ms_k20=plain20))
+    print(f"  P1 at mnist89: {ms1:.4f} ms by events, {dev1:.4f} on the card alone, plain "
+          f"{plain1:.1f} ms, bound {out[0]['bound_ms']:.4f} ms; P2 k=1 {ms:.4f} / {card:.4f} ms, "
+          f"plain {plain:.1f}; k=20 {ms20:.4f} / {card20:.4f} ms, plain {plain20:.1f}; bound "
+          f"{out[1]['bound_ms']:.4f} ms ({out[1]['bound_by']})")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -2986,6 +3403,16 @@ def main(argv=None):
     ap.add_argument("--live-kb-rows", type=int, default=30_720,
                     help="phase 10b: the kernel loop's rows (the first of 10a's stream)")
     ap.add_argument("--live-kb-chunk", type=int, default=7680, help="phase 10b: rows a chunk")
+    ap.add_argument("--table1-runs", type=int, default=5, help="phase 11a: stream orders")
+    ap.add_argument("--table1-datasets", default="all",
+                    help="phase 11a: comma-separated names of PAPER_TABLE1 (default: all 8)")
+    ap.add_argument("--table1-checks", type=int, default=1,
+                    help="phase 11a: the first stream orders whose P1, P2, B4 and B3 fits are "
+                         "held against their plain versions")
+    ap.add_argument("--lasvm-cap", type=int, default=8000, help="phase 11a: LASVM's rows")
+    ap.add_argument("--cvm-passes", type=int, default=32, help="phase 11b: CVM's most passes")
+    ap.add_argument("--cvm-n-train", type=int, default=11_800,
+                    help="phase 11b: mnist89's first rows for Fig 2")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; nothing was run")
@@ -3014,8 +3441,16 @@ def main(argv=None):
     m1 = phase_multiball(dev, args)
     phase_sharded(dev, args, main_out)
     phase_live(dev, args, smi)
+    baselines = phase_baselines(dev, args)
     print("[5] kernel times at the main path's shapes")
-    kernels = phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring) + [m1]
+    kernels = (phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring) + [m1]
+               + baseline_rows(dev, args, baselines, kernel_row))
+    for row in kernels:  # phase 11's launches of the earlier kernels it drives
+        key, phase = {"streamsvm_scan": ("B1", "3"), "streamsvm_scan_lookahead[fig3]": ("B3", "4a"),
+                      "streamsvm_single": ("B4", "4a")}.get(row["name"], (None, None))
+        if key is not None:
+            row["launches_by_phase"] = {phase: row["launches"], "11": baselines["launches"][key]}
+            row["launches"] += baselines["launches"][key]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if smi is not None:

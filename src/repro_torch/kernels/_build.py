@@ -27,7 +27,10 @@ FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("streamsvm_scan", "streamsvm_single", "predict", "gram", "kernel_bank", "multiball")
+SOURCES = (
+    "streamsvm_scan", "streamsvm_single", "predict", "gram", "kernel_bank", "multiball",
+    "baselines",
+)
 
 _libs: dict[str, ctypes.CDLL] = {}  # loaded shared libraries, by source name
 build_seconds: dict[str, float] = {}  # wall time of the builds this process ran

@@ -46,6 +46,19 @@
 // passes' chains and each step's barrier, while the bulk copies run a block
 // ahead where it fits. That is the nature of a single sequential model; many models at
 // once are B1's and B3's work.
+//
+// P1, the perceptron, is the same walk with the perceptron's rule
+// (single_kernel<WS, true>, entry perceptron_single). It replaces no TPU
+// kernel: the reference computes it as a lax.scan over the rows
+// (src/repro/baselines/perceptron.py:12-20), which an eager loop would pay
+// in ~3 launches a row. A mistake is y_j <w, x_j> <= 0 on the w before the
+// row, and it adds y_j x_j to w. Between two mistakes the rows are
+// independent, so the ballot finds the next one: lane t holds
+// g_t = <w, y_t x_t>, a mistake at row j adds G_jt to every later g_t, and
+// the row's step is recorded as alpha 1 (decay 1) for the block's deferred
+// update. w starts at zero and the kernel counts the mistakes; it keeps no
+// ball scalars. Where `flags` is given, it writes each row's decision
+// there (1: a mistake), for certifying a parting from the plain version.
 #include <cuda_runtime.h>
 
 namespace {
@@ -161,14 +174,17 @@ signed_gram_kernel(const float* __restrict__ X, const float* __restrict__ Y,
 
 // S = [r, xi2, 1/C, gain] and M = [m] are read at the start and r, xi2, m
 // written back at the end; W (d,) is updated in place, through its copy in
-// shared memory when WS. cw: the staged chunk's columns (d rounded up to 4:
-// whole blocks; else SDC). vec16: X 16-byte aligned with d a multiple of 4
-// (each staged row is then one bulk copy, else element loads).
-template <bool WS>
+// shared memory when WS. PERC: the perceptron's rule (S unused, M counts
+// the mistakes, F (n,) the rows' decisions where not null). cw: the staged
+// chunk's columns (d rounded up to 4: whole blocks; else SDC). vec16: X
+// 16-byte aligned with d a multiple of 4 (each staged row is then one bulk
+// copy, else element loads).
+template <bool WS, bool PERC>
 __global__ void __launch_bounds__(THREADS)
 single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
               const float* __restrict__ G, float* __restrict__ W, float* __restrict__ S,
-              int* __restrict__ M, int n, int n_valid, int d, int cw, int vec16) {
+              int* __restrict__ M, unsigned char* __restrict__ F, int n, int n_valid, int d,
+              int cw, int vec16) {
   extern __shared__ __align__(16) float smem[];
   const int SP = cw + 4;          // a staged row's pitch: 8 rows' 16-byte reads in distinct banks
   float* xb = smem;               // [2][BN][SP]
@@ -236,8 +252,8 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   float wsq = 0.f;
   for (int i = 0; i < WARPS; ++i) wsq += hb[i];
 
-  float r = S[0], xi2 = S[1];
-  const float cinv = S[2], gain = S[3];
+  float r = PERC ? 0.f : S[0], xi2 = PERC ? 0.f : S[1];
+  const float cinv = PERC ? 0.f : S[2], gain = PERC ? 0.f : S[3];
   int m = M[0];
   float h = 0.f, yrow = 0.f, decay = 1.f;
   // The g pass: rows 4 wp + (t >> 3); lane k = t & 7 takes the chunk's
@@ -308,7 +324,17 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
         // the state after the last update, and the lowest violating row
         // past it updates next. The same distances and decisions as a walk
         // over the rows in order, in one step per update (plus one).
-        for (int j0 = 0;;) {
+        for (int j0 = 0; PERC;) {  // the perceptron: a mistake is g_t <= 0
+          const unsigned viol =
+              __ballot_sync(FULL, t >= j0 && g <= 0.0f && row0 + t < n_valid && yrow != 0.0f);
+          if (viol == 0u) break;
+          const int j = __ffs(viol) - 1;
+          g += gs[j * BN + t];  // w += y_j x_j
+          if (t == j) alpha = 1.f;
+          m += 1;
+          j0 = j + 1;
+        }
+        for (int j0 = 0; !PERC;) {
           const float d2 = wsq - 2.0f * g + gtt + xi2 + cinv;
           const float dist_t = sqrtf(fmaxf(d2, 1e-12f));
           const unsigned viol = __ballot_sync(
@@ -330,6 +356,7 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
           j0 = j + 1;
         }
         if (wp == 0) ay[t] = alpha * yrow;
+        if (PERC && F != nullptr && wp == 0 && row0 + t < n) F[row0 + t] = alpha != 0.f;
       }
     } else {
       // The deferred update of columns tid + 256 u (cw <= 4 * 256): one
@@ -354,8 +381,10 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     within = nwithin;
   }
   if (tid == 0) {
-    S[0] = r;
-    S[1] = xi2;
+    if (!PERC) {
+      S[0] = r;
+      S[1] = xi2;
+    }
     M[0] = m;
   }
   if (WS) {
@@ -364,11 +393,11 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   }
 }
 
-template <bool WS>
-int launch(const void* X, const void* Y, void* G, void* W, void* S, void* M, int n,
+template <bool WS, bool PERC>
+int launch(const void* X, const void* Y, void* G, void* W, void* S, void* M, void* F, int n,
            int n_valid, int d, int cw, int vec16, cudaStream_t s) {
   const size_t dyn = single_dyn_bytes(d, WS, cw);
-  cudaError_t err = cudaFuncSetAttribute((const void*)single_kernel<WS>,
+  cudaError_t err = cudaFuncSetAttribute((const void*)single_kernel<WS, PERC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return (int)err;
   const int nblocks = (n + BN - 1) / BN;
@@ -376,9 +405,9 @@ int launch(const void* X, const void* Y, void* G, void* W, void* S, void* M, int
                                                  d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  single_kernel<WS><<<1, THREADS, dyn, s>>>((const float*)X, (const float*)Y, (const float*)G,
-                                            (float*)W, (float*)S, (int*)M, n, n_valid, d, cw,
-                                            vec16);
+  single_kernel<WS, PERC><<<1, THREADS, dyn, s>>>((const float*)X, (const float*)Y,
+                                                  (const float*)G, (float*)W, (float*)S, (int*)M,
+                                                  (unsigned char*)F, n, n_valid, d, cw, vec16);
   return (int)cudaGetLastError();
 }
 
@@ -411,8 +440,22 @@ int streamsvm_single(const void* X, const void* Y, void* G, void* W, void* S, vo
   if (n <= 0 || d <= 0 || cw <= 0 || cw % 4 != 0 || (cw != SDC && cw < d))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return w_smem ? launch<true>(X, Y, G, W, S, M, n, n_valid, d, cw, vec16, s)
-                : launch<false>(X, Y, G, W, S, M, n, n_valid, d, cw, vec16, s);
+  return w_smem ? launch<true, false>(X, Y, G, W, S, M, nullptr, n, n_valid, d, cw, vec16, s)
+                : launch<false, false>(X, Y, G, W, S, M, nullptr, n, n_valid, d, cw, vec16, s);
+}
+
+// P1: one pass of the perceptron over X (n, d) and Y (n,) (signs; 0: inert
+// row) on the layout of streamsvm_single (G, w_smem, cw, vec16 the same).
+// W (d,) is updated in place (zero for a fresh fit); M (1,) int32 counts the
+// mistakes on top of its value; F (n,) uint8 gets each row's decision, or
+// is null. Returns the CUDA error of the launches (0 on success).
+int perceptron_single(const void* X, const void* Y, void* G, void* W, void* M, void* F, int n,
+                      int n_valid, int d, int w_smem, int cw, int vec16, void* stream) {
+  if (n <= 0 || d <= 0 || cw <= 0 || cw % 4 != 0 || (cw != SDC && cw < d))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return w_smem ? launch<true, true>(X, Y, G, W, nullptr, M, F, n, n_valid, d, cw, vec16, s)
+                : launch<false, true>(X, Y, G, W, nullptr, M, F, n, n_valid, d, cw, vec16, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 """The port's example twins run end to end on the CPU at their smallest
 sizes: examples/torch_serve_bank.py (train -> checkpoint -> serve -> hot
-swap), examples/torch_kernel_bank.py (the RBF core-set bank on two rings)
-and examples/torch_svm_distributed.py (2 spawned gloo ranks). Each asserts
-its own claims (served == direct readout bit for bit, s_tile bit-exact,
+swap), examples/torch_kernel_bank.py (the RBF core-set bank on two rings),
+examples/torch_svm_distributed.py (2 spawned gloo ranks) and
+examples/torch_quickstart.py (Algorithms 1 and 2 against the perceptron and
+Pegasos, the C-grid in one pass, the bank through both residencies, served).
+Each asserts its own claims (served == direct readout bit for bit, s_tile bit-exact,
 every rank the same bits); the test checks what ``main`` returns."""
 import importlib
 import sys
@@ -42,3 +44,11 @@ def test_live_bank_twin():
          "--ring-chunks", "6", "--ring-chunk", "64", "--coreset", "16"])
     assert out["restarts"] == 4 and out["quarantined"] == [15]
     assert out["remeshes"] == 1 and out["kernel_restarts"] == 3
+
+
+def test_quickstart_twin():
+    out = _example("torch_quickstart").main(
+        ["--device", "cpu", "--n-train", "2000", "--classes", "8", "--bank-n", "300",
+         "--bank-d", "16"])
+    assert min(out["acc"].values()) > 80.0 and out["bank_models"] == 24
+    assert out["served_steps"] >= 1 and len(out["served_acc"]) == 3

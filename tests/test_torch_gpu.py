@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1-B6, R1, M1) against their plain versions, on the card.
+"""The port's CUDA kernels (B1-B6, R1, M1, P1, P2) against their plain versions, on the card.
 
 Marked ``gpu``: each test needs a CUDA card and skips without one. Whether
 there is a card is decided inside the fixture, so every pytest worker
@@ -15,6 +15,9 @@ B5 equals its plain version bit for bit (both one fmaf chain per element),
 linear B5 equals B2's scores on the same operands, and the RBF diagonal is
 exactly 1; R1's slots and counts are exact at every core-set size, wherever
 its slots live. Top-k serves any k <= B, in both kernels.
+P1 (the perceptron) and P2 (Pegasos) make their plain versions' decisions
+row for row (a parting only where certified as an f32 tie), with w within
+the engine tolerance, in every layout and at widths from 2 to 65,536.
 This file imports no JAX: the machine with the card has none.
 """
 import numpy as np
@@ -1573,3 +1576,149 @@ def test_live_loop_on_the_card_matches_the_cpu(cuda, tmp_path, kind):
             assert torch.equal(a.cpu(), b), name
         else:
             torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-5, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# P1 and P2: the perceptron and Pegasos
+# ---------------------------------------------------------------------------
+
+
+def _baseline_stream(n, d, seed, noise=0.3):
+    """Unit-norm rows, labels of a noisy linear rule (mistakes throughout)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    y = np.sign(X @ rng.normal(size=d) + noise * rng.normal(size=n)).astype(np.float32)
+    y[y == 0] = 1.0
+    return X, y
+
+
+def _check_perceptron(X, y):
+    from repro_torch.kernels.baselines import perceptron_scan, perceptron_scan_plain
+    from repro_torch.kernels.partings import perceptron_parting
+
+    fk = torch.zeros(X.shape[0], dtype=torch.uint8, device=X.device)
+    fp = torch.zeros_like(fk)
+    wk, mk = perceptron_scan(X, y, flags=fk)
+    wp, mp = perceptron_scan_plain(X, y, flags=fp)
+    torch.cuda.synchronize()
+    part = perceptron_parting(X, y, fk, fp)
+    if part is not None:
+        assert part["tie"], f"P1 parts from its plain version at an untied row: {part}"
+        print(f"P1: a certified f32 tie at {part}")
+        return
+    assert int(mk) == int(mp) == int(fk.sum())
+    torch.testing.assert_close(wk, wp, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [2, 5, 33, 300, 784])
+@pytest.mark.parametrize("n", [1000, 4097])
+def test_perceptron_kernel_matches_plain(cuda, n, d):
+    X, y = _baseline_stream(n, d, seed=n + d)
+    _check_perceptron(torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda))
+
+
+def test_perceptron_kernel_in_every_layout(cuda):
+    """B4's layouts under the perceptron's rule: whole blocks staged (D up
+    to ~870), 256-column chunks with w in shared memory, w in device memory
+    (D = 65,536); rows not 16-byte aligned (X[1:] at D = 33)."""
+    for n, d in ((700, 1200), (300, 65_536)):
+        X, y = _baseline_stream(n, d, seed=d)
+        _check_perceptron(torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda))
+    X, y = _baseline_stream(701, 33, seed=1)
+    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+    _check_perceptron(X[1:], y[1:])
+
+
+def _check_pegasos(X, y, lam, k, budget=None):
+    from repro_torch.kernels.baselines import pegasos_scan, pegasos_scan_plain
+    from repro_torch.kernels.partings import pegasos_parting
+
+    n = X.shape[0] // k * k
+    X, y = X[:n], y[:n]
+    fk = torch.zeros(n, dtype=torch.uint8, device=X.device)
+    fp = torch.zeros_like(fk)
+    wk = pegasos_scan(X, y, lam, k, flags=fk, smem_budget=budget)
+    wp = pegasos_scan_plain(X, y, lam, k, flags=fp)
+    torch.cuda.synchronize()
+    states = lambda t: (pegasos_scan(X[: t * k], y[: t * k], lam, k, smem_budget=budget),
+                        pegasos_scan_plain(X[: t * k], y[: t * k], lam, k))
+    part = pegasos_parting(X, y, lam, k, fk, fp, states)
+    if part is not None:
+        assert part["tie"], f"P2 parts from its plain version at an untied row: {part}"
+        print(f"P2: a certified f32 tie at {part}")
+        return
+    torch.testing.assert_close(wk, wp, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("layout", ["planned", "in place"])
+@pytest.mark.parametrize("k", [1, 7, 20])
+@pytest.mark.parametrize("d", [2, 33, 784])
+def test_pegasos_kernel_matches_plain(cuda, d, k, layout):
+    from repro_torch.kernels.baselines import pegasos_smem
+
+    X, y = _baseline_stream(1003, d, seed=7 * d + k)  # 1003 rows: not whole steps of 7 or 20
+    budget = {"planned": None, "in place": sum(pegasos_smem(d, k, False).values())}[layout]
+    for lam in (1e-2, 1.0 / (10.0 * 1003)):
+        _check_pegasos(torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda), lam, k,
+                       budget)
+
+
+def test_pegasos_kernel_at_wide_rows_and_unaligned_rows(cuda):
+    """w in device memory at D = 20,000 (beyond the staged layout); rows not
+    16-byte aligned (X[1:] at D = 784 is aligned, at D = 33 it is not)."""
+    X, y = _baseline_stream(120, 20_000, seed=3)
+    _check_pegasos(torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda), 1e-3, 3)
+    for d in (33, 784):
+        X, y = _baseline_stream(401, d, seed=d)
+        X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+        _check_pegasos(X[1:], y[1:], 1e-3, 20)
+        _check_pegasos(X[1:], y[1:], 1e-3, 1)
+
+
+def test_pegasos_dyn_bytes_equal_the_byte_model(cuda):
+    from repro_torch.kernels.baselines import _pegasos_lib, pegasos_plan
+
+    lib = _pegasos_lib()
+    assert _build.static_smem("baselines", "pegasos_kernel") == {0}
+    for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (20_000, 1)):
+        plan = pegasos_plan(d, k)
+        assert lib.pegasos_dyn_bytes_c(d, k, plan["staged"]) == sum(plan["smem"].values())
+
+
+def test_baseline_entry_points_launch_the_kernels(cuda):
+    from repro_torch.baselines import fit_pegasos, fit_perceptron
+    from repro_torch.kernels.baselines import pegasos_scan, perceptron_scan
+
+    X, y = _baseline_stream(500, 16, seed=0)
+    p1, p2 = perceptron_scan.launches, pegasos_scan.launches
+    w, m = fit_perceptron(X, y)
+    w2 = fit_pegasos(X, y, 1e-3, k=20)
+    assert w.device.type == w2.device.type == "cuda" and m.dtype == torch.int32
+    assert (perceptron_scan.launches, pegasos_scan.launches) == (p1 + 1, p2 + 1)
+
+
+def test_float64_baselines_on_the_card_match_the_cpu(cuda):
+    """LASVM, CVM (float64) and the batch l2-SVM (f32) on the card against
+    the same calls on the CPU: LASVM's decisions (its ties broken by stream
+    order on both) and CVM's core set exact, floats within their sums'
+    reordering."""
+    from repro_torch.baselines import fit_batch_l2svm, fit_cvm, fit_lasvm
+
+    X, y = _baseline_stream(600, 12, seed=5)
+    for C in (1.0, 10.0):
+        got = fit_lasvm(X, y, C, return_bias=True, device=cuda)
+        want = fit_lasvm(X, y, C, return_bias=True, device="cpu")
+        assert got[2] == want[2]
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-9, atol=1e-12)
+        assert abs(got[1] - want[1]) <= 1e-9 * max(1.0, abs(want[1]))
+    got = fit_cvm(X, y, 10.0, eps=1e-3, max_passes=8, solver_iters=300, device=cuda)
+    want = fit_cvm(X, y, 10.0, eps=1e-3, max_passes=8, solver_iters=300, device="cpu")
+    assert got["passes"] == want["passes"]
+    assert got["core_idx"].tolist() == want["core_idx"].tolist()
+    for a, b in zip(got["w_per_pass"] + [got["w"]], want["w_per_pass"] + [want["w"]]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)
+    (wb, ob), (wc, oc) = (fit_batch_l2svm(X, y, 10.0, iters=300, device=dv)
+                          for dv in (cuda, "cpu"))
+    torch.testing.assert_close(wb.cpu(), wc, rtol=1e-4, atol=1e-4 * float(wc.abs().max()))
+    torch.testing.assert_close(ob.cpu(), oc, rtol=1e-4, atol=0.0)
