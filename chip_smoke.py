@@ -40,8 +40,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      place and the tables in shared or device memory) and in a grid forced
      to 2 CTAs of one row; P1 (the perceptron, on B4's walk) and P2 (Pegasos)
      at mnist89's D = 784 and synthetic_a's D = 2 (--fig3-n-train rows), P2
-     at k = 1, 20 and 7 (N not whole steps), staged (a ring of two steps) and
-     in place: the same decisions row for row and w within the engine
+     at k = 1, 20 and 7 (N not whole steps) in every layout (the walk in
+     B4's three layouts; the step form staged, a ring of two steps, and in
+     place): the same decisions row for row and w within the engine
      tolerance, or a first parting certified as an f32 tie;
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
@@ -3023,53 +3024,87 @@ def check_p1(label, X, y, plain_dev=None):
     return err, plain
 
 
-def check_p2(label, X, y, lam, k, budget=None, plain_dev=None):
+def check_p2(label, X, y, lam, k, plans=None, plain_dev=None):
     """P2 against its plain version (k rows a step, the trailing partial step
-    dropped; run on ``plain_dev``, default X's device): the same violations
-    row for row and w within the engine tolerance, or a first parting
-    certified as an f32 tie (``pegasos_parting``). Returns the w max|err|
-    (None after a tie) and the plain version's ms (one host-clocked call)."""
-    from repro_torch.kernels.baselines import pegasos_plan, pegasos_scan, pegasos_scan_plain
+    dropped; run once on ``plain_dev``, default X's device): in each of
+    ``plans`` (launched through the private ``_launch``; default: the
+    planned layout through ``pegasos_scan``), the same violations row for
+    row and w within the engine tolerance, or a first parting certified as
+    an f32 tie (``pegasos_parting``, with the walk's terms for a walk).
+    Returns ``gap`` (the last plan's w max|err|, measured after a tie too),
+    ``viol`` (its violations) and ``plain`` (the plain version's ms, one
+    host-clocked call)."""
+    from repro_torch.kernels import baselines as kbl
     from repro_torch.kernels.partings import pegasos_parting
 
     pd = X.device if plain_dev is None else torch.device(plain_dev)
     n = X.shape[0] // k * k
     Xk, yk = X[:n], y[:n]
-    fk = torch.zeros(n, dtype=torch.uint8, device=X.device)
-    wk = pegasos_scan(Xk, yk, lam, k, flags=fk, smem_budget=budget)
-    X, y, fk, wk = (t.to(pd) for t in (Xk, yk, fk, wk))
-    fp = torch.zeros_like(fk)
+    Xp, yp = Xk.to(pd), yk.to(pd)
+    fp = torch.zeros(n, dtype=torch.uint8, device=pd)
     sync(pd)
     t0 = time.perf_counter()
-    wp = pegasos_scan_plain(X, y, lam, k, flags=fp)
+    wp = kbl.pegasos_scan_plain(Xp, yp, lam, k, flags=fp)
     sync(pd)
     plain = (time.perf_counter() - t0) * 1e3
-    plan = pegasos_plan(X.shape[1], k, smem_budget=budget)
-    note = plan["layout"]
-    states = lambda t: (pegasos_scan(Xk[: t * k], yk[: t * k], lam, k, smem_budget=budget).to(pd),
-                        pegasos_scan_plain(X[: t * k], y[: t * k], lam, k))
-    part = pegasos_parting(X, y, lam, k, fk, fp, states)
-    if part is not None:
-        if not part["tie"]:
-            raise AssertionError(f"P2 {label} ({note}): parts from its plain version at {part}")
-        print(f"  P2 {label} ({note}): parts from its plain version at a certified f32 tie "
-              f"{part}")
-        return None, plain
-    err = check_close(f"P2 {label} w", wk, wp, RTOL_W, ATOL_W)
-    print(f"  P2 {label} ({note}): the same {int(fk.sum())} violations row for row, w max|err| "
-          f"{err:.3e}, plain {plain:.1f} ms on {pd.type}")
-    return err, plain
+    gap = viol = None
+    for plan in plans or [None]:
+        def run(m, flags=None, plan=plan):
+            if plan is None or Xk.device.type == "cpu":  # the plain version on the CPU
+                return kbl.pegasos_scan(Xk[:m], yk[:m], lam, k, flags=flags)
+            w = torch.zeros(Xk.shape[1], device=Xk.device)
+            if m:
+                kbl._launch(plan, Xk[:m], yk[:m], lam, k, w, flags)
+            return w
+
+        used = plan or kbl.pegasos_plan(X.shape[1], k)
+        note = layout_note(used)
+        fk = torch.zeros(n, dtype=torch.uint8, device=X.device)
+        wk = run(n, fk).to(pd)
+        fk = fk.to(pd)
+        states = lambda t, run=run: (run(t * k).to(pd),
+                                     kbl.pegasos_scan_plain(Xp[: t * k], yp[: t * k], lam, k))
+        part = pegasos_parting(Xp, yp, lam, k, fk, fp, states,
+                               walk_rows=used["rows"] if used["layout"] == "walk" else None)
+        gap, viol = float((wk - wp).abs().max()), int(fk.sum())
+        if part is not None:
+            if not part["tie"]:
+                raise AssertionError(f"P2 {label} ({note}): parts from its plain version at "
+                                     f"{part}")
+            print(f"  P2 {label} ({note}): parts from its plain version at a certified f32 tie "
+                  f"{part}; w max|err| {gap:.3e}")
+            continue
+        check_close(f"P2 {label} ({note}) w", wk, wp, RTOL_W, ATOL_W)
+        print(f"  P2 {label} ({note}): the same {viol} violations row for row, w max|err| "
+              f"{gap:.3e}")
+    print(f"  P2 {label}: plain {plain:.1f} ms on {pd.type}")
+    return dict(gap=gap, viol=viol, plain=plain)
+
+
+def layout_note(plan):
+    """P2's layout in a few words: the walk's rows a block and B4's staging,
+    or the step form's name."""
+    from repro_torch.kernels.streamsvm_scan import SINGLE_DC
+
+    if plan["layout"] != "walk":
+        return plan["layout"]
+    staging = ("whole blocks staged" if plan["chunk"] != SINGLE_DC
+               else f"{SINGLE_DC}-column chunks")
+    return (f"walk, {plan['rows']} rows a block, {staging}, w in "
+            f"{'shared' if plan['w_in_smem'] else 'device'} memory")
 
 
 def check_baselines(dev, args):
     """Phase 2: P1 and P2 against their plain versions on the card, at
     mnist89's D = 784 and synthetic_a's D = 2 (--fig3-n-train rows of each),
-    P2 at k = 1, 20 and 7 (N not whole steps of 7), in its planned layout
-    (staged: a ring of two steps) and forced to the in-place layout; on the
-    card, P2's dynamic shared memory against its byte model."""
+    P2 at k = 1, 20 and 7 (N not whole steps of 7) in every layout
+    (``pegasos_layouts``: the walk in B4's three layouts, the step form
+    staged and in place); on the card, P2's dynamic shared memory against
+    its byte model in every layout."""
     from repro_torch.data import load_dataset, preprocess_for
     from repro_torch.kernels import _build
-    from repro_torch.kernels.baselines import _pegasos_lib, pegasos_plan, pegasos_smem
+    from repro_torch.kernels.baselines import (
+        _pegasos_lib, _walk_lib, pegasos_layouts)
 
     for name in ("mnist89", "synthetic_a"):
         Xtr, ytr, Xte, _ = load_dataset(name, seed=args.seed)
@@ -3081,22 +3116,23 @@ def check_baselines(dev, args):
         check_p1(name, X, y)
         lam = 1.0 / (10.0 * n)  # Table 1's lambda at C = 10
         for k in (1, 20, 7):
-            check_p2(f"{name} k={k} lam={lam:.3g}", X, y, lam, k)
-        for k in (1, 20):
-            budget = sum(pegasos_smem(d, k, False).values())
-            check_p2(f"{name} k={k} forced in place", X, y, lam, k, budget)
+            check_p2(f"{name} k={k} lam={lam:.3g}", X, y, lam, k, pegasos_layouts(d, k))
     if dev.type == "cuda":
         if _build.static_smem("baselines", "pegasos_kernel") != {0}:
             raise AssertionError("pegasos_kernel: static shared memory beside the byte model's 0")
-        lib = _pegasos_lib()
-        for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (22, 20), (20_000, 1)):
-            plan = pegasos_plan(d, k)
-            have = lib.pegasos_dyn_bytes_c(d, k, plan["staged"])
-            model = sum(plan["smem"].values())
-            if have != model:
-                raise AssertionError(f"P2 D={d} k={k}: requests {have} B, byte model {model} B")
-        print("  P2's dynamic shared memory equals its byte model at D = 2 ... 20,000, "
-              "k = 1 and 20")
+        lib, slib = _pegasos_lib(), _walk_lib()
+        for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (22, 20), (20_000, 1), (33, 7)):
+            for plan in pegasos_layouts(d, k):
+                if plan["layout"] == "walk":
+                    have = slib.pegasos_single_dyn_bytes(d, int(plan["w_in_smem"]), plan["chunk"])
+                else:
+                    have = lib.pegasos_dyn_bytes_c(d, k, plan["staged"])
+                model = sum(plan["smem"].values())
+                if have != model:
+                    raise AssertionError(f"P2 D={d} k={k} ({layout_note(plan)}): requests "
+                                         f"{have} B, byte model {model} B")
+        print("  P2's dynamic shared memory equals its byte model in every layout at D = 2 ... "
+              "20,000, k = 1, 7 and 20")
 
 
 def check_fit(label, Xp, yp, c, lookahead=None):
@@ -3314,10 +3350,11 @@ def baseline_rows(dev, args, res, row):
     """Phase 5's rows for P1 and P2 at mnist89's first stream order of phase
     11: ms by events around launches back to back and on the card alone
     behind a spin (``device_ms``), the plain version's ms (one host-clocked
-    call), the launches on phase 11's path. P2's row is k = 1, with k = 20
-    beside it."""
+    call), the launches on phase 11's path. P2's row is k = 1 (the walk),
+    with k = 20 beside it, each in its planned layout, their decisions held
+    to the plain version first (``check_p2``)."""
     from repro_torch.kernels.baselines import (
-        pegasos_scan, pegasos_scan_plain, perceptron_scan, perceptron_scan_plain)
+        pegasos_plan, pegasos_scan, perceptron_scan, perceptron_scan_plain)
 
     if res["mnist89"] is None:
         return []
@@ -3342,25 +3379,24 @@ def baseline_rows(dev, args, res, row):
     for k in (1, 20):
         nk = n // k * k
         Xk, yk = X[:nk], y[:nk]
-        flags = torch.zeros(nk, dtype=torch.uint8, device=dev)
-        wk = pegasos_scan(Xk, yk, lam, k, flags=flags)
-        err = check_close(f"P2 k={k} at phase 5", wk, pegasos_scan_plain(Xk, yk, lam, k),
-                          RTOL_W, ATOL_W)
+        # the planned layout's decisions against the plain version on the card
+        chk = check_p2(f"k={k} at phase 5", Xk, yk, lam, k)
         ms, card = (time_states_ms(lambda _: pegasos_scan(Xk, yk, lam, k), none, dev, c)
                     for c in (False, True))
-        plain = time_ms(lambda: pegasos_scan_plain(Xk, yk, lam, k), dev, 1, warmup=0)
-        viol = int(flags.sum())
-        flops = 2.0 * nk * d + 2.0 * viol * d + 5.0 * (nk // k) * d
-        by_k[k] = (err, ms, card, plain, flops, 4.0 * (nk * d + nk + d), viol)
-    err, ms, card, plain, flops, nbytes, viol = by_k[1]
-    e20, ms20, card20, plain20, _, _, viol20 = by_k[20]
-    out.append(dict(row("pegasos_scan", "src/repro_torch/kernels/csrc/baselines.cu",
-                        "src/repro/baselines/pegasos.py:28", res["launches"]["P2"], err, ms,
-                        plain, flops, nbytes, None,
-                        f"mnist89 in phase 11's first stream order: N={n} D={d} k=1, lam "
-                        f"{lam:.4g}, {viol} violations; k=20: ms {ms20:.4f}, device_ms "
-                        f"{card20:.4f}, plain {plain20:.1f}, {viol20} violations; launches: "
-                        "k = 1 and 20 over every dataset and stream order of phase 11a"),
+        flops = 2.0 * nk * d + 2.0 * chk["viol"] * d + 5.0 * (nk // k) * d
+        by_k[k] = (chk["gap"], ms, card, chk["plain"], flops, 4.0 * (nk * d + nk + d),
+                   chk["viol"], layout_note(pegasos_plan(d, k)))
+    err, ms, card, plain, flops, nbytes, viol, note = by_k[1]
+    e20, ms20, card20, plain20, _, _, viol20, note20 = by_k[20]
+    src = {"walk": "src/repro_torch/kernels/csrc/streamsvm_single.cu"}.get(
+        pegasos_plan(d, 1)["layout"], "src/repro_torch/kernels/csrc/baselines.cu")
+    out.append(dict(row("pegasos_scan", src, "src/repro/baselines/pegasos.py:28",
+                        res["launches"]["P2"], err, ms, plain, flops, nbytes, None,
+                        f"mnist89 in phase 11's first stream order: N={n} D={d} k=1 ({note}), "
+                        f"lam {lam:.4g}, {viol} violations; k=20 ({note20}): ms {ms20:.4f}, "
+                        f"device_ms {card20:.4f}, plain {plain20:.1f}, {viol20} violations, w "
+                        f"max|err| {e20:.3e}; launches: k = 1 and 20 over every dataset and "
+                        "stream order of phase 11a"),
                     device_ms=card, ms_k20=ms20, device_ms_k20=card20, plain_ms_k20=plain20))
     print(f"  P1 at mnist89: {ms1:.4f} ms by events, {dev1:.4f} on the card alone, plain "
           f"{plain1:.1f} ms, bound {out[0]['bound_ms']:.4f} ms; P2 k=1 {ms:.4f} / {card:.4f} ms, "

@@ -13,9 +13,10 @@ kernel_bank    — R1, the kernelized bank's core-set row recursion over a
                  stream tile (csrc/kernel_bank.cu)
 multiball      — M1, the Sec 4.3 multi-ball recursion of one model's L ball
                  slots over a stream (csrc/multiball.cu)
-baselines      — P1, the perceptron (B4's walk with its rule,
-                 csrc/streamsvm_single.cu), and P2, Pegasos
-                 (csrc/baselines.cu): the paper's baselines' recursions
+baselines      — P1, the perceptron, and P2, Pegasos, the paper's
+                 baselines' recursions: each B4's walk with its rule
+                 (csrc/streamsvm_single.cu), and P2 at larger k a step
+                 form (csrc/baselines.cu)
 partings       — where a kernel's run first parts from its plain
                  version's, and whether that is an f32 tie
 

@@ -11,9 +11,17 @@ P1  ``perceptron_scan``: the perceptron on B4's walk
     margins against its starting w, a warp ballot for the next mistake,
     whose step adds the signed Gram's row to the later margins, and the
     block's deferred update. Its layout is B4's ``single_plan``.
-P2  ``pegasos_scan``: Pegasos on one CTA (``csrc/baselines.cu``), w in
-    shared memory with the steps' rows staged a step ahead
-    (``pegasos_plan``), else w in device memory and the rows read in place.
+P2  ``pegasos_scan``: Pegasos in the layout ``pegasos_plan`` picks by k.
+    "walk": B4's walk with Pegasos' rule and the step's decay deferred
+    (``csrc/streamsvm_single.cu``, ``single_kernel<WS, PEG>``): blocks of
+    whole steps, the margins against the block's starting w scaled by the
+    product of the factors of the steps since the last round, one round a
+    step with a violation (or whose projection binds), and the block's
+    deferred pass, which replays each step's f32 operations column by
+    column; B4's staging. Else the step form on one CTA
+    (``csrc/baselines.cu``): "staged", w in shared memory with the steps'
+    rows staged a step ahead, or "in place", w in device memory and the
+    rows read where they lie.
 
 Each wrapper dispatches on the device of ``X``: a CPU tensor runs its
 ``*_plain`` twin (the reference's scan body as a loop in plain PyTorch), a
@@ -31,13 +39,18 @@ import numpy as np
 import torch
 
 from . import _build
-from .streamsvm_scan import SMEM_PER_BLOCK, _single_lib, _vec16, single_plan
+from .streamsvm_scan import (
+    BLOCK_ROWS, SINGLE_DC, SMEM_PER_BLOCK, _single_lib, _vec16, single_plan, single_smem)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 #: The ring slots of P2's staged layout (``RING`` in csrc/baselines.cu),
 #: and its warps' partial sums (``WARPS`` floats).
 PEGASOS_RING, PEGASOS_WARPS = 2, 8
+#: The largest k at which ``pegasos_plan`` takes the walk (which takes k up
+#: to BLOCK_ROWS): where ``tools/pegasos_layouts.py`` timed it faster than
+#: the step form on the card.
+PEGASOS_WALK_MAX_K = 8
 
 
 def _pegasos_lib() -> ctypes.CDLL:
@@ -49,10 +62,16 @@ def _pegasos_lib() -> ctypes.CDLL:
     return lib
 
 
-def _perceptron_lib() -> ctypes.CDLL:
+def _walk_lib() -> ctypes.CDLL:
     lib = _single_lib()
     lib.perceptron_single.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.perceptron_single.restype = ctypes.c_int
+    lib.pegasos_single.argtypes = [_P] * 5 + [_I] * 2 + [_F] + [_I] * 4 + [_P]
+    lib.pegasos_single.restype = ctypes.c_int
+    lib.pegasos_single_dyn_bytes.argtypes = [_I] * 3
+    lib.pegasos_single_dyn_bytes.restype = ctypes.c_long
+    lib.pegasos_single_block_rows.argtypes = [_I]
+    lib.pegasos_single_block_rows.restype = ctypes.c_int
     return lib
 
 
@@ -108,7 +127,7 @@ def perceptron_scan(X, y, *, flags=None):
     if n == 0:
         return w, m[0]
     plan = single_plan(d)
-    lib = _perceptron_lib()
+    lib = _walk_lib()
     bn = lib.streamsvm_single_block_rows()
     G = torch.empty(((n + bn - 1) // bn) * bn * bn, device=dev, dtype=torch.float32)
     err = lib.perceptron_single(
@@ -142,10 +161,10 @@ def pegasos_scalars(lam, k, steps):
 
 
 def pegasos_smem(d: int, k: int, staged: bool) -> dict:
-    """P2's dynamic shared memory (its only shared memory), bytes by term:
-    the staged layout's ring of PEGASOS_RING steps' rows and signs and its
-    w row (D rounded up to 8), then the step's -(viol y) and the warps'
-    partial sums; the in-place layout has the last two only."""
+    """The step form's dynamic shared memory (its only shared memory), bytes
+    by term: the staged layout's ring of PEGASOS_RING steps' rows and signs
+    and its w row (D rounded up to 8), then the step's -(viol y) and the
+    warps' partial sums; the in-place layout has the last two only."""
     ring = PEGASOS_RING if staged else 0
     return {
         "stream_ring": ring * k * d * 4,
@@ -155,18 +174,58 @@ def pegasos_smem(d: int, k: int, staged: bool) -> dict:
     }
 
 
+def walk_rows(k: int) -> int:
+    """Rows a block of P2's walk at k rows a step: whole steps, at most
+    BLOCK_ROWS (``pegasos_single_block_rows``)."""
+    if not 1 <= k <= BLOCK_ROWS:
+        raise ValueError(f"the walk takes 1 <= k <= {BLOCK_ROWS}: got k={k}")
+    return BLOCK_ROWS // k * k
+
+
+def walk_smem(d: int, *, chunk: int, w_in_smem: bool) -> dict:
+    """The walk's dynamic shared memory (its only shared memory): B4's
+    ``single_smem`` and the walk's state (``PEG_STATE`` floats): the warps'
+    sums of |w|^2 (PEGASOS_WARPS doubles) and each row's step factor,
+    coefficient and scale (BLOCK_ROWS floats each)."""
+    return dict(single_smem(d, w_in_smem=w_in_smem, chunk=chunk),
+                walk_state=PEGASOS_WARPS * 8 + 3 * BLOCK_ROWS * 4)
+
+
+def pegasos_layouts(d: int, k: int, *, smem_budget: int | None = None) -> list[dict]:
+    """Every layout of P2 at k rows a step and D features that fits
+    ``smem_budget`` (default and cap: the card's SMEM_PER_BLOCK), in the
+    plan's order of preference: the walk (k <= BLOCK_ROWS) in B4's three
+    layouts (whole 32-row blocks staged with w in shared memory, SINGLE_DC-
+    column chunks with w in shared memory, the same with w in device
+    memory), then the step form "staged" and "in place". A plan holds
+    ``layout`` and ``smem`` (bytes by term); the walk's also ``rows`` (a
+    block's), ``chunk`` and ``w_in_smem``, the step form's ``staged``."""
+    limit = SMEM_PER_BLOCK if smem_budget is None else min(int(smem_budget), SMEM_PER_BLOCK)
+    plans = []
+    if 1 <= k <= BLOCK_ROWS:
+        for chunk, ws in ((-(-d // 4) * 4, True), (SINGLE_DC, True), (SINGLE_DC, False)):
+            plans.append(dict(layout="walk", rows=walk_rows(k), chunk=chunk, w_in_smem=ws,
+                              smem=walk_smem(d, chunk=chunk, w_in_smem=ws)))
+    for staged in (True, False):
+        plans.append(dict(layout="staged" if staged else "in place", staged=staged,
+                          smem=pegasos_smem(d, k, staged)))
+    return [p for p in plans if sum(p["smem"].values()) <= limit]
+
+
 def pegasos_plan(d: int, k: int, *, smem_budget: int | None = None) -> dict:
     """P2's layout for k rows a step at D features under ``smem_budget``
-    (default and cap: the card's SMEM_PER_BLOCK): "staged" where its ring
-    fits, else "in place". Returns ``layout``, ``staged`` and ``smem``;
-    raises where not even the in-place layout fits."""
-    limit = SMEM_PER_BLOCK if smem_budget is None else min(int(smem_budget), SMEM_PER_BLOCK)
-    for staged in (True, False):
-        smem = pegasos_smem(d, k, staged)
-        if sum(smem.values()) <= limit:
-            return dict(layout="staged" if staged else "in place", staged=staged, smem=smem)
-    raise ValueError(f"pegasos: k={k} rows a step need {sum(smem.values())} B of shared "
-                     f"memory, beyond the budget {limit} B")
+    (default and cap: the card's SMEM_PER_BLOCK): the walk where k <=
+    PEGASOS_WALK_MAX_K (in the first of B4's layouts that fits), else the
+    step form, "staged" where its ring fits, else "in place". A budget of a
+    layout's own bytes forces it where no earlier one fits below it. Returns
+    one of ``pegasos_layouts``; raises where not even the in-place layout
+    fits."""
+    for plan in pegasos_layouts(d, k, smem_budget=smem_budget):
+        if plan["layout"] != "walk" or k <= PEGASOS_WALK_MAX_K:
+            return plan
+    need = sum(pegasos_smem(d, k, False).values())
+    raise ValueError(f"pegasos: k={k} rows a step need {need} B of shared memory, beyond the "
+                     f"budget {smem_budget if smem_budget is not None else SMEM_PER_BLOCK} B")
 
 
 def _pegasos_args(X, y, lam, k, flags):
@@ -217,22 +276,39 @@ def pegasos_scan(X, y, lam, k, *, flags=None, smem_budget=None):
     _pegasos_args(X, y, lam, k, flags)
     if X.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError(f"X and y must be float32: got {X.dtype}, {y.dtype}")
-    dev = X.device
-    n, d = X.shape
-    steps = n // k
     X, y = X.contiguous(), y.contiguous()
-    w = torch.zeros(d, dtype=torch.float32, device=dev)
-    if steps == 0:
+    w = torch.zeros(X.shape[1], dtype=torch.float32, device=X.device)
+    if X.shape[0] == 0:
         return w
-    plan = pegasos_plan(d, k, smem_budget=smem_budget)
-    err = _pegasos_lib().pegasos_sweep(
-        X.data_ptr(), y.data_ptr(), w.data_ptr(), 0 if flags is None else flags.data_ptr(),
-        steps, k, d, float(np.float32(lam)), int(plan["staged"]), _vec16(X),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "pegasos_sweep")
+    _launch(pegasos_plan(X.shape[1], k, smem_budget=smem_budget), X, y, lam, k, w, flags)
     pegasos_scan.launches += 1
     return w
+
+
+def _launch(plan, X, y, lam, k, w, flags) -> None:
+    """Launch P2 in the layout ``plan`` (one of ``pegasos_layouts``) over the
+    checked, contiguous f32 X (T k, D) and y on the card, T >= 1, with w
+    (D,) zero, updated in place."""
+    dev = X.device
+    n, d = X.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fptr = 0 if flags is None else flags.data_ptr()
+    lam32 = float(np.float32(lam))
+    if plan["layout"] == "walk":
+        lib = _walk_lib()
+        G = torch.empty(-(-n // plan["rows"]) * BLOCK_ROWS * BLOCK_ROWS, device=dev,
+                        dtype=torch.float32)
+        err = lib.pegasos_single(
+            X.data_ptr(), y.data_ptr(), G.data_ptr(), w.data_ptr(), fptr, n, d, lam32, k,
+            int(plan["w_in_smem"]), plan["chunk"], _vec16(X), stream,
+        )
+        _build.check(err, "pegasos_single")
+        return
+    err = _pegasos_lib().pegasos_sweep(
+        X.data_ptr(), y.data_ptr(), w.data_ptr(), fptr, n // k, k, d, lam32,
+        int(plan["staged"]), _vec16(X), stream,
+    )
+    _build.check(err, "pegasos_sweep")
 
 
 pegasos_scan.launches = 0  # kernel launches, read by chip_smoke.py

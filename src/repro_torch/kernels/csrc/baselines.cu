@@ -1,6 +1,9 @@
-// P2 on Hopper: one sweep of Pegasos (the primal sub-gradient SVM of
-// Shalev-Shwartz et al.) over a stream, in steps of k rows, with a plain C
-// interface (bound with ctypes).
+// P2 on Hopper, its step form: one sweep of Pegasos (the primal
+// sub-gradient SVM of Shalev-Shwartz et al.) over a stream, in steps of k
+// rows, with a plain C interface (bound with ctypes). The walk
+// (csrc/streamsvm_single.cu, pegasos_single) is P2's layout where
+// kernels.baselines.pegasos_plan takes it (k up to PEGASOS_WALK_MAX_K);
+// this form runs the larger k.
 //
 // Replaces no TPU kernel: the reference computes it as a lax.scan over the
 // steps (src/repro/baselines/pegasos.py:28-42), which an eager loop would
@@ -31,8 +34,8 @@
 // flops, so the card is bound by its memory rate. One CTA on one SM walks
 // the steps, so the kernel runs far from that bound: it pays a dependent
 // chain of reductions and barriers a step, while the copies run ahead.
-// That is the nature of Pegasos' recursion; the deferred form (ROADMAP)
-// would walk B4's way.
+// The walk defers the step's decay instead and pays one round a step with
+// a violation.
 #include <cuda_runtime.h>
 
 namespace {

@@ -59,6 +59,34 @@
 // update. w starts at zero and the kernel counts the mistakes; it keeps no
 // ball scalars. Where `flags` is given, it writes each row's decision
 // there (1: a mistake), for certifying a parting from the plain version.
+//
+// P2, Pegasos at k rows a step with k <= 32, is the same walk with Pegasos'
+// rule and the step's decay deferred (single_kernel<WS, PEG>, entry
+// pegasos_single). It replaces no TPU kernel either: the reference is a
+// lax.scan over the steps (src/repro/baselines/pegasos.py:28-42). Step s
+// (eta_s = 1 / (lam (s + 1)), f_s = 1 - eta_s lam, a_s = eta_s / k) takes
+// w <- f_s w + a_s sum_r viol_r y_r x_r over its rows, viol_r = y_r <w, x_r>
+// < 1 against the step's w, then the projection w <- w min(1, (1/sqrt(lam))
+// / |w|). A step without a violation only scales w by f_s < 1, and after
+// any step |w| <= 1/sqrt(lam), so its projection leaves w alone: the steps
+// between two that violate are independent. A block holds whole steps
+// (rb = k floor(32 / k) rows; lanes rb.. are inert) and lane t holds
+// g_t = <w_r, y_t x_t> against the state after the last round, w_r, and
+// p_t, the product of the factors of the steps between that round and
+// t's (a warp product scan, redone after each round). Row t violates when
+// p_t g_t < 1. The lowest step with a violation, or whose projection would
+// bind by the walk's own |w|^2 (a rounding edge), takes a round: with
+// c = f_s p_s and V its violating rows, g_t <- c g_t + a_s sum_V G_rt,
+// |w|^2 <- c^2 |w|^2 + 2 c a_s sum_V g_r + a_s^2 sum_V sum_V G_rr' (in
+// double), then the projection's scale multiplies g and |w|^2. One
+// dependent round a step with a violation, not three barriers a step. Each
+// row's step factor, coefficient, violation and the step's scale are
+// recorded, and the block's deferred pass replays them column by column
+// with the reference's f32 operations, each rounded on its own (the plain
+// version's roundings: a product of the factors, as B4's decay, rounds far
+// less, and over a long sweep the reference's w drifts from that by more
+// than the engine tolerance). It recomputes |w|^2 from the new w (one
+// reduction a block), so the recursion's drift stays within a block.
 #include <cuda_runtime.h>
 
 namespace {
@@ -69,6 +97,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int DC = 128;       // feature columns staged per chunk (Gram pre-pass)
 constexpr int SDC = 256;      // feature columns of a staged chunk where no whole block fits
 constexpr unsigned FULL = 0xffffffffu;
+// The rule single_kernel walks: Algorithm 1, the perceptron, Pegasos.
+enum Rule { ALG1, PERC, PEG };
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
@@ -130,27 +160,33 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
 // A w row in shared memory: D rounded up to 8 floats, zero past D.
 __host__ __device__ inline int wpitch(int d) { return (d + 7) / 8 * 8; }
 
+// Floats of Pegasos' walk state: the warps' |w|^2 sums (WARPS doubles) and
+// each row's step factor, step coefficient and step scale (BN each).
+constexpr int PEG_STATE = 2 * WARPS + 3 * BN;
+
 // Dynamic shared memory of single_kernel, in bytes, for staged chunks of
 // cw columns (a multiple of 4; at a row pitch of cw + 4): two chunks, the
 // block Gram, h and alpha*y (BN each), the two chunks' mbarriers (4 floats'
-// room), then the w row when it lives there.
-size_t single_dyn_bytes(int d, int w_smem, int cw) {
-  return sizeof(float) *
-         ((size_t)2 * BN * (cw + 4) + BN * BN + 2 * BN + 4 + (w_smem ? wpitch(d) : 0));
+// room), Pegasos' walk state (peg), then the w row when it lives there.
+size_t single_dyn_bytes(int d, int w_smem, int cw, bool peg) {
+  return sizeof(float) * ((size_t)2 * BN * (cw + 4) + BN * BN + 2 * BN + 4 +
+                          (peg ? PEG_STATE : 0) + (w_smem ? wpitch(d) : 0));
 }
 
-// G[blk][j][k] = <y_j x_j, y_k x_k> for the rows of block blk; rows >= n
-// read as zero.
+// G[blk][j][k] = <y_j x_j, y_k x_k> for the rows of block blk, whose rows
+// start at blk rb (rb <= BN rows a block); rows >= n and lanes >= rb read
+// as zero.
 __global__ void __launch_bounds__(THREADS)
 signed_gram_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                   float* __restrict__ G, int n, int d) {
+                   float* __restrict__ G, int n, int d, int rb) {
   __shared__ float xs[BN][DC + 1];
   __shared__ float ys[BN];
   const int tid = threadIdx.x;
   const int k = tid & 31;
   const int jb = tid >> 5;
-  const long row0 = (long)blockIdx.x * BN;
-  if (tid < BN) ys[tid] = row0 + tid < n ? Y[row0 + tid] : 0.f;
+  const long row0 = (long)blockIdx.x * rb;
+  const long g0 = (long)blockIdx.x * BN;
+  if (tid < BN) ys[tid] = tid < rb && row0 + tid < n ? Y[row0 + tid] : 0.f;
   __syncthreads();
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int d0 = 0; d0 < d; d0 += DC) {
@@ -158,7 +194,7 @@ signed_gram_kernel(const float* __restrict__ X, const float* __restrict__ Y,
       const int j = e / DC, c = e % DC;
       const long row = row0 + j;
       const int col = d0 + c;
-      xs[j][c] = (row < n && col < d) ? X[row * d + col] * ys[j] : 0.f;
+      xs[j][c] = (j < rb && row < n && col < d) ? X[row * d + col] * ys[j] : 0.f;
     }
     __syncthreads();
     for (int c = 0; c < DC; ++c) {
@@ -169,36 +205,47 @@ signed_gram_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     __syncthreads();
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) G[(row0 + jb + 8 * i) * BN + k] = acc[i];
+  for (int i = 0; i < 4; ++i) G[(g0 + jb + 8 * i) * BN + k] = acc[i];
 }
 
-// S = [r, xi2, 1/C, gain] and M = [m] are read at the start and r, xi2, m
-// written back at the end; W (d,) is updated in place, through its copy in
-// shared memory when WS. PERC: the perceptron's rule (S unused, M counts
-// the mistakes, F (n,) the rows' decisions where not null). cw: the staged
-// chunk's columns (d rounded up to 4: whole blocks; else SDC). vec16: X
-// 16-byte aligned with d a multiple of 4 (each staged row is then one bulk
-// copy, else element loads).
-template <bool WS, bool PERC>
+// ALG1: S = [r, xi2, 1/C, gain] and M = [m] are read at the start and r,
+// xi2, m written back at the end; W (d,) is updated in place, through its
+// copy in shared memory when WS. PERC: the perceptron's rule (S unused, M
+// counts the mistakes, F (n,) the rows' decisions where not null). PEG:
+// Pegasos at k rows a step with regularizer lam, rb rows a block (S and M
+// unused, F each row's violation where not null); ALG1 and PERC take BN
+// rows a block. cw: the staged chunk's columns (d rounded up to 4: whole
+// blocks; else SDC). vec16: X 16-byte aligned with d a multiple of 4 (each
+// staged row is then one bulk copy, else element loads).
+template <bool WS, Rule RULE>
 __global__ void __launch_bounds__(THREADS)
 single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
               const float* __restrict__ G, float* __restrict__ W, float* __restrict__ S,
               int* __restrict__ M, unsigned char* __restrict__ F, int n, int n_valid, int d,
-              int cw, int vec16) {
+              int cw, int vec16, float lam, int k_step, int rb) {
+  constexpr bool PERCEPTRON = RULE == PERC;
+  constexpr bool PEGASOS = RULE == PEG;
   extern __shared__ __align__(16) float smem[];
   const int SP = cw + 4;          // a staged row's pitch: 8 rows' 16-byte reads in distinct banks
   float* xb = smem;               // [2][BN][SP]
   float* gs = xb + 2 * BN * SP;   // [BN][BN]
   float* hb = gs + BN * BN;       // [BN]: h, and the warps' |w|^2 sums at the start
-  float* ay = hb + BN;            // [BN]: alpha * y
+  float* ay = hb + BN;            // [BN]: alpha * y; PEGASOS: -(viol y)
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(ay + BN);  // [2]
-  float* w = WS ? ay + BN + 4 : W;  // [wpitch(d)] when WS
+  // PEGASOS: the warps' |w|^2 sums of a block's end, and each row's step
+  // factor, coefficient and scale, for the deferred replay.
+  double* wq = reinterpret_cast<double*>(ay + BN + 4);  // [WARPS]
+  float* fb = ay + BN + 4 + 2 * WARPS;                  // [BN]
+  float* cb = fb + BN;                                  // [BN]
+  float* sb = cb + BN;                                  // [BN]
+  float* w = WS ? ay + BN + 4 + (PEGASOS ? PEG_STATE : 0) : W;  // [wpitch(d)] when WS
+  const int RB = PEGASOS ? rb : BN;  // rows a block
   const int tid = threadIdx.x;
   const int t = tid & 31;
   const int wp = tid >> 5;
   const int nc = (d + cw - 1) / cw;
   const bool whole = nc == 1;  // the update reads the g pass's buffer again
-  const int nblocks = (n + BN - 1) / BN;
+  const int nblocks = (n + RB - 1) / RB;
   const int steps = nblocks * 2 * nc;  // per block: the g pass, then the update
   // Start the copy of chunk ch of block blk into buffer buf. vec16: lanes
   // 0..3 of each warp take a row each (row 4 wp + lane): one bulk copy onto
@@ -208,13 +255,13 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   // past n and d, complete at the next barrier.
   auto stage = [&](int blk, int ch, int buf) {
     float* dst = xb + buf * BN * SP;
-    const long row0 = (long)blk * BN;
+    const long row0 = (long)blk * RB;
     const int c0 = ch * cw;
     if (vec16) {
       if (t >= BN / WARPS) return;
       const int j = (BN / WARPS) * wp + t;
       float* row = dst + j * SP;
-      if (row0 + j < n) {
+      if (j < RB && row0 + j < n) {
         const unsigned bytes = 4u * min(cw, d - c0);
         mbar_expect_tx(bar + buf, bytes);
         bulk_copy(row, X + (row0 + j) * d + c0, bytes, bar + buf);
@@ -222,9 +269,15 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
         for (int c = 0; c < cw; ++c) row[c] = 0.f;
         mbar_arrive(bar + buf);
       }
+    } else if (PEGASOS) {  // an element a thread (a row a thread here would wait on each load)
+      for (int e = tid; e < BN * cw; e += THREADS) {
+        const int j = e / cw, c = e - j * cw;
+        const bool rok = j < RB && row0 + j < n;
+        dst[j * SP + c] = rok && c0 + c < d ? X[(row0 + j) * d + c0 + c] : 0.f;
+      }
     } else {
       for (int j = 0; j < BN; ++j) {
-        const bool rok = row0 + j < n;
+        const bool rok = j < RB && row0 + j < n;
         for (int c = tid; c < cw; c += THREADS)
           dst[j * SP + c] = rok && c0 + c < d ? X[(row0 + j) * d + c0 + c] : 0.f;
       }
@@ -252,10 +305,16 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   float wsq = 0.f;
   for (int i = 0; i < WARPS; ++i) wsq += hb[i];
 
-  float r = PERC ? 0.f : S[0], xi2 = PERC ? 0.f : S[1];
-  const float cinv = PERC ? 0.f : S[2], gain = PERC ? 0.f : S[3];
-  int m = M[0];
+  float r = RULE == ALG1 ? S[0] : 0.f, xi2 = RULE == ALG1 ? S[1] : 0.f;
+  const float cinv = RULE == ALG1 ? S[2] : 0.f, gain = RULE == ALG1 ? S[3] : 0.f;
+  int m = PEGASOS ? 0 : M[0];
+  const float radius = PEGASOS ? __fdiv_rn(1.0f, __fsqrt_rn(lam)) : 0.f;
   float h = 0.f, yrow = 0.f, decay = 1.f;
+  double pw2 = wsq;    // PEGASOS: |w|^2, by recursion within a block
+  double wsum = 0.0;   // PEGASOS: this thread's part of |w|^2 after the deferred replay
+  // PEGASOS: the block's violating rows, and the last rows of its steps
+  // whose projection bound (the same in every thread)
+  unsigned vmask = 0u, smask = 0u;
   // The g pass: rows 4 wp + (t >> 3); lane k = t & 7 takes the chunk's
   // columns 4 k + 32 u .. + 3, u ascending.
   const int grow = 4 * wp + (t >> 3), k = t & 7;
@@ -265,7 +324,7 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     const bool g_pass = within < nc;
     const bool fresh = g_pass || !whole;  // a chunk the previous step did not read
     const int ch = g_pass ? within : within - nc;
-    const long row0 = (long)blk * BN;
+    const long row0 = (long)blk * RB;
     const int nwithin = within + 1 == 2 * nc ? 0 : within + 1;  // step s + 1
     const int nblk = nwithin == 0 ? blk + 1 : blk;
     if (fresh && vec16) {  // the step's chunk is in place
@@ -282,9 +341,9 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     }
     if (within == 0) {  // the block's Gram, needed after its g pass
       for (int e = tid; e < BN * BN / 4; e += THREADS)
-        cp_async16(gs + 4 * e, G + row0 * BN + 4 * e, true);
+        cp_async16(gs + 4 * e, G + (long)blk * BN * BN + 4 * e, true);
       cp_async_commit();
-      yrow = row0 + t < n ? Y[row0 + t] : 0.f;
+      yrow = t < RB && row0 + t < n ? Y[row0 + t] : 0.f;
     }
     const float* xc = xb + xbuf * BN * SP;
     const int c0 = ch * cw;
@@ -324,7 +383,7 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
         // the state after the last update, and the lowest violating row
         // past it updates next. The same distances and decisions as a walk
         // over the rows in order, in one step per update (plus one).
-        for (int j0 = 0; PERC;) {  // the perceptron: a mistake is g_t <= 0
+        for (int j0 = 0; PERCEPTRON;) {  // the perceptron: a mistake is g_t <= 0
           const unsigned viol =
               __ballot_sync(FULL, t >= j0 && g <= 0.0f && row0 + t < n_valid && yrow != 0.0f);
           if (viol == 0u) break;
@@ -334,7 +393,7 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
           m += 1;
           j0 = j + 1;
         }
-        for (int j0 = 0; !PERC;) {
+        for (int j0 = 0; RULE == ALG1;) {
           const float d2 = wsq - 2.0f * g + gtt + xi2 + cinv;
           const float dist_t = sqrtf(fmaxf(d2, 1e-12f));
           const unsigned viol = __ballot_sync(
@@ -355,8 +414,137 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
           m += 1;
           j0 = j + 1;
         }
-        if (wp == 0) ay[t] = alpha * yrow;
-        if (PERC && F != nullptr && wp == 0 && row0 + t < n) F[row0 + t] = alpha != 0.f;
+        if (PEGASOS) {
+          // Lane t's step (of k rows; a block holds whole steps), its
+          // scalars as the reference rounds them (coef = -eta / k = -ak),
+          // and whether it is the step's first lane. |w|^2: after block 0,
+          // the last deferred replay's, recomputed from w.
+          const int first = t / k_step * k_step;
+          const bool lead = t == first;
+          const bool live = t < RB && row0 + t < n_valid;
+          const float tf = (float)((row0 + t) / k_step);
+          const float eta = __fdiv_rn(1.0f, __fmul_rn(lam, __fadd_rn(tf, 1.0f)));
+          const float fct = __fsub_rn(1.0f, __fmul_rn(eta, lam));
+          const float ak = __fdiv_rn(eta, (float)k_step);
+          const unsigned stepmask = k_step >= 32 ? FULL : (1u << k_step) - 1u;
+          if (blk > 0) {
+            pw2 = 0.0;
+            for (int i = 0; i < WARPS; ++i) pw2 += wq[i];
+          }
+          bool viol_row = false;    // row t violated
+          float step_scale = 1.0f;  // the projection's scale of t's step
+          for (int j0 = 0;;) {
+            // p_t: the factors of the steps from j0's up to t's, t's own
+            // excluded (an inclusive product scan over the steps' first
+            // lanes, read at the lane before t's step).
+            float q = live && lead && t >= j0 ? fct : 1.0f;
+#pragma unroll
+            for (int off = 1; off < 32; off <<= 1) {
+              const float o = __shfl_up_sync(FULL, q, off);
+              if (t >= off) q *= o;
+            }
+            const float pb = __shfl_sync(FULL, q, first > 0 ? first - 1 : 0);
+            const float p = first > 0 ? pb : 1.0f;
+            const bool open = live && t >= j0;
+            const bool viol = open && p * g < 1.0f;
+            // A step whose projection would bind without a violation.
+            const float c = fct * p;
+            const float nrm = (float)sqrt((double)c * c * pw2);
+            const bool bind =
+                open && lead && fminf(1.0f, radius / fmaxf(nrm, 1e-12f)) < 1.0f;
+            const unsigned hit = __ballot_sync(FULL, viol || bind);
+            if (hit == 0u) break;  // the block's last steps only decay w
+            const int s0 = (__ffs(hit) - 1) / k_step * k_step;  // the round's step
+            const unsigned vio = __ballot_sync(FULL, viol) & (stepmask << s0);
+            const float cs = __shfl_sync(FULL, c, s0);
+            const float a_s = __shfl_sync(FULL, ak, s0);
+            float u = 0.f;  // sum over V of G_rt
+            for (unsigned v = vio; v != 0u; v &= v - 1u) u += gs[(__ffs(v) - 1) * BN + t];
+            const bool in = (vio >> t) & 1u;
+            const float sg = warp_sum(in ? g : 0.f);
+            const float su = warp_sum(in ? u : 0.f);
+            pw2 = (double)cs * cs * pw2 + 2.0 * cs * a_s * sg + (double)a_s * a_s * su;
+            const float scale = fminf(1.0f, radius / fmaxf((float)sqrt(pw2), 1e-12f));
+            g = scale * (cs * g + a_s * u);
+            pw2 *= (double)scale * scale;
+            if (t >= s0 && t < s0 + k_step) step_scale = scale;
+            viol_row |= in;
+            j0 = s0 + k_step;
+          }
+          vmask = __ballot_sync(FULL, viol_row);
+          smask = __ballot_sync(FULL, step_scale != 1.0f && t % k_step == k_step - 1);
+          if (wp == 0) {
+            ay[t] = viol_row ? -yrow : 0.f;
+            fb[t] = fct;
+            cb[t] = -ak;
+            sb[t] = step_scale;
+            if (F != nullptr && t < RB && row0 + t < n) F[row0 + t] = viol_row;
+          }
+        } else if (wp == 0) {
+          ay[t] = alpha * yrow;
+          if (PERCEPTRON && F != nullptr && row0 + t < n) F[row0 + t] = alpha != 0.f;
+        }
+      }
+    } else if (PEGASOS) {
+      // The deferred replay of columns tid + 256 u (cw <= 4 * 256): each
+      // through the block's steps in order with the reference's f32
+      // operations, w <- (f w + coef sum_r -(viol_r y_r) x_r) scale, each
+      // rounded on its own, so w takes the plain version's roundings (a
+      // product of the steps' factors would round each far less, and the
+      // plain version's w drifts from that by more than the engine
+      // tolerance over a long sweep). Then |w|^2 for the next block.
+      const int cols = min(cw, d - c0);
+      const int rows = (int)min((long)RB, (long)n - row0);
+      const unsigned stepmask = k_step >= 32 ? FULL : (1u << k_step) - 1u;
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = tid + THREADS * u;
+        v[u] = c < cols ? w[c0 + c] : 0.f;
+      }
+      // A step without a violation is f w (its coef * 0 adds nothing), and
+      // a scale of 1 changes nothing: those operations are skipped. The
+      // step's sum runs over its violating rows in order (the others add
+      // zeros).
+#pragma unroll 4
+      for (int s0 = 0; s0 < rows; s0 += k_step) {
+        const int last = s0 + k_step - 1;
+        const float f = fb[last];
+        const unsigned sv = (vmask >> s0) & stepmask;
+        if (sv == 0u) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = __fmul_rn(f, v[u]);
+        } else {
+          float sa[4] = {0.f, 0.f, 0.f, 0.f};
+          for (unsigned m = sv; m != 0u; m &= m - 1u) {
+            const int j = s0 + __ffs(m) - 1;
+            const float nv = ay[j];
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              sa[u] = __fadd_rn(sa[u], __fmul_rn(nv, xc[j * SP + tid + THREADS * u]));
+          }
+          const float co = cb[last];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = __fadd_rn(__fmul_rn(f, v[u]), __fmul_rn(co, sa[u]));
+        }
+        if ((smask >> last) & 1u) {
+          const float sc = sb[last];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[u] = __fmul_rn(v[u], sc);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = tid + THREADS * u;
+        if (c < cols) {
+          w[c0 + c] = v[u];
+          wsum = fma((double)v[u], (double)v[u], wsum);
+        }
+      }
+      if (ch == nc - 1) {  // |w|^2 of the block's end, for the next block
+        for (int off = 16; off > 0; off >>= 1) wsum += __shfl_xor_sync(FULL, wsum, off);
+        if (t == 0) wq[wp] = wsum;
+        wsum = 0.0;
       }
     } else {
       // The deferred update of columns tid + 256 u (cw <= 4 * 256): one
@@ -381,11 +569,11 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
     within = nwithin;
   }
   if (tid == 0) {
-    if (!PERC) {
+    if (RULE == ALG1) {
       S[0] = r;
       S[1] = xi2;
     }
-    M[0] = m;
+    if (!PEGASOS) M[0] = m;
   }
   if (WS) {
     __syncthreads();
@@ -393,22 +581,26 @@ single_kernel(const float* __restrict__ X, const float* __restrict__ Y,
   }
 }
 
-template <bool WS, bool PERC>
+template <bool WS, Rule RULE>
 int launch(const void* X, const void* Y, void* G, void* W, void* S, void* M, void* F, int n,
-           int n_valid, int d, int cw, int vec16, cudaStream_t s) {
-  const size_t dyn = single_dyn_bytes(d, WS, cw);
-  cudaError_t err = cudaFuncSetAttribute((const void*)single_kernel<WS, PERC>,
+           int n_valid, int d, int cw, int vec16, float lam, int k, int rb, cudaStream_t s) {
+  const size_t dyn = single_dyn_bytes(d, WS, cw, RULE == PEG);
+  cudaError_t err = cudaFuncSetAttribute((const void*)single_kernel<WS, RULE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return (int)err;
-  const int nblocks = (n + BN - 1) / BN;
+  const int nblocks = (n + rb - 1) / rb;
   signed_gram_kernel<<<nblocks, THREADS, 0, s>>>((const float*)X, (const float*)Y, (float*)G, n,
-                                                 d);
+                                                 d, rb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  single_kernel<WS, PERC><<<1, THREADS, dyn, s>>>((const float*)X, (const float*)Y,
-                                                  (const float*)G, (float*)W, (float*)S, (int*)M,
-                                                  (unsigned char*)F, n, n_valid, d, cw, vec16);
+  single_kernel<WS, RULE><<<1, THREADS, dyn, s>>>(
+      (const float*)X, (const float*)Y, (const float*)G, (float*)W, (float*)S, (int*)M,
+      (unsigned char*)F, n, n_valid, d, cw, vec16, lam, k, rb);
   return (int)cudaGetLastError();
+}
+
+bool bad_layout(int n, int d, int cw) {
+  return n <= 0 || d <= 0 || cw <= 0 || cw % 4 != 0 || (cw != SDC && cw < d);
 }
 
 }  // namespace
@@ -423,7 +615,12 @@ int streamsvm_single_block_rows() { return BN; }
 // the w row in shared memory (w_smem != 0) or in device memory, and staged
 // chunks of cw columns.
 long streamsvm_single_dyn_bytes(int d, int w_smem, int cw) {
-  return (long)single_dyn_bytes(d, w_smem, cw);
+  return (long)single_dyn_bytes(d, w_smem, cw, false);
+}
+
+// The same for P2 (pegasos_single), which adds the warps' |w|^2 sums.
+long pegasos_single_dyn_bytes(int d, int w_smem, int cw) {
+  return (long)single_dyn_bytes(d, w_smem, cw, true);
 }
 
 // The staged chunk's columns where no whole block fits.
@@ -437,11 +634,12 @@ int streamsvm_single_chunk() { return SDC; }
 // single_kernel's. Returns the CUDA error of the launches (0 on success).
 int streamsvm_single(const void* X, const void* Y, void* G, void* W, void* S, void* M, int n,
                      int n_valid, int d, int w_smem, int cw, int vec16, void* stream) {
-  if (n <= 0 || d <= 0 || cw <= 0 || cw % 4 != 0 || (cw != SDC && cw < d))
-    return (int)cudaErrorInvalidValue;
+  if (bad_layout(n, d, cw)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return w_smem ? launch<true, false>(X, Y, G, W, S, M, nullptr, n, n_valid, d, cw, vec16, s)
-                : launch<false, false>(X, Y, G, W, S, M, nullptr, n, n_valid, d, cw, vec16, s);
+  return w_smem ? launch<true, ALG1>(X, Y, G, W, S, M, nullptr, n, n_valid, d, cw, vec16, 0.f, 1,
+                                     BN, s)
+                : launch<false, ALG1>(X, Y, G, W, S, M, nullptr, n, n_valid, d, cw, vec16, 0.f, 1,
+                                      BN, s);
 }
 
 // P1: one pass of the perceptron over X (n, d) and Y (n,) (signs; 0: inert
@@ -451,11 +649,34 @@ int streamsvm_single(const void* X, const void* Y, void* G, void* W, void* S, vo
 // is null. Returns the CUDA error of the launches (0 on success).
 int perceptron_single(const void* X, const void* Y, void* G, void* W, void* M, void* F, int n,
                       int n_valid, int d, int w_smem, int cw, int vec16, void* stream) {
-  if (n <= 0 || d <= 0 || cw <= 0 || cw % 4 != 0 || (cw != SDC && cw < d))
-    return (int)cudaErrorInvalidValue;
+  if (bad_layout(n, d, cw)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return w_smem ? launch<true, true>(X, Y, G, W, nullptr, M, F, n, n_valid, d, cw, vec16, s)
-                : launch<false, true>(X, Y, G, W, nullptr, M, F, n, n_valid, d, cw, vec16, s);
+  return w_smem ? launch<true, PERC>(X, Y, G, W, nullptr, M, F, n, n_valid, d, cw, vec16, 0.f, 1,
+                                     BN, s)
+                : launch<false, PERC>(X, Y, G, W, nullptr, M, F, n, n_valid, d, cw, vec16, 0.f, 1,
+                                      BN, s);
+}
+
+// Rows a block of P2's walk at k rows a step (whole steps, k <= BN): the
+// Gram scratch holds ceil(n / rows) * BN * BN floats.
+int pegasos_single_block_rows(int k) { return k >= 1 && k <= BN ? BN / k * k : 0; }
+
+// P2: one sweep of Pegasos over n / k steps of k rows (1 <= k <= BN, n a
+// multiple of k) of X (n, d) with signs Y (n,), lam > 0, on the layout of
+// streamsvm_single (G, w_smem, cw, vec16 the same; the dynamic bytes are
+// pegasos_single_dyn_bytes). W (d,) f32 is the start (zero for a fresh
+// fit), updated in place; F (n,) uint8 gets each row's violation, or is
+// null. Returns the CUDA error of the launches (0 on success).
+int pegasos_single(const void* X, const void* Y, void* G, void* W, void* F, int n, int d,
+                   float lam, int k, int w_smem, int cw, int vec16, void* stream) {
+  if (bad_layout(n, d, cw) || k < 1 || k > BN || n % k != 0 || !(lam > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const int rb = BN / k * k;
+  cudaStream_t s = (cudaStream_t)stream;
+  return w_smem ? launch<true, PEG>(X, Y, G, W, nullptr, nullptr, F, n, n, d, cw, vec16, lam, k,
+                                    rb, s)
+                : launch<false, PEG>(X, Y, G, W, nullptr, nullptr, F, n, n, d, cw, vec16, lam, k,
+                                     rb, s);
 }
 
 }  // extern "C"

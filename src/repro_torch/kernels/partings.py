@@ -23,8 +23,9 @@ import torch
 from .baselines import pegasos_scalars
 
 _U32 = 2.0**-24  # f32 unit roundoff
-#: Rows a block of B3's and B4's walks: a row's <w, y x> takes at most this
-#: many corrections (one an update or absorbed point) after its dot product.
+#: Rows a block of B3's, B4's and P2's walks: a row's <w, y x> takes at most
+#: this many corrections (one an update, absorbed point or step) after its
+#: dot product.
 _BN = 32
 
 
@@ -48,7 +49,7 @@ def perceptron_parting(X, y, flags_a, flags_b):
     return dict(row=j, margin=margin, bound=bound, tie=abs(margin) <= bound)
 
 
-def pegasos_parting(X, y, lam, k, flags_a, flags_b, states):
+def pegasos_parting(X, y, lam, k, flags_a, flags_b, states, walk_rows=None):
     """The first row where two Pegasos sweeps' violations (``flags``) part,
     or None. Its step t's w is replayed exactly in float64 (the f32 step
     scalars, the decisions both made before step t), and the row's margin
@@ -56,7 +57,26 @@ def pegasos_parting(X, y, lam, k, flags_a, flags_b, states):
     (``states(t)`` returns them); ``bound`` is the larger, over the two, of
     |y (w32 - w64) . x| (the run's drift from the exact state) plus
     (D + 2) u sum |w32 x| (its dot's rounding). Returns ``row``, ``step``,
-    ``margin``, ``bound`` and ``tie`` (|margin - 1| <= bound)."""
+    ``margin``, ``bound`` and ``tie`` (|margin - 1| <= bound).
+
+    ``walk_rows``: run a is P2's walk in blocks of that many rows (whole
+    steps), whose margin at row j is not a dot against its w but
+    fl(p_j g_j): g_j = y_j <w_B, x_j> against the run's w at the block's
+    start (``states(t_B)[0]``, t_B the block's first step), carried through
+    the rounds of the block's earlier steps (at most BN - 1 = 31, one a
+    step: g <- scale (c g + a_s sum_V G_rj), four roundings, and the sum of
+    up to k Gram entries, each a D-term dot), and p_j, a product of up to
+    31 step factors. Every term of that margin is at most one of
+    |w_B,i x_j,i| (times p, c and the scales, all at most 1 in magnitude)
+    or a_s |x_r,i x_j,i| for an earlier violating row r of the block (a_s =
+    eta_s / k, times factors and scales at most 1), so with T the sum of
+    those absolute terms the walk's margin errs from its own state's exact
+    one by at most (D + 2 + k + 4 BN + BN) u T. The run's w after t steps (a
+    prefix run, whose deferred pass replays each step in four f32
+    roundings: f w, coef s, their sum, the scale) lies within 4 BN u T of
+    that state along x_j. Run a's bound is then |y (w32 - w64) . x| +
+    (D + k + 9 BN + 4) u T, where B4's walk counts 3 * 32
+    (``stream_parting``). Run b's stays the dot's."""
     diff = (flags_a != flags_b).nonzero().flatten()
     if diff.numel() == 0:
         return None
@@ -71,10 +91,23 @@ def pegasos_parting(X, y, lam, k, flags_a, flags_b, states):
         w = float(factor[u]) * w + float(coef[u]) * s
         w = w * min(1.0, float(radius) / max(float(torch.linalg.vector_norm(w)), 1e-12))
     x = X64[j]
+    d = X.shape[1]
     margin = float(y64[j] * (w @ x))
-    bound = max(float((w32.double() - w).abs() @ x.abs())
-                + (X.shape[1] + 2) * _U32 * float(w32.double().abs() @ x.abs())
-                for w32 in states(t))
+    runs = states(t)
+    bounds = [float((w32.double() - w).abs() @ x.abs()) + (d + 2) * _U32
+              * float(w32.double().abs() @ x.abs()) for w32 in runs]
+    if walk_rows is not None:
+        r0 = j // walk_rows * walk_rows
+        t_b = r0 // k
+        w_b = (states(t_b)[0].double() if t_b > 0
+               else torch.zeros(d, dtype=torch.float64, device=X.device))
+        viol = flags_a[r0:j].double()
+        a = torch.as_tensor(-coef.astype("float64"), device=X.device)[
+            torch.arange(r0, j, device=X.device) // k]
+        terms = float(w_b.abs() @ x.abs()) + float((viol * a) @ (X64[r0:j].abs() @ x.abs()))
+        bounds[0] = (float((runs[0].double() - w).abs() @ x.abs())
+                     + (d + k + 9 * _BN + 4) * _U32 * terms)
+    bound = max(bounds)
     return dict(row=j, step=t, margin=margin, bound=bound, tie=abs(margin - 1.0) <= bound)
 
 

@@ -49,6 +49,7 @@ from repro_torch.data import DATASETS, load_dataset, permuted, preprocess_for
 from repro_torch.data.preprocess import l2_normalize
 from repro_torch.kernels import baselines as kb
 from repro_torch.kernels import partings
+from repro_torch.kernels.streamsvm_scan import single_plan
 
 RTOL_W, ATOL_W = 2e-4, 2e-5
 CPU = "cpu"
@@ -118,6 +119,112 @@ def test_pegasos_matches_the_reference(case, k):
     w = tb.fit_pegasos(X, y, lam, k=k, device=CPU)
     assert w.shape == (X.shape[1],) and w.dtype == torch.float32
     _close(w, wr, RTOL_W, ATOL_W)
+
+
+def _walk_emulation(X, y, lam, k, dtype=np.float64):
+    """P2's walk (``single_kernel<WS, PEG>``) in numpy (float64, or float32
+    throughout, coarser than the kernel, which carries |w|^2 in double):
+    blocks of ``walk_rows(k)`` rows (whole steps), lane t's
+    g_t = <w_r, y_t x_t> and p_t (the factors of the steps from the last
+    round's to t's), a round at the lowest step with a violation
+    (p_t g_t < 1) or whose projection binds, |w|^2 carried by recursion
+    within a block and recomputed from w at each block's start, then the
+    block's deferred pass: its steps replayed on w in order (factor,
+    violations, scale), which in exact arithmetic equals the recorded decay
+    and alpha's ``decay w + sum alpha y x`` (checked here, in float64). The
+    step scalars are the reference's f32 ones. Returns w, each row's
+    violation, its margin p_t g_t as the walk computed it, and the steps
+    whose round projected."""
+    n = X.shape[0] // k * k
+    X, y = X[:n].astype(dtype), y[:n].astype(dtype)
+    one = dtype(1)
+    rb = kb.walk_rows(k)
+    factor, coef, radius = kb.pegasos_scalars(lam, k, n // k)
+    f, a, R = factor.astype(dtype), -coef.astype(dtype), dtype(radius)
+    w = np.zeros(X.shape[1], dtype)
+    flags, margins = np.zeros(n, bool), np.zeros(n, dtype)
+    projected = []
+    for r0 in range(0, n, rb):
+        Z = y[r0:r0 + rb, None] * X[r0:r0 + rb]
+        idx = np.arange(Z.shape[0])
+        step, first = (r0 + idx) // k, idx // k * k
+        lead = idx == first
+        G, g, wsq = Z @ Z.T, Z @ w, w @ w
+        alpha, decay, j0 = np.zeros(len(idx), dtype), one, 0
+        scales = np.ones(len(idx), dtype)
+        while True:
+            Q = np.cumprod(np.where(lead & (idx >= j0), f[step], one))
+            p = np.where(first > 0, Q[np.maximum(first - 1, 0)], one)
+            viol = (idx >= j0) & (p * g < 1)
+            margins[r0 + idx[idx >= j0]] = (p * g)[idx >= j0]
+            c = f[step] * p
+            bind = (idx >= j0) & lead & (R / np.maximum(np.sqrt(c * c * wsq), dtype(1e-12)) < 1)
+            hit = viol | bind
+            if not hit.any():
+                break
+            s0 = int(np.argmax(hit)) // k * k
+            V = viol & (idx >= s0) & (idx < s0 + k)
+            cs, ak = c[s0], a[step[s0]]
+            u = G[V].sum(0)
+            wsq = cs * cs * wsq + 2 * cs * ak * g[V].sum() + ak * ak * u[V].sum()
+            scale = min(one, R / max(np.sqrt(wsq), dtype(1e-12)))
+            g = scale * (cs * g + ak * u)
+            alpha = scale * (cs * alpha + ak * V)
+            decay = scale * cs * decay
+            wsq = scale * scale * wsq
+            scales[s0:s0 + k] = scale
+            flags[r0 + idx[V]] = True
+            if scale < 1:
+                projected.append(int(step[s0]))
+            j0 = s0 + k
+        deferred = Q[-1] * (decay * w + alpha @ Z)  # the block's last steps' factors
+        nv = np.where(flags[r0 + idx], -y[r0 + idx], dtype(0))  # -(viol y), as the plain's
+        for s0 in range(0, len(idx), k):  # the deferred pass: the block's steps in order
+            rows = slice(s0, s0 + k)
+            s = (nv[rows, None] * X[r0 + s0:r0 + s0 + k]).sum(0)
+            w = (f[step[s0]] * w - a[step[s0]] * s) * scales[s0]
+        if dtype == np.float64:
+            np.testing.assert_allclose(w, deferred, rtol=1e-12, atol=1e-12 * np.abs(w).max())
+    return w, flags, margins, projected
+
+
+WALK_CASES = {"d2": (2048, 2), "d23": (1600, 23), "ragged": (1001, 23)}  # 1001: not 32k rows
+
+
+@pytest.mark.parametrize("lam", ["table1", "large"])
+@pytest.mark.parametrize("k", [1, 3, 20])
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_pegasos_walk_algebra_matches_the_reference(case, k, lam):
+    """The walk's algebra (P2's kernel at k <= 32) against the reference:
+    the same violations row for row as the reference's step loop (the plain
+    version's flags; its w is the reference's), w within rtol 1e-5 of the
+    reference's f32 w (atol 1e-5 max|w|: the f32 sweep's own rounding), and
+    within 1e-12 of the float64 replay of the reference's steps on those
+    decisions. Table 1's lambda (1 / (10 N)) projects at step 0 and on most
+    later violations; 5e-4 projects at step 0 and again in later blocks,
+    then no more."""
+    n, d = WALK_CASES[case]
+    rng = np.random.default_rng(n + d)
+    X = l2_normalize(rng.normal(size=(n, d)).astype(np.float32))
+    y = np.sign(X @ rng.normal(size=d) + 0.3 * rng.normal(size=n)).astype(np.float32)
+    lam = {"table1": 1.0 / (10.0 * n), "large": 5e-4}[lam]
+    nk = n // k * k
+    wr = np.asarray(rb.fit_pegasos(jnp.asarray(X), jnp.asarray(y), lam, k=k), np.float64)
+    fp = torch.zeros(nk, dtype=torch.uint8)
+    wp = kb.pegasos_scan_plain(torch.as_tensor(X[:nk]), torch.as_tensor(y[:nk]), lam, k, flags=fp)
+    _close(wp, wr, RTOL_W, ATOL_W)
+    w, flags, _, projected = _walk_emulation(X, y, lam, k)
+    fp = fp.numpy().astype(bool)
+    assert np.array_equal(flags, fp), np.flatnonzero(flags != fp)[:5]
+    _close(w, wr, 1e-5, 1e-5 * np.abs(wr).max())
+    factor, coef, radius = kb.pegasos_scalars(lam, k, nk // k)
+    w64 = np.zeros(d)
+    for t in range(nk // k):
+        s = (fp[t * k:(t + 1) * k] * y[t * k:(t + 1) * k])[:, None] * X[t * k:(t + 1) * k]
+        w64 = float(factor[t]) * w64 - float(coef[t]) * s.astype(np.float64).sum(0)
+        w64 *= min(1.0, float(radius) / max(np.linalg.norm(w64), 1e-12))
+    _close(w, w64, 1e-12, 1e-12 * np.abs(w64).max())
+    assert projected[0] == 0 and max(projected) * k >= kb.walk_rows(k)
 
 
 @pytest.mark.parametrize("case", ["overlapping", "imbalanced"])
@@ -343,16 +450,42 @@ def test_pegasos_plan_fits_the_budget(d, k):
     total = sum(plan["smem"].values())
     assert total <= kb.SMEM_PER_BLOCK
     staged = sum(kb.pegasos_smem(d, k, True).values())
-    # Staged (a ring of two steps) wherever it fits, else in place.
-    assert plan["staged"] == (plan["layout"] == "staged") == (staged <= kb.SMEM_PER_BLOCK)
-    assert plan["smem"]["stream_ring"] == (kb.PEGASOS_RING * k * d * 4 if plan["staged"] else 0)
+    size = lambda p: sum(p["smem"].values())
+    if k <= kb.PEGASOS_WALK_MAX_K:
+        # The walk in B4's layout for D, with the warps' |w|^2 sums beside.
+        b4 = single_plan(d)
+        assert plan["layout"] == "walk" and plan["rows"] == 32 // k * k
+        assert (plan["chunk"], plan["w_in_smem"]) == (b4["chunk"], b4["w_in_smem"])
+        assert total == sum(b4["smem"].values()) + 8 * kb.PEGASOS_WARPS + 12 * 32
+    else:
+        # Staged (a ring of two steps) wherever it fits, else in place.
+        assert plan["staged"] == (plan["layout"] == "staged") == (staged <= kb.SMEM_PER_BLOCK)
+        assert plan["smem"]["stream_ring"] == (kb.PEGASOS_RING * k * d * 4 if plan["staged"]
+                                               else 0)
     # Every Table 1 width stages at both of the paper's k.
     if d <= 784:
-        assert plan["layout"] == "staged"
-    # A budget of the staged layout's own bytes keeps it; a word less, in place.
-    if staged <= kb.SMEM_PER_BLOCK:
-        assert kb.pegasos_plan(d, k, smem_budget=staged)["staged"]
-    assert kb.pegasos_plan(d, k, smem_budget=staged - 4)["layout"] == "in place"
+        assert staged <= kb.SMEM_PER_BLOCK
+    # Every layout: the walk's three (B4's) where k <= 32, then the step form,
+    # each where it fits. A budget of a layout's own bytes takes the first
+    # layout the plan may take that fits it, so the staged layout's bytes
+    # keep it where no walk is planned below them, and a word less goes on.
+    layouts = kb.pegasos_layouts(d, k)
+    assert [p["layout"] for p in layouts if p["layout"] != "walk"] == (
+        ["staged"] * (staged <= kb.SMEM_PER_BLOCK) + ["in place"])
+    assert all(p["rows"] == 32 // k * k for p in layouts if p["layout"] == "walk")
+    walks = [(-(-d // 4) * 4, True), (kb.SINGLE_DC, True), (kb.SINGLE_DC, False)]
+    assert [(p["chunk"], p["w_in_smem"]) for p in layouts if p["layout"] == "walk"] == [
+        (c, ws) for c, ws in walks
+        if sum(kb.walk_smem(d, chunk=c, w_in_smem=ws).values()) <= kb.SMEM_PER_BLOCK]
+    takes = [p for p in layouts if p["layout"] != "walk" or k <= kb.PEGASOS_WALK_MAX_K]
+    assert plan == takes[0]
+    for budget in [size(p) for p in layouts] + [staged - 4]:
+        want = next(p for p in takes if size(p) <= budget)
+        assert kb.pegasos_plan(d, k, smem_budget=budget) == want
+    if k > kb.PEGASOS_WALK_MAX_K:
+        if staged <= kb.SMEM_PER_BLOCK:
+            assert kb.pegasos_plan(d, k, smem_budget=staged)["staged"]
+        assert kb.pegasos_plan(d, k, smem_budget=staged - 4)["layout"] == "in place"
 
 
 def test_pegasos_plan_refuses_a_step_beyond_shared_memory():
@@ -536,3 +669,38 @@ def test_parting_helpers_find_the_first_parting_row():
     assert part["row"] == 301 and part["step"] == 75 and not part["tie"]
     assert (part["margin"] < 1.0) == bool(fa[301])
     assert torch.isfinite(w_end).all()
+    # Run a as P2's walk (blocks of 32 rows): the walk's terms widen its bound.
+    walk = partings.pegasos_parting(Xt, yt, lam, k, fa, fb, states, walk_rows=32)
+    assert walk["row"] == 301 and walk["margin"] == part["margin"] and not walk["tie"]
+    assert part["bound"] < walk["bound"] < 1e-3
+
+
+@pytest.mark.parametrize("k", [1, 3, 20])
+def test_pegasos_walk_bound_covers_an_f32_walk(k):
+    """``pegasos_parting(walk_rows=)``'s bound for the walk's run holds an
+    f32 walk's margins (``_walk_emulation`` in float32, each run of it a
+    prefix of the sweep) to the exact margins at the float64 replay of the
+    same decisions: at every eleventh row, flipped in a copy of the flags so
+    that the two runs part there. Table 1's lambda on mnist-like widths
+    (D = 300), where the margins are large and the corrections many."""
+    rng = np.random.default_rng(k)
+    n, d = 640, 300
+    X = l2_normalize(rng.normal(size=(n, d)).astype(np.float32))
+    y = np.sign(X @ rng.normal(size=d) + 0.3 * rng.normal(size=n)).astype(np.float32)
+    lam = 1.0 / (10.0 * n)
+    nk = n // k * k
+    _, fa, m32, _ = _walk_emulation(X, y, lam, k, np.float32)
+    Xt, yt = torch.as_tensor(X[:nk]), torch.as_tensor(y[:nk])
+    fa = torch.as_tensor(fa, dtype=torch.uint8)
+    prefix = lambda t: torch.as_tensor(_walk_emulation(X[:t * k], y[:t * k], lam, k, np.float32)[0]
+                                       if t > 0 else np.zeros(d, np.float32))
+    states = lambda t: (prefix(t),)
+    checked = 0
+    for j in range(5, nk, 11):
+        fb = fa.clone()
+        fb[j] ^= 1
+        part = partings.pegasos_parting(Xt, yt, lam, k, fa, fb, states, walk_rows=kb.walk_rows(k))
+        assert part["row"] == j
+        assert abs(float(m32[j]) - part["margin"]) <= part["bound"], (j, part, float(m32[j]))
+        checked += 1
+    assert checked > 50

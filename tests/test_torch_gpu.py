@@ -1630,60 +1630,115 @@ def test_perceptron_kernel_in_every_layout(cuda):
     _check_perceptron(X[1:], y[1:])
 
 
-def _check_pegasos(X, y, lam, k, budget=None):
-    from repro_torch.kernels.baselines import pegasos_scan, pegasos_scan_plain
+def _check_pegasos(X, y, lam, k, budget=None, plan=None):
+    """P2 (through ``pegasos_scan`` under ``budget``, or in ``plan`` through
+    the private ``_launch``) against its plain version: the same violations
+    row for row and w within the engine tolerance, or a first parting that
+    ``pegasos_parting`` certifies as an f32 tie (with the walk's terms for a
+    walk)."""
+    from repro_torch.kernels import baselines as kb
     from repro_torch.kernels.partings import pegasos_parting
 
     n = X.shape[0] // k * k
     X, y = X[:n], y[:n]
+
+    def run(m, flags=None):
+        if plan is None:
+            return kb.pegasos_scan(X[:m], y[:m], lam, k, flags=flags, smem_budget=budget)
+        w = torch.zeros(X.shape[1], device=X.device)
+        if m:
+            kb._launch(plan, X[:m].contiguous(), y[:m].contiguous(), lam, k, w, flags)
+        return w
+
     fk = torch.zeros(n, dtype=torch.uint8, device=X.device)
     fp = torch.zeros_like(fk)
-    wk = pegasos_scan(X, y, lam, k, flags=fk, smem_budget=budget)
-    wp = pegasos_scan_plain(X, y, lam, k, flags=fp)
+    wk = run(n, fk)
+    wp = kb.pegasos_scan_plain(X, y, lam, k, flags=fp)
     torch.cuda.synchronize()
-    states = lambda t: (pegasos_scan(X[: t * k], y[: t * k], lam, k, smem_budget=budget),
-                        pegasos_scan_plain(X[: t * k], y[: t * k], lam, k))
-    part = pegasos_parting(X, y, lam, k, fk, fp, states)
+    used = plan or kb.pegasos_plan(X.shape[1], k, smem_budget=budget)
+    states = lambda t: (run(t * k), kb.pegasos_scan_plain(X[: t * k], y[: t * k], lam, k))
+    part = pegasos_parting(X, y, lam, k, fk, fp, states,
+                           walk_rows=used["rows"] if used["layout"] == "walk" else None)
     if part is not None:
-        assert part["tie"], f"P2 parts from its plain version at an untied row: {part}"
-        print(f"P2: a certified f32 tie at {part}")
+        assert part["tie"], f"P2 ({used['layout']}) parts at an untied row: {part}"
+        print(f"P2 ({used['layout']}): a certified f32 tie at {part}")
         return
     torch.testing.assert_close(wk, wp, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("layout", ["planned", "in place"])
-@pytest.mark.parametrize("k", [1, 7, 20])
+def _pegasos_plans(d, k, layout):
+    """The layouts of ``pegasos_layouts(d, k)`` named ``layout`` (the walk
+    has B4's three)."""
+    from repro_torch.kernels.baselines import pegasos_layouts
+
+    plans = [p for p in pegasos_layouts(d, k) if p["layout"] == layout]
+    assert plans, (d, k, layout)
+    return plans
+
+
+@pytest.mark.parametrize("layout", ["walk", "staged", "in place"])
+@pytest.mark.parametrize("k", [1, 3, 7, 20])
 @pytest.mark.parametrize("d", [2, 33, 784])
 def test_pegasos_kernel_matches_plain(cuda, d, k, layout):
-    from repro_torch.kernels.baselines import pegasos_smem
+    """Every layout of P2 (the walk in each of B4's three layouts, staged,
+    in place) at k = 1, 3, 7 and 20 rows a step; 1003 rows are not whole
+    steps of 3, 7 or 20 nor whole blocks. Table 1's lambda (1 / (10 N))
+    projects at step 0 and on most later violations; 1e-2 at the first few
+    steps only."""
+    X, y = _baseline_stream(1003, d, seed=7 * d + k)
+    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+    for plan in _pegasos_plans(d, k, layout):
+        for lam in (1e-2, 1.0 / (10.0 * 1003)):
+            _check_pegasos(X, y, lam, k, plan=plan)
 
-    X, y = _baseline_stream(1003, d, seed=7 * d + k)  # 1003 rows: not whole steps of 7 or 20
-    budget = {"planned": None, "in place": sum(pegasos_smem(d, k, False).values())}[layout]
-    for lam in (1e-2, 1.0 / (10.0 * 1003)):
-        _check_pegasos(torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda), lam, k,
-                       budget)
+
+def test_pegasos_planned_layouts_launch_through_the_wrapper(cuda):
+    """``pegasos_scan`` launches ``pegasos_plan``'s layout: the walk where k
+    <= PEGASOS_WALK_MAX_K, else the step form; a budget of the in-place
+    layout's bytes forces it."""
+    from repro_torch.kernels.baselines import PEGASOS_WALK_MAX_K, pegasos_smem
+
+    X, y = _baseline_stream(1003, 784, seed=11)
+    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+    for k in sorted({1, 3, 20, PEGASOS_WALK_MAX_K}):
+        _check_pegasos(X, y, 1e-3, k)
+        _check_pegasos(X, y, 1e-3, k, budget=sum(pegasos_smem(784, k, False).values()))
 
 
 def test_pegasos_kernel_at_wide_rows_and_unaligned_rows(cuda):
-    """w in device memory at D = 20,000 (beyond the staged layout); rows not
-    16-byte aligned (X[1:] at D = 784 is aligned, at D = 33 it is not)."""
+    """w in device memory at D = 20,000 (beyond the staged layout; the walk
+    in SINGLE_DC-column chunks with w in shared memory, and in device
+    memory); rows not 16-byte aligned (X[1:] at D = 784 is aligned, at
+    D = 33 it is not), in every layout."""
+    from repro_torch.kernels.baselines import pegasos_layouts
+
     X, y = _baseline_stream(120, 20_000, seed=3)
-    _check_pegasos(torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda), 1e-3, 3)
+    X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
+    for plan in pegasos_layouts(20_000, 3):
+        _check_pegasos(X, y, 1e-3, 3, plan=plan)
     for d in (33, 784):
         X, y = _baseline_stream(401, d, seed=d)
         X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
-        _check_pegasos(X[1:], y[1:], 1e-3, 20)
-        _check_pegasos(X[1:], y[1:], 1e-3, 1)
+        for k in (1, 20):
+            for plan in pegasos_layouts(d, k):
+                _check_pegasos(X[1:], y[1:], 1e-3, k, plan=plan)
 
 
 def test_pegasos_dyn_bytes_equal_the_byte_model(cuda):
-    from repro_torch.kernels.baselines import _pegasos_lib, pegasos_plan
+    from repro_torch.kernels.baselines import _pegasos_lib, _walk_lib, pegasos_layouts
 
-    lib = _pegasos_lib()
+    lib, slib = _pegasos_lib(), _walk_lib()
     assert _build.static_smem("baselines", "pegasos_kernel") == {0}
-    for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (20_000, 1)):
-        plan = pegasos_plan(d, k)
-        assert lib.pegasos_dyn_bytes_c(d, k, plan["staged"]) == sum(plan["smem"].values())
+    assert _build.static_smem("streamsvm_single", "single_kernel") == {0}
+    for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (20_000, 1), (33, 7)):
+        for plan in pegasos_layouts(d, k):
+            model = sum(plan["smem"].values())
+            if plan["layout"] == "walk":
+                have = slib.pegasos_single_dyn_bytes(d, int(plan["w_in_smem"]), plan["chunk"])
+                assert slib.pegasos_single_block_rows(k) == plan["rows"]
+            else:
+                have = lib.pegasos_dyn_bytes_c(d, k, plan["staged"])
+            assert have == model, (d, k, plan)
 
 
 def test_baseline_entry_points_launch_the_kernels(cuda):
@@ -1694,8 +1749,9 @@ def test_baseline_entry_points_launch_the_kernels(cuda):
     p1, p2 = perceptron_scan.launches, pegasos_scan.launches
     w, m = fit_perceptron(X, y)
     w2 = fit_pegasos(X, y, 1e-3, k=20)
-    assert w.device.type == w2.device.type == "cuda" and m.dtype == torch.int32
-    assert (perceptron_scan.launches, pegasos_scan.launches) == (p1 + 1, p2 + 1)
+    w3 = fit_pegasos(X, y, 1e-3, k=1)
+    assert w.device.type == w2.device.type == w3.device.type == "cuda" and m.dtype == torch.int32
+    assert (perceptron_scan.launches, pegasos_scan.launches) == (p1 + 1, p2 + 2)
 
 
 def test_float64_baselines_on_the_card_match_the_cpu(cuda):
