@@ -5,7 +5,7 @@
     python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
         --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
 
-The second form rehearses phases 2-10 on the CPU at a tiny size, through
+The second form rehearses phases 2-12 on the CPU at a tiny size, through
 the kernels' plain versions; a run on the card never takes that path (add
 --fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
 phase 4 too, --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
@@ -13,7 +13,9 @@ the kernelized bank, --ring-classes 16 --ring-d 40 --ring-n-train 2000
 --ring-n-test 300 --ring-check-n 512 --ring-plain-n 256 for phase 7b,
 --live-chunk 200 --live-kb-rows 1024 --live-kb-chunk 256 for phase 10, and
 --table1-runs 1 --table1-datasets synthetic_a,waveform --lasvm-cap 300
---cvm-passes 4 --cvm-n-train 600 for phase 11).
+--cvm-passes 4 --cvm-n-train 600 for phase 11, and --zoo-smoke --zoo-batch 2
+--zoo-prompt 32 --zoo-gen 8 --zoo-requests 6 --zoo-slots 3 --zoo-req-prompt
+8,24 --zoo-docs 320 for phase 12: the smoke configs, fewer requests).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: name, count, power limit, versions; build every kernel from
@@ -130,6 +132,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      beside one pass of Algorithms 1 and 2, the passes to match Algorithm 2,
      the seconds a pass; (c) examples/torch_quickstart.py's main at its
      default size; wall seconds of each;
+  12. the LLM zoo's serving path (repro_torch.configs, models, serve's
+     ContinuousBatcher), with B4's launches read around (c): (a)
+     examples/torch_serve.py's path with internlm2-1.8b at its published
+     widths (24 layers, d_model 2,048, 16 / 8 heads x 128, SwiGLU 8,192,
+     vocab 92,544, bf16; 1,889,110,016 parameters drawn on the card from
+     --seed): batch 8, prompt 512, 64 greedy tokens, max_len 576; prefill
+     and decode ms, tokens/s and max_memory_allocated beside their bounds;
+     every step's logits within ZOO_TF_TOL x max|logit| of the
+     teacher-forced forward over the same tokens and the greedy tokens
+     equal where its top-two logits part by twice that; an f32 copy at full
+     width and 2 layers, on the same weights, on the card against the
+     host's CPU (TF32 off) within ZOO_F32_TOL; (b) ContinuousBatcher(8
+     slots) over xlstm-125m at its published widths: 24 requests from
+     --seed (prompts 16-128 tokens, max_new 4-48), each request's tokens
+     equal to its solo greedy decode up to a first parting certified as a
+     bf16 tie against an f32 replay of the solo prefix, and equal bit for
+     bit to its decode alone in its slot of the batcher's 8-row step;
+     utilisation beside static batching's, steps/s and admitted/s; (c) examples/llm_feature_svm.py's features (pooled
+     embeddings and final hidden states, 4,096 wide) of 1,024 + 256
+     styled_corpus documents from (a)'s backbone, streamed once in 128-row
+     chunks through fit_chunked(c=10, lookahead=1) (B4 at D = 4,096), held
+     against the same call on the host's CPU (m equal, w within the engine
+     tolerance, or a parting certified as an f32 tie); held-out accuracy,
+     seconds and B4's launches;
   5. (printed last) kernel times at the main path's shapes against their
      bounds, printed as one JSON line {"kernels": [...]}, with torch.matmul's
      bare product (no epilogue) at the server step and at 7b's serve; R1 at
@@ -3346,6 +3372,433 @@ def phase_baselines(dev, args):
                 mnist89=mn, seconds=total)
 
 
+BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s (data sheet)
+ZOO_DENSE = "internlm2-1.8b"  # phase 12a / 12c: the dense decoder at its published widths
+ZOO_RECURRENT = "xlstm-125m"  # phase 12b: the continuous batcher's family
+ZOO_TF_TOL = 0.05  # 12a: decode logits against the teacher-forced forward, x max|logit| (bf16)
+ZOO_F32_TOL = 1e-4  # 12a: the card against the host's CPU on the f32 copy, x max|logit|
+
+
+def zoo_tree(tree, fn):
+    """``fn`` applied to every tensor of a parameter or state tree."""
+    if isinstance(tree, dict):
+        return {k: zoo_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(zoo_tree(v, fn) for v in tree)
+    return fn(tree)
+
+
+def zoo_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from zoo_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from zoo_leaves(v)
+    else:
+        yield tree
+
+
+def rel_gap(logits):
+    """Each row's top-two logit gap over its max |logit| (f32)."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) / logits.float().abs().amax(-1)
+
+
+def zoo_dense(dev, args):
+    """Phase 12a: examples/torch_serve.py's path at the dense config's
+    published widths. Returns the model and its params for 12c."""
+    import dataclasses
+
+    import torch_serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(ZOO_DENSE, smoke=args.zoo_smoke)
+    model = build_model(cfg)
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0  # earlier phases'
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in zoo_leaves(params))
+    B, P, G = args.zoo_batch, args.zoo_prompt, args.zoo_gen
+    T = P + G
+    esz = params["embed"].element_size()
+    kv_bytes = 2 * cfg.n_layers * B * T * cfg.n_kv_heads * cfg.hd * esz  # k and v
+    w_bytes = n_params * esz
+    print(f"[12a] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads x {cfg.hd}, {cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}: {n_params:,} parameters ({w_bytes / 1e9:.3f} GB) drawn on {dev} "
+          f"from --seed in {t_init:.2f} s; batch {B}, prompt {P}, {G} generated, max_len {T}, "
+          f"KV cache {kv_bytes / 1e6:.1f} MB")
+    batch = torch_serve.make_batch(cfg, B, P, args.seed, dev)
+    torch_serve.serve(model, params, batch, 3)  # warm-up: the same shapes' first launches
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = torch_serve.serve(model, params, batch, G, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+    toks = res["tokens"]
+    if not all(torch.isfinite(l).all() for l in res["logits"]):
+        raise AssertionError("12a: non-finite logits")
+
+    # Bounds (the card's least time for this run's work): prefill by its
+    # operations at the bf16 peak (the layers' products for every prompt
+    # token, causal attention's pairs, the last position's unembedding),
+    # decode by its bytes (every weight but the embedding table, whose B rows
+    # are gathered, and the cache's valid positions read once a step).
+    emb = params["embed"].numel()
+    unemb = cfg.d_model * cfg.vocab
+    layer_params = n_params - emb - (0 if cfg.tie_embeddings else unemb)
+    attn_pairs = B * cfg.n_layers * P * (P + 1) // 2
+    pf_flops = (2.0 * layer_params * B * P + 4.0 * attn_pairs * cfg.n_heads * cfg.hd
+                + 2.0 * unemb * B)
+    pf_bound = pf_flops / BF16_PEAK * 1e3
+    per_pos = kv_bytes / T  # cache bytes of one position, all layers, both k and v
+    dec_bytes = [(n_params - emb) * esz + B * cfg.d_model * esz + (P + j + 1) * per_pos
+                 for j in range(G - 1)]
+    dec_bound = float(np.mean(dec_bytes)) / HBM_BYTES_PER_S * 1e3
+    dec_flops_bound = 2.0 * (n_params - emb) * B / BF16_PEAK * 1e3
+    pf_ms = res["prefill_s"] * 1e3
+    dec_ms = res["decode_s"] * 1e3 / (G - 1)
+    print(f"  prefill {pf_ms:.3f} ms ({B * P / res['prefill_s']:.1f} tokens/s); bound "
+          f"{pf_bound:.4f} ms (operations: {pf_flops / 1e12:.3f} TFLOP at 989 TFLOP/s bf16)")
+    print(f"  decode {dec_ms:.3f} ms a step of {B} tokens ({(G - 1) * B / res['decode_s']:.1f} "
+          f"tokens/s) over {G - 1} steps; bound {dec_bound:.4f} ms (bytes: "
+          f"{np.mean(dec_bytes) / 1e9:.3f} GB a step at 3.35 TB/s; operations "
+          f"{dec_flops_bound:.4f} ms)")
+    if peak is not None:
+        print(f"  torch.cuda.max_memory_allocated over the timed run {peak / 1e9:.3f} GB (less "
+              f"{held / 1e9:.3f} GB that earlier phases hold); bound "
+              f"{(w_bytes + kv_bytes) / 1e9:.3f} GB (the weights and the KV cache)")
+
+    # Each step's logits against the teacher-forced forward of the same prefix:
+    # one causal pass (no cache) over the prompt and the tokens fed back.
+    with torch.inference_mode():
+        seq = torch.cat([batch["tokens"], toks[:, :-1]], dim=1)
+        h = model._stack(params, model._embed(params, {**batch, "tokens": seq}))
+        tf = model._unembed(params, h[:, P - 1 :])  # (B, G, V)
+    worst, compared, parted = 0.0, 0, 0
+    for j, got in enumerate(res["logits"]):
+        want = tf[:, j].float()
+        scale = want.abs().max().item()
+        err = (got.float() - want).abs().max().item()
+        worst = max(worst, err / scale)
+        if err > ZOO_TF_TOL * scale:
+            raise AssertionError(f"12a: step {j}'s logits lie {err:.4g} from the teacher-forced "
+                                 f"forward's (bound {ZOO_TF_TOL} x {scale:.4g})")
+        parts = rel_gap(want) > 2 * ZOO_TF_TOL
+        same = got.float().argmax(-1) == want.argmax(-1)
+        if not bool(same[parts].all()):
+            raise AssertionError(f"12a: step {j}: a greedy token differs where margins part")
+        compared += int(parts.sum())
+        parted += int((~same).sum())
+    print(f"  every step's logits within {worst:.4g} x max|logit| of the teacher-forced "
+          f"forward (bound {ZOO_TF_TOL}); greedy tokens equal at all {compared} of {B * G} "
+          f"(row, step) pairs whose margins part by > {2 * ZOO_TF_TOL}; {parted} ties went "
+          "either way")
+
+    # The card against the host's CPU: an f32 copy at full width and 2 layers,
+    # on the first 2 layers of the weights just drawn.
+    if dev.type == "cuda":
+        assert not torch.backends.cuda.matmul.allow_tf32
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", act_dtype="float32")
+    small = {k: v for k, v in params.items() if k != "layers"}
+    small["layers"] = zoo_tree(params["layers"], lambda t: t[:2])
+    small = zoo_tree(small, lambda t: t.float())
+    host = zoo_tree(small, lambda t: t.cpu())
+    model2 = build_model(cfg2)
+    P2, G2 = min(64, P), 4
+    toks2 = torch.cat([batch["tokens"], toks], dim=1)[:2, : P2 + G2]
+    runs = []
+    for p, dv in ((small, dev), (host, torch.device("cpu"))):
+        t2 = toks2.to(dv)
+        lg, st = model2.prefill(p, {"tokens": t2[:, :P2], "max_len": P2 + G2})
+        out = [lg.float().cpu()]
+        for i in range(P2, P2 + G2 - 1):
+            lg, st = model2.decode_step(p, st, t2[:, i : i + 1])
+            out.append(lg.float().cpu())
+        runs.append(out)
+    err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*runs))
+    if err > ZOO_F32_TOL:
+        raise AssertionError(f"12a: the card's f32 2-layer run lies {err:.3e} x max|logit| "
+                             f"from the host CPU's (bound {ZOO_F32_TOL})")
+    print(f"  f32 copy, full width, 2 layers, batch 2, prompt {P2}, {G2 - 1} decode steps: the "
+          f"card within {err:.3e} x max|logit| of the host's CPU (bound {ZOO_F32_TOL}; TF32 off)")
+    del small, host, runs, tf, h, res
+    return model, params, dict(prefill_ms=pf_ms, prefill_bound_ms=pf_bound, decode_ms=dec_ms,
+                               decode_bound_ms=dec_bound, peak_bytes=peak,
+                               mem_bound_bytes=w_bytes + kv_bytes, tf_err=worst, cpu_err=err)
+
+
+def zoo_solo(model, params, prompt, n_new, dev, feed=None):
+    """tests/test_serving.py:14-24's single-request greedy decode, on the
+    port: its tokens and each step's logits (f32, on the host's memory).
+    With ``feed``, the steps are fed those tokens instead (a replay)."""
+    logits, st = model.prefill(params, {"tokens": torch.as_tensor(prompt[None, :], device=dev),
+                                        "max_len": 128})
+    toks, steps = [int(torch.argmax(logits[0]))], [logits[0].float().cpu()]
+    for i in range(n_new - 1):
+        nxt = toks[-1] if feed is None else feed[i]
+        logits, st = model.decode_step(params, st, torch.tensor([[nxt]], dtype=torch.int32,
+                                                                device=dev))
+        toks.append(int(torch.argmax(logits[0])))
+        steps.append(logits[0].float().cpu())
+    return toks, steps
+
+
+def zoo_tie(model, params, req, want, steps, t, dev):
+    """Certify the first parting of a batched request from its solo decode
+    as a bf16 tie: at step ``t`` the solo run took token a, the batched run
+    token b. Replay the solo prefix in f32 on the same weights (cast): the
+    solo's bf16 rounding error at that step is E = max |bf16 - f32| over
+    the vocabulary. A tie when the solo's bf16 logits of a and b lie within
+    2 E (each run's rounding may move either by E). Returns the numbers."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    model32 = build_model(dataclasses.replace(model.cfg, param_dtype="float32",
+                                              act_dtype="float32"))
+    params32 = zoo_tree(params, lambda x: x.float())
+    _, steps32 = zoo_solo(model32, params32, req.prompt, t + 1, dev, feed=want[:t])
+    lo16, lo32 = steps[t], steps32[t]
+    a, b = want[t], req.generated[t]
+    scale = lo16.abs().max().item()
+    E = (lo16 - lo32).abs().max().item()
+    gap = (lo16[a] - lo16[b]).item()
+    return dict(rid=req.rid, step=t, gap=gap / scale, bf16_err=E / scale,
+                f32_gap=(lo32[a] - lo32[b]).item() / scale, tie=gap <= 2 * E)
+
+
+def zoo_requests(model, params, specs, slots, dev):
+    """``specs`` (prompt, max_new) through a ContinuousBatcher of ``slots``
+    slots (timed), and each alone through ``zoo_solo`` (timed)."""
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    zoo_solo(model, params, specs[0][0][:8], 2, dev)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    solo = [zoo_solo(model, params, prompt, n, dev) for prompt, n in specs]
+    sync(dev)
+    t_solo = time.perf_counter() - t0
+    reqs = [Request(rid=i, prompt=prompt, max_new=n) for i, (prompt, n) in enumerate(specs)]
+    batcher = ContinuousBatcher(model, params, n_slots=slots)
+    slot_of, admit = {}, batcher.admit
+
+    def admit_and_record(req):  # the slot each request is admitted to
+        free = batcher.free_slots()
+        if admit(req):
+            slot_of[req.rid] = free[0]
+            return True
+        return False
+
+    batcher.admit = admit_and_record
+    sync(dev)
+    t0 = time.perf_counter()
+    stats = batcher.run(reqs)
+    sync(dev)
+    t_run = time.perf_counter() - t0
+    if stats.finished != len(reqs) or not all(r.done for r in reqs):
+        raise AssertionError(f"12b: {stats.finished} of {len(reqs)} requests finished")
+    for r in reqs:
+        if len(r.generated) != r.max_new:
+            raise AssertionError(f"12b: request {r.rid} got {len(r.generated)} tokens")
+    return reqs, solo, stats, t_run, t_solo, slot_of
+
+
+def zoo_solo_in_slot(model, params, prompt, n_new, slots, slot, dev):
+    """One request's greedy decode in the batcher's step shape: admitted by
+    a batch-1 prefill scattered into ``slot`` of a fresh ``slots``-slot
+    state, then decode steps of ``slots`` rows (the others idle). A decode
+    row depends only on its own inputs, so this gives the batched run's
+    bits for the request; it is the same arithmetic without the other
+    requests' admissions, steps and releases."""
+    from repro_torch.serve.token_scheduler import _scatter_slot
+
+    logits, one = model.prefill(params, {"tokens": torch.as_tensor(prompt[None, :], device=dev),
+                                         "max_len": 4096})
+    state = model.decode_state(slots, 1, device=dev)
+    with torch.inference_mode():
+        state = {**_scatter_slot({k: v for k, v in state.items() if k != "pos"},
+                                 {k: v for k, v in one.items() if k != "pos"}, slot), "pos": 0}
+    toks = [int(torch.argmax(logits[0]))]
+    feed = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+    for _ in range(n_new - 1):
+        feed[slot, 0] = toks[-1]
+        logits, state = model.decode_step(params, state, feed)
+        toks.append(int(torch.argmax(logits[slot])))
+    return toks
+
+
+def first_parting(got, want):
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+
+
+def zoo_batcher(dev, args):
+    """Phase 12b: ContinuousBatcher over the recurrent config's published
+    widths (bf16). Each request against its solo greedy decode (batch 1), a
+    first parting certified as a bf16 tie by an f32 replay (``zoo_tie``);
+    and bit for bit against its decode alone in its slot of the batcher's
+    step shape (``zoo_solo_in_slot``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(ZOO_RECURRENT, smoke=args.zoo_smoke)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed + 1), device=dev)
+    n_params = sum(t.numel() for t in zoo_leaves(params))
+    rng = np.random.default_rng(args.seed + 12)
+    lo, hi = args.zoo_req_prompt
+    specs = [(rng.integers(0, cfg.vocab, int(rng.integers(lo, hi + 1))).astype(np.int32),
+              int(rng.integers(4, 49))) for _ in range(args.zoo_requests)]
+    S = args.zoo_slots
+    print(f"[12b] {cfg.name}: {cfg.n_layers} blocks (1 sLSTM in {cfg.slstm_every}), d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}, {n_params:,} parameters; "
+          f"{len(specs)} requests, prompts {lo}-{hi} tokens, max_new 4-48, {S} slots")
+    reqs, solo, stats, t_run, t_solo, slot_of = zoo_requests(model, params, specs, S, dev)
+    ties, equal_steps = [], 0
+    for r, (want, steps) in zip(reqs, solo):
+        t = first_parting(r.generated, want)
+        equal_steps += len(want) if t is None else t
+        if t is None:
+            continue
+        tie = zoo_tie(model, params, r, want, steps, t, dev)
+        if not tie["tie"]:
+            raise AssertionError(f"12b: request {r.rid} parts from its solo decode at step {t}, "
+                                 f"not a bf16 tie: {tie}")
+        ties.append(tie)
+    lengths = [n for _, n in specs]
+    static_util = sum(lengths) / (S * sum(max(lengths[i : i + S]) for i in range(0, len(lengths), S)))
+    print(f"  bf16: every request's tokens equal its solo greedy decode"
+          + (f", or up to a first parting certified as a bf16 tie ({len(ties)} requests; "
+             f"{equal_steps} of {sum(lengths)} tokens compared before the partings): "
+             + "; ".join(f"request {x['rid']} step {x['step']}: gap {x['gap']:.4g}, the "
+                         f"solo's bf16 error {x['bf16_err']:.4g}, f32 gap {x['f32_gap']:.4g}"
+                         for x in ties) + " (x max|logit|)" if ties else "")
+          + f"; steps {stats.steps}, utilisation {stats.utilization:.4f} (static batching of the "
+          f"same lengths in arrival order: {static_util:.4f})")
+    print(f"  batcher {t_run:.3f} s: {stats.steps / t_run:.1f} steps/s, "
+          f"{stats.admitted / t_run:.2f} admitted/s, "
+          f"{sum(lengths) / t_run:.1f} generated tokens/s; the {len(specs)} solo decodes one "
+          f"after another {t_solo:.3f} s")
+
+    # The batcher's bookkeeping, bit for bit: each request alone in its slot.
+    t0 = time.perf_counter()
+    for r, (prompt, n) in zip(reqs, specs):
+        alone = zoo_solo_in_slot(model, params, prompt, n, S, slot_of[r.rid], dev)
+        if alone != r.generated:
+            raise AssertionError(f"12b: request {r.rid} in slot {slot_of[r.rid]} differs from "
+                                 f"its decode alone in that slot at step "
+                                 f"{first_parting(r.generated, alone)}")
+    t_alone = time.perf_counter() - t0
+    print(f"  every request's {sum(lengths)} tokens equal, bit for bit, its decode alone in "
+          f"its slot of a step of {S} rows ({t_alone:.1f} s): the batcher's admissions, slots and "
+          "releases change no bit")
+    return dict(utilization=stats.utilization, static_utilization=static_util,
+                steps_per_s=stats.steps / t_run, admitted_per_s=stats.admitted / t_run,
+                ties=ties, equal_steps=equal_steps, seconds=t_run)
+
+
+def zoo_features(dev, args, model, params):
+    """Phase 12c: examples/llm_feature_svm.py's features from 12a's backbone,
+    streamed once through fit_chunked (B4), held against the host's CPU."""
+    from repro_torch.core import accuracy, fit_chunked
+    from repro_torch.data import styled_corpus
+    from repro_torch.kernels.partings import stream_parting
+    from repro_torch.kernels.streamsvm_scan import streamsvm_scan
+
+    cfg = model.cfg
+    n_tr, n_te, chunk, C = args.zoo_docs - args.zoo_docs // 5, args.zoo_docs // 5, 128, 10.0
+    t0 = time.perf_counter()
+    toks, labels = styled_corpus(cfg.vocab, n_tr + n_te, 65, seed=args.seed)
+    toks = toks[:, :-1]
+    t_data = time.perf_counter() - t0
+
+    def embed_docs(tokens, center):
+        """Mean-pooled token embeddings beside mean-pooled final hidden
+        states, each L2-normalised, centred and L2-normalised again."""
+        with torch.inference_mode():
+            t = torch.as_tensor(tokens, device=dev)
+            e = model._embed(params, {"tokens": t})
+            h = model._stack(params, e)
+
+            def pool(x):
+                f = x.float().mean(1)
+                return f / torch.clamp(f.norm(dim=-1, keepdim=True), min=1e-8)
+
+            feats = torch.cat([pool(e), pool(h)], dim=-1) - center
+            return feats / torch.clamp(feats.norm(dim=-1, keepdim=True), min=1e-8)
+
+    zero = torch.zeros(2 * cfg.d_model, device=dev)
+    center = embed_docs(toks[:chunk], zero).mean(0)
+    sync(dev)
+    t0 = time.perf_counter()
+    F = torch.cat([embed_docs(toks[lo : lo + chunk], center) for lo in range(0, n_tr, chunk)])
+    F_te = embed_docs(toks[n_tr:], center)
+    sync(dev)
+    t_embed = time.perf_counter() - t0
+    y = torch.as_tensor(labels[:n_tr], device=dev)
+    y_te = torch.as_tensor(labels[n_tr:], device=dev)
+
+    def run(Fx, yx, nv):
+        return tuple(fit_chunked(((Fx[lo : min(lo + chunk, nv)], yx[lo : min(lo + chunk, nv)])
+                                  for lo in range(0, nv, chunk)), c=C, lookahead=1).ball)
+
+    streamsvm_scan.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    ball = run(F, y, n_tr)
+    sync(dev)
+    t_fit = time.perf_counter() - t0
+    launches = streamsvm_scan.launches
+    Fc, yc = F.cpu(), y.cpu()
+    want = run(Fc, yc, n_tr)
+    wk, mk = ball[0].cpu(), int(ball[3])
+    if mk == int(want[3]) and torch.allclose(wk, want[0], rtol=RTOL_W, atol=ATOL_W):
+        held = f"m {mk} as the host CPU's, w max|err| {(wk - want[0]).abs().max().item():.3e}"
+    else:
+        c_inv = float(1.0 / torch.tensor(C, dtype=torch.float32))
+        part = stream_parting(lambda nv: run(F, y, nv), lambda nv: run(Fc, yc, nv),
+                              yc[:, None] * Fc, c_inv, c_inv, None, rtol=RTOL_W, atol=ATOL_W)
+        if part is None or not part["tie"]:
+            raise AssertionError(f"12c: m {mk}, the host CPU's {int(want[3])}; first parting {part}")
+        held = f"m {mk}, the host CPU's {int(want[3])}: the first parting a certified f32 tie {part}"
+    from repro_torch.core.meb import Ball
+
+    acc = float(accuracy(Ball(*ball), F_te, y_te)) * 100
+    d = F.shape[1]
+    print(f"[12c] {n_tr} + {n_te} styled_corpus documents of 64 tokens (vocab {cfg.vocab}, "
+          f"{t_data:.2f} s to draw), embedded by 12a's backbone into {d}-wide features "
+          f"({t_embed:.3f} s), streamed in {chunk}-row chunks through fit_chunked(c={C:g}, "
+          f"lookahead=1): B4 launched {launches} times, the pass {t_fit:.4f} s; {held}; "
+          f"held-out accuracy {acc:.2f} % (random-init backbone, not asserted)")
+    if dev.type == "cuda" and launches < 1:
+        raise AssertionError("12c: fit_chunked never launched B4")
+    return dict(launches=launches, acc=acc, fit_s=t_fit, m=mk)
+
+
+def phase_zoo(dev, args):
+    """Phase 12: the LLM zoo's serving path (ROADMAP A14's first part)."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "examples"))
+    model, params, dense = zoo_dense(dev, args)
+    t_a = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    batched = zoo_batcher(dev, args)
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = zoo_features(dev, args, model, params)
+    t_c = time.perf_counter() - t0
+    del model, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[12] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}; phase 12 {total:.1f} s")
+    return dict(dense=dense, batched=batched, features=feats, seconds=total)
+
+
 def baseline_rows(dev, args, res, row):
     """Phase 5's rows for P1 and P2 at mnist89's first stream order of phase
     11: ms by events around launches back to back and on the card alone
@@ -3405,7 +3858,7 @@ def baseline_rows(dev, args, res, row):
     return out
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=0)
@@ -3449,7 +3902,23 @@ def main(argv=None):
     ap.add_argument("--cvm-passes", type=int, default=32, help="phase 11b: CVM's most passes")
     ap.add_argument("--cvm-n-train", type=int, default=11_800,
                     help="phase 11b: mnist89's first rows for Fig 2")
-    args = ap.parse_args(argv)
+    ap.add_argument("--zoo-smoke", action="store_true",
+                    help="phase 12: the reduced (smoke) configs instead of the published widths")
+    ap.add_argument("--zoo-batch", type=int, default=8, help="phase 12a: prompts a batch")
+    ap.add_argument("--zoo-prompt", type=int, default=512, help="phase 12a: prompt tokens")
+    ap.add_argument("--zoo-gen", type=int, default=64, help="phase 12a: generated tokens")
+    ap.add_argument("--zoo-requests", type=int, default=24, help="phase 12b: requests")
+    ap.add_argument("--zoo-slots", type=int, default=8, help="phase 12b: decode slots")
+    ap.add_argument("--zoo-req-prompt", default=(16, 128),
+                    type=lambda s: tuple(int(v) for v in s.split(",")),
+                    help="phase 12b: the shortest and longest prompt, e.g. 16,128")
+    ap.add_argument("--zoo-docs", type=int, default=1280,
+                    help="phase 12c: documents (4/5 streamed for training, 1/5 held out)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is false; nothing was run")
     sys.path.insert(0, str(ROOT / "src"))
@@ -3478,6 +3947,7 @@ def main(argv=None):
     phase_sharded(dev, args, main_out)
     phase_live(dev, args, smi)
     baselines = phase_baselines(dev, args)
+    zoo = phase_zoo(dev, args)
     print("[5] kernel times at the main path's shapes")
     kernels = (phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring) + [m1]
                + baseline_rows(dev, args, baselines, kernel_row))
@@ -3487,6 +3957,9 @@ def main(argv=None):
         if key is not None:
             row["launches_by_phase"] = {phase: row["launches"], "11": baselines["launches"][key]}
             row["launches"] += baselines["launches"][key]
+            if key == "B4":  # phase 12c streams the backbone's features through B4
+                row["launches_by_phase"]["12"] = zoo["features"]["launches"]
+                row["launches"] += zoo["features"]["launches"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if smi is not None:

@@ -1,8 +1,10 @@
 """Datasets and stream utilities of the port: numpy-only copies of the
-reference's ``repro/data`` generators, preprocessing and stream helpers
-(the port imports nothing of ``repro``). Same seed, same arrays."""
+reference's ``repro/data`` generators, preprocessing, stream helpers and LM
+token streams (the port imports nothing of ``repro``). Same seed, same
+arrays."""
 from .synthetic import DATASETS, PAPER_TABLE1, load_dataset, mnist89_like
 from .stream import chunk_stream, permuted, shard_ranges
+from .tokens import styled_corpus, token_batches
 from .preprocess import POLICY, preprocess, preprocess_for
 
 __all__ = [
@@ -16,4 +18,6 @@ __all__ = [
     "preprocess",
     "preprocess_for",
     "shard_ranges",
+    "styled_corpus",
+    "token_batches",
 ]

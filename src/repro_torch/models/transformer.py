@@ -1,0 +1,216 @@
+"""Decoder-only transformer LM of the dense and vlm families.
+
+The port of the reference's ``models/transformer.py``. Uniform stacks keep
+the reference's stacked per-layer params ((L, ...) leaves, indexed per layer
+here where the reference scans); ``cfg.unrolled`` keeps a list of per-layer
+dicts. Per-layer heterogeneity (gemma3's local/global pattern, dual RoPE
+bases) is a Python int window and float base per layer. MoE is not ported
+yet (ROADMAP A14).
+
+API (shared by every model class in this package):
+  init(generator=None, device=None) -> params
+  loss(params, batch) -> (scalar, metrics)
+  prefill(params, batch) -> (last_logits, cache)
+  decode_step(params, cache, tokens) -> (logits, cache)
+  init_cache(batch_size, max_len, device=None) -> cache
+
+``loss``, ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``
+on the device of the params: CUDA unless they were made on the CPU
+(``init(device="cpu")``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import pick_device
+from repro_torch.configs.base import ArchConfig
+from .layers import (
+    attn_apply,
+    attn_init,
+    cross_entropy,
+    init_dense,
+    mlp_apply,
+    mlp_init,
+    rmsnorm,
+)
+
+_NO_WINDOW = 1 << 30
+
+def _dtype(name: str):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def _generator(generator, dev):
+    """The generator ``init`` draws from: the caller's, or seed 0 on ``dev``
+    (none on the meta device, which draws nothing)."""
+    if dev.type == "meta":
+        return None
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return generator
+
+
+class DecoderLM:
+    def __init__(self, cfg: ArchConfig, remat: str = "none"):
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                "A14: MoE (models/moe.py) is not ported yet; the dense, vlm and ssm families are")
+        self.cfg = cfg
+        self.remat = remat  # accepted for the reference's signature; nothing trains here
+        self.dtype = _dtype(cfg.param_dtype)
+
+    # -- params ------------------------------------------------------------
+    def _layer_init(self, gen, dev):
+        cfg = self.cfg
+        return {
+            "ln1": torch.zeros((cfg.d_model,), dtype=self.dtype, device=dev),
+            "attn": attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                              self.dtype, device=dev),
+            "ln2": torch.zeros((cfg.d_model,), dtype=self.dtype, device=dev),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, self.dtype, device=dev),
+        }
+
+    def init(self, generator=None, device=None):
+        """Random params from ``generator`` (default: seed 0 on the device)."""
+        cfg = self.cfg
+        dev = pick_device(device)
+        gen = _generator(generator, dev)
+        emb = init_dense(gen, (cfg.vocab, cfg.d_model), self.dtype, device=dev)
+        layers = [self._layer_init(gen, dev) for _ in range(cfg.n_layers)]
+        if not cfg.unrolled:
+            layers = _stack_layers(layers)
+        params = {
+            "embed": emb,
+            "layers": layers,
+            "final_norm": torch.zeros((cfg.d_model,), dtype=self.dtype, device=dev),
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = init_dense(gen, (cfg.d_model, cfg.vocab), self.dtype, device=dev)
+        return params
+
+    # -- per-layer meta (gemma3 local/global pattern) ------------------------
+    def _layer_meta(self):
+        """(windows, rope bases): a Python int and float per layer."""
+        cfg = self.cfg
+        base_g = cfg.rope_base_global if cfg.rope_base_global else cfg.rope_base
+        windows, bases = [], []
+        for i in range(cfg.n_layers):
+            if cfg.global_every:
+                is_global = (i + 1) % cfg.global_every == 0
+            else:
+                is_global = cfg.window is None
+            local = cfg.window if cfg.window is not None else _NO_WINDOW
+            windows.append(_NO_WINDOW if is_global else local)
+            bases.append(float(base_g if is_global else cfg.rope_base))
+        return windows, bases
+
+    # -- blocks --------------------------------------------------------------
+    def _block(self, p, x, window, rope_base, cache=None, cache_pos=None):
+        cfg = self.cfg
+        h, _ = attn_apply(
+            p["attn"],
+            rmsnorm(x, p["ln1"], cfg.norm_eps),
+            rope_base=rope_base,
+            causal=True,
+            window=window,
+            cache=cache,
+            cache_pos=cache_pos,
+        )
+        x = x + h
+        hin = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], hin, cfg.mlp)
+
+    # -- forward -------------------------------------------------------------
+    def _embed(self, params, batch):
+        cfg = self.cfg
+        emb = params["embed"]
+        h = emb[torch.as_tensor(batch["tokens"], device=emb.device).long()]  # (B, S, D)
+        if cfg.tie_embeddings:  # the scale rounded to h's dtype first, as the reference's
+            h = h * torch.tensor(cfg.d_model**0.5, dtype=h.dtype).item()
+        if cfg.family == "vlm" and "image_embeds" in batch:
+            img = torch.as_tensor(batch["image_embeds"], device=h.device).to(h.dtype)
+            h[:, : img.shape[1]] = img  # h is a fresh tensor (a gather, or its scaling)
+        return h
+
+    def _unembed(self, params, h):
+        cfg = self.cfg
+        h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        return h @ w
+
+    def _stack(self, params, h, cache=None, cache_pos=None):
+        """Run all layers. Returns h; a cache is written in place."""
+        cfg = self.cfg
+        windows, bases = self._layer_meta()
+        layers = params["layers"]
+        for i in range(cfg.n_layers):
+            lp = layers[i] if cfg.unrolled else _layer(layers, i)
+            c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
+            h = self._block(lp, h, windows[i], bases[i], cache=c, cache_pos=cache_pos)
+        return h
+
+    # -- public API ------------------------------------------------------------
+    def loss(self, params, batch):
+        with torch.inference_mode():
+            h = self._embed(params, batch)
+            h = self._stack(params, h)
+            logits = self._unembed(params, h)
+            targets = torch.as_tensor(batch["targets"], device=logits.device).long()
+            if self.cfg.family == "vlm" and "image_embeds" in batch:
+                P = batch["image_embeds"].shape[1]
+                pos = torch.arange(targets.shape[1], device=targets.device)[None, :]
+                targets = torch.where(pos < P, -1, targets)
+            ce = cross_entropy(logits, targets)
+        return ce, {"ce": ce, "aux": 0.0}
+
+    def init_cache(self, batch_size: int, max_len: int, device=None):
+        cfg = self.cfg
+        dev = pick_device(device)
+        shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+        return {
+            "k": torch.zeros(shape, dtype=self.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+        }
+
+    def prefill(self, params, batch):
+        """Full forward building the cache; returns (last_logits, cache).
+        ``batch["max_len"]`` (default: the prompt's length) sizes the cache."""
+        with torch.inference_mode():
+            tokens = batch["tokens"]
+            B, S = tokens.shape
+            h = self._embed(params, batch)
+            kv = self.init_cache(B, batch.get("max_len", S), device=h.device)
+            h = self._stack(params, h, cache=kv, cache_pos=0)
+            logits = self._unembed(params, h[:, -1:, :])
+        return logits[:, 0, :], {"kv": kv, "pos": S}
+
+    def decode_step(self, params, cache, tokens):
+        """tokens: (B, 1). Returns (logits (B, V), cache).
+
+        Consumes ``cache``: its buffers are written in place and returned in
+        the new cache (the reference's callers donate it), so clone a cache
+        that is still needed."""
+        with torch.inference_mode():
+            h = self._embed(params, {"tokens": tokens})
+            h = self._stack(params, h, cache=cache["kv"], cache_pos=cache["pos"])
+            logits = self._unembed(params, h)
+        return logits[:, 0, :], {"kv": cache["kv"], "pos": cache["pos"] + tokens.shape[1]}
+
+    def decode_state(self, batch_size: int, max_len: int, device=None):
+        """Full decode-time state (cache + position)."""
+        return {"kv": self.init_cache(batch_size, max_len, device=device), "pos": max_len - 1}
+
+
+def _stack_layers(layers):
+    """Per-layer dicts -> one dict of (L, ...) leaves (the reference's
+    scan-over-layers layout)."""
+    if isinstance(layers[0], dict):
+        return {k: _stack_layers([lp[k] for lp in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def _layer(stacked, i):
+    """Layer ``i``'s params as views of the (L, ...) leaves."""
+    if isinstance(stacked, dict):
+        return {k: _layer(v, i) for k, v in stacked.items()}
+    return stacked[i]

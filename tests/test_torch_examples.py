@@ -1,9 +1,11 @@
 """The port's example twins run end to end on the CPU at their smallest
 sizes: examples/torch_serve_bank.py (train -> checkpoint -> serve -> hot
 swap), examples/torch_kernel_bank.py (the RBF core-set bank on two rings),
-examples/torch_svm_distributed.py (2 spawned gloo ranks) and
+examples/torch_svm_distributed.py (2 spawned gloo ranks),
 examples/torch_quickstart.py (Algorithms 1 and 2 against the perceptron and
-Pegasos, the C-grid in one pass, the bank through both residencies, served).
+Pegasos, the C-grid in one pass, the bank through both residencies, served)
+and examples/torch_serve.py (prefill and greedy decode with a KV cache on a
+smoke config).
 Each asserts its own claims (served == direct readout bit for bit, s_tile bit-exact,
 every rank the same bits); the test checks what ``main`` returns."""
 import importlib
@@ -52,3 +54,12 @@ def test_quickstart_twin():
          "--bank-d", "16"])
     assert min(out["acc"].values()) > 80.0 and out["bank_models"] == 24
     assert out["served_steps"] >= 1 and len(out["served_acc"]) == 3
+
+
+def test_serve_twin():
+    out = _example("torch_serve").main(
+        ["--device", "cpu", "--arch", "gemma3-27b", "--batch", "2", "--prompt-len", "20",
+         "--gen", "5"])
+    assert out["tokens"].shape == (2, 5) and out["arch"] == "gemma3-27b-smoke"
+    assert ((out["tokens"] >= 0) & (out["tokens"] < 512)).all()
+    assert out["decode_tokens_per_s"] > 0

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (B1-B6, R1, M1, P1, P2) against their plain versions, on the card.
+"""The port's CUDA kernels (B1-B6, R1, M1, P1, P2) against their plain versions, on the card;
+and the LLM zoo's serving path (smoke configs) on the card against the CPU.
 
 Marked ``gpu``: each test needs a CUDA card and skips without one. Whether
 there is a card is decided inside the fixture, so every pytest worker
@@ -1778,3 +1779,42 @@ def test_float64_baselines_on_the_card_match_the_cpu(cuda):
                           for dv in (cuda, "cpu"))
     torch.testing.assert_close(wb.cpu(), wc, rtol=1e-4, atol=1e-4 * float(wc.abs().max()))
     torch.testing.assert_close(ob.cpu(), oc, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "xlstm-125m"])
+def test_zoo_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """A smoke model (f32 copy; gemma3's windows and tied embeddings, xLSTM's
+    recurrent state) prefilled and decoded 5 steps on the card, against the
+    same calls on the CPU on the same weights: logits within 1e-4 x
+    max|logit| (f32 sums in another order; TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch, smoke=True), param_dtype="float32",
+                              act_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    on_card = _tree_to(params, cuda)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 30)).astype(np.int32)
+    runs = []
+    for p, dev in ((on_card, cuda), (params, torch.device("cpu"))):
+        t = torch.as_tensor(toks, device=dev)
+        logits, cache = model.prefill(p, {"tokens": t[:, :24], "max_len": 30})
+        out = [logits.float().cpu()]
+        for i in range(24, 29):
+            logits, cache = model.decode_step(p, cache, t[:, i : i + 1])
+            out.append(logits.float().cpu())
+        runs.append(out)
+    for got, want in zip(*runs):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dev) for v in tree)
+    return tree.to(dev)
