@@ -5,7 +5,7 @@
     python3 chip_smoke.py --device cpu --n-train 3000 --n-test 500 --d 32 \\
         --classes 16 --chunk 1024 --check-n 512 --check-b 24 --check-q 100
 
-The second form rehearses phases 2-12 on the CPU at a tiny size, through
+The second form rehearses phases 2-13 on the CPU at a tiny size, through
 the kernels' plain versions; a run on the card never takes that path (add
 --fig3-n-train 600 --fig3-n-test 200 --fig3-runs 2 --qp-iters 8 to shrink
 phase 4 too, --coreset 16 --kb-check-tiles 2 --kb-evict-coreset 4 for
@@ -15,7 +15,8 @@ the kernelized bank, --ring-classes 16 --ring-d 40 --ring-n-train 2000
 --table1-runs 1 --table1-datasets synthetic_a,waveform --lasvm-cap 300
 --cvm-passes 4 --cvm-n-train 600 for phase 11, and --zoo-smoke --zoo-batch 2
 --zoo-prompt 32 --zoo-gen 8 --zoo-requests 6 --zoo-slots 3 --zoo-req-prompt
-8,24 --zoo-docs 320 for phase 12: the smoke configs, fewer requests).
+8,24 --zoo-docs 320 --moe-batch 2 --moe-prompt 32 --moe-gen 6 for phases 12
+and 13: the smoke configs, fewer requests, lm-15m for 13b).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: name, count, power limit, versions; build every kernel from
@@ -126,7 +127,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      first --table1-checks orders' P1, P2, Algorithm 1 (B4) and Algorithm 2
      (B3) fits, through their entry points, against the same entry points
      on the host's CPU (the plain versions), every parting certified as an
-     f32 tie or failing; (b) Fig 2
+     f32 tie or failing; LASVM's final pass on synthetic_b
+     (C6_LASVM_DATASETS) against the same call on the host's CPU: n_sv, w
+     and b equal bit for bit (ROADMAP C6); (b) Fig 2
      (fig2_cvm.py's protocol): CVM on mnist89, C = 10, eps 1e-4, up to
      --cvm-passes passes of solver_iters 1,000, the accuracy after each pass
      beside one pass of Algorithms 1 and 2, the passes to match Algorithm 2,
@@ -155,10 +158,41 @@ Phases, in order; any failure raises and the script exits non-zero:
      chunks through fit_chunked(c=10, lookahead=1) (B4 at D = 4,096), held
      against the same call on the host's CPU (m equal, w within the engine
      tolerance, or a parting certified as an f32 tie); held-out accuracy,
-     seconds and B4's launches;
+     seconds and B4's launches; (d) qwen3-moe-30b-a3b at its published
+     widths and depth (48 layers, 128 experts top-8, ~30.5 B parameters,
+     bf16, drawn on the card layer by layer from --seed): batch 8, prompt
+     512, 32 greedy tokens through examples/torch_serve.py's path; prefill
+     and decode ms and peak memory beside their bounds (decode's: every
+     expert's weights a step, as the reference's form reads them; a
+     gathered form's beside it), the dropped assignments; an f32 copy of
+     the first 2 layers at full width on the card against the host's CPU
+     (logits and each layer's aux within ZOO_MOE_F32_TOL, the dropped
+     assignments per layer equal, the greedy tokens equal where margins
+     part);
+  13. the LLM zoo's training path (repro_torch.optim, train), with B4's
+     launches read around (c): (a) examples/llm_feature_svm.py's
+     pretraining with internlm2-1.8b at its published widths (bf16, f32
+     moments): 60 steps of make_train_step over 8 x 64 tokens of
+     styled_corpus(seed=42), the loss falling by TRAIN_LOSS_DROP (the last 10
+     steps' mean against the first 10's) and every grad_norm finite; one
+     step with microbatches=4 against 1 within tests/test_train_loop.py's
+     tolerances; remat "full" against "none" (the loss bit for bit, the grad
+     norm within TRAIN_REMAT_GN_RTOL); ms a step, tokens/s and peak memory
+     beside the step's bound; (b) examples/torch_train_lm.py --full
+     (lm-100m) preempted at step 30 and resumed from its step-20
+     checkpoint, every loss and state leaf equal to the uninterrupted run's
+     bit for bit under torch.use_deterministic_algorithms; (c) 12c's path
+     over (a)'s trained backbone, through fit_chunked at lookahead 1 (B4)
+     and 10 (the qp engine), each held to the host's CPU, the held-out
+     accuracies beside 12c's;
   5. (printed last) kernel times at the main path's shapes against their
      bounds, printed as one JSON line {"kernels": [...]}, with torch.matmul's
-     bare product (no epilogue) at the server step and at 7b's serve; R1 at
+     bare product (no epilogue) at the server step and at 7b's serve; where
+     7b's whole launches part from their plain versions, each parted model's
+     first parting certified as an f32 tie (ROADMAP C5; Algorithm 1 by
+     parting_tie, Algorithm 2 by stream_parting at lookahead 10; the plain
+     version over the model's lane alone, after its whole-stream run is held
+     to the full run's lane bit for bit) or the phase fails; R1 at
      tile --kb-check-tiles and at tile 0 (the seeding tile) per eviction,
      every layout bit-equal to the plain version and timed in turns, the
      planned layout's device time (torch.profiler) the median of 5 rounds;
@@ -1509,16 +1543,17 @@ def check_equal(name, got, want):
             raise AssertionError(f"{name}: leaf {i} differs at {int((a != b).sum())} entries")
 
 
-def parting_tie(kernel, plain, inp, n, model):
+def parting_tie(kernel, plain, inp, n, model, lo=0, hi=None):
     """Where the kernel's and the plain version's decisions for ``model``
     first part (bisecting n_valid over the prefix runs ``kernel(nv)`` and
-    ``plain(nv)``), and the exact margin there: Algorithm 1 for the model
+    ``plain(nv)`` between ``lo``, where they agree, and ``hi``, default
+    ``n``, where they part), and the exact margin there: Algorithm 1 for the model
     alone in float64 up to that row gives ``(row, dist, r, bound)``, with
     ``bound`` the f32 error of evaluating dist from
     d^2 = |w|^2 - 2 y <w, x> + |x|^2 + xi2 + 1/C: each D-long sum errs by at
     most (D + 2) u times its absolute terms (u = 2^-24), and
     |delta dist| <= |delta d^2| / (2 dist)."""
-    lo, hi = 0, n
+    hi = n if hi is None else hi
     while hi - lo > 1:
         mid = (lo + hi) // 2
         if int(kernel(mid)[3][model]) == int(plain(mid)[3][model]):
@@ -2739,14 +2774,197 @@ def phase_times(dev, args, main, algos, kb, kbc, kbres, ring):
     return kernels
 
 
+
+def lane_prefix_runs(fn, inp, runs, lanes, **kw):
+    """``fn`` (B6 train or its plain version) over a bank of ``lanes`` lanes,
+    lane j a copy of model ``runs[j][0]``'s lane of ``inp``
+    (``seeded_bank_inputs``) with its signs zeroed past its first
+    ``runs[j][1]`` rows, the unused lanes' everywhere. A row whose sign is 0
+    moves no state (s = 0, nothing pushed), so lane j ends in the state of
+    the prefix run ``fn(n_valid=runs[j][1])`` of its model, partial window
+    flushed: one call gives several prefixes of several models. ``kw``: the
+    wrapper's keywords (a (B,) ``lookahead`` is taken lane by lane).
+    Returns [(w, r, xi2, m)] per run."""
+    X, Y, W0, r0, xi20, c_inv, m0, gain = inp
+    if len(runs) > lanes:
+        raise ValueError(f"{len(runs)} prefixes in a bank of {lanes} lanes")
+    src = torch.tensor([m for m, _ in runs] + [runs[0][0]] * (lanes - len(runs)),
+                       device=Y.device)
+    pick = lambda t: t.index_select(0, src).contiguous()
+    if max(nv for _, nv in runs) == 0:  # every lane is its seed
+        return [(W0[m], r0[m], xi20[m], m0[m]) for m, _ in runs]
+    cut = torch.zeros(lanes, dtype=torch.long, device=Y.device)
+    cut[: len(runs)] = torch.tensor([nv for _, nv in runs], device=Y.device)
+    Yl = pick(Y).masked_fill(torch.arange(Y.shape[1], device=Y.device)[None, :] >= cut[:, None], 0)
+    kw = {k: pick(v) if k == "lookahead" else v for k, v in kw.items()}
+    out = fn(X, Yl, *(pick(t) for t in (W0, r0, xi20, c_inv, m0, gain)),
+             n_valid=max(nv for _, nv in runs), **kw)
+    return [tuple(x[j] for x in out) for j in range(len(runs))]
+
+
+def lane_equal(got, lane):
+    """A prefix run's (w, m) against the whole launch's lane, bit for bit."""
+    return int(got[3]) == int(lane[3]) and torch.equal(got[0], lane[0])
+
+
+def certify_7b_partings(dev, inp, n, parted, got, want, lookahead):
+    """C5: every model of ``parted`` (7b's launch, ``got`` the ring's states,
+    ``want`` the plain version's) certified at its first parting, or the
+    phase fails. The plain version runs on the parted models' lanes alone,
+    each call one ring tile holding all its prefixes (``lane_prefix_runs``;
+    its products are taken LANE_GROUP lanes at a time, so a lane's bits do
+    not depend on the tile's width), its run over the whole stream held
+    first to the whole plain run's lane bit for bit (else the phase fails);
+    the ring runs prefixes in banks of the launch's width. Prints the calls'
+    count and seconds. Algorithm
+    1 (``lookahead`` None): an 8-way search for the first prefix whose m
+    parts, then ``parting_tie``'s float64 margin. Algorithm 2: the ring's
+    pushes from its m over every 40th prefix and then every prefix of the
+    strides where m grows, the plain states at every segment end of every
+    parted model in one call, and ``stream_parting`` (lookahead 10) over
+    the model's stream. Returns the certificates."""
+    from repro_torch.kernels.partings import stream_parting
+    from repro_torch.kernels.streamsvm_scan import (
+        LANE_GROUP,
+        streamsvm_scan_lookahead_many_ring,
+        streamsvm_scan_lookahead_many_ring_plain,
+        streamsvm_scan_many_ring,
+        streamsvm_scan_many_ring_plain,
+    )
+
+    bp = inp[2].shape[0]
+    if lookahead is None:
+        k_fn, p_fn, kw = streamsvm_scan_many_ring, streamsvm_scan_many_ring_plain, {}
+    else:
+        k_fn, p_fn = streamsvm_scan_lookahead_many_ring, streamsvm_scan_lookahead_many_ring_plain
+        kw = dict(lookahead=torch.full((bp,), lookahead, dtype=torch.int32, device=dev),
+                  lookahead_max=lookahead)
+    k_cache, p_cache = {}, {}
+    spent = {"ring": [0, 0.0], "plain": [0, 0.0]}  # calls, seconds
+
+    def cached(cache, fn, width, runs, what, **extra):
+        todo = sorted({r for r in runs if r not in cache})
+        for i in range(0, len(todo), width):
+            part = todo[i : i + width]
+            t0 = time.perf_counter()
+            cache.update(zip(part, lane_prefix_runs(fn, inp, part, width, **kw, **extra)))
+            sync(dev)
+            spent[what][0] += 1
+            spent[what][1] += time.perf_counter() - t0
+        return [cache[r] for r in runs]
+
+    kernel = lambda runs: cached(k_cache, k_fn, bp, runs, "ring")
+
+    def plain(runs):  # one tile holds them
+        width = -(-len(runs) // LANE_GROUP) * LANE_GROUP
+        return cached(p_cache, p_fn, width, runs, "plain", ring_tile=width, n_ctas=1)
+
+    zs = {}
+
+    def parting_args(model):
+        """stream_parting's stream (row 0 the seed y_0 x_0, the W0 lane),
+        1/C, gain, lookahead and tolerances for ``model``."""
+        if model not in zs:
+            X, Y = inp[0], inp[1]
+            zs[model] = torch.cat([inp[2][model][None, :] * 1.0,
+                                   Y[model, :n, None] * X[:n]]).double().cpu()
+        return (zs[model], float(inp[5][model]), float(inp[7][model]), lookahead)
+
+    # The first plain call: each model's whole stream among its first prefixes.
+    first, pushes = [], {}
+    for model in parted:
+        if not lane_equal(kernel([(model, n)])[0], tuple(x[model] for x in got)):
+            raise AssertionError(f"C5: model {model}: the ring over its lane alone differs from "
+                                 "its lane of the whole launch")
+        if lookahead is None:  # the 8-way search's first round
+            first += [(model, n * (i + 1) // 8) for i in range(8)]
+            continue
+        coarse = list(range(0, n, 40)) + [n]
+        mk = [int(t[3]) for t in kernel([(model, v) for v in coarse])]
+        fine = [v for a, b, ma, mb in zip(coarse, coarse[1:], mk, mk[1:]) if mb != ma
+                for v in range(a + 1, b)]
+        m_at = dict(zip(coarse, mk))
+        m_at.update(zip(fine, (int(t[3]) for t in kernel([(model, v) for v in fine]))))
+        pushes[model] = [v for a, b, ma, mb in zip(coarse, coarse[1:], mk, mk[1:]) if mb != ma
+                         for v in range(a + 1, b + 1) if m_at[v] != m_at[v - 1]]  # stream rows
+        ends = {p + 1 for p in pushes[model][lookahead - 1 :: lookahead]} | {n + 1}
+        first += [(model, e - 1) for e in sorted(ends)] + [(model, 0)]
+    if first:
+        plain(first)
+    for model in parted:
+        if not lane_equal(plain([(model, n)])[0], tuple(x[model] for x in want)):
+            raise AssertionError(f"C5: model {model}: the plain version over its lane alone "
+                                 "differs from its lane of the whole plain run")
+    certs = []
+    if lookahead is not None:
+        # stream_parting asks for the plain states its replay needs (the rows
+        # whose push test is within the f32 bound, one after another): run it
+        # on the cache alone, the ring's state standing in for each state the
+        # cache lacks, so one dry run names all it asks for; gather every
+        # model's misses into one plain call and repeat until none is missed.
+        misses = set()
+
+        def dry(model, nv):
+            if (model, nv - 1) not in p_cache:
+                misses.add((model, nv - 1))
+                return kernel([(model, nv - 1)])[0]
+            return p_cache[(model, nv - 1)]
+
+        while True:
+            misses.clear()
+            for model in parted:
+                stream_parting(lambda nv: kernel([(model, nv - 1)])[0],
+                               lambda nv: dry(model, nv), *parting_args(model),
+                               rtol=RTOL_W, atol=ATOL_W, pushes_a=pushes[model])
+            if not misses:
+                break
+            plain(sorted(misses))
+    for model in parted:
+        if lookahead is None:
+            lo, hi = 0, n
+            while hi - lo > 1:
+                pts = sorted({lo + (hi - lo) * (i + 1) // 8 for i in range(7)} - {lo} | {hi})
+                runs = [(model, v) for v in pts]
+                ms = [(int(a[3]), int(b[3])) for a, b in zip(kernel(runs), plain(runs))]
+                i = next(i for i, (a, b) in enumerate(ms) if a != b)
+                lo, hi = (pts[i - 1] if i else lo), pts[i]
+            row, dist, r, bound = parting_tie(None, None, inp, n, model, lo=lo, hi=hi)
+            cert = dict(model=model, kind="push", row=row + 1, margin=dist - r, bound=bound,
+                        rel=(dist - r) / r, rel_bound=bound / r, tie=abs(dist - r) <= bound)
+        else:
+            part = stream_parting(lambda nv: kernel([(model, nv - 1)])[0],
+                                  lambda nv: plain([(model, nv - 1)])[0],
+                                  *parting_args(model), rtol=RTOL_W, atol=ATOL_W,
+                                  pushes_a=pushes[model])
+            if part is None:
+                raise AssertionError(f"C5: model {model}: its lane alone does not part")
+            cert = dict(model=model, **part, rel=part["margin"], rel_bound=part["bound"])
+        certs.append(cert)
+        what = "a tie" if cert["tie"] else "NOT a tie"
+        print(f"  C5: {'Algorithm 1' if lookahead is None else 'Algorithm 2'} model {model} "
+              f"first parts at stream row {cert['row']} ({cert['kind']}): float64 margin "
+              f"{cert['margin']:.3e} against the f32 bound {cert['bound']:.3e}"
+              + (f" ((dist - r)/r {cert['rel']:.3e}, bound {cert['rel_bound']:.3e} of r)"
+                 if lookahead is None else "") + f": {what}")
+        if not cert["tie"]:
+            raise AssertionError(f"C5: model {model} parts from the plain version at stream row "
+                                 f"{cert['row']}, not on an f32 tie: {cert}")
+    if parted:
+        print(f"  C5: {'Algorithm 1' if lookahead is None else 'Algorithm 2'}: {spent['ring'][0]} "
+              f"ring calls {spent['ring'][1]:.1f} s, {spent['plain'][0]} plain calls (one tile "
+              f"each) {spent['plain'][1]:.1f} s")
+    return certs
+
+
 def ring_7b_rows(dev, args, ring, row):
     """Phase 5's rows for B6 at phase 7b's launches (1,536 x 4,096): the
     Algorithm-1 and Algorithm-2 fits over the whole stream and the ovr
     serve of the held-out rows, each with the count of its launches in 7b,
     B1's / B3's / B2's time at the same launch beside it, and one plain call.
-    The plain versions part from the kernels on f32 ties over 60,000 rows
-    (the 511-row check of 7b certifies the one it meets), so max_abs_err
-    is over the models whose m agrees, and the parted ones are counted."""
+    Where a model's m parts from the plain version's over the 60,000 rows,
+    its first parting is certified as an f32 tie (``certify_7b_partings``,
+    ROADMAP C5) or the phase fails; max_abs_err is over the models whose m
+    agrees."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.predict import (
         predict_bank_fused,
@@ -2777,26 +2995,36 @@ def ring_7b_rows(dev, args, ring, row):
         plain_ms = (time.perf_counter() - t0) * 1e3
         same = got[3][:b] == want[3][:b]
         err = check_state(name, [x[:b][same] for x in got], [x[:b][same] for x in want])
-        return err, plain_ms, (~same).nonzero().flatten().tolist()
+        return err, plain_ms, (~same).nonzero().flatten().tolist(), want
 
-    out, notes = [], []
+    def certified(certs):
+        return "; ".join(f"model {c['model']} at stream row {c['row']} ({c['kind']}, margin "
+                         f"{c['margin']:.3e}, bound {c['bound']:.3e})" for c in certs)
+
+    out, notes, c5_s = [], [], 0.0
     got = streamsvm_scan_many_ring(*inp, n_valid=n)
     ms = time_ms(lambda: streamsvm_scan_many_ring(*inp, n_valid=n), dev, reps)
     ms_b1 = time_ms(lambda: streamsvm_scan_many(*inp, n_valid=n), dev, reps)
     plan_b1 = plan_of(inp, dict(n_valid=n))
-    err, plain, parted = against_plain("7b's Algorithm-1 launch against its plain version", got,
-                                       lambda: streamsvm_scan_many_ring_plain(
-                                           *inp, n_valid=n, ring_tile=bp, n_ctas=1))
+    err, plain, parted, want = against_plain(
+        "7b's Algorithm-1 launch against its plain version", got,
+        lambda: streamsvm_scan_many_ring_plain(*inp, n_valid=n, ring_tile=bp, n_ctas=1))
+    t0 = time.perf_counter()
+    certs1 = certify_7b_partings(dev, inp, n, parted, got, want, None)
+    c5_s += time.perf_counter() - t0
     out.append(row(
         "streamsvm_scan_ring[7b]", src, ref, lb["streamsvm_scan_many_ring"], err, ms, plain,
         4.0 * b * n * d + 2.0 * n * 32 * d + 6.0 * b * n * 32,
         4.0 * (n * d + b * n + 2 * b * d + 6 * b), None,
         f"phase 7b's Algorithm-1 launch: N={n} D={d} B={b} f32, {ring_note(inp[1], bp, d, False)} "
         f"(B1 at this launch {ms_b1:.3f} ms: {layout_note(plan_b1)}); max_abs_err over the "
-        f"{b - len(parted)} models whose m the plain version matches"))
+        f"{b - len(parted)} models whose m the plain version matches; "
+        f"{len(parted)} parted, each at a certified f32 tie" + (
+            f" ({certified(certs1)})" if certs1 else "")))
     notes.append(f"Algorithm 1 {ms:.3f} ms ({ring_note(inp[1], bp, d, False)}; B1 {ms_b1:.3f}: "
                  f"{layout_note(plan_b1)}), "
-                 f"plain {plain / 1e3:.1f} s, {len(parted)} models part on ties: {parted}")
+                 f"plain {plain / 1e3:.1f} s, {len(parted)} models part, each first at a "
+                 f"certified f32 tie: {parted}")
     if b7["la_m"] is not None:
         kw = dict(lookahead=torch.where(live, 10, 1).to(torch.int32), lookahead_max=10,
                   n_valid=n)
@@ -2805,9 +3033,12 @@ def ring_7b_rows(dev, args, ring, row):
         ms_b3 = time_ms(lambda: streamsvm_scan_lookahead_many(*inp, **kw), dev, reps)
         plan_b3 = plan_of(inp, kw)
         flushes = int((-(-(b7["la_m"] - 1) // 10)).sum())
-        err, plain, parted = against_plain(
+        err, plain, parted, want = against_plain(
             "7b's Algorithm-2 launch against its plain version", got,
             lambda: streamsvm_scan_lookahead_many_ring_plain(*inp, **kw, ring_tile=bp, n_ctas=1))
+        t0 = time.perf_counter()
+        certs2 = certify_7b_partings(dev, inp, n, parted, got, want, 10)
+        c5_s += time.perf_counter() - t0
         pushes = float((b7["la_m"] - 1).sum())
         out.append(row(
             "streamsvm_scan_ring_lookahead[7b]", src, ref,
@@ -2817,10 +3048,13 @@ def ring_7b_rows(dev, args, ring, row):
             f"phase 7b's Algorithm-2 launch: N={n} D={d} B={b} L=10 f32, {pushes:.0f} pushes, "
             f"{flushes} flushes, {ring_note(inp[1], bp, d, True)} (B3 at this launch "
             f"{ms_b3:.3f} ms: {layout_note(plan_b3)}); "
-            f"max_abs_err over the {b - len(parted)} models whose m the plain version matches"))
+            f"max_abs_err over the {b - len(parted)} models whose m the plain version matches; "
+            f"{len(parted)} parted, each at a certified f32 tie" + (
+                f" ({certified(certs2)})" if certs2 else "")))
         notes.append(f"Algorithm 2 {ms:.3f} ms ({ring_note(inp[1], bp, d, True)}; B3 "
                      f"{ms_b3:.3f}: {layout_note(plan_b3)}), plain "
-                     f"{plain / 1e3:.1f} s, {len(parted)} models part on ties: {parted}")
+                     f"{plain / 1e3:.1f} s, {len(parted)} models part, each first at a "
+                     f"certified f32 tie: {parted}")
     # The ovr serve of 7b's held-out rows, as ops.predict_bank hands it over.
     nc = b7["n_classes"]
     g = b // nc
@@ -2854,6 +3088,7 @@ def ring_7b_rows(dev, args, ring, row):
         f"(B2 at this launch {ms_b2:.4f} ms)"))
     notes.append(f"serve {ms:.4f} ms (B2 {ms_b2:.4f}), plain {plain:.1f} ms")
     print("  B6 at phase 7b's launches: " + "; ".join(notes))
+    print(f"  C5: the partings' certification took {c5_s:.1f} s")
     return out
 
 
@@ -3196,6 +3431,35 @@ def check_fit(label, Xp, yp, c, lookahead=None):
     return None
 
 
+C6_LASVM_DATASETS = ("synthetic_b",)  # phase 11: LASVM held to the host CPU's pass (~14 s each)
+
+
+def check_lasvm(label, X, y, C, got, acc):
+    """C6: LASVM's pass on the card (``got`` = (w, b, n_sv)) against the same
+    call on the host's CPU over the same rows and C: n_sv, w and b equal bit
+    for bit, else the phase fails. LASVM sums every dot product in one fixed
+    order (``baselines.lasvm.dots``), so each step is the same exactly
+    rounded float64 operation on both devices and the passes cannot part
+    (``tools/lasvm_passes.py`` shows where they part when the sums are each
+    device's own). Returns both held-out accuracies."""
+    from repro_torch.baselines import fit_lasvm
+
+    wk, bk, nk = got
+    t0 = time.perf_counter()
+    wc, bc, nc = fit_lasvm(X.cpu(), y.cpu(), C=C, return_bias=True, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    acc_k, acc_c = acc(wk, bk), acc(wc.to(X.device), bc)
+    wk = wk.cpu()
+    if not (nk == nc and torch.equal(wk, wc) and bk == bc):
+        raise AssertionError(f"C6: LASVM {label}: the card's pass (n_sv {nk}, b {bk!r}) differs "
+                             f"from the host CPU's (n_sv {nc}, b {bc!r}), w max|err| "
+                             f"{float((wk - wc).abs().max()):.3e}")
+    print(f"  LASVM {label} (C={C:g}): n_sv {nk}, w and b {bk!r} bit-equal to the host CPU's "
+          f"pass; held out {acc_k:.2f} on the card, {acc_c:.2f} on the CPU ({t_cpu:.1f} s on "
+          "the CPU)")
+    return acc_k, acc_c
+
+
 TABLE1_C_GRID = (1.0, 10.0, 100.0)  # benchmarks/table1.py's C grid
 TABLE1_COLUMNS = ("batch", "perceptron", "pegasos1", "pegasos20", "lasvm", "algo1", "algo2")
 
@@ -3233,7 +3497,7 @@ def phase_baselines(dev, args):
         secs[key] += time.perf_counter() - t0
         return out
 
-    rows, checked = [], {}
+    rows, checked, lasvm_runs = [], {}, {}
     t_a = time.perf_counter()
     for name in names:
         Xtr0, ytr0, Xte, yte = load_dataset(name, seed=args.seed)
@@ -3283,6 +3547,9 @@ def phase_baselines(dev, args):
                 wl, bl, nsv = timed(secs, "lasvm", lambda: fit_lasvm(
                     Xp[: args.lasvm_cap], yp[: args.lasvm_cap], C=c_l, return_bias=True))
                 accs["lasvm"].append(acc(wl, bl))
+                if name in C6_LASVM_DATASETS:
+                    lasvm_runs[name] = (Xp[: args.lasvm_cap], yp[: args.lasvm_cap], c_l,
+                                        (wl, bl, nsv), acc)
             accs["algo1"].append(acc(timed(secs, "algo1", lambda: fit(Xp, yp, c_star)).w))
             accs["algo2"].append(acc(timed(secs, "algo2",
                                            lambda: fit_lookahead(Xp, yp, c_star, 10)).w))
@@ -3328,6 +3595,11 @@ def phase_baselines(dev, args):
     t_c = time.perf_counter() - t_c
     print(f"  the first {args.table1_checks} order(s)' P1, P2, B4 and B3 fits against their "
           f"plain versions (on the CPU): {t_c:.1f} s")
+    t_l = time.perf_counter()
+    lasvm_held = {name: check_lasvm(name, *run) for name, run in lasvm_runs.items()}
+    t_l = time.perf_counter() - t_l
+    print(f"  C6: LASVM's final pass on the card held to the host CPU's on "
+          f"{len(lasvm_held)} dataset(s) ({', '.join(lasvm_held)}): {t_l:.1f} s")
 
     # (b) Fig 2: CVM's passes against one pass of Algorithms 1 and 2.
     t_b = time.perf_counter()
@@ -3364,12 +3636,13 @@ def phase_baselines(dev, args):
                                   "--bank-d", "16"] if dev.type == "cpu" else []))
     t_q = time.perf_counter() - t_q
     total = time.perf_counter() - t_phase
-    print(f"[11] wall seconds: (a) Table 1 {t_a:.1f}, its plain checks {t_c:.1f}, (b) Fig 2 "
+    print(f"[11] wall seconds: (a) Table 1 {t_a:.1f}, its plain checks {t_c:.1f}, LASVM's "
+          f"(C6) {t_l:.1f}, (b) Fig 2 "
           f"{t_b:.1f}, (c) the quickstart twin {t_q:.1f} (accuracies {q['acc']}); phase 11 "
           f"{total:.1f} s" + ("" if total < 60 else " (over a minute)"))
     mn = checked.get(("mnist89", 0))
     return dict(launches=launches, rows=rows, fig2=dict(curve=curve, match=match, a1=a1, a2=a2),
-                mnist89=mn, seconds=total)
+                mnist89=mn, seconds=total, lasvm=lasvm_held)
 
 
 BF16_PEAK = 989e12  # H100 SXM dense bf16 FLOP/s (data sheet)
@@ -3477,7 +3750,7 @@ def zoo_dense(dev, args):
     # one causal pass (no cache) over the prompt and the tokens fed back.
     with torch.inference_mode():
         seq = torch.cat([batch["tokens"], toks[:, :-1]], dim=1)
-        h = model._stack(params, model._embed(params, {**batch, "tokens": seq}))
+        h, _ = model._stack(params, model._embed(params, {**batch, "tokens": seq}))
         tf = model._unembed(params, h[:, P - 1 :])  # (B, G, V)
     worst, compared, parted = 0.0, 0, 0
     for j, got in enumerate(res["logits"]):
@@ -3701,10 +3974,16 @@ def zoo_batcher(dev, args):
                 ties=ties, equal_steps=equal_steps, seconds=t_run)
 
 
-def zoo_features(dev, args, model, params):
-    """Phase 12c: examples/llm_feature_svm.py's features from 12a's backbone,
-    streamed once through fit_chunked (B4), held against the host's CPU."""
+def zoo_features(dev, args, model, params, label="12c", lookaheads=(1,), trained=None):
+    """examples/llm_feature_svm.py's features from a backbone (12c: 12a's
+    random-init one; 13c: 13a's trained one, ``trained`` its steps),
+    streamed once through fit_chunked per lookahead: 1 runs B4, held against
+    the host's CPU (m equal, w within the engine tolerance, or a parting
+    certified as an f32 tie); 10 runs the qp engine (plain torch) on the
+    card, held to the host's CPU within the engine tolerance, m equal.
+    Returns B4's launches and each lookahead's accuracy and m."""
     from repro_torch.core import accuracy, fit_chunked
+    from repro_torch.core.meb import Ball
     from repro_torch.data import styled_corpus
     from repro_torch.kernels.partings import stream_parting
     from repro_torch.kernels.streamsvm_scan import streamsvm_scan
@@ -3722,7 +4001,7 @@ def zoo_features(dev, args, model, params):
         with torch.inference_mode():
             t = torch.as_tensor(tokens, device=dev)
             e = model._embed(params, {"tokens": t})
-            h = model._stack(params, e)
+            h, _ = model._stack(params, e)
 
             def pool(x):
                 f = x.float().mean(1)
@@ -3741,42 +4020,230 @@ def zoo_features(dev, args, model, params):
     t_embed = time.perf_counter() - t0
     y = torch.as_tensor(labels[:n_tr], device=dev)
     y_te = torch.as_tensor(labels[n_tr:], device=dev)
-
-    def run(Fx, yx, nv):
-        return tuple(fit_chunked(((Fx[lo : min(lo + chunk, nv)], yx[lo : min(lo + chunk, nv)])
-                                  for lo in range(0, nv, chunk)), c=C, lookahead=1).ball)
-
-    streamsvm_scan.launches = 0
-    sync(dev)
-    t0 = time.perf_counter()
-    ball = run(F, y, n_tr)
-    sync(dev)
-    t_fit = time.perf_counter() - t0
-    launches = streamsvm_scan.launches
     Fc, yc = F.cpu(), y.cpu()
-    want = run(Fc, yc, n_tr)
-    wk, mk = ball[0].cpu(), int(ball[3])
-    if mk == int(want[3]) and torch.allclose(wk, want[0], rtol=RTOL_W, atol=ATOL_W):
-        held = f"m {mk} as the host CPU's, w max|err| {(wk - want[0]).abs().max().item():.3e}"
-    else:
-        c_inv = float(1.0 / torch.tensor(C, dtype=torch.float32))
-        part = stream_parting(lambda nv: run(F, y, nv), lambda nv: run(Fc, yc, nv),
-                              yc[:, None] * Fc, c_inv, c_inv, None, rtol=RTOL_W, atol=ATOL_W)
-        if part is None or not part["tie"]:
-            raise AssertionError(f"12c: m {mk}, the host CPU's {int(want[3])}; first parting {part}")
-        held = f"m {mk}, the host CPU's {int(want[3])}: the first parting a certified f32 tie {part}"
-    from repro_torch.core.meb import Ball
-
-    acc = float(accuracy(Ball(*ball), F_te, y_te)) * 100
     d = F.shape[1]
-    print(f"[12c] {n_tr} + {n_te} styled_corpus documents of 64 tokens (vocab {cfg.vocab}, "
-          f"{t_data:.2f} s to draw), embedded by 12a's backbone into {d}-wide features "
-          f"({t_embed:.3f} s), streamed in {chunk}-row chunks through fit_chunked(c={C:g}, "
-          f"lookahead=1): B4 launched {launches} times, the pass {t_fit:.4f} s; {held}; "
-          f"held-out accuracy {acc:.2f} % (random-init backbone, not asserted)")
-    if dev.type == "cuda" and launches < 1:
-        raise AssertionError("12c: fit_chunked never launched B4")
-    return dict(launches=launches, acc=acc, fit_s=t_fit, m=mk)
+    backbone = f"{trained}-step trained" if trained else "random-init"
+    print(f"[{label}] {n_tr} + {n_te} styled_corpus documents of 64 tokens (vocab {cfg.vocab}, "
+          f"{t_data:.2f} s to draw), embedded by the {backbone} {cfg.name} backbone into "
+          f"{d}-wide features ({t_embed:.3f} s), streamed in {chunk}-row chunks")
+    out = dict(launches=0, acc={}, m={}, fit_s={})
+    for la in lookaheads:
+        def run(Fx, yx, nv):
+            return tuple(fit_chunked(((Fx[lo : min(lo + chunk, nv)], yx[lo : min(lo + chunk, nv)])
+                                      for lo in range(0, nv, chunk)), c=C, lookahead=la).ball)
+
+        streamsvm_scan.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        ball = run(F, y, n_tr)
+        sync(dev)
+        t_fit = time.perf_counter() - t0
+        if la == 1:
+            out["launches"] = streamsvm_scan.launches
+        want = run(Fc, yc, n_tr)
+        wk, mk = ball[0].cpu(), int(ball[3])
+        if mk == int(want[3]) and torch.allclose(wk, want[0], rtol=RTOL_W, atol=ATOL_W):
+            held = f"m {mk} as the host CPU's, w max|err| {(wk - want[0]).abs().max().item():.3e}"
+        elif la == 1:
+            c_inv = float(1.0 / torch.tensor(C, dtype=torch.float32))
+            part = stream_parting(lambda nv: run(F, y, nv), lambda nv: run(Fc, yc, nv),
+                                  yc[:, None] * Fc, c_inv, c_inv, None, rtol=RTOL_W, atol=ATOL_W)
+            if part is None or not part["tie"]:
+                raise AssertionError(f"{label}: m {mk}, the host CPU's {int(want[3])}; first "
+                                     f"parting {part}")
+            held = (f"m {mk}, the host CPU's {int(want[3])}: the first parting a certified f32 "
+                    f"tie {part}")
+        else:
+            raise AssertionError(f"{label}: the qp engine (lookahead {la}) on the card: m {mk}, "
+                                 f"w max|err| {(wk - want[0]).abs().max().item():.3e} from the "
+                                 f"host CPU's (m {int(want[3])}; bound rtol {RTOL_W}, atol "
+                                 f"{ATOL_W})")
+        acc = float(accuracy(Ball(*ball), F_te, y_te)) * 100
+        out["acc"][la], out["m"][la], out["fit_s"][la] = acc, mk, t_fit
+        engine = (f"B4 launched {out['launches']} times" if la == 1
+                  else "the qp engine (plain torch, qp_iters 128)")
+        print(f"  fit_chunked(c={C:g}, lookahead={la}): {engine}, the pass {t_fit:.4f} s; {held}; "
+              f"held-out accuracy {acc:.2f} %")
+        if dev.type == "cuda" and la == 1 and out["launches"] < 1:
+            raise AssertionError(f"{label}: fit_chunked never launched B4")
+    return out
+
+
+ZOO_MOE = "qwen3-moe-30b-a3b"  # phase 12d: the MoE decoder at its published widths
+ZOO_MOE_F32_TOL = 1e-4  # 12d: the card against the host's CPU on the f32 2-layer copy
+# (logits x max|logit|; each layer's aux relative); greedy tokens compared where the
+# top-two logits part by more than twice it
+
+
+def tree_bytes(tree):
+    return sum(t.numel() * t.element_size() for t in zoo_leaves(tree))
+
+
+def moe_routed(stats, n_layers):
+    """Per call of a forward (prefill, then each decode step): the dropped
+    assignments and the distinct experts that received a kept assignment,
+    summed over the layers, from ``DecoderLM.moe_stats``."""
+    calls = [stats[i : i + n_layers] for i in range(0, len(stats), n_layers)]
+    return [dict(dropped=sum(int(s["dropped"]) for s in c),
+                 experts=[int(s["experts"][s["kept"]].unique().numel()) for s in c])
+            for c in calls]
+
+
+def zoo_moe(dev, args):
+    """Phase 12d: examples/torch_serve.py's path with the MoE decoder at its
+    published widths and depth. Decode cannot be held to the teacher-forced
+    forward: capacity depends on the call's token count (C = 1 at a decode
+    step of 8 tokens, 320 at the 4,096-token prefill), so decode drops
+    assignments that the forward keeps, the reference's semantics. The card
+    is held instead to the host's CPU on an f32 copy of the first 2 layers
+    at full width: prefill and decode logits and each layer's aux within
+    ZOO_MOE_F32_TOL, every layer's dropped assignments equal, and the greedy
+    tokens equal wherever the top-two logits part by twice the bound."""
+    import dataclasses
+
+    import torch_serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import capacity
+
+    cfg = get_config(ZOO_MOE, smoke=args.zoo_smoke)
+    mc = cfg.moe
+    model = build_model(cfg)
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in zoo_leaves(params))
+    w_bytes = tree_bytes(params)
+    B, P, G = args.moe_batch, args.moe_prompt, args.moe_gen
+    T = P + G
+    esz = params["embed"].element_size()
+    kv_bytes = 2 * cfg.n_layers * B * T * cfg.n_kv_heads * cfg.hd * esz
+    c_pf, c_dec = capacity(mc, B * P), capacity(mc, B)
+    print(f"[12d] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} KV heads x {cfg.hd}, {mc.n_experts} experts top-{mc.top_k} d_ff "
+          f"{mc.d_ff} (capacity factor {mc.capacity_factor}), vocab {cfg.vocab}, "
+          f"{cfg.param_dtype}: {n_params:,} parameters ({w_bytes / 1e9:.3f} GB, the router f32) "
+          f"drawn on {dev} from --seed in {t_init:.2f} s, layer by layer into the stacked leaves; "
+          f"batch {B}, prompt {P}, {G} generated, KV cache {kv_bytes / 1e6:.1f} MB; capacity "
+          f"{c_pf} slots an expert at the prefill's {B * P} tokens, {c_dec} at a decode step's {B}")
+    batch = torch_serve.make_batch(cfg, B, P, args.seed, dev)
+    torch_serve.serve(model, params, batch, 3)  # warm-up
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = torch_serve.serve(model, params, batch, G, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+    if not all(torch.isfinite(l).all() for l in res["logits"]):
+        raise AssertionError("12d: non-finite logits")
+    toks = res["tokens"]
+    if toks.shape != (B, G) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"12d: generated tokens of shape {tuple(toks.shape)} or out of range")
+
+    # Routing of the same run, replayed with the layers' stats on (the stats
+    # read each layer's experts, so the timed run above keeps them off).
+    model.moe_stats = []
+    torch_serve.serve(model, params, batch, G)
+    routed = moe_routed(model.moe_stats, cfg.n_layers)
+    model.moe_stats = None
+
+    # Bounds. Prefill, by its operations at the bf16 peak: the layers' dense
+    # products (attention projections, the router) for every token, the E x C
+    # expert slots' three products, causal attention's pairs, the last
+    # position's unembedding. Decode, by its bytes: the reference's form runs
+    # the expert products over all E experts, so every weight but the
+    # embedding table is read a step, with the cache's valid positions.
+    L, D, E, Fd = cfg.n_layers, cfg.d_model, mc.n_experts, mc.d_ff
+    expert_bytes = L * E * 3 * D * Fd * esz
+    emb_bytes = params["embed"].numel() * esz
+    unemb = D * cfg.vocab
+    dense_layer = (n_params - params["embed"].numel() - (0 if cfg.tie_embeddings else unemb)
+                   - L * E * 3 * D * Fd)
+    attn_pairs = B * L * P * (P + 1) // 2
+    expert_flops = 6.0 * L * E * c_pf * D * Fd
+    pf_flops = (2.0 * dense_layer * B * P + expert_flops + 4.0 * attn_pairs * cfg.n_heads * cfg.hd
+                + 2.0 * unemb * B)
+    pf_bound = pf_flops / BF16_PEAK * 1e3
+    per_pos = kv_bytes / T
+    dec_bytes = [w_bytes - emb_bytes + B * D * esz + (P + j + 1) * per_pos for j in range(G - 1)]
+    dec_bound = float(np.mean(dec_bytes)) / HBM_BYTES_PER_S * 1e3
+    gathered = [w_bytes - emb_bytes - expert_bytes + sum(r["experts"]) * 3 * D * Fd * esz
+                + B * D * esz + (P + j + 1) * per_pos for j, r in enumerate(routed[1:])]
+    gathered_bound = float(np.mean(gathered)) / HBM_BYTES_PER_S * 1e3
+    pf_ms = res["prefill_s"] * 1e3
+    dec_ms = res["decode_s"] * 1e3 / (G - 1)
+    print(f"  prefill {pf_ms:.3f} ms ({B * P / res['prefill_s']:.1f} tokens/s); bound "
+          f"{pf_bound:.4f} ms (operations: {pf_flops / 1e12:.3f} TFLOP at 989 TFLOP/s bf16, "
+          f"{expert_flops / 1e12:.3f} of it the {E} x {c_pf} expert slots)")
+    print(f"  decode {dec_ms:.3f} ms a step of {B} tokens ({(G - 1) * B / res['decode_s']:.1f} "
+          f"tokens/s) over {G - 1} steps; bound {dec_bound:.4f} ms (bytes: "
+          f"{np.mean(dec_bytes) / 1e9:.3f} GB a step at 3.35 TB/s, all {E} experts' weights as the "
+          f"reference's form reads them); a gathered form reading only the experts a step "
+          f"routes to ({np.mean([sum(r['experts']) for r in routed[1:]]) / L:.1f} of {E} a layer "
+          f"on average): {np.mean(gathered) / 1e9:.3f} GB, {gathered_bound:.4f} ms (recorded, "
+          f"not built)")
+    print(f"  dropped assignments: prefill {routed[0]['dropped']} of {B * P * mc.top_k * L}; "
+          f"decode steps {sum(r['dropped'] for r in routed[1:])} of "
+          f"{(G - 1) * B * mc.top_k * L} (capacity {c_dec} an expert a step)")
+    if peak is not None:
+        print(f"  torch.cuda.max_memory_allocated over the timed run {peak / 1e9:.3f} GB (less "
+              f"{held / 1e9:.3f} GB that earlier phases hold); bound "
+              f"{(w_bytes + kv_bytes) / 1e9:.3f} GB (the weights and the KV cache)")
+
+    # The card against the host's CPU: an f32 copy of the first 2 layers at
+    # full width (the full model is freed first: the copy is ~7 GB a side).
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", act_dtype="float32")
+    small = {k: v for k, v in params.items() if k != "layers"}
+    small["layers"] = zoo_tree(params["layers"], lambda t: t[:2])
+    host = zoo_tree(small, lambda t: t.float().cpu())
+    toks2 = torch.cat([batch["tokens"], toks], dim=1)[:2].cpu()
+    del small, params, res
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    card = zoo_tree(host, lambda t: t.to(dev))
+    model2 = build_model(cfg2)
+    P2, G2 = min(64, P), 4
+    runs = []
+    for p, dv in ((card, dev), (host, torch.device("cpu"))):
+        model2.moe_stats = []
+        t2 = toks2.to(dv)
+        lg, st = model2.prefill(p, {"tokens": t2[:, :P2], "max_len": P2 + G2})
+        out = [lg.float().cpu()]
+        for i in range(P2, P2 + G2 - 1):
+            lg, st = model2.decode_step(p, st, t2[:, i : i + 1])
+            out.append(lg.float().cpu())
+        stats = [(int(s["dropped"]), float(s["aux"]), s["capacity"]) for s in model2.moe_stats]
+        runs.append((out, stats))
+    model2.moe_stats = None
+    (got, gs), (want, ws) = runs
+    err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+    aux_err = max(abs(a[1] - b[1]) / max(abs(b[1]), 1e-30) for a, b in zip(gs, ws))
+    if err > ZOO_MOE_F32_TOL or aux_err > ZOO_MOE_F32_TOL:
+        raise AssertionError(f"12d: the card's f32 2-layer run lies {err:.3e} x max|logit| "
+                             f"(aux {aux_err:.3e}) from the host CPU's (bound {ZOO_MOE_F32_TOL})")
+    if [a[0] for a in gs] != [b[0] for b in ws]:
+        raise AssertionError(f"12d: dropped assignments per layer and call differ: card "
+                             f"{[a[0] for a in gs]}, host CPU {[b[0] for b in ws]}")
+    compared = 0
+    for a, b in zip(got, want):
+        parts = rel_gap(b) > 2 * ZOO_MOE_F32_TOL
+        if not bool((a.argmax(-1) == b.argmax(-1))[parts].all()):
+            raise AssertionError("12d: a greedy token of the f32 copy differs where margins part")
+        compared += int(parts.sum())
+    print(f"  f32 copy, full width, 2 layers, batch 2, prompt {P2}, {G2 - 1} decode steps: the "
+          f"card within {err:.3e} x max|logit| of the host's CPU, each layer's aux within "
+          f"{aux_err:.3e} (bound {ZOO_MOE_F32_TOL}); dropped assignments per layer and call equal "
+          f"({[a[0] for a in gs]}, capacity {[a[2] for a in gs]}); greedy tokens equal at all "
+          f"{compared} of {2 * G2} (row, call) pairs whose margins part by > "
+          f"{2 * ZOO_MOE_F32_TOL}")
+    del card, host
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(prefill_ms=pf_ms, prefill_bound_ms=pf_bound, decode_ms=dec_ms,
+                decode_bound_ms=dec_bound, gathered_bound_ms=gathered_bound, peak_bytes=peak,
+                mem_bound_bytes=w_bytes + kv_bytes, cpu_err=err, aux_err=aux_err,
+                dropped=[r["dropped"] for r in routed])
 
 
 def phase_zoo(dev, args):
@@ -3794,9 +4261,222 @@ def phase_zoo(dev, args):
     del model, params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe = zoo_moe(dev, args)
+    t_d = time.perf_counter() - t0
     total = time.perf_counter() - t_phase
-    print(f"[12] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}; phase 12 {total:.1f} s")
-    return dict(dense=dense, batched=batched, features=feats, seconds=total)
+    print(f"[12] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}; "
+          f"phase 12 {total:.1f} s")
+    return dict(dense=dense, batched=batched, features=feats, moe=moe, seconds=total)
+
+
+TRAIN_ARCH = "internlm2-1.8b"  # phase 13a: the dense decoder trained at its published widths
+TRAIN_LOSS_DROP = 0.5  # 13a: the last 10 steps' mean loss this far (nats) below the first 10's
+TRAIN_REMAT_GN_RTOL = 1e-5  # 13a: remat "full" against "none": grad norm (the loss: bit for bit)
+ADAMW_BYTES = 22  # 13a: a bf16 param's AdamW step with f32 moments: p, g, m, v read, p, m, v written
+
+
+def train_batches(cfg, steps):
+    """examples/llm_feature_svm.py's pretraining batches: 8 documents of 64
+    tokens from styled_corpus(vocab, 256, 65, seed=42), slid by 8 a step."""
+    from repro_torch.data import styled_corpus
+
+    pre, _ = styled_corpus(cfg.vocab, 256, 65, seed=42)
+    return [pre[(i * 8) % 248 : (i * 8) % 248 + 8] for i in range(steps)]
+
+
+def train_dense(dev, args):
+    """Phase 13a: the feature example's pretraining (make_train_step, AdamW
+    with f32 moments, TrainCfg(peak_lr=1e-3, warmup_steps=10,
+    total_steps=60)) with the dense config at its published widths; the
+    loss falling, every grad_norm finite, microbatches=4 equal to 1 within
+    tests/test_train_loop.py's tolerances, and remat "full" against "none".
+    Returns the model, the trained params and the numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainCfg, init_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH, smoke=args.zoo_smoke)
+    model = build_model(cfg)
+    tcfg = TrainCfg(peak_lr=1e-3, warmup_steps=10, total_steps=60)
+    steps = 60  # the feature example's pretraining
+    docs = train_batches(cfg, steps)
+    batch = lambda i: {"tokens": torch.as_tensor(docs[i][:, :-1], device=dev),
+                       "targets": torch.as_tensor(docs[i][:, 1:], device=dev)}
+    fresh = lambda: init_state(model, torch.Generator(device=dev).manual_seed(args.seed), tcfg)
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+    # microbatches=4 against 1 on one batch, at warmup's second step (lr > 0)
+    t0 = time.perf_counter()
+    res = {}
+    for A in (1, 4):
+        st = fresh()
+        st["opt"] = st["opt"]._replace(step=st["opt"].step + 1)
+        st, m = make_train_step(model, dataclasses.replace(tcfg, microbatches=A))(st, batch(0))
+        res[A] = (float(m["loss"]), float(m["grad_norm"]), st["params"])
+        del st
+    (l1, g1, p1), (l4, g4, p4) = res[1], res[4]
+    worst = 0.0
+    for a, b in zip(zoo_leaves(p1), zoo_leaves(p4)):
+        a, b = a.float(), b.float()
+        if not torch.allclose(b, a, rtol=0.1, atol=2e-2):
+            raise AssertionError("13a: microbatches=4 and 1 give params beyond rtol 0.1 / atol 2e-2")
+        worst = max(worst, float((a - b).abs().max()))
+    if abs(l4 - l1) > 2e-2 * abs(l1) or abs(g4 - g1) > 2e-2 * abs(g1):
+        raise AssertionError(f"13a: microbatches=4 loss {l4} / grad_norm {g4} against 1's {l1} / "
+                             f"{g1} (rtol 2e-2)")
+    del res, p1, p4
+    t_mb = time.perf_counter() - t0
+
+    state = fresh()
+    n_params = sum(t.numel() for t in zoo_leaves(state["params"]))
+    step = make_train_step(model, tcfg)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, gnorms = [], []
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, m = step(state, batch(i))
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+        if i == 0:
+            sync(dev)
+            t1 = time.perf_counter()
+    sync(dev)
+    t_end = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in gnorms]
+    if not all(np.isfinite(gnorms)) or not all(np.isfinite(losses)):
+        raise AssertionError(f"13a: a non-finite loss or grad_norm: {losses}, {gnorms}")
+    k = min(10, steps // 2)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    if not last < first - TRAIN_LOSS_DROP:
+        raise AssertionError(f"13a: the loss did not fall by {TRAIN_LOSS_DROP}: the first {k} "
+                             f"steps' mean {first:.4f}, the last {k}'s {last:.4f}")
+    tokens = docs[0][:, :-1].size
+    ms = (t_end - t1) / max(steps - 1, 1) * 1e3
+    flops_ms = 6.0 * n_params * tokens / BF16_PEAK * 1e3
+    bytes_ms = ADAMW_BYTES * n_params / HBM_BYTES_PER_S * 1e3
+    mom = 4 * 2 * n_params
+    p_bytes = n_params * state["params"]["embed"].element_size()
+    print(f"[13a] {cfg.name} trained at its published widths: {n_params:,} parameters "
+          f"({cfg.param_dtype}, f32 moments), {steps} steps of {docs[0].shape[0]} x "
+          f"{docs[0].shape[1] - 1} tokens from styled_corpus(seed=42), TrainCfg(peak_lr=1e-3, "
+          f"warmup_steps=10, total_steps=60)")
+    print(f"  loss {losses[0]:.4f} -> {losses[-1]:.4f}: the first {k} steps' mean {first:.4f}, the "
+          f"last {k}'s {last:.4f} (falls by {first - last:.4f}, asked {TRAIN_LOSS_DROP}); "
+          f"grad_norm finite at every step ({min(gnorms):.4g} to {max(gnorms):.4g})")
+    print(f"  {ms:.3f} ms a step over steps 2-{steps} ({tokens * 1e3 / ms:.1f} tokens/s); bound "
+          f"{max(flops_ms, bytes_ms):.4f} ms, the larger of 6 x params x tokens at 989 TFLOP/s "
+          f"({flops_ms:.4f} ms) and AdamW's {ADAMW_BYTES} B a param at 3.35 TB/s ({bytes_ms:.4f} ms)")
+    if peak is not None:
+        print(f"  torch.cuda.max_memory_allocated over the {steps} steps {peak / 1e9:.3f} GB (less "
+              f"{held / 1e9:.3f} GB that earlier phases hold): params {p_bytes / 1e9:.3f} GB, "
+              f"grads {p_bytes / 1e9:.3f}, moments {mom / 1e9:.3f}, so {(peak - 2 * p_bytes - mom) / 1e9:.3f} "
+              f"GB of AdamW's f32 slices and activations")
+    print(f"  microbatches=4 against 1 at warmup's second step: loss {l4:.6f} / {l1:.6f}, grad_norm "
+          f"{g4:.6f} / {g1:.6f}, params within {worst:.3e} (tolerances of "
+          f"tests/test_train_loop.py: rtol 2e-2; rtol 0.1, atol 2e-2) ({t_mb:.1f} s)")
+
+    # remat "full" against "none": the trained params, one batch, loss and grads
+    params = state["params"]
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rem = {}
+    for remat in ("none", "full"):
+        mr = build_model(cfg, remat=remat)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        ps = zoo_tree(params, lambda t: t.detach().requires_grad_())
+        loss, _ = mr.loss(ps, batch(0))
+        grads = torch.autograd.grad(loss, list(zoo_leaves(ps)))
+        gn = float(adamw.global_norm(list(grads)))
+        pk = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else 0
+        rem[remat] = (loss.detach(), gn, pk)
+        del ps, grads, loss
+    (ln, gn_n, pk_n), (lf, gn_f, pk_f) = rem["none"], rem["full"]
+    if not torch.equal(ln, lf) or abs(gn_f - gn_n) > TRAIN_REMAT_GN_RTOL * gn_n:
+        raise AssertionError(f"13a: remat full loss {float(lf)} / grad norm {gn_f} against none's "
+                             f"{float(ln)} / {gn_n}")
+    print(f"  remat \"full\" against \"none\" (loss and grads of one batch): the loss bit for bit, "
+          f"grad norm {gn_f:.6f} / {gn_n:.6f} (bound rtol {TRAIN_REMAT_GN_RTOL}: the embedding's "
+          f"backward accumulates with atomics); peak {pk_f / 1e9:.3f} / {pk_n / 1e9:.3f} GB")
+    return model, params, dict(losses=losses, first=first, last=last, ms=ms,
+                               bound_ms=max(flops_ms, bytes_ms), flops_ms=flops_ms,
+                               bytes_ms=bytes_ms, peak_bytes=peak, n_params=n_params,
+                               tokens_per_s=tokens * 1e3 / ms)
+
+
+def train_resume(dev, args):
+    """Phase 13b: examples/torch_train_lm.py's main (lm-100m with --full)
+    preempted at step 30 and resumed from its step-20 checkpoint, against
+    the same run uninterrupted: every loss and every leaf of the final state
+    (params, moments, step) bit for bit, under --deterministic."""
+    import shutil
+
+    import torch_train_lm
+
+    size, crash = ((["--steps", "23", "--batch", "2", "--seq", "16"], "21") if args.zoo_smoke
+                   else (["--full", "--steps", "32"], "30"))
+    base = ["--device", dev.type, "--deterministic", "--quiet"] + size
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_13b_")
+    try:
+        t0 = time.perf_counter()
+        crashed = torch_train_lm.main(base + ["--crash-at", crash, "--ckpt-dir", f"{tmp}/a"])
+        t_crash = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clean = torch_train_lm.main(base + ["--crash-at", "0", "--ckpt-dir", f"{tmp}/b"])
+        t_clean = time.perf_counter() - t0
+        ckpt_bytes = sum(p.stat().st_size for p in Path(f"{tmp}/a").glob("arrays-*.npz"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from repro_torch._tree import leaves
+
+    a, b = leaves(crashed["state"]), leaves(clean["state"])  # the restored dicts are key-sorted
+    same = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    if crashed["losses"] != clean["losses"] or not same or clean["resumed_at"] is not None:
+        raise AssertionError(f"13b: the resumed run (from step {crashed['resumed_at']}) differs from "
+                             "the uninterrupted one")
+    steps = len(clean["losses"])
+    print(f"[13b] examples/torch_train_lm.py {crashed['arch']} ({crashed['n_params']:,} parameters), "
+          f"{steps} steps under torch.use_deterministic_algorithms: preempted, resumed at step "
+          f"{crashed['resumed_at']} from a {ckpt_bytes / 1e9:.3f} GB checkpoint; every loss "
+          f"({clean['losses'][0]:.4f} -> {clean['losses'][-1]:.4f}) and all {len(a)} state leaves "
+          f"equal the uninterrupted run's bit for bit; {t_crash:.1f} s with the preemption, "
+          f"{t_clean:.1f} s without")
+    return dict(resumed_at=crashed["resumed_at"], steps=steps, seconds=t_crash + t_clean)
+
+
+def phase_train(dev, args, zoo):
+    """Phase 13: the LLM zoo's training path (ROADMAP A14.1)."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "examples"))
+    model, params, dense = train_dense(dev, args)
+    t_a = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    resume = train_resume(dev, args)
+    t_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = zoo_features(dev, args, model, params, label="13c", lookaheads=(1, 10),
+                         trained=len(dense["losses"]))
+    t_c = time.perf_counter() - t0
+    print(f"  13c against 12c: held-out accuracy {feats['acc'][1]:.2f} % (lookahead 1, B4) and "
+          f"{feats['acc'][10]:.2f} % (lookahead 10, the qp engine) from the trained backbone; "
+          f"{zoo['features']['acc'][1]:.2f} % from the random-init one (12c, lookahead 1)")
+    del model, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[13] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}; phase 13 {total:.1f} s")
+    return dict(dense=dense, resume=resume, features=feats, seconds=total)
 
 
 def baseline_rows(dev, args, res, row):
@@ -3913,7 +4593,10 @@ def parse_args(argv=None):
                     type=lambda s: tuple(int(v) for v in s.split(",")),
                     help="phase 12b: the shortest and longest prompt, e.g. 16,128")
     ap.add_argument("--zoo-docs", type=int, default=1280,
-                    help="phase 12c: documents (4/5 streamed for training, 1/5 held out)")
+                    help="phases 12c, 13c: documents (4/5 streamed for training, 1/5 held out)")
+    ap.add_argument("--moe-batch", type=int, default=8, help="phase 12d: prompts a batch")
+    ap.add_argument("--moe-prompt", type=int, default=512, help="phase 12d: prompt tokens")
+    ap.add_argument("--moe-gen", type=int, default=32, help="phase 12d: generated tokens")
     return ap.parse_args(argv)
 
 
@@ -3948,6 +4631,7 @@ def main(argv=None):
     phase_live(dev, args, smi)
     baselines = phase_baselines(dev, args)
     zoo = phase_zoo(dev, args)
+    train = phase_train(dev, args, zoo)
     print("[5] kernel times at the main path's shapes")
     kernels = (phase_times(dev, args, main_out, algos, kb, kbc, kbres, ring) + [m1]
                + baseline_rows(dev, args, baselines, kernel_row))
@@ -3957,9 +4641,10 @@ def main(argv=None):
         if key is not None:
             row["launches_by_phase"] = {phase: row["launches"], "11": baselines["launches"][key]}
             row["launches"] += baselines["launches"][key]
-            if key == "B4":  # phase 12c streams the backbone's features through B4
-                row["launches_by_phase"]["12"] = zoo["features"]["launches"]
-                row["launches"] += zoo["features"]["launches"]
+            if key == "B4":  # phases 12c and 13c stream a backbone's features through B4
+                for ph, feats in (("12", zoo["features"]), ("13", train["features"])):
+                    row["launches_by_phase"][ph] = feats["launches"]
+                    row["launches"] += feats["launches"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     if smi is not None:

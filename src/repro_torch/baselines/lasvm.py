@@ -9,13 +9,21 @@ B_i = max(0, C y_i) and dual gradients g_i = y_i - w.x_i (linear kernel keeps
 w = sum_i alpha_i x_i explicit, so every step is O(|S| D)).
 
 float64, sequential — a baseline for accuracy comparison, not a production
-path. The rows, w, the alphas and the support set's indices live on the
+path. Every dot product (the gradients, the pair's kernel entries, the
+squared norms, |w|) is summed in one fixed pairwise order (``dots``): a
+BLAS gemv sums in an order of its own, and the pass is chaotic in those
+roundings (an SMO step's lam = (g_i - g_j) / |x_i - x_j|^2 magnifies them),
+so on another order the card's pass and the host CPU's drifted 0.4 % apart
+in w on synthetic_b before any search picked differently. In the fixed
+order every step is one exactly rounded IEEE operation, and the card gives
+the host CPU's bits. The rows, w, the alphas and the support set's indices live on the
 device, in buffers of N entries made once (the set's size changes every
-step, its buffers never); each search for the extreme pair computes the
-set's gradients there and brings the step's few decision scalars to the
-host in one copy. The decisions (the tau test, the clipped step, pruning)
-are taken on the host, from a host copy of the alphas that takes the same
-float64 steps.
+step, its buffers never); each search for the extreme pair reduces the
+set's products with w in place in one preallocated buffer and brings the
+step's few decision scalars to the host in one copy. The decisions (the
+tau test, the clipped step, pruning) and the pair's three kernel entries
+are computed on the host, from a host copy of the alphas that takes the
+same float64 steps and a host copy of the rows.
 
 Ties. After an unclipped SMO step the pair's gradients are equal in exact
 arithmetic, so the next search often meets two candidates whose float64
@@ -36,6 +44,35 @@ from .._device import as_tensor, pick_device
 
 _TAU = 1e-8
 _U64 = 2.0**-53  # float64 unit roundoff
+
+
+def pow2(n):
+    """The least power of two >= n (1 for n <= 1)."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def halve(P):
+    """The sums over P's last axis (a power of two wide) in one fixed
+    pairwise order, in place: the two halves added until one column
+    remains, which is returned (a view of P). Each step is an exactly
+    rounded elementwise operation, so every device gives the same bits.
+    Numpy arrays are taken too."""
+    h = P.shape[-1]
+    while h > 1:
+        h //= 2
+        P[..., :h] += P[..., h : 2 * h]
+    return P[..., 0]
+
+
+def dots(A, B):
+    """The sums over the last axis of A * B (broadcast) in ``halve``'s
+    order, the products padded with zeros to a power-of-two width (numpy
+    arrays: of a power-of-two width already)."""
+    P = A * B
+    n = P.shape[-1]
+    if pow2(n) != n:
+        P = torch.nn.functional.pad(P, (0, pow2(n) - n))
+    return halve(P)
 
 
 def search_bound(d, xmax, wnorm):
@@ -66,10 +103,17 @@ def fit_lasvm(X, y, C: float, return_bias: bool = False, *, device=None):
     X, y = as_tensor(X, dev, torch.float64), as_tensor(y, dev, torch.float64)
     N, D = X.shape
     C = float(C)
+    Dp = pow2(D)
+    Xp = torch.nn.functional.pad(X, (0, Dp - D))  # the rows at a power-of-two width
+    Xh = Xp.cpu().numpy()  # for the pair's kernel entries on the host
 
-    w = torch.zeros(D, dtype=torch.float64, device=dev)
+    wp = torch.zeros(Dp, dtype=torch.float64, device=dev)
+    w = wp[:D]  # the pass updates w in place; wp's padding stays 0
+    # A search's products: row r of S times w, then w times w, summed in
+    # place by ``halve``; the padding columns stay 0.
+    P = torch.zeros(N + 1, Dp, dtype=torch.float64, device=dev)
     yh = y.cpu().numpy()
-    knorm = (X * X).sum(1).cpu().numpy()
+    knorm = dots(Xh, Xh)
     xmax = float(np.sqrt(knorm.max())) if N else 0.0
     alpha = np.zeros(N)  # the host's copy, for the decisions
     Bh, Ah = np.maximum(0.0, C * yh), np.minimum(0.0, C * yh)
@@ -84,21 +128,26 @@ def fit_lasvm(X, y, C: float, return_bias: bool = False, *, device=None):
         """Among S (row k its last entry): the row that may go up with the
         largest gradient and the row that may go down with the smallest
         (ties: ``first_extreme``'s rule, within ``search_bound``), with
-        their gradients, row k's, and the dot products among them and x_k,
-        in one copy:
+        their gradients, row k's, and the dot products among them and x_k:
         (ok, i, j, g_i, g_j, g_k, <x_i, x_k>, <x_i, x_j>, <x_j, x_k>)."""
-        Sv = S_d[: len(S)]
+        n = len(S)
+        Sv = S_d[:n]
         t = T.index_select(0, Sv)
-        gs = torch.addmv(t[:, 0], X.index_select(0, Sv), w, alpha=-1.0)  # y - X w
+        torch.index_select(Xp, 0, Sv, out=P[:n])
+        P[n, :D] = w
+        Q = P[: n + 1]
+        Q[:, :D].mul_(w)
+        G = halve(Q)  # X w, then |w|^2
+        gs = t[:, 0] - G[:-1]  # y - X w
         a = t[:, 3]
         V = torch.where(torch.stack([a < t[:, 2], a > t[:, 1]]), torch.stack([gs, -gs]),
                         -torch.inf)  # row 0: up's gradients, row 1: down's, negated
-        e, idx = first_extreme(V, search_bound(D, xmax, torch.linalg.vector_norm(w)))
-        ij = Sv.index_select(0, idx)
-        R = X.index_select(0, ij)
-        K = R @ torch.stack([X[k], R[1]], 1)
-        v = torch.cat([e, ij.double(), gs.index_select(0, idx), gs[-1:], K.flatten()]).tolist()
-        return (v[0] > -np.inf and v[1] > -np.inf, int(v[2]), int(v[3]), *v[4:10])
+        e, idx = first_extreme(V, search_bound(D, xmax, torch.sqrt(G[-1])))
+        v = torch.cat([e, Sv.index_select(0, idx).double(), gs.index_select(0, idx),
+                       gs[-1:]]).tolist()
+        i, j = int(v[2]), int(v[3])
+        K = dots(Xh[[i, i, j]], Xh[[k, j, k]])
+        return (v[0] > -np.inf and v[1] > -np.inf, i, j, *v[4:7], *K.tolist())
 
     def smo_step(i, j, gi, gj, kij):
         nonlocal w
@@ -147,6 +196,6 @@ def fit_lasvm(X, y, C: float, return_bias: bool = False, *, device=None):
     if not sel.any():
         return w, 0.0, n_sv
     idx = torch.as_tensor(np.flatnonzero(sel), device=dev)
-    v = torch.sort(y[idx] - X[idx] @ w).values
+    v = torch.sort(y[idx] - dots(Xp[idx], wp)).values
     b = float((v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2)  # numpy's median
     return w, b, n_sv

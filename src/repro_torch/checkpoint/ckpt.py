@@ -183,7 +183,7 @@ def restore(path: str, target_tree, *, device=None):
         if dtypes[i] == "bfloat16":
             x = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
         else:
-            x = torch.from_numpy(np.ascontiguousarray(arr))
+            x = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))  # keeps 0-d
         dev = pick_device(device, ref)
         dt = ref.dtype if isinstance(ref, torch.Tensor) else x.dtype
         new_leaves.append(x.to(device=dev, dtype=dt))

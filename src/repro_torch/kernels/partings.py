@@ -117,7 +117,8 @@ def _state(run, nv):
     return w.detach().double().cpu().reshape(-1), float(r), float(xi2), int(m)
 
 
-def stream_parting(run_a, run_b, Z, c_inv, gain, lookahead=None, *, rtol=2e-4, atol=2e-5):
+def stream_parting(run_a, run_b, Z, c_inv, gain, lookahead=None, *, rtol=2e-4, atol=2e-5,
+                   pushes_a=None):
     """Where two runs of Algorithm 1 (``lookahead`` None) or Algorithm 2
     (an L-row window, flushed farthest-first when full and after the last
     row) of one model first part, and whether that is an f32 tie; None
@@ -127,7 +128,8 @@ def stream_parting(run_a, run_b, Z, c_inv, gain, lookahead=None, *, rtol=2e-4, a
     the first ``nv`` rows of the stream (row 0 seeds the ball; a partial
     window is flushed after the last row). ``run_a`` should be the cheap
     one: its pushes (Algorithm 1: its updates) are found by bisecting its m
-    over prefixes, since m counts the pushes of the rows before. Z: the
+    over prefixes, since m counts the pushes of the rows before, unless the
+    caller gives them (``pushes_a``: run a's pushing rows, ascending). Z: the
     (N, D) signed rows y x; ``c_inv`` 1/C and ``gain`` the slack gain, as
     the runs hold them (f32 values).
 
@@ -178,7 +180,10 @@ def stream_parting(run_a, run_b, Z, c_inv, gain, lookahead=None, *, rtol=2e-4, a
         find(lo, mid)
         find(mid, hi)
 
-    find(1, n)
+    if pushes_a is None:
+        find(1, n)
+    else:
+        pushes = [int(p) for p in pushes_a]
     L = 1 if lookahead is None else int(lookahead)
     ends = sorted({p + 1 for p in pushes[L - 1::L]} | {n})
     lo, hi = -1, len(ends) - 1  # agree after event lo (-1: the seed), part after event hi

@@ -2,8 +2,10 @@
 (init / loss / prefill / decode_step / init_cache / decode_state).
 
 The port of the reference's ``models/families.py``: ``XLSTMModel`` (the ssm
-family). ``Zamba2Model`` (hybrid) and ``EncDecModel`` (encdec) are not
-ported yet (ROADMAP A14) and raise on construction.
+family; ``loss`` is differentiable, and ``remat`` other than ``"none"``
+checkpoints each block of a differentiable forward, as the reference's
+``jax.checkpoint``). ``Zamba2Model`` (hybrid) and ``EncDecModel`` (encdec)
+are not ported yet (ROADMAP A14) and raise on construction.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 from repro_torch._device import pick_device
 from repro_torch.configs.base import ArchConfig
 from .layers import cross_entropy, init_dense, rmsnorm
-from .transformer import _dtype, _generator
+from .transformer import _dtype, _generator, remat_layer
 from .xlstm import mlstm_block, mlstm_init, slstm_block, slstm_init
 
 
@@ -35,7 +37,7 @@ class EncDecModel:
 class XLSTMModel:
     def __init__(self, cfg: ArchConfig, remat: str = "none"):
         self.cfg = cfg
-        self.remat = remat  # accepted for the reference's signature; nothing trains here
+        self.remat = remat
         self.dtype = _dtype(cfg.param_dtype)
 
     def _is_slstm(self, i: int) -> bool:
@@ -65,14 +67,17 @@ class XLSTMModel:
     def _forward(self, params, h, states=None):
         cfg = self.cfg
         new_states = []
+        remat = self.remat if states is None and torch.is_grad_enabled() else "none"
+        slstm, mlstm = (remat_layer(b, "full" if remat != "none" else "none")
+                        for b in (slstm_block, mlstm_block))
         for i in range(cfg.n_layers):
             st = None if states is None else states[i]
             if self._is_slstm(i):
-                h, ns = slstm_block(params["blocks"][i], h, cfg.n_heads, state=st)
+                h, ns = slstm(params["blocks"][i], h, cfg.n_heads, state=st)
             else:
                 mst = None if st is None else st[0]
                 cst = None if st is None else st[1]
-                h, ns = mlstm_block(
+                h, ns = mlstm(
                     params["blocks"][i], h, cfg.n_heads, state=mst, conv_state=cst
                 )
             new_states.append(ns)
@@ -82,11 +87,11 @@ class XLSTMModel:
         return rmsnorm(h, params["final_norm"], self.cfg.norm_eps) @ params["unembed"]
 
     def loss(self, params, batch):
-        with torch.inference_mode():
-            h = self._embed(params, batch["tokens"])
-            h, _ = self._forward(params, h)
-            targets = torch.as_tensor(batch["targets"], device=h.device).long()
-            ce = cross_entropy(self._logits(params, h), targets)
+        """(ce, {"ce", "aux": 0.0}), differentiable in the params."""
+        h = self._embed(params, batch["tokens"])
+        h, _ = self._forward(params, h)
+        targets = torch.as_tensor(batch["targets"], device=h.device).long()
+        ce = cross_entropy(self._logits(params, h), targets)
         return ce, {"ce": ce, "aux": 0.0}
 
     def init_cache(self, batch_size: int, max_len: int, device=None):

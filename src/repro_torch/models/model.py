@@ -8,7 +8,15 @@ from .transformer import DecoderLM
 
 
 def build_model(cfg: ArchConfig, remat: str = "none"):
-    """``remat`` is accepted and ignored: nothing of the port trains yet."""
+    """The model of ``cfg.family``. ``remat`` sets what a differentiable
+    forward (``loss`` under autograd) keeps for the backward pass, per
+    layer: ``"none"`` saves every activation; ``"full"`` saves only the
+    layer's input and recomputes the layer; any other value (the reference
+    names its policy ``dots_with_no_batch_dims_saveable``) saves the outputs
+    of the products without batch dimensions and recomputes the rest
+    (DecoderLM; XLSTMModel recomputes the whole block for any value but
+    ``"none"``, as the reference does). ``prefill`` and ``decode_step``
+    never checkpoint."""
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, remat=remat)
     if cfg.family == "hybrid":

@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM of the dense and vlm families.
+"""Decoder-only transformer LM of the dense, moe and vlm families.
 
 The port of the reference's ``models/transformer.py``. Uniform stacks keep
 the reference's stacked per-layer params ((L, ...) leaves, indexed per layer
-here where the reference scans); ``cfg.unrolled`` keeps a list of per-layer
-dicts. Per-layer heterogeneity (gemma3's local/global pattern, dual RoPE
-bases) is a Python int window and float base per layer. MoE is not ported
-yet (ROADMAP A14).
+here where the reference scans), drawn layer by layer into preallocated
+leaves; ``cfg.unrolled`` keeps a list of per-layer dicts. Per-layer
+heterogeneity (gemma3's local/global pattern, dual RoPE bases) is a Python
+int window and float base per layer. A moe config's layers hold ``"moe"``
+(``models/moe.py``) in place of ``"mlp"``, and the loss adds 0.01 x the
+layers' summed load-balancing aux.
 
 API (shared by every model class in this package):
   init(generator=None, device=None) -> params
@@ -14,15 +16,27 @@ API (shared by every model class in this package):
   decode_step(params, cache, tokens) -> (logits, cache)
   init_cache(batch_size, max_len, device=None) -> cache
 
-``loss``, ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``
-on the device of the params: CUDA unless they were made on the CPU
-(``init(device="cpu")``).
+``loss`` is differentiable (``torch.autograd`` on the params, as
+``train/train_loop.py`` takes it); ``remat`` checkpoints each layer of a
+differentiable forward (``"none"`` saves every activation, ``"full"``
+recomputes the whole layer in the backward pass, any other value keeps the
+outputs of the products without batch dimensions and recomputes the rest,
+the reference's ``dots_with_no_batch_dims_saveable``). ``prefill`` and
+``decode_step`` run under ``torch.inference_mode()``. Everything runs on
+the device of the params: CUDA unless they were made on the CPU
+(``init(device="cpu")``). ``moe_stats``: set it to a list and each MoE
+layer of a forward appends its capacity and dropped assignments
+(``moe_apply``'s ``stats``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch._device import pick_device
+from repro_torch._tree import map_tree
 from repro_torch.configs.base import ArchConfig
 from .layers import (
     attn_apply,
@@ -33,6 +47,7 @@ from .layers import (
     mlp_init,
     rmsnorm,
 )
+from .moe import moe_apply, moe_init
 
 _NO_WINDOW = 1 << 30
 
@@ -50,35 +65,70 @@ def _generator(generator, dev):
     return generator
 
 
+def _products_saved(ctx, op, *args, **kwargs):
+    """Selective remat's policy: keep the outputs of products without batch
+    dimensions (``mm``, ``addmm``, a ``bmm`` over a batch of one, as einsum
+    forms them), recompute everything else (attention's and the experts'
+    batched products too)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_layer(fn, remat: str):
+    """``fn`` checkpointed as ``remat`` says (see the module's docstring)."""
+    if remat == "none":
+        return fn
+    kw = {} if remat == "full" else {"context_fn": functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, _products_saved)}
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 class DecoderLM:
     def __init__(self, cfg: ArchConfig, remat: str = "none"):
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                "A14: MoE (models/moe.py) is not ported yet; the dense, vlm and ssm families are")
         self.cfg = cfg
-        self.remat = remat  # accepted for the reference's signature; nothing trains here
+        self.remat = remat
         self.dtype = _dtype(cfg.param_dtype)
+        self.moe_stats = None  # a list: each MoE layer appends its capacity and drops
 
     # -- params ------------------------------------------------------------
     def _layer_init(self, gen, dev):
         cfg = self.cfg
-        return {
+        p = {
             "ln1": torch.zeros((cfg.d_model,), dtype=self.dtype, device=dev),
             "attn": attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                               self.dtype, device=dev),
             "ln2": torch.zeros((cfg.d_model,), dtype=self.dtype, device=dev),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, self.dtype, device=dev),
         }
+        if cfg.moe is not None:
+            p["moe"] = moe_init(gen, cfg.d_model, cfg.moe, self.dtype, device=dev)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp, self.dtype, device=dev)
+        return p
 
     def init(self, generator=None, device=None):
-        """Random params from ``generator`` (default: seed 0 on the device)."""
+        """Random params from ``generator`` (default: seed 0 on the device).
+
+        A uniform stack is drawn layer by layer into preallocated (L, ...)
+        leaves, so only one layer's draws (and one leaf's f32 draw) are held
+        beside the stack: the same bits as stacking per-layer dicts."""
         cfg = self.cfg
         dev = pick_device(device)
         gen = _generator(generator, dev)
         emb = init_dense(gen, (cfg.vocab, cfg.d_model), self.dtype, device=dev)
-        layers = [self._layer_init(gen, dev) for _ in range(cfg.n_layers)]
-        if not cfg.unrolled:
-            layers = _stack_layers(layers)
+        if cfg.unrolled:
+            layers = [self._layer_init(gen, dev) for _ in range(cfg.n_layers)]
+        else:
+            layers = None
+            for i in range(cfg.n_layers):
+                lp = self._layer_init(gen, dev)
+                if layers is None:
+                    layers = map_tree(lambda t: torch.empty(
+                        (cfg.n_layers, *t.shape), dtype=t.dtype, device=dev), lp)
+                map_tree(lambda dst, src: dst[i].copy_(src), layers, lp)
+                del lp
         params = {
             "embed": emb,
             "layers": layers,
@@ -118,7 +168,11 @@ class DecoderLM:
         )
         x = x + h
         hin = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], hin, cfg.mlp)
+        if cfg.moe is not None:
+            h2, aux = moe_apply(p["moe"], hin, cfg.moe, stats=self.moe_stats)
+        else:
+            h2, aux = mlp_apply(p["mlp"], hin, cfg.mlp), 0.0
+        return x + h2, aux
 
     # -- forward -------------------------------------------------------------
     def _embed(self, params, batch):
@@ -139,29 +193,39 @@ class DecoderLM:
         return h @ w
 
     def _stack(self, params, h, cache=None, cache_pos=None):
-        """Run all layers. Returns h; a cache is written in place."""
+        """Run all layers. Returns (h, aux summed over the layers: 0.0 for a
+        dense stack); a cache is written in place. A differentiable forward
+        without a cache checkpoints each layer as ``remat`` says."""
         cfg = self.cfg
         windows, bases = self._layer_meta()
         layers = params["layers"]
+        block = self._block
+        if cache is None and torch.is_grad_enabled():
+            block = remat_layer(self._block, self.remat)
+        aux = 0.0
         for i in range(cfg.n_layers):
             lp = layers[i] if cfg.unrolled else _layer(layers, i)
-            c = None if cache is None else {"k": cache["k"][i], "v": cache["v"][i]}
-            h = self._block(lp, h, windows[i], bases[i], cache=c, cache_pos=cache_pos)
-        return h
+            if cache is None:
+                h, a = block(lp, h, windows[i], bases[i])
+            else:
+                c = {"k": cache["k"][i], "v": cache["v"][i]}
+                h, a = self._block(lp, h, windows[i], bases[i], cache=c, cache_pos=cache_pos)
+            aux = aux + a
+        return h, aux
 
     # -- public API ------------------------------------------------------------
     def loss(self, params, batch):
-        with torch.inference_mode():
-            h = self._embed(params, batch)
-            h = self._stack(params, h)
-            logits = self._unembed(params, h)
-            targets = torch.as_tensor(batch["targets"], device=logits.device).long()
-            if self.cfg.family == "vlm" and "image_embeds" in batch:
-                P = batch["image_embeds"].shape[1]
-                pos = torch.arange(targets.shape[1], device=targets.device)[None, :]
-                targets = torch.where(pos < P, -1, targets)
-            ce = cross_entropy(logits, targets)
-        return ce, {"ce": ce, "aux": 0.0}
+        """(ce + 0.01 x aux, {"ce", "aux"}), differentiable in the params."""
+        h = self._embed(params, batch)
+        h, aux = self._stack(params, h)
+        logits = self._unembed(params, h)
+        targets = torch.as_tensor(batch["targets"], device=logits.device).long()
+        if self.cfg.family == "vlm" and "image_embeds" in batch:
+            P = batch["image_embeds"].shape[1]
+            pos = torch.arange(targets.shape[1], device=targets.device)[None, :]
+            targets = torch.where(pos < P, -1, targets)
+        ce = cross_entropy(logits, targets)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch_size: int, max_len: int, device=None):
         cfg = self.cfg
@@ -180,7 +244,7 @@ class DecoderLM:
             B, S = tokens.shape
             h = self._embed(params, batch)
             kv = self.init_cache(B, batch.get("max_len", S), device=h.device)
-            h = self._stack(params, h, cache=kv, cache_pos=0)
+            h, _ = self._stack(params, h, cache=kv, cache_pos=0)
             logits = self._unembed(params, h[:, -1:, :])
         return logits[:, 0, :], {"kv": kv, "pos": S}
 
@@ -192,21 +256,13 @@ class DecoderLM:
         that is still needed."""
         with torch.inference_mode():
             h = self._embed(params, {"tokens": tokens})
-            h = self._stack(params, h, cache=cache["kv"], cache_pos=cache["pos"])
+            h, _ = self._stack(params, h, cache=cache["kv"], cache_pos=cache["pos"])
             logits = self._unembed(params, h)
         return logits[:, 0, :], {"kv": cache["kv"], "pos": cache["pos"] + tokens.shape[1]}
 
     def decode_state(self, batch_size: int, max_len: int, device=None):
         """Full decode-time state (cache + position)."""
         return {"kv": self.init_cache(batch_size, max_len, device=device), "pos": max_len - 1}
-
-
-def _stack_layers(layers):
-    """Per-layer dicts -> one dict of (L, ...) leaves (the reference's
-    scan-over-layers layout)."""
-    if isinstance(layers[0], dict):
-        return {k: _stack_layers([lp[k] for lp in layers]) for k in layers[0]}
-    return torch.stack(layers)
 
 
 def _layer(stacked, i):

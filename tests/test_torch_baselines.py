@@ -704,3 +704,34 @@ def test_pegasos_walk_bound_covers_an_f32_walk(k):
         assert abs(float(m32[j]) - part["margin"]) <= part["bound"], (j, part, float(m32[j]))
         checked += 1
     assert checked > 50
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 21, 300, 784])
+def test_lasvm_dots_sum_in_a_fixed_pairwise_order(width):
+    """LASVM's dot products are summed in one pairwise order, each step an
+    exactly rounded float64 operation (so the card gives the host CPU's
+    bits): equal bit for bit to a numpy emulation of that order, and within
+    float64 rounding of the exact sums."""
+    rng = np.random.default_rng(width)
+    A, B = rng.normal(size=(5, width)), rng.normal(size=(5, width))
+    got = tb.lasvm.dots(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    P = A * B
+    P = np.pad(P, ((0, 0), (0, (1 << max(width - 1, 0).bit_length()) - width)))
+    while P.shape[1] > 1:
+        P = P[:, : P.shape[1] // 2] + P[:, P.shape[1] // 2 :]
+    assert np.array_equal(got, P[:, 0])
+    exact = np.array([float(sum(map(__import__("fractions").Fraction, a * b))) for a, b in zip(A, B)])
+    assert np.allclose(got, exact, rtol=0, atol=(width + 2) * 2.0**-53 * np.abs(A * B).sum(1).max())
+
+
+@pytest.mark.parametrize("width", [1, 2, 32, 1024])
+def test_lasvm_dots_on_host_rows_equal_the_device_form(width):
+    """The pair's kernel entries are summed on the host over numpy rows, the
+    gradients in place over a tensor buffer (``halve``): both give the
+    torch sums' bits."""
+    rng = np.random.default_rng(width)
+    A, B = rng.normal(size=(3, width)), rng.normal(size=(3, width))
+    want = tb.lasvm.dots(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    assert np.array_equal(tb.lasvm.dots(A, B), want)
+    Q = torch.from_numpy(A * B)
+    assert np.array_equal(tb.lasvm.halve(Q).numpy(), want)

@@ -99,3 +99,16 @@ def test_recommit_collects_stale_payloads_and_wrong_targets_raise(tmp_path):
     assert not [n for n in os.listdir(tmp_path) if n.endswith(".tmp")]
     with pytest.raises(ValueError, match="leaves"):
         ckpt.restore(str(tmp_path), (torch.zeros(1),))
+
+
+def test_zero_d_leaves_keep_their_shape(tmp_path):
+    """A 0-d leaf (a single ball's r, AdamW's step) restores as 0-d in both
+    packages, as it was saved."""
+    tree = {"step": torch.tensor(7, dtype=torch.int32), "r": torch.tensor(0.25),
+            "w": torch.arange(3, dtype=torch.float32)}
+    ckpt.save(str(tmp_path), tree)
+    got = ckpt.restore(str(tmp_path), {k: torch.zeros_like(v) for k, v in tree.items()})
+    for k, v in tree.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype and torch.equal(got[k], v)
+    back = jckpt.restore(str(tmp_path), {k: jnp.zeros(v.shape) for k, v in tree.items()})
+    assert back["step"].shape == () and int(back["step"]) == 7

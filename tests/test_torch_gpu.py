@@ -1781,7 +1781,7 @@ def test_float64_baselines_on_the_card_match_the_cpu(cuda):
     torch.testing.assert_close(ob.cpu(), oc, rtol=1e-4, atol=0.0)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-27b", "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "xlstm-125m", "qwen3-moe-30b-a3b"])
 def test_zoo_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
     """A smoke model (f32 copy; gemma3's windows and tied embeddings, xLSTM's
     recurrent state) prefilled and decoded 5 steps on the card, against the
@@ -1810,6 +1810,80 @@ def test_zoo_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch):
         runs.append(out)
     for got, want in zip(*runs):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_zoo_moe_forward_and_drops_on_the_card_match_the_cpu(cuda):
+    """The MoE smoke config (f32 copy) at a capacity factor that drops: the
+    loss, its ce and aux within 1e-5 (relative) of the CPU's, and every
+    layer's dropped assignments the CPU's exactly."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    cfg = dataclasses.replace(cfg, param_dtype="float32", act_dtype="float32",
+                              moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(4), device="cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (3, 40)).astype(np.int32)
+    runs = []
+    for p, dev in ((_tree_to(params, cuda), cuda), (params, torch.device("cpu"))):
+        model.moe_stats = []
+        t = torch.as_tensor(toks, device=dev)
+        with torch.no_grad():
+            loss, m = model.loss(p, {"tokens": t[:, :-1], "targets": t[:, 1:]})
+        runs.append(([float(loss), float(m["ce"]), float(m["aux"])],
+                     [(s["experts"].cpu(), s["kept"].cpu()) for s in model.moe_stats]))
+    model.moe_stats = None
+    (got, gs), (want, ws) = runs
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert len(gs) == cfg.n_layers and any(int((~k).sum()) for _, k in ws)
+    for (ge, gk), (we, wk) in zip(gs, ws):
+        assert torch.equal(ge, we) and torch.equal(gk, wk)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One make_train_step of the dense smoke config (f32 copy, two
+    microbatches) on the card against the CPU on the same weights and
+    batch: loss and grad_norm within 1e-5 (relative); after the step (lr
+    5e-4, warmup's second step) 99.9 % of the params within 1e-6 x
+    max|param| and all within 2 lr (AdamW moves an entry by about lr
+    sign(g): a grad at rounding level can go either way)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainCfg, make_train_step
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True), param_dtype="float32",
+                              act_dtype="float32")
+    model = build_model(cfg, remat="full")
+    tc = TrainCfg(microbatches=2, peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    params = model.init(torch.Generator().manual_seed(6), device="cpu")
+    rng = np.random.default_rng(7)
+    batch = {k: rng.integers(0, cfg.vocab, (4, 24)).astype(np.int32) for k in ("tokens", "targets")}
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p = _tree_to(params, dev)
+        st = {"params": p, "opt": adamw.init(p)}
+        st = {**st, "opt": st["opt"]._replace(step=st["opt"].step + 1)}  # lr > 0
+        st, m = make_train_step(model, tc)(st, {k: torch.as_tensor(v, device=dev)
+                                                for k, v in batch.items()})
+        outs.append((float(m["loss"]), float(m["grad_norm"]), _tree_to(st["params"], "cpu")))
+    (lg, gg, pg), (lw, gw, pw) = outs
+    np.testing.assert_allclose([lg, gg], [lw, gw], rtol=1e-5)
+    for a, b in zip(_leaf_list(pg), _leaf_list(pw)):
+        err = (a - b).abs()
+        assert float(err.max()) <= 2 * 5e-4
+        assert float((err <= 1e-6 * max(float(b.abs().max()), 1.0)).float().mean()) >= 0.999
+
+
+def _leaf_list(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_list(tree[k])]
+    return [tree]
 
 
 def _tree_to(tree, dev):

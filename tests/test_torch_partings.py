@@ -110,3 +110,64 @@ def test_a_wrong_push_test_is_not_a_tie(lookahead):
                           torch.as_tensor(Z), C_INV, C_INV, lookahead)
     assert part is not None and part["kind"] == "push" and not part["tie"]
     assert part["margin"] > part["bound"]  # run a pushed, decided by float64
+
+
+def _pushes(run, n):
+    """Run a's pushing rows by brute force: every prefix's m."""
+    m = [int(run(nv)[3]) for nv in range(1, n + 1)]
+    return [nv for nv in range(1, n) if m[nv] != m[nv - 1]]
+
+
+@pytest.mark.parametrize("case", ["flush_tie", "wrong_push"])
+def test_given_pushes_give_the_same_certificate(case):
+    """``pushes_a`` (run a's pushing rows, known to the caller) skips the
+    bisection over run a's m and changes nothing of the result."""
+    if case == "flush_tie":
+        X, y, Z = _stream(201, 3, seed=2, mirrored=True)
+        runs, L = (_entry(X, y, 4), _direct(Z, 4, last_on_ties=True)), 4
+    else:
+        X, y, Z = _stream(120, 5, seed=4)
+        runs, L = (_entry(X, y, None), _direct(Z, None, push_scale=1.05)), None
+    want = stream_parting(*runs, torch.as_tensor(Z), C_INV, C_INV, L)
+    got = stream_parting(*runs, torch.as_tensor(Z), C_INV, C_INV, L,
+                         pushes_a=_pushes(runs[0], len(y)))
+    assert got == want and want is not None
+
+
+@pytest.mark.parametrize("lookahead", [None, 3])
+def test_a_lane_with_its_signs_zeroed_is_its_prefix_run(lookahead):
+    """The premise of chip_smoke.py's C5 certificates: in B6 train's plain
+    version a lane whose signs are zeroed past row nv ends in the state of
+    the prefix run n_valid=nv (partial window flushed), bit for bit, beside
+    lanes cut elsewhere."""
+    from repro_torch.kernels.streamsvm_scan import (
+        streamsvm_scan_lookahead_many_ring_plain,
+        streamsvm_scan_many_ring_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    n, d, bp = 300, 6, 8
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X = torch.as_tensor(X / np.linalg.norm(X, axis=1, keepdims=True))
+    y = torch.as_tensor(np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32))
+    cuts = [0, 1, 17, 40, 41, 255, 256, 299]
+    Y = y[None, :].repeat(bp, 1)
+    for j, c in enumerate(cuts):
+        Y[j, c:] = 0.0
+    c_inv = torch.full((bp,), C_INV)
+    W0 = Y[:, :1] * X[:1]
+    args = (W0, torch.zeros(bp), c_inv.clone(), c_inv, torch.ones(bp, dtype=torch.int32), c_inv)
+    kw = {} if lookahead is None else dict(
+        lookahead=torch.full((bp,), lookahead, dtype=torch.int32), lookahead_max=lookahead)
+    fn = (streamsvm_scan_many_ring_plain if lookahead is None
+          else streamsvm_scan_lookahead_many_ring_plain)
+    Xp = torch.nn.functional.pad(X[1:], (0, 0, 0, 512 - (n - 1)))
+    Yp = torch.nn.functional.pad(Y[:, 1:], (0, 512 - (n - 1)))
+    whole = fn(Xp, Yp, *args, n_valid=n - 1, **kw)
+    full = y[None, :].repeat(bp, 1)
+    Yf = torch.nn.functional.pad(full[:, 1:], (0, 512 - (n - 1)))
+    for j, c in enumerate(cuts):
+        nv = max(c - 1, 0)  # bank rows: the stream's rows 1..c-1
+        pre = fn(Xp, Yf, W0[j : j + 1].repeat(bp, 1), *args[1:], n_valid=nv, **kw)
+        for a, b in zip(whole, pre):
+            assert torch.equal(a[j], b[j]), (j, c)
