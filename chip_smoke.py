@@ -15,8 +15,10 @@ the kernelized bank, --ring-classes 16 --ring-d 40 --ring-n-train 2000
 --table1-runs 1 --table1-datasets synthetic_a,waveform --lasvm-cap 300
 --cvm-passes 4 --cvm-n-train 600 for phase 11, and --zoo-smoke --zoo-batch 2
 --zoo-prompt 32 --zoo-gen 8 --zoo-requests 6 --zoo-slots 3 --zoo-req-prompt
-8,24 --zoo-docs 320 --moe-batch 2 --moe-prompt 32 --moe-gen 6 for phases 12
-and 13: the smoke configs, fewer requests, lm-15m for 13b).
+8,24 --zoo-docs 320 --moe-batch 2 --moe-prompt 32 --moe-gen 6 --hybrid-batch 2
+--hybrid-prompt 32 --hybrid-gen 8 --long-len 256 --encdec-batch 2
+--encdec-prompt 16 --encdec-gen 8 --launch-batch 2 --launch-seq 64,32 for
+phases 12 and 13: the smoke configs, fewer requests, lm-15m for 13b).
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: name, count, power limit, versions; build every kernel from
@@ -168,7 +170,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      the first 2 layers at full width on the card against the host's CPU
      (logits and each layer's aux within ZOO_MOE_F32_TOL, the dropped
      assignments per layer equal, the greedy tokens equal where margins
-     part);
+     part); (e) zamba2-1.2b at its published widths and depth (38 Mamba2
+     layers, one shared attention block applied 7 times, bf16) through the
+     same path: batch 8, prompt 512, 128 greedy tokens, max_len 640;
+     prefill and decode ms and peak memory beside their bounds; an f32 copy
+     of the whole model decoding the same tokens within ZOO_F32_TOL of its
+     640-token teacher-forced forward (the chunked SSD, where decode runs
+     the recurrence), the bf16 decode within ZOO_HYBRID_TF_TOL of the bf16
+     forward (tools/hybrid_faults.py reads the same check with decode
+     faults planted), and a 2-layer f32 copy on the card against the
+     host's CPU at prompts 512 and 17; (f) (e)'s model at
+     long_500k: decode_state(1, 524,288), the KV, SSM and conv states drawn
+     from --seed, 8 timed decode steps against the bytes bound, peak
+     memory, finite logits, one shared application's attention over its
+     524,288 positions against an f32 replay on the host within ZOO_F32_TOL
+     x sum p|v|; (g) whisper-base at its published widths (6 + 6 layers,
+     bf16), batch 8, frames (8, 1,500, 512) from --seed, prompt 64, 64
+     greedy tokens: encode, prefill and decode ms and peak memory beside
+     their bounds, decode within ZOO_TF_TOL of the teacher-forced forward,
+     an f32 copy at full width and depth against the host's CPU;
   13. the LLM zoo's training path (repro_torch.optim, train), with B4's
      launches read around (c): (a) examples/llm_feature_svm.py's
      pretraining with internlm2-1.8b at its published widths (bf16, f32
@@ -184,7 +204,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit for bit under torch.use_deterministic_algorithms; (c) 12c's path
      over (a)'s trained backbone, through fit_chunked at lookahead 1 (B4)
      and 10 (the qp engine), each held to the host's CPU, the held-out
-     accuracies beside 12c's;
+     accuracies beside 12c's; (d) python -m repro_torch.launch.train's
+     main: zamba2-1.2b 30 steps of 8 x 512 tokens (--remat full) and
+     whisper-base 30 steps of 8 x 128 tokens, preempted after step 20 and
+     resumed from its step-15 checkpoint bit-equal to the uninterrupted run
+     under --deterministic; each loss falling and every grad norm finite,
+     remat "full" against "none" on one batch (the loss bit for bit, the
+     grad norm within TRAIN_REMAT_GN_RTOL), ms a step, tokens/s and peak
+     memory beside the step's bound;
   5. (printed last) kernel times at the main path's shapes against their
      bounds, printed as one JSON line {"kernels": [...]}, with torch.matmul's
      bare product (no epilogue) at the server step and at 7b's serve; where
@@ -3752,21 +3779,7 @@ def zoo_dense(dev, args):
         seq = torch.cat([batch["tokens"], toks[:, :-1]], dim=1)
         h, _ = model._stack(params, model._embed(params, {**batch, "tokens": seq}))
         tf = model._unembed(params, h[:, P - 1 :])  # (B, G, V)
-    worst, compared, parted = 0.0, 0, 0
-    for j, got in enumerate(res["logits"]):
-        want = tf[:, j].float()
-        scale = want.abs().max().item()
-        err = (got.float() - want).abs().max().item()
-        worst = max(worst, err / scale)
-        if err > ZOO_TF_TOL * scale:
-            raise AssertionError(f"12a: step {j}'s logits lie {err:.4g} from the teacher-forced "
-                                 f"forward's (bound {ZOO_TF_TOL} x {scale:.4g})")
-        parts = rel_gap(want) > 2 * ZOO_TF_TOL
-        same = got.float().argmax(-1) == want.argmax(-1)
-        if not bool(same[parts].all()):
-            raise AssertionError(f"12a: step {j}: a greedy token differs where margins part")
-        compared += int(parts.sum())
-        parted += int((~same).sum())
+    worst, compared, parted = teacher_forced_check("12a", res["logits"], tf)
     print(f"  every step's logits within {worst:.4g} x max|logit| of the teacher-forced "
           f"forward (bound {ZOO_TF_TOL}); greedy tokens equal at all {compared} of {B * G} "
           f"(row, step) pairs whose margins part by > {2 * ZOO_TF_TOL}; {parted} ties went "
@@ -3780,26 +3793,15 @@ def zoo_dense(dev, args):
     small = {k: v for k, v in params.items() if k != "layers"}
     small["layers"] = zoo_tree(params["layers"], lambda t: t[:2])
     small = zoo_tree(small, lambda t: t.float())
-    host = zoo_tree(small, lambda t: t.cpu())
-    model2 = build_model(cfg2)
     P2, G2 = min(64, P), 4
     toks2 = torch.cat([batch["tokens"], toks], dim=1)[:2, : P2 + G2]
-    runs = []
-    for p, dv in ((small, dev), (host, torch.device("cpu"))):
-        t2 = toks2.to(dv)
-        lg, st = model2.prefill(p, {"tokens": t2[:, :P2], "max_len": P2 + G2})
-        out = [lg.float().cpu()]
-        for i in range(P2, P2 + G2 - 1):
-            lg, st = model2.decode_step(p, st, t2[:, i : i + 1])
-            out.append(lg.float().cpu())
-        runs.append(out)
-    err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*runs))
+    err = card_against_host(build_model(cfg2), small, dev, [{"tokens": toks2}], G2)
     if err > ZOO_F32_TOL:
         raise AssertionError(f"12a: the card's f32 2-layer run lies {err:.3e} x max|logit| "
                              f"from the host CPU's (bound {ZOO_F32_TOL})")
     print(f"  f32 copy, full width, 2 layers, batch 2, prompt {P2}, {G2 - 1} decode steps: the "
           f"card within {err:.3e} x max|logit| of the host's CPU (bound {ZOO_F32_TOL}; TF32 off)")
-    del small, host, runs, tf, h, res
+    del small, tf, h, res
     return model, params, dict(prefill_ms=pf_ms, prefill_bound_ms=pf_bound, decode_ms=dec_ms,
                                decode_bound_ms=dec_bound, peak_bytes=peak,
                                mem_bound_bytes=w_bytes + kv_bytes, tf_err=worst, cpu_err=err)
@@ -4246,8 +4248,433 @@ def zoo_moe(dev, args):
                 dropped=[r["dropped"] for r in routed])
 
 
+ZOO_HYBRID = "zamba2-1.2b"  # phases 12e, 12f, 13d: the hybrid family at its published widths
+ZOO_ENCDEC = "whisper-base"  # phases 12g, 13d: the encoder-decoder at its published widths
+LONG_STEPS = 8  # 12f: decode steps timed at long_500k
+LAUNCH_STEPS = 30  # 13d: steps of each run through the launcher
+# 12e: the bf16 decode's logits against the bf16 teacher-forced forward,
+# x max|logit|. tools/hybrid_faults.py's worst steps on an H100 at seeds
+# 0-4: the sound model 0.0712-0.1223; a conv state never advanced, an SSM
+# state dropped, a cache position not advanced 1.187-1.507. The SSM state or
+# softplus(dt) rounded to bf16 read 0.0726-0.1838, inside the sound spread,
+# and no fixed bound tells them from rounding (PERF.md §6).
+ZOO_HYBRID_TF_TOL = 0.2
+
+
+def teacher_forced_check(label, got, tf, tol=ZOO_TF_TOL):
+    """Each step's logits ``got[j]`` (B, V) against the teacher-forced
+    forward's ``tf[:, j]``: within ``tol`` x max|logit|, and the greedy
+    tokens equal where the forward's top-two logits part by twice that.
+    Returns (the worst error over max|logit|, rows compared, ties parted)."""
+    worst, compared, parted = 0.0, 0, 0
+    for j, g in enumerate(got):
+        want = tf[:, j].float()
+        scale = want.abs().max().item()
+        err = (g.float() - want).abs().max().item()
+        worst = max(worst, err / scale)
+        if err > tol * scale:
+            raise AssertionError(f"{label}: step {j}'s logits lie {err:.4g} from the teacher-forced "
+                                 f"forward's (bound {tol} x {scale:.4g})")
+        parts = rel_gap(want) > 2 * tol
+        same = g.float().argmax(-1) == want.argmax(-1)
+        if not bool(same[parts].all()):
+            raise AssertionError(f"{label}: step {j}: a greedy token differs where margins part")
+        compared += int(parts.sum())
+        parted += int((~same).sum())
+    return worst, compared, parted
+
+
+def rel_err(got, want):
+    """The largest difference over ``want``'s max |logit|."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def teacher_forced_logits(model, params, seq, P, G):
+    """One forward over ``seq`` (B, P + G) without a cache: the logits at
+    the G positions that predict its last G tokens, (B, G, V) f32."""
+    with torch.inference_mode():
+        h, _ = model._forward(params, params["embed"][seq.long()])
+        return model._logits(params, h[:, P - 1 : P + G - 1]).float()
+
+
+def card_against_host(model, params, dev, batches, n_dec):
+    """Each batch (``tokens`` (B, P + n_dec) and the model's other inputs)
+    prefilled with its first P tokens on the card and on the host's CPU,
+    then n_dec - 1 decode steps fed the next tokens: the largest difference
+    of any step's logits over that step's max|logit|."""
+    host = zoo_tree(params, lambda t: t.cpu())
+    err = 0.0
+    for b in batches:
+        runs = []
+        for p, dv in ((params, dev), (host, torch.device("cpu"))):
+            bb = {k: v.to(dv) for k, v in b.items()}
+            toks = bb.pop("tokens")
+            P = toks.shape[1] - n_dec
+            lg, st = model.prefill(p, {**bb, "tokens": toks[:, :P], "max_len": toks.shape[1]})
+            out = [lg.float().cpu()]
+            for i in range(P, P + n_dec - 1):
+                lg, st = model.decode_step(p, st, toks[:, i : i + 1])
+                out.append(lg.float().cpu())
+            runs.append(out)
+        err = max(err, max(((a - c).abs().max() / c.abs().max()).item() for a, c in zip(*runs)))
+    return err
+
+
+def matrix_params(tree):
+    """Parameters of a tree's matrices (the leaves products read)."""
+    return sum(t.numel() for t in zoo_leaves(tree) if t.dim() >= 2)
+
+
+def zoo_zamba2(dev, args):
+    """Phase 12e: examples/torch_serve.py's path with Zamba2 at its
+    published widths and depth. Returns the model and params for 12f."""
+    import dataclasses
+
+    import torch_serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(ZOO_HYBRID, smoke=args.zoo_smoke)
+    ssm = cfg.ssm
+    model = build_model(cfg)
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    sync(dev)
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in zoo_leaves(params))
+    w_bytes = tree_bytes(params)
+    esz = params["embed"].element_size()
+    B, P, G = args.hybrid_batch, args.hybrid_prompt, args.hybrid_gen
+    T = P + G
+    D, V, A = cfg.d_model, cfg.vocab, model.n_shared
+    d_in = ssm.expand * D
+    nh, hp, n = d_in // ssm.head_dim, ssm.head_dim, ssm.d_state
+    kv_bytes = 2 * A * B * T * cfg.n_kv_heads * cfg.hd * esz
+    state_bytes = (cfg.n_layers * B * nh * hp * n * 4
+                   + cfg.n_layers * B * (ssm.d_conv - 1) * (d_in + 2 * n) * esz)
+    print(f"[12e] {cfg.name}: {cfg.n_layers} Mamba2 layers (d_inner {d_in}, {nh} SSM heads x {hp}, "
+          f"d_state {n}, chunk {ssm.chunk}), one shared attention + {cfg.mlp} block ({cfg.n_heads} "
+          f"heads x {cfg.hd}, d_ff {cfg.d_ff}) applied {A} times, vocab {V}, {cfg.param_dtype}: "
+          f"{n_params:,} parameters ({w_bytes / 1e9:.3f} GB) drawn on {dev} from --seed in "
+          f"{t_init:.2f} s; batch {B}, prompt {P}, {G} generated, max_len {T}; KV {kv_bytes / 1e6:.1f} "
+          f"MB ({A} slices), SSM and conv states {state_bytes / 1e6:.1f} MB")
+    batch = torch_serve.make_batch(cfg, B, P, args.seed, dev)
+    torch_serve.serve(model, params, batch, 3)  # warm-up
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = torch_serve.serve(model, params, batch, G, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+    if not all(torch.isfinite(l).all() for l in res["logits"]):
+        raise AssertionError("12e: non-finite logits")
+    toks = res["tokens"]
+
+    # Bounds. Prefill by its operations: the bf16 products (each Mamba2
+    # layer's in_proj and out_proj, the shared block's projections and MLP at
+    # each application, causal attention's pairs, the last position's
+    # unembedding) at 989 TFLOP/s, and the SSD's f32 products (the chunked
+    # form's C Bᵀ, its decay mask, the intra-chunk product, the chunk
+    # states and the off-diagonal readout; the recurrence's update and
+    # readout where P is not a multiple of the chunk) at 67 TFLOP/s.
+    # Decode by its bytes: every weight but the embedding table, the B rows
+    # gathered from it, every KV slice's valid positions, and the SSM and
+    # conv states read and written.
+    mamba_mm = matrix_params([lp["mix"] for lp in params["mamba"]])
+    shared_mm = matrix_params(params["shared"])
+    pairs = B * P * (P + 1) // 2
+    pf_bf16 = (2.0 * B * P * (mamba_mm + A * shared_mm) + 4.0 * A * pairs * cfg.n_heads * cfg.hd
+               + 2.0 * D * V * B)
+    l = ssm.chunk
+    if P % l == 0 and P > 1:
+        ssd = B * (P // l) * (2 * l * l * n + nh * (l * l + 2 * l * l * hp + 4 * l * hp * n))
+    else:
+        ssd = B * P * nh * 4 * hp * n
+    pf_f32 = float(cfg.n_layers * ssd)
+    pf_bound = (pf_bf16 / BF16_PEAK + pf_f32 / F32_PEAK) * 1e3
+    per_pos = kv_bytes / T
+    emb_bytes = params["embed"].numel() * esz
+    dec_bytes = [w_bytes - emb_bytes + B * D * esz + (P + j + 1) * per_pos + 2 * state_bytes
+                 for j in range(G - 1)]
+    dec_bound = float(np.mean(dec_bytes)) / HBM_BYTES_PER_S * 1e3
+    pf_ms = res["prefill_s"] * 1e3
+    dec_ms = res["decode_s"] * 1e3 / (G - 1)
+    print(f"  prefill {pf_ms:.3f} ms ({B * P / res['prefill_s']:.1f} tokens/s); bound {pf_bound:.4f} "
+          f"ms (operations: {pf_bf16 / 1e12:.3f} TFLOP bf16 at 989 TFLOP/s, the SSD's "
+          f"{pf_f32 / 1e12:.4f} TFLOP f32 at 67 TFLOP/s)")
+    print(f"  decode {dec_ms:.3f} ms a step of {B} tokens ({(G - 1) * B / res['decode_s']:.1f} "
+          f"tokens/s) over {G - 1} steps; bound {dec_bound:.4f} ms (bytes: "
+          f"{np.mean(dec_bytes) / 1e9:.3f} GB a step at 3.35 TB/s)")
+    if peak is not None:
+        print(f"  torch.cuda.max_memory_allocated over the timed run {peak / 1e9:.3f} GB (less "
+              f"{held / 1e9:.3f} GB that earlier phases hold); bound "
+              f"{(w_bytes + kv_bytes + state_bytes) / 1e9:.3f} GB (weights, KV, states)")
+
+    # Decode against one teacher-forced pass over all P + G tokens (P + G =
+    # 640 is five chunks: the chunked SSD, where decode took the recurrence).
+    # The logic in f32: an f32 copy of the whole model decodes the same
+    # tokens within ZOO_F32_TOL of its own forward. The bf16 run, its
+    # recurrence and its states in the model's dtypes: every step within
+    # ZOO_HYBRID_TF_TOL of the bf16 forward, and the greedy tokens equal
+    # where that forward's top-two logits part by twice the bound. The
+    # distances from the f32 forward are printed, not bounded.
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", act_dtype="float32")
+    model32, p32 = build_model(cfg32), zoo_tree(params, lambda t: t.float())
+    seq = torch.cat([batch["tokens"], toks], dim=1)
+    tf16 = teacher_forced_logits(model, params, seq, P, G)
+    tf32 = teacher_forced_logits(model32, p32, seq, P, G)
+    with torch.inference_mode():
+        lg, st = model32.prefill(p32, {"tokens": seq[:, :P], "max_len": T})
+        dec32 = [lg]
+        for j in range(G - 1):
+            lg, st = model32.decode_step(p32, st, seq[:, P + j : P + j + 1])
+            dec32.append(lg)
+        del st
+    err32 = max(rel_err(dec32[j], tf32[:, j]) for j in range(G))
+    if err32 > ZOO_F32_TOL:
+        raise AssertionError(f"12e: the f32 copy's decode lies {err32:.3e} x max|logit| from its "
+                             f"teacher-forced forward (bound {ZOO_F32_TOL})")
+    tf_err, compared, parted = teacher_forced_check("12e", res["logits"], tf16, ZOO_HYBRID_TF_TOL)
+    own = max(rel_err(tf16[:, j], tf32[:, j]) for j in range(G))
+    f32_err = max(rel_err(res["logits"][j], tf32[:, j]) for j in range(G))
+    print(f"  f32 copy of the whole model: its decode within {err32:.3e} x max|logit| of its "
+          f"teacher-forced forward over {P + G} tokens (bound {ZOO_F32_TOL})")
+    print(f"  bf16: every step's logits within {tf_err:.4g} x max|logit| of the bf16 forward (bound "
+          f"{ZOO_HYBRID_TF_TOL}); greedy tokens equal at all {compared} of {B * G} (row, step) "
+          f"pairs whose margins part by > {2 * ZOO_HYBRID_TF_TOL}; {parted} ties went either way; "
+          f"from the f32 forward (not bounded): the bf16 decode {f32_err:.4g}, the bf16 forward "
+          f"{own:.4g}")
+    del model32, p32, dec32, tf16
+
+    # The card against the host's CPU: an f32 copy at full width, 2 Mamba2
+    # layers and the shared block, prompts of whole chunks and of 17 tokens.
+    if dev.type == "cuda":
+        assert not torch.backends.cuda.matmul.allow_tf32
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", act_dtype="float32")
+    small = {k: v for k, v in params.items() if k != "mamba"}
+    small["mamba"] = params["mamba"][:2]
+    small = zoo_tree(small, lambda t: t.float())
+    seq2 = torch.cat([batch["tokens"], toks], dim=1)[:2]
+    p_chunked = min(P, 512) // l * l
+    err = card_against_host(build_model(cfg2), small, dev,
+                            [{"tokens": seq2[:, : p + 4]} for p in (p_chunked, 17)], 4)
+    if err > ZOO_F32_TOL:
+        raise AssertionError(f"12e: the card's f32 copy lies {err:.3e} x max|logit| from the host "
+                             f"CPU's (bound {ZOO_F32_TOL})")
+    print(f"  f32 copy, full width, 2 Mamba2 layers + the shared block, batch 2, prompts "
+          f"{p_chunked} (chunked) and 17 (sequential), 3 decode steps each: the card within "
+          f"{err:.3e} x max|logit| of the host's CPU (bound {ZOO_F32_TOL}; TF32 off)")
+    del small, tf32, res
+    return model, params, dict(prefill_ms=pf_ms, prefill_bound_ms=pf_bound, decode_ms=dec_ms,
+                               decode_bound_ms=dec_bound, peak_bytes=peak, tf_err=tf_err,
+                               f32_err=f32_err, own_bf16=own, decode32_err=err32, cpu_err=err)
+
+
+def zoo_long(dev, args, model, params):
+    """Phase 12f: 12e's model decoding at shapes.py's long_500k cell: one
+    sequence, --long-len positions of KV in every shared slice, the KV, SSM
+    and conv states drawn from --seed. A warm-up step, then LONG_STEPS timed
+    steps at the last positions of the buffer."""
+    cfg = model.cfg
+    N, steps = args.long_len, LONG_STEPS
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = model.decode_state(1, N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for t in zoo_leaves(state["c"]):
+        t.normal_(generator=gen)
+    kv_bytes = tree_bytes(state["c"]["kv"])
+    state_bytes = tree_bytes(state["c"]["ssm"]) + tree_bytes(state["c"]["conv"])
+    w_bytes = tree_bytes(params)
+    emb_bytes = params["embed"].numel() * params["embed"].element_size()
+    state["pos"] = N - steps - 1
+    toks = torch.as_tensor(np.random.default_rng(args.seed).integers(0, cfg.vocab, (1, steps + 1)),
+                           dtype=torch.int32, device=dev)
+    logits, state = model.decode_step(params, state, toks[:, :1])  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    out = []
+    for i in range(1, steps + 1):
+        logits, state = model.decode_step(params, state, toks[:, i : i + 1])
+        out.append(logits)
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+    if not all(torch.isfinite(l).all() for l in out):
+        raise AssertionError("12f: non-finite logits")
+    nbytes = w_bytes - emb_bytes + cfg.d_model * 2 + kv_bytes + 2 * state_bytes
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[12f] {cfg.name} at long_500k: batch 1, {N:,} positions, KV {kv_bytes / 1e9:.3f} GB "
+          f"({model.n_shared} slices x k, v), SSM and conv states {state_bytes / 1e6:.1f} MB, drawn "
+          f"from --seed; {steps} decode steps after a warm-up, at positions {N - steps}-{N - 1}")
+    print(f"  {ms:.3f} ms a step; bound {bound:.4f} ms (bytes: {nbytes / 1e9:.3f} GB a step at "
+          f"3.35 TB/s: the weights but the embedding table, every KV position, the states read "
+          f"and written)")
+    if peak is not None:
+        print(f"  torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB over the state and the steps "
+              f"(less {held / 1e9:.3f} GB held: earlier phases and 12e's weights); the state {(kv_bytes + state_bytes) / 1e9:.3f} "
+              f"GB, so {(peak - kv_bytes - state_bytes) / 1e9:.3f} GB in flight (direct_attention "
+              f"takes each slice's K and V to f32)")
+
+    # One shared application's attention at the last position: the card's f32
+    # attention over slice 0's K and V against an f32 replay on the host.
+    from repro_torch.models.layers import direct_attention
+
+    kc, vc = state["c"]["kv"]["k"][0], state["c"]["kv"]["v"][0]
+    q = torch.randn((1, 1, cfg.n_heads, cfg.hd), generator=gen, device=dev, dtype=torch.float32)
+    kw = dict(causal=True, q_offset=N - 1, kv_valid_len=N)
+    direct_attention(q, kc, vc, **kw)  # warm-up
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    got = direct_attention(q, kc, vc, **kw)
+    sync(dev)
+    att_ms = (time.perf_counter() - t0) * 1e3
+    att_extra = torch.cuda.max_memory_allocated(dev) - before if dev.type == "cuda" else None
+    # The host's replay, written out: softmax(q k^T / sqrt(hd)) v in f32, the
+    # probabilities rounded to V's dtype as the reference's attention rounds
+    # them, and each output's scale sum_i p_i |v_i| (the outputs are sums of
+    # N terms of either sign that mostly cancel, so their f32 error scales
+    # with it).
+    k32, v32 = kc.cpu().float()[0], vc.cpu().float()[0]  # (N, KV, hd)
+    G = cfg.n_heads // cfg.n_kv_heads
+    qh = q.cpu()[0, 0].reshape(cfg.n_kv_heads, G, cfg.hd)
+    pr = torch.softmax(torch.einsum("kgd,nkd->kgn", qh, k32) / cfg.hd ** 0.5, dim=-1)
+    pr = pr.to(vc.dtype).float()
+    want = torch.einsum("kgn,nkd->kgd", pr, v32).reshape(cfg.n_heads, cfg.hd)
+    scale = torch.einsum("kgn,nkd->kgd", pr, v32.abs()).reshape(cfg.n_heads, cfg.hd)
+    err = ((got.cpu()[0, 0] - want).abs() / scale).max().item()
+    del k32, v32, pr
+    if err > ZOO_F32_TOL:
+        raise AssertionError(f"12f: slice 0's attention on the card lies {err:.3e} x sum p|v| from "
+                             f"the host's f32 replay (bound {ZOO_F32_TOL})")
+    att_bytes = tree_bytes([kc, vc])
+    print(f"  slice 0's attention at position {N - 1:,} (f32 query): the card within {err:.3e} x "
+          f"sum_i p_i |v_i| of the host's f32 replay over the same K and V (bound {ZOO_F32_TOL}); one call "
+          f"{att_ms:.3f} ms against {att_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms for its "
+          f"{att_bytes / 1e9:.3f} GB of bf16 K and V" + (
+              "" if att_extra is None else f", {att_extra / 1e9:.3f} GB allocated beyond them "
+              "(their f32 copies and the scores)"))
+    del state, out, kc, vc
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(ms=ms, bound_ms=bound, peak_bytes=peak, attn_ms=att_ms, attn_err=err,
+                attn_extra_bytes=att_extra)
+
+
+def zoo_whisper(dev, args):
+    """Phase 12g: examples/torch_serve.py's path with Whisper at its
+    published widths and depth, frames drawn from --seed."""
+    import dataclasses
+
+    import torch_serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(ZOO_ENCDEC, smoke=args.zoo_smoke)
+    model = build_model(cfg)
+    sync(dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    n_params = sum(t.numel() for t in zoo_leaves(params))
+    w_bytes = tree_bytes(params)
+    esz = params["embed"].element_size()
+    B, P, G = args.encdec_batch, args.encdec_prompt, args.encdec_gen
+    T, S, D, V, L = P + G, cfg.encoder_seq, cfg.d_model, cfg.vocab, cfg.n_layers
+    H, hd = cfg.n_heads, cfg.hd
+    kv_bytes = 2 * L * B * T * cfg.n_kv_heads * hd * esz
+    print(f"[12g] {cfg.name}: {cfg.n_encoder_layers} + {L} layers, d_model {D}, {H} heads x {hd}, "
+          f"{cfg.mlp} d_ff {cfg.d_ff}, vocab {V}, {cfg.param_dtype}: {n_params:,} parameters "
+          f"({w_bytes / 1e9:.3f} GB) drawn on {dev} from --seed; batch {B}, frames ({B}, {S}, {D}) "
+          f"drawn N(0, 0.1^2) from --seed, prompt {P}, {G} generated, max_len {T}")
+    batch = torch_serve.make_batch(cfg, B, P, args.seed, dev)
+    torch_serve.serve(model, params, batch, 3)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        enc_out = model.encode(params, batch["frames"])
+    sync(dev)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = torch_serve.serve(model, params, batch, G, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+    if not all(torch.isfinite(l).all() for l in res["logits"]):
+        raise AssertionError("12g: non-finite logits")
+    toks = res["tokens"]
+
+    # Bounds, by the products at 989 TFLOP/s: the encoder's layers and
+    # pairs over S frames; the decoder's self-attention and MLP products per
+    # token, its cross-attention's q / o per token and k / v over the S
+    # encoder positions (recomputed at every call, as the reference does),
+    # the pairs, the unembedding of the last position. Decode also by its
+    # bytes (the weights but the embedding table, the self KV's valid
+    # positions, enc_out): the larger of the two.
+    enc_mm = matrix_params(params["enc_layers"])
+    dec = params["dec_layers"]
+    xkv = sum(lp["xattn"][k].numel() for lp in dec for k in ("wk", "wv"))
+    dec_mm = matrix_params(dec) - xkv
+    enc_flops = 2.0 * B * S * enc_mm + 4.0 * cfg.n_encoder_layers * B * S * S * H * hd
+    pf_flops = (enc_flops + 2.0 * B * P * dec_mm + 2.0 * B * S * xkv
+                + 4.0 * L * B * (P * (P + 1) // 2 + P * S) * H * hd + 2.0 * D * V * B)
+    pf_bound = pf_flops / BF16_PEAK * 1e3
+    dec_flops = [2.0 * B * dec_mm + 2.0 * B * S * xkv + 4.0 * L * B * (P + j + 1 + S) * H * hd
+                 + 2.0 * D * V * B for j in range(G - 1)]
+    emb_bytes = params["embed"].numel() * esz
+    dec_bytes = [w_bytes - emb_bytes + B * D * esz + (P + j + 1) * kv_bytes / T + B * S * D * esz
+                 for j in range(G - 1)]
+    dec_bound = float(np.mean([max(f / BF16_PEAK, b / HBM_BYTES_PER_S)
+                               for f, b in zip(dec_flops, dec_bytes)])) * 1e3
+    pf_ms = res["prefill_s"] * 1e3
+    dec_ms = res["decode_s"] * 1e3 / (G - 1)
+    print(f"  encode {enc_ms:.3f} ms (bound {enc_flops / BF16_PEAK * 1e3:.4f} ms); prefill with the "
+          f"encode {pf_ms:.3f} ms ({B * P / res['prefill_s']:.1f} tokens/s), bound {pf_bound:.4f} ms "
+          f"({pf_flops / 1e12:.4f} TFLOP at 989 TFLOP/s)")
+    print(f"  decode {dec_ms:.3f} ms a step of {B} tokens ({(G - 1) * B / res['decode_s']:.1f} "
+          f"tokens/s) over {G - 1} steps; bound {dec_bound:.4f} ms (operations "
+          f"{np.mean(dec_flops) / 1e9:.2f} GFLOP a step, {2.0 * B * S * xkv / 1e9:.2f} of them the "
+          f"cross K / V recomputed; bytes {np.mean(dec_bytes) / 1e9:.4f} GB)")
+    if peak is not None:
+        print(f"  torch.cuda.max_memory_allocated over the timed run {peak / 1e9:.3f} GB (less "
+              f"{held / 1e9:.3f} GB held); weights, KV and enc_out "
+              f"{(w_bytes + kv_bytes + B * S * D * esz) / 1e9:.4f} GB")
+
+    with torch.inference_mode():
+        seq = torch.cat([batch["tokens"], toks], dim=1)
+        h = model._decoder(params, params["embed"][seq.long()], enc_out)
+        tf = model._logits(params, h[:, P - 1 : P + G - 1])
+    worst, compared, parted = teacher_forced_check("12g", res["logits"], tf)
+    print(f"  every step's logits within {worst:.4g} x max|logit| of the teacher-forced forward "
+          f"(bound {ZOO_TF_TOL}); greedy tokens equal at all {compared} of {B * G} (row, step) "
+          f"pairs whose margins part by > {2 * ZOO_TF_TOL}; {parted} ties went either way")
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", act_dtype="float32")
+    p32 = zoo_tree(params, lambda t: t.float())
+    seq2 = torch.cat([batch["tokens"], toks], dim=1)[:2]
+    p2 = min(16, P)
+    err = card_against_host(build_model(cfg32), p32, dev,
+                            [{"tokens": seq2[:, : p2 + 4], "frames": batch["frames"][:2]}], 4)
+    if err > ZOO_F32_TOL:
+        raise AssertionError(f"12g: the card's f32 copy lies {err:.3e} x max|logit| from the host "
+                             f"CPU's (bound {ZOO_F32_TOL})")
+    print(f"  f32 copy at full width and depth, batch 2, prompt {p2}, 3 decode steps: the card "
+          f"within {err:.3e} x max|logit| of the host's CPU (bound {ZOO_F32_TOL}; TF32 off)")
+    del params, p32, res, tf, h, enc_out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(encode_ms=enc_ms, prefill_ms=pf_ms, prefill_bound_ms=pf_bound, decode_ms=dec_ms,
+                decode_bound_ms=dec_bound, peak_bytes=peak, tf_err=worst, cpu_err=err)
+
+
 def phase_zoo(dev, args):
-    """Phase 12: the LLM zoo's serving path (ROADMAP A14's first part)."""
+    """Phase 12: the LLM zoo's serving path (ROADMAP A14; 12e-12g A14.3)."""
     t_phase = time.perf_counter()
     sys.path.insert(0, str(ROOT / "examples"))
     model, params, dense = zoo_dense(dev, args)
@@ -4264,10 +4691,31 @@ def phase_zoo(dev, args):
     t0 = time.perf_counter()
     moe = zoo_moe(dev, args)
     t_d = time.perf_counter() - t0
+    hybrid = phase_families(dev, args)
     total = time.perf_counter() - t_phase
-    print(f"[12] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}; "
-          f"phase 12 {total:.1f} s")
-    return dict(dense=dense, batched=batched, features=feats, moe=moe, seconds=total)
+    print(f"[12] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}, "
+          f"(e-g) {hybrid['seconds']:.1f}; phase 12 {total:.1f} s")
+    return dict(dense=dense, batched=batched, features=feats, moe=moe, families=hybrid,
+                seconds=total)
+
+
+def phase_families(dev, args):
+    """Phases 12e-12g: Zamba2 and Whisper served (ROADMAP A14.3)."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    t0 = time.perf_counter()
+    model, params, zamba = zoo_zamba2(dev, args)
+    t_e = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    long = zoo_long(dev, args, model, params)
+    t_f = time.perf_counter() - t0
+    del model, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    whisper = zoo_whisper(dev, args)
+    t_g = time.perf_counter() - t0
+    print(f"[12e-g] wall seconds: (e) {t_e:.1f}, (f) {t_f:.1f}, (g) {t_g:.1f}")
+    return dict(zamba2=zamba, long=long, whisper=whisper, seconds=t_e + t_f + t_g)
 
 
 TRAIN_ARCH = "internlm2-1.8b"  # phase 13a: the dense decoder trained at its published widths
@@ -4455,8 +4903,138 @@ def train_resume(dev, args):
     return dict(resumed_at=crashed["resumed_at"], steps=steps, seconds=t_crash + t_clean)
 
 
+def remat_check(label, cfg, params, batch):
+    """Loss and grads of one batch with remat "full" against "none": the
+    loss bit for bit, the grad norm within TRAIN_REMAT_GN_RTOL."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    out = {}
+    for remat in ("none", "full"):
+        ps = zoo_tree(params, lambda t: t.detach().requires_grad_())
+        loss, _ = build_model(cfg, remat=remat).loss(ps, batch)
+        grads = torch.autograd.grad(loss, list(zoo_leaves(ps)))
+        out[remat] = (loss.detach(), float(adamw.global_norm(list(grads))))
+        del ps, grads, loss
+    (ln, gn), (lf, gf) = out["none"], out["full"]
+    if not torch.equal(ln, lf) or abs(gf - gn) > TRAIN_REMAT_GN_RTOL * gn:
+        raise AssertionError(f"{label}: remat full loss {float(lf)} / grad norm {gf} against none's "
+                             f"{float(ln)} / {gn}")
+    return gf, gn
+
+
+def launched(label, out, n_params, tokens, flops):
+    """Checks and prints one launcher run: every loss and grad norm finite,
+    the last 10 steps' mean loss below the first 10's. ``flops``: a step's
+    operations for its bound."""
+    losses, gnorms = out["losses"], out["grad_norms"]
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"{label}: a non-finite loss or grad_norm: {losses}, {gnorms}")
+    k = min(10, len(losses) // 2)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    if not last < first:
+        raise AssertionError(f"{label}: the loss did not fall: the first {k} steps' mean "
+                             f"{first:.4f}, the last {k}'s {last:.4f}")
+    ms = out["ms_per_step"]
+    flops_ms = flops / BF16_PEAK * 1e3
+    bytes_ms = ADAMW_BYTES * n_params / HBM_BYTES_PER_S * 1e3
+    print(f"  {out['arch']}: {n_params:,} parameters, loss {losses[0]:.4f} -> {losses[-1]:.4f} (the "
+          f"first {k} steps' mean {first:.4f}, the last {k}'s {last:.4f}); grad_norm finite "
+          f"({min(gnorms):.4g} to {max(gnorms):.4g}); {ms:.3f} ms a step over steps 2-"
+          f"{len(losses)} ({tokens * 1e3 / ms:.1f} tokens/s); bound {max(flops_ms, bytes_ms):.4f} "
+          f"ms ({flops / 1e12:.3f} TFLOP at 989 TFLOP/s {flops_ms:.4f}, AdamW's {ADAMW_BYTES} B a "
+          f"param at 3.35 TB/s {bytes_ms:.4f})")
+    return dict(first=first, last=last, ms=ms, bound_ms=max(flops_ms, bytes_ms),
+                tokens_per_s=tokens * 1e3 / ms)
+
+
+def train_launcher(dev, args):
+    """Phase 13d: Zamba2 and Whisper trained through python -m
+    repro_torch.launch.train's main at their published widths and depth."""
+    import shutil
+
+    from repro_torch._tree import leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import token_batches
+    from repro_torch.launch import train as launch
+
+    steps, B = LAUNCH_STEPS, args.launch_batch
+    seq_h, seq_e = args.launch_seq
+    smoke = ["--smoke"] if args.zoo_smoke else []
+    res = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_13d_")
+    try:
+        for arch, seq in ((ZOO_HYBRID, seq_h), (ZOO_ENCDEC, seq_e)):
+            cfg = get_config(arch, smoke=args.zoo_smoke)
+            base = ["--arch", arch, "--steps", str(steps), "--batch", str(B), "--seq", str(seq),
+                    "--device", dev.type, "--quiet"] + smoke
+            sync(dev)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+            if arch == ZOO_HYBRID:
+                # remat "full": without it the 38 layers' f32 SSD activations
+                # took the run to 73.96 GB on an H100 80GB (PERF.md)
+                out = launch.main(base + ["--ckpt-every", "0", "--remat", "full"])
+                print(f"[13d] python -m repro_torch.launch.train --arch {arch} --steps {steps} "
+                      f"--batch {B} --seq {seq} --remat full (the chunked SSD: {seq} a multiple "
+                      f"of {cfg.ssm.chunk}), bf16, f32 moments, token_batches(seed=1)")
+                extra = {}
+            else:
+                # preempted after 2/3 of the steps, resumed from the checkpoint at half,
+                # against the run uninterrupted, under deterministic algorithms
+                every, cut_at = steps // 2, steps * 2 // 3
+                det = base + ["--deterministic", "--ckpt-every", str(every)]
+                t0 = time.perf_counter()
+                cut = launch.main(det + ["--ckpt-dir", f"{tmp}/a", "--stop-after", str(cut_at)])
+                resumed = launch.main(det + ["--ckpt-dir", f"{tmp}/a", "--resume"])
+                t_cut = time.perf_counter() - t0
+                out = launch.main(det + ["--ckpt-dir", f"{tmp}/b"])
+                a, b = leaves(resumed["state"]), leaves(out["state"])
+                same = len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                                for x, y in zip(a, b))
+                if (resumed["start"] != every or cut["losses"][:every] + resumed["losses"]
+                        != out["losses"] or not same):
+                    raise AssertionError(f"13d: {arch} resumed at step {resumed['start']} differs "
+                                         "from the uninterrupted run")
+                print(f"[13d] python -m repro_torch.launch.train --arch {arch} --steps {steps} "
+                      f"--batch {B} --seq {seq} --ckpt-every {every} --deterministic (frames: "
+                      f"the launcher's zeros): preempted after step {cut_at}, resumed from the "
+                      f"step-{every} checkpoint, every loss and all {len(a)} state leaves equal "
+                      f"the uninterrupted run's bit for bit ({t_cut:.1f} s preempted and "
+                      f"resumed, {out['seconds']:.1f} s uninterrupted)")
+                extra = dict(resumed_at=resumed["start"])
+            peak = torch.cuda.max_memory_allocated(dev) - held if dev.type == "cuda" else None
+            # a step's operations: 6 x params x tokens; Whisper's encoder
+            # matrices see encoder_seq frames a sequence, not seq tokens
+            flops = 6.0 * out["n_params"] * B * seq
+            if cfg.family == "encdec":
+                enc = matrix_params(out["state"]["params"]["enc_layers"])
+                flops += 6.0 * enc * B * (cfg.encoder_seq - seq)
+            r = launched("13d", out, out["n_params"], B * seq, flops)
+            if peak is not None:
+                print(f"    torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB (params, grads, "
+                      f"moments {(2 * 2 + 8) * out['n_params'] / 1e9:.3f} GB and activations)")
+            first = next(token_batches(cfg.vocab, B, seq, 1, seed=1))
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in first.items()}
+            if cfg.family == "encdec":
+                batch["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model), device=dev)
+            gf, gn = remat_check("13d", cfg, out["state"]["params"], batch)
+            print(f"    remat \"full\" against \"none\" on the trained params and the first "
+                  f"batch: the loss bit for bit, grad norm {gf:.6f} / {gn:.6f} (bound rtol "
+                  f"{TRAIN_REMAT_GN_RTOL})")
+            res[arch] = dict(r, peak_bytes=peak, **extra)
+            del out, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_train(dev, args, zoo):
-    """Phase 13: the LLM zoo's training path (ROADMAP A14.1)."""
+    """Phase 13: the LLM zoo's training path (ROADMAP A14.1; 13d A14.4's launcher)."""
     t_phase = time.perf_counter()
     sys.path.insert(0, str(ROOT / "examples"))
     model, params, dense = train_dense(dev, args)
@@ -4474,9 +5052,13 @@ def phase_train(dev, args, zoo):
     del model, params
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launcher = train_launcher(dev, args)
+    t_d = time.perf_counter() - t0
     total = time.perf_counter() - t_phase
-    print(f"[13] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}; phase 13 {total:.1f} s")
-    return dict(dense=dense, resume=resume, features=feats, seconds=total)
+    print(f"[13] wall seconds: (a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}, (d) {t_d:.1f}; "
+          f"phase 13 {total:.1f} s")
+    return dict(dense=dense, resume=resume, features=feats, launcher=launcher, seconds=total)
 
 
 def baseline_rows(dev, args, res, row):
@@ -4597,6 +5179,18 @@ def parse_args(argv=None):
     ap.add_argument("--moe-batch", type=int, default=8, help="phase 12d: prompts a batch")
     ap.add_argument("--moe-prompt", type=int, default=512, help="phase 12d: prompt tokens")
     ap.add_argument("--moe-gen", type=int, default=32, help="phase 12d: generated tokens")
+    ap.add_argument("--hybrid-batch", type=int, default=8, help="phase 12e: prompts a batch")
+    ap.add_argument("--hybrid-prompt", type=int, default=512, help="phase 12e: prompt tokens")
+    ap.add_argument("--hybrid-gen", type=int, default=128, help="phase 12e: generated tokens")
+    ap.add_argument("--long-len", type=int, default=524_288,
+                    help="phase 12f: KV positions (shapes.py's long_500k)")
+    ap.add_argument("--encdec-batch", type=int, default=8, help="phase 12g: prompts a batch")
+    ap.add_argument("--encdec-prompt", type=int, default=64, help="phase 12g: prompt tokens")
+    ap.add_argument("--encdec-gen", type=int, default=64, help="phase 12g: generated tokens")
+    ap.add_argument("--launch-batch", type=int, default=8, help="phase 13d: sequences a step")
+    ap.add_argument("--launch-seq", default=(512, 128),
+                    type=lambda s: tuple(int(v) for v in s.split(",")),
+                    help="phase 13d: Zamba2's and Whisper's sequence length, e.g. 512,128")
     return ap.parse_args(argv)
 
 

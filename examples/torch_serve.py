@@ -8,7 +8,10 @@ The flow of examples/serve.py on the port: a static batch of random prompts
 is prefilled into a cache of ``prompt_len + gen`` positions, then decoded
 greedily one token a step, the cache written in place. ``--full`` takes the
 architecture's published config (random weights from ``--seed``), else its
-reduced smoke config. ``main(argv)`` returns the numbers it prints;
+reduced smoke config. Every family serves: the decoders, Zamba2 (its SSM
+and conv states beside the shared block's KV cache) and Whisper (``frames``
+drawn from ``--seed``, encoded once at the prefill). ``main(argv)`` returns
+the numbers it prints;
 ``serve`` is the path itself (chip_smoke.py phase 12 drives it).
 """
 import argparse
@@ -27,13 +30,20 @@ def sync(dev):
 
 
 def make_batch(cfg, batch, prompt_len, seed, device):
-    """Random prompt tokens from ``seed`` (and zero image embeddings for a vlm)."""
+    """Random prompt tokens from ``seed``; zero image embeddings for a vlm;
+    for an encdec, audio frames (B, encoder_seq, d_model) drawn N(0, 0.1^2)
+    from the same generator after the tokens, as examples/serve.py draws
+    them."""
     rng = np.random.default_rng(seed)
     out = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab, (batch, prompt_len)), dtype=torch.int32, device=device)}
     if cfg.family == "vlm":
         out["image_embeds"] = torch.zeros(
             (batch, cfg.n_patches, cfg.d_model), dtype=torch.bfloat16, device=device)
+    if cfg.family == "encdec":
+        out["frames"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)) * 0.1, dtype=torch.float32,
+            device=device)
     return out
 
 

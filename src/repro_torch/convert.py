@@ -67,7 +67,10 @@ def lm_params_from_numpy(cfg, tree, device=None):
     The tree is a dict for ``DecoderLM``, its ``layers`` stacked ``(L, ...)``
     leaves when ``cfg.unrolled`` is false and a list of per-layer dicts when
     it is true; for ``XLSTMModel`` its ``blocks`` are a list of mLSTM and
-    sLSTM dicts. Each leaf must have the shape of the port's own init and
+    sLSTM dicts; for ``Zamba2Model`` ``mamba`` is a list of per-layer dicts
+    (``ln``, ``mix``) beside the ``shared`` block's dict; for
+    ``EncDecModel`` ``enc_layers`` and ``dec_layers`` are lists of
+    per-layer dicts. Each leaf must have the shape of the port's own init and
     takes its dtype. bf16 arrays (dtype name ``bfloat16``) are carried bit
     for bit through an int16 view; float32 arrays are cast.
     """

@@ -14,8 +14,8 @@ def build_model(cfg: ArchConfig, remat: str = "none"):
     layer's input and recomputes the layer; any other value (the reference
     names its policy ``dots_with_no_batch_dims_saveable``) saves the outputs
     of the products without batch dimensions and recomputes the rest
-    (DecoderLM; XLSTMModel recomputes the whole block for any value but
-    ``"none"``, as the reference does). ``prefill`` and ``decode_step``
+    (DecoderLM; Zamba2Model, XLSTMModel and EncDecModel recompute the whole
+    layer for any value but ``"none"``, as the reference does). ``prefill`` and ``decode_step``
     never checkpoint."""
     if cfg.family in ("dense", "moe", "vlm"):
         return DecoderLM(cfg, remat=remat)

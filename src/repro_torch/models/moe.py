@@ -65,7 +65,8 @@ def moe_apply(p, x, moe_cfg, stats=None):
 
     order = torch.argsort(flat_e, stable=True)
     se, st, sg = flat_e[order], flat_t[order], flat_g[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).index_add(
+        0, flat_e, torch.ones_like(flat_e))  # bincount's counts, with an output size known upfront
     seg_start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * K, device=dev) - seg_start[se]  # within-expert slot
 

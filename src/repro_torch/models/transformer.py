@@ -38,6 +38,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch._device import pick_device
 from repro_torch._tree import map_tree
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.hints import cache_hint, shard_hint
 from .layers import (
     attn_apply,
     attn_init,
@@ -190,7 +191,7 @@ class DecoderLM:
         cfg = self.cfg
         h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        return h @ w
+        return shard_hint(h @ w, ("dp", None, "tp"))  # vocab-sharded logits
 
     def _stack(self, params, h, cache=None, cache_pos=None):
         """Run all layers. Returns (h, aux summed over the layers: 0.0 for a
@@ -202,11 +203,16 @@ class DecoderLM:
         block = self._block
         if cache is None and torch.is_grad_enabled():
             block = remat_layer(self._block, self.remat)
+        # sequence parallelism at the layer boundaries of the stacked layout
+        # (not for MoE, whose dispatch wants tokens dp-sharded only)
+        seq_par = cache is None and cfg.moe is None and not cfg.unrolled
+        hint = (lambda x: shard_hint(x, ("dp", "tp", None))) if seq_par else (lambda x: x)
         aux = 0.0
         for i in range(cfg.n_layers):
             lp = layers[i] if cfg.unrolled else _layer(layers, i)
             if cache is None:
-                h, a = block(lp, h, windows[i], bases[i])
+                h, a = block(lp, hint(h), windows[i], bases[i])
+                h = hint(h)
             else:
                 c = {"k": cache["k"][i], "v": cache["v"][i]}
                 h, a = self._block(lp, h, windows[i], bases[i], cache=c, cache_pos=cache_pos)
@@ -231,10 +237,10 @@ class DecoderLM:
         cfg = self.cfg
         dev = pick_device(device)
         shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-        return {
+        return cache_hint({
             "k": torch.zeros(shape, dtype=self.dtype, device=dev),
             "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-        }
+        })
 
     def prefill(self, params, batch):
         """Full forward building the cache; returns (last_logits, cache).

@@ -82,6 +82,9 @@ def update(
         if not (m.is_contiguous() and v.is_contiguous() and p.is_contiguous()):
             raise ValueError("adamw.update writes params and moments in place: they must be "
                              "contiguous")
+        if type(p) is not torch.Tensor:  # a DTensor: elementwise on its shards, whole
+            upd_block(g, m, v, p)
+            return
         flat = [t.reshape(-1) for t in (g, m, v, p)]  # m, v, p: views
         for lo in range(0, p.numel(), CHUNK):
             upd_block(*(t[lo : lo + CHUNK] for t in flat))

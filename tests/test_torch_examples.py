@@ -4,8 +4,8 @@ swap), examples/torch_kernel_bank.py (the RBF core-set bank on two rings),
 examples/torch_svm_distributed.py (2 spawned gloo ranks),
 examples/torch_quickstart.py (Algorithms 1 and 2 against the perceptron and
 Pegasos, the C-grid in one pass, the bank through both residencies, served),
-examples/torch_serve.py (prefill and greedy decode with a KV cache on a
-smoke config), examples/torch_train_lm.py (training with a checkpoint, a
+examples/torch_serve.py (prefill and greedy decode with a KV cache on
+smoke configs, Zamba2 and Whisper included), examples/torch_train_lm.py (training with a checkpoint, a
 preemption and a resume) and examples/torch_llm_feature_svm.py (a pretrained
 backbone's features through the one-pass head).
 Each asserts its own claims (served == direct readout bit for bit, s_tile bit-exact,
@@ -13,6 +13,8 @@ every rank the same bits); the test checks what ``main`` returns."""
 import importlib
 import sys
 from pathlib import Path
+
+import pytest
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 
@@ -65,6 +67,16 @@ def test_serve_twin():
     assert out["tokens"].shape == (2, 5) and out["arch"] == "gemma3-27b-smoke"
     assert ((out["tokens"] >= 0) & (out["tokens"] < 512)).all()
     assert out["decode_tokens_per_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-base"])
+def test_serve_twin_hybrid_and_encdec(arch):
+    """Zamba2 (17 prompt tokens: the sequential SSD) and Whisper (frames
+    drawn from the seed) through the same path."""
+    out = _example("torch_serve").main(
+        ["--device", "cpu", "--arch", arch, "--batch", "2", "--prompt-len", "17", "--gen", "4"])
+    assert out["tokens"].shape == (2, 4) and out["arch"] == f"{arch}-smoke"
+    assert ((out["tokens"] >= 0) & (out["tokens"] < 512)).all()
 
 
 def _leaves(tree):

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1-B6, R1, M1, P1, P2) against their plain versions, on the card;
-and the LLM zoo's serving path (smoke configs) on the card against the CPU.
+and the LLM zoo (smoke configs: serving, training, Zamba2's SSD, the launcher) on the card
+against the CPU.
 
 Marked ``gpu``: each test needs a CUDA card and skips without one. Whether
 there is a card is decided inside the fixture, so every pytest worker
@@ -1892,3 +1893,76 @@ def _tree_to(tree, dev):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_to(v, dev) for v in tree)
     return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch,prompt", [("zamba2-1.2b", 32), ("zamba2-1.2b", 17),
+                                         ("whisper-base", 24)])
+def test_zoo_hybrid_and_encdec_on_the_card_match_the_cpu(cuda, arch, prompt):
+    """Zamba2 (a prompt of whole chunks: the chunked SSD; 17: the
+    recurrence) and Whisper (frames from a seed), smoke configs as f32
+    copies, prefilled and decoded 5 steps on the card against the CPU on the
+    same weights: logits within 1e-4 x max|logit| (TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(get_config(arch, smoke=True), param_dtype="float32",
+                              act_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device="cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (2, prompt + 6)).astype(np.int32)
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = (rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)) * 0.1).astype(np.float32)
+    runs = []
+    for p, dev in ((_tree_to(params, cuda), cuda), (params, torch.device("cpu"))):
+        t = torch.as_tensor(toks, device=dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in extra.items()}
+        logits, cache = model.prefill(p, {**b, "tokens": t[:, :prompt], "max_len": prompt + 6})
+        out = [logits.float().cpu()]
+        for i in range(prompt, prompt + 5):
+            logits, cache = model.decode_step(p, cache, t[:, i : i + 1])
+            out.append(logits.float().cpu())
+        runs.append(out)
+    for got, want in zip(*runs):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_ssd_chunked_and_its_grad_on_the_card_match_the_cpu(cuda):
+    """The chunked SSD (64 heads of 64, d_state 64, chunk 128, as zamba2's)
+    and its gradients on the card against the CPU: rtol / atol 1e-4 x max
+    (f32 products in another order; TF32 off)."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    rng = np.random.default_rng(3)
+    b, s, h, p, n = 1, 256, 64, 64, 64
+    arrays = [rng.normal(size=(b, s, h, p)), np.log1p(np.exp(rng.normal(size=(b, s, h)))),
+              rng.normal(size=(h,)) * 0.5, rng.normal(size=(b, s, n)), rng.normal(size=(b, s, n))]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ins = [torch.as_tensor(a, dtype=torch.float32, device=dev).requires_grad_() for a in arrays]
+        y, fin = ssd_chunked(*ins, 128)
+        grads = torch.autograd.grad(y.square().sum() + fin.sum(), ins)
+        out.append([t.detach().cpu() for t in (y, fin, *grads)])
+    for got, want in zip(*out):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+def test_launcher_on_the_card_resumes_bit_for_bit(cuda, tmp_path):
+    """python -m repro_torch.launch.train's main on the card, Whisper's smoke
+    config under --deterministic: preempted after step 3, resumed from the
+    step-2 checkpoint, equal to the uninterrupted run bit for bit."""
+    from repro_torch._tree import leaves
+    from repro_torch.launch import train as launch
+
+    base = ["--arch", "whisper-base", "--smoke", "--steps", "4", "--batch", "2", "--seq", "32",
+            "--device", "cuda", "--ckpt-every", "2", "--deterministic", "--quiet"]
+    cut = launch.main(base + ["--ckpt-dir", str(tmp_path / "a"), "--stop-after", "3"])
+    resumed = launch.main(base + ["--ckpt-dir", str(tmp_path / "a"), "--resume"])
+    clean = launch.main(base + ["--ckpt-dir", str(tmp_path / "b")])
+    assert resumed["start"] == 2 and cut["losses"][:2] + resumed["losses"] == clean["losses"]
+    assert all(torch.equal(x, y) for x, y in zip(leaves(resumed["state"]), leaves(clean["state"])))

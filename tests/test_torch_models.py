@@ -404,7 +404,7 @@ def test_unrolled_stack_equals_the_scanned_stack():
 
 
 # ---------------------------------------------------------------------------
-# the converter and the families not ported yet
+# the converter (Zamba2's and Whisper's trees: tests/test_torch_families.py)
 # ---------------------------------------------------------------------------
 
 
@@ -429,14 +429,6 @@ def test_converter_carries_xlstm_blocks_and_rejects_a_wrong_tree():
     tree["blocks"][0]["wq"] = tree["blocks"][0]["wq"][:, :-1]
     with pytest.raises(ValueError, match="shape"):
         lm_params_from_numpy(cfg_t, tree, device="cpu")
-
-
-@pytest.mark.parametrize("arch,label", [
-    ("zamba2-1.2b", "Zamba2"), ("whisper-base", "Whisper"),
-])
-def test_unported_families_raise(arch, label):
-    with pytest.raises(NotImplementedError, match=f"A14: {label}"):
-        build_model(tcfg.get_config(arch, smoke=True))
 
 
 def _stacked_init(model, gen, dev):

@@ -6,10 +6,12 @@
         --zoo-prompt 32 --zoo-gen 8 --zoo-requests 6 --zoo-slots 3 \\
         --zoo-req-prompt 8,24 --zoo-docs 320 --moe-batch 2 --moe-prompt 32 --moe-gen 6
 
-Phases, in the order given: ``zoo`` (12: the LLM zoo's serving path, MoE
-included), ``train`` (13: the training path; runs ``zoo`` first if it was
-not given, since 13c prints 12c's accuracy beside its own), ``baselines``
-(11), ``live`` (10). Every other argument is chip_smoke.py's.
+Phases, in the order given: ``zoo`` (12: the LLM zoo's serving path, MoE,
+Zamba2 and Whisper included), ``train`` (13: the training path; runs
+``zoo`` first if it was not given, since 13c prints 12c's accuracy beside
+its own), ``families`` (12e-12g alone: Zamba2, its long_500k decode,
+Whisper), ``launcher`` (13d alone: both trained through the launcher),
+``baselines`` (11), ``live`` (10). Every other argument is chip_smoke.py's.
 """
 import sys
 import time
@@ -22,7 +24,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 import chip_smoke as smoke  # noqa: E402
 
-PHASES = ("zoo", "train", "baselines", "live")
+PHASES = ("zoo", "train", "families", "launcher", "baselines", "live")
 
 
 def main(argv):
@@ -40,6 +42,10 @@ def main(argv):
             zoo = smoke.phase_zoo(dev, args)
         if name == "train":
             smoke.phase_train(dev, args, zoo)
+        elif name == "families":
+            smoke.phase_families(dev, args)
+        elif name == "launcher":
+            smoke.train_launcher(dev, args)
         elif name == "baselines":
             smoke.phase_baselines(dev, args)
         elif name == "live":
