@@ -46,9 +46,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      to 2 CTAs of one row; P1 (the perceptron, on B4's walk) and P2 (Pegasos)
      at mnist89's D = 784 and synthetic_a's D = 2 (--fig3-n-train rows), P2
      at k = 1, 20 and 7 (N not whole steps) in every layout (the walk in
-     B4's three layouts; the step form staged, a ring of two steps, and in
-     place): the same decisions row for row and w within the engine
-     tolerance, or a first parting certified as an f32 tie;
+     B4's three layouts; the walk over blocks; the step form staged, a ring
+     of two steps, and in place): the same decisions row for row and w
+     within the engine tolerance, or a first parting certified as an f32
+     tie;
   3. the main path at a deployment's size: a 200-class x 3-point C-grid
      bank (B = 600) over MNIST's widths (D = 784, 60,000 training rows,
      10,000 held-out rows) made from --seed: fit_chunked_many -> ckpt.save
@@ -116,7 +117,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit-identical to chaos_reference. Per-chunk train and fold ms (events),
      swap, commit and resume ms, commit bytes, served queries/s;
   11. the paper's baselines (repro_torch.baselines), with the launch counts
-     of P1, P2, B1, B3 and B4 read around (a): (a) Table 1 on the 8 datasets
+     of P1, P2 (and P2's by layout), B1, B3 and B4 read around (a): (a)
+     Table 1 on the 8 datasets
      of PAPER_TABLE1 at their generators' full sizes from --seed
      (benchmarks/table1.py's protocol): C* from (1, 10, 100) by one
      fit_c_grid pass (B1) on the validation tail, the per-model
@@ -149,7 +151,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      equal where its top-two logits part by twice that; an f32 copy at full
      width and 2 layers, on the same weights, on the card against the
      host's CPU (TF32 off) within ZOO_F32_TOL; (b) ContinuousBatcher(8
-     slots) over xlstm-125m at its published widths: 24 requests from
+     slots) over xlstm-125m at its published widths: 16 requests from
      --seed (prompts 16-128 tokens, max_new 4-48), each request's tokens
      equal to its solo greedy decode up to a first parting certified as a
      bf16 tie against an f32 replay of the solo prefix, and equal bit for
@@ -224,7 +226,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      every layout bit-equal to the plain version and timed in turns, the
      planned layout's device time (torch.profiler) the median of 5 rounds;
      P1 and P2 (k = 1, with k = 20 beside it) at mnist89's first stream
-     order of phase 11, by events and on the card alone.
+     order of phase 11, by events and on the card alone, and at k = 20 the
+     walk over blocks and the step form in turns (a row of its own for the
+     walk over blocks).
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -3353,7 +3357,7 @@ def check_p2(label, X, y, lam, k, plans=None, plain_dev=None):
         states = lambda t, run=run: (run(t * k).to(pd),
                                      kbl.pegasos_scan_plain(Xp[: t * k], yp[: t * k], lam, k))
         part = pegasos_parting(Xp, yp, lam, k, fk, fp, states,
-                               walk_rows=used["rows"] if used["layout"] == "walk" else None)
+                               walk_rows=used.get("rows"))
         gap, viol = float((wk - wp).abs().max()), int(fk.sum())
         if part is not None:
             if not part["tie"]:
@@ -3374,6 +3378,8 @@ def layout_note(plan):
     or the step form's name."""
     from repro_torch.kernels.streamsvm_scan import SINGLE_DC
 
+    if plan["layout"] == "blocks":
+        return f"walk over blocks, {plan['rows']} rows a block, split over a cluster"
     if plan["layout"] != "walk":
         return plan["layout"]
     staging = ("whole blocks staged" if plan["chunk"] != SINGLE_DC
@@ -3386,13 +3392,14 @@ def check_baselines(dev, args):
     """Phase 2: P1 and P2 against their plain versions on the card, at
     mnist89's D = 784 and synthetic_a's D = 2 (--fig3-n-train rows of each),
     P2 at k = 1, 20 and 7 (N not whole steps of 7) in every layout
-    (``pegasos_layouts``: the walk in B4's three layouts, the step form
-    staged and in place); on the card, P2's dynamic shared memory against
-    its byte model in every layout."""
+    (``pegasos_layouts``: the walk in B4's three layouts, the walk over
+    blocks where it takes k, the step form staged and in place); on
+    the card, P2's dynamic shared memory against its byte model in every
+    layout."""
     from repro_torch.data import load_dataset, preprocess_for
     from repro_torch.kernels import _build
     from repro_torch.kernels.baselines import (
-        _pegasos_lib, _walk_lib, pegasos_layouts)
+        _blocks_lib, _pegasos_lib, _walk_lib, pegasos_layouts)
 
     for name in ("mnist89", "synthetic_a"):
         Xtr, ytr, Xte, _ = load_dataset(name, seed=args.seed)
@@ -3406,13 +3413,17 @@ def check_baselines(dev, args):
         for k in (1, 20, 7):
             check_p2(f"{name} k={k} lam={lam:.3g}", X, y, lam, k, pegasos_layouts(d, k))
     if dev.type == "cuda":
-        if _build.static_smem("baselines", "pegasos_kernel") != {0}:
-            raise AssertionError("pegasos_kernel: static shared memory beside the byte model's 0")
-        lib, slib = _pegasos_lib(), _walk_lib()
-        for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (22, 20), (20_000, 1), (33, 7)):
+        for kern in ("pegasos_kernel", "pegasos_blocks_kernel"):
+            if _build.static_smem("baselines", kern) != {0}:
+                raise AssertionError(f"{kern}: static shared memory beside the byte model's 0")
+        lib, slib, blib = _pegasos_lib(), _walk_lib(), _blocks_lib()
+        for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (22, 20), (20_000, 1), (33, 7),
+                     (784, 64), (20_000, 20)):
             for plan in pegasos_layouts(d, k):
                 if plan["layout"] == "walk":
                     have = slib.pegasos_single_dyn_bytes(d, int(plan["w_in_smem"]), plan["chunk"])
+                elif plan["layout"] == "blocks":
+                    have = blib.pegasos_blocks_dyn_bytes(d, plan["rows"])
                 else:
                     have = lib.pegasos_dyn_bytes_c(d, k, plan["staged"])
                 model = sum(plan["smem"].values())
@@ -3420,7 +3431,7 @@ def check_baselines(dev, args):
                     raise AssertionError(f"P2 D={d} k={k} ({layout_note(plan)}): requests "
                                          f"{have} B, byte model {model} B")
         print("  P2's dynamic shared memory equals its byte model in every layout at D = 2 ... "
-              "20,000, k = 1, 7 and 20")
+              "20,000, k = 1, 7, 20 and 64")
 
 
 def check_fit(label, Xp, yp, c, lookahead=None):
@@ -3502,7 +3513,7 @@ def phase_baselines(dev, args):
     from repro_torch.core import fit, fit_c_grid, fit_lookahead
     from repro_torch.data import PAPER_TABLE1, load_dataset, permuted, preprocess_for
     from repro_torch.kernels import streamsvm_fit
-    from repro_torch.kernels.baselines import pegasos_scan, perceptron_scan
+    from repro_torch.kernels.baselines import pegasos_plan, pegasos_scan, perceptron_scan
     from repro_torch.kernels.streamsvm_scan import (
         streamsvm_scan, streamsvm_scan_lookahead_many, streamsvm_scan_many)
 
@@ -3513,6 +3524,8 @@ def phase_baselines(dev, args):
                "B3": streamsvm_scan_lookahead_many, "B4": streamsvm_scan}
     for f in counted.values():
         f.launches = 0
+    pegasos_scan.layout_launches = {}
+    want_blocks = 0  # P2 at k = 20 where pegasos_plan takes the walk over blocks
     print(f"[11] the paper's baselines: (a) Table 1 on {len(names)} datasets at full size, "
           f"{args.table1_runs} stream orders, LASVM on up to {args.lasvm_cap} rows")
 
@@ -3562,6 +3575,7 @@ def phase_baselines(dev, args):
                                               lambda: fit_pegasos(Xp, yp, lam, k=1))))
             accs["pegasos20"].append(acc(timed(secs, "pegasos20",
                                                lambda: fit_pegasos(Xp, yp, lam, k=20))))
+            want_blocks += pegasos_plan(d, 20)["layout"] == "blocks"
             if r == 0:  # LASVM once per dataset, its own C from {1, 10} on a prefix
                 best_l, c_l = -1.0, 1.0
                 cap = min(2000, args.lasvm_cap)
@@ -3599,15 +3613,19 @@ def phase_baselines(dev, args):
               + f" (LASVM's 3 fits, the others over {args.table1_runs} orders)")
     t_a = time.perf_counter() - t_a
     launches = {k: f.launches for k, f in counted.items()}
-    print(f"  launches in phase 11a: {launches}; (a) {t_a:.1f} s")
+    launches["P2 blocks"] = pegasos_scan.layout_launches.get("blocks", 0)
+    print(f"  launches in phase 11a: {launches} (P2 by layout: {pegasos_scan.layout_launches}); "
+          f"(a) {t_a:.1f} s")
     if dev.type == "cuda":
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = [k for k, v in launches.items() if v == 0 and (k != "P2 blocks" or want_blocks)]
         if missing:
             raise AssertionError(f"phase 11a: kernels of its path were never launched: {missing}")
         want_p2 = 2 * args.table1_runs * len(names)
-        if launches["P1"] != args.table1_runs * len(names) or launches["P2"] != want_p2:
-            raise AssertionError(f"phase 11a: P1 / P2 launched {launches['P1']} / "
-                                 f"{launches['P2']} times")
+        if (launches["P1"] != args.table1_runs * len(names) or launches["P2"] != want_p2
+                or launches["P2 blocks"] != want_blocks):
+            raise AssertionError(f"phase 11a: P1 / P2 / P2's walk over blocks launched "
+                                 f"{launches['P1']} / {launches['P2']} / "
+                                 f"{launches['P2 blocks']} times (want {want_blocks} over blocks)")
     t_c = time.perf_counter()
     for (name, r), (Xp, yp, lam, c_star) in checked.items():  # after the launches were read
         # the plain versions on the host's CPU: the same function, in a tenth
@@ -5069,7 +5087,8 @@ def baseline_rows(dev, args, res, row):
     with k = 20 beside it, each in its planned layout, their decisions held
     to the plain version first (``check_p2``)."""
     from repro_torch.kernels.baselines import (
-        pegasos_plan, pegasos_scan, perceptron_scan, perceptron_scan_plain)
+        _launch, pegasos_layouts, pegasos_plan, pegasos_scan, perceptron_scan,
+        perceptron_scan_plain)
 
     if res["mnist89"] is None:
         return []
@@ -5090,19 +5109,37 @@ def baseline_rows(dev, args, res, row):
                     "B4's walk (whole blocks staged, w in shared memory); launches: every "
                     "dataset and stream order of phase 11a (the reference's lax.scan has no "
                     "pl.pallas_call: `replaces` names the scan)"), device_ms=dev1)]
-    by_k = {}
-    for k in (1, 20):
-        nk = n // k * k
-        Xk, yk = X[:nk], y[:nk]
-        # the planned layout's decisions against the plain version on the card
-        chk = check_p2(f"k={k} at phase 5", Xk, yk, lam, k)
-        ms, card = (time_states_ms(lambda _: pegasos_scan(Xk, yk, lam, k), none, dev, c)
-                    for c in (False, True))
-        flops = 2.0 * nk * d + 2.0 * chk["viol"] * d + 5.0 * (nk // k) * d
-        by_k[k] = (chk["gap"], ms, card, chk["plain"], flops, 4.0 * (nk * d + nk + d),
-                   chk["viol"], layout_note(pegasos_plan(d, k)))
-    err, ms, card, plain, flops, nbytes, viol, note = by_k[1]
-    e20, ms20, card20, plain20, _, _, viol20, note20 = by_k[20]
+    # k = 1 in the planned layout; k = 20 in the walk over blocks and in the
+    # step form in turns (events, then the card alone), each first held to
+    # the plain version on the card, the planned one's numbers its layout's
+    # (phase 2 has held every layout to it)
+    chk = check_p2("k=1 at phase 5", X, y, lam, 1)
+    err, viol, plain = chk["gap"], chk["viol"], chk["plain"]
+    ms, card = (time_states_ms(lambda _: pegasos_scan(X, y, lam, 1), none, dev, c)
+                for c in (False, True))
+    flops = 2.0 * n * d + 2.0 * viol * d + 5.0 * n * d
+    nbytes = 4.0 * (n * d + n + d)
+    note = layout_note(pegasos_plan(d, 1))
+    nk = n // 20 * 20
+    Xk, yk = X[:nk], y[:nk]
+    layouts = pegasos_layouts(d, 20)
+    pair = {name: next(p for p in layouts if p["layout"] == name) for name in ("blocks", "staged")}
+    chk20 = {name: check_p2(f"k=20 at phase 5 ({name})", Xk, yk, lam, 20, [p])
+             for name, p in pair.items()}
+    gaps = {name: c["gap"] for name, c in chk20.items()}
+    viol20, plain20 = chk20["blocks"]["viol"], chk20["blocks"]["plain"]
+    turns = {}
+    for name, p in pair.items():
+        launch = ((lambda w, p=p: _launch(p, Xk, yk, lam, 20, w, None))
+                  if dev.type == "cuda" else (lambda _: pegasos_scan(Xk, yk, lam, 20)))
+        turns[name] = [time_states_ms(launch, [torch.zeros(d, device=dev) for _ in range(reps)],
+                                      dev, c) for c in (False, True)]
+    (bl_ms, bl_card), (st_ms, st_card) = turns["blocks"], turns["staged"]
+    plan20 = pegasos_plan(d, 20)
+    name20 = "blocks" if plan20["layout"] == "blocks" else "staged"
+    e20, (ms20, card20), note20 = gaps[name20], turns[name20], layout_note(plan20)
+    flops20 = 2.0 * nk * d + 2.0 * viol20 * d + 5.0 * (nk // 20) * d
+    nbytes20 = 4.0 * (nk * d + nk + d)
     src = {"walk": "src/repro_torch/kernels/csrc/streamsvm_single.cu"}.get(
         pegasos_plan(d, 1)["layout"], "src/repro_torch/kernels/csrc/baselines.cu")
     out.append(dict(row("pegasos_scan", src, "src/repro/baselines/pegasos.py:28",
@@ -5110,13 +5147,25 @@ def baseline_rows(dev, args, res, row):
                         f"mnist89 in phase 11's first stream order: N={n} D={d} k=1 ({note}), "
                         f"lam {lam:.4g}, {viol} violations; k=20 ({note20}): ms {ms20:.4f}, "
                         f"device_ms {card20:.4f}, plain {plain20:.1f}, {viol20} violations, w "
-                        f"max|err| {e20:.3e}; launches: k = 1 and 20 over every dataset and "
-                        "stream order of phase 11a"),
-                    device_ms=card, ms_k20=ms20, device_ms_k20=card20, plain_ms_k20=plain20))
+                        f"max|err| {e20:.3e}; the step form (staged) at k=20: ms {st_ms:.4f}, "
+                        f"device_ms {st_card:.4f}; launches: k = 1 and 20 over every dataset "
+                        "and stream order of phase 11a"),
+                    device_ms=card, ms_k20=ms20, device_ms_k20=card20, plain_ms_k20=plain20,
+                    step_form_ms_k20=st_ms, step_form_device_ms_k20=st_card))
+    out.append(dict(row("pegasos_scan[blocks]", "src/repro_torch/kernels/csrc/baselines.cu",
+                        "src/repro/baselines/pegasos.py:28", res["launches"]["P2 blocks"],
+                        gaps["blocks"], bl_ms, plain20, flops20, nbytes20, None,
+                        f"P2's walk over blocks at k=20 on mnist89 ({layout_note(pair['blocks'])}"
+                        f"): N={nk} D={d}, {viol20} violations; in turns with the step form "
+                        f"(staged: ms {st_ms:.4f}, device_ms {st_card:.4f}); launches: the "
+                        "k = 20 fits of phase 11a that pegasos_plan sends to it"),
+                    device_ms=bl_card))
     print(f"  P1 at mnist89: {ms1:.4f} ms by events, {dev1:.4f} on the card alone, plain "
           f"{plain1:.1f} ms, bound {out[0]['bound_ms']:.4f} ms; P2 k=1 {ms:.4f} / {card:.4f} ms, "
-          f"plain {plain:.1f}; k=20 {ms20:.4f} / {card20:.4f} ms, plain {plain20:.1f}; bound "
-          f"{out[1]['bound_ms']:.4f} ms ({out[1]['bound_by']})")
+          f"plain {plain:.1f}; k=20 ({note20}) {ms20:.4f} / {card20:.4f} ms, plain "
+          f"{plain20:.1f}; walk over blocks {bl_ms:.4f} / {bl_card:.4f}, step form "
+          f"{st_ms:.4f} / {st_card:.4f} in turns; bound {out[1]['bound_ms']:.4f} ms "
+          f"({out[1]['bound_by']}), {out[2]['bound_ms']:.4f} at k=20")
     return out
 
 
@@ -5169,7 +5218,7 @@ def parse_args(argv=None):
     ap.add_argument("--zoo-batch", type=int, default=8, help="phase 12a: prompts a batch")
     ap.add_argument("--zoo-prompt", type=int, default=512, help="phase 12a: prompt tokens")
     ap.add_argument("--zoo-gen", type=int, default=64, help="phase 12a: generated tokens")
-    ap.add_argument("--zoo-requests", type=int, default=24, help="phase 12b: requests")
+    ap.add_argument("--zoo-requests", type=int, default=16, help="phase 12b: requests")
     ap.add_argument("--zoo-slots", type=int, default=8, help="phase 12b: decode slots")
     ap.add_argument("--zoo-req-prompt", default=(16, 128),
                     type=lambda s: tuple(int(v) for v in s.split(",")),

@@ -5,10 +5,37 @@ placed on that device; torch tensors stay where they are unless the caller
 names a device. So a CPU tensor, or ``device="cpu"``, is the caller asking
 for the CPU. There is no fallback: on a machine without CUDA, placing a
 numpy input on the default device raises.
+
+``inference()`` is the context the models' ``prefill`` and ``decode_step``
+run in: ``torch.inference_mode()``, unless a caller put another in its
+place for a block with ``inference_as`` (the dry run's meta DTensors cannot
+be made in inference mode, so it runs them under ``torch.no_grad()``).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+
+_INFERENCE = contextvars.ContextVar("repro_torch_inference", default=torch.inference_mode)
+
+
+def inference():
+    """A new context manager of the kind ``inference_as`` set, by default
+    ``torch.inference_mode()``."""
+    return _INFERENCE.get()()
+
+
+@contextlib.contextmanager
+def inference_as(factory):
+    """Inside the block, ``inference()`` returns ``factory()`` (for example
+    ``torch.no_grad``)."""
+    token = _INFERENCE.set(factory)
+    try:
+        yield
+    finally:
+        _INFERENCE.reset(token)
 
 
 def pick_device(device=None, *likes) -> torch.device:

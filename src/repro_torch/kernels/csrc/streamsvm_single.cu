@@ -7,17 +7,17 @@
 // Layout. One model has only the stream axis, and its recursion is
 // sequential in the rows, so one CTA of 256 threads walks the whole stream
 // in internal blocks of BN = 32 rows. What does not depend on the model
-// runs beside it: a pre-pass kernel computes every block's Gram of the
-// signed rows, G_jk = <y_j x_j, y_k x_k>, over the whole card, into global
-// memory. The CTA keeps the model's w row in shared memory where it fits
-// (else it works on w in device memory) and stages the stream two buffers
-// deep, each staged row one bulk copy of the tensor memory accelerator
-// (cp.async.bulk onto the buffer's mbarrier: per-thread 16-byte cp.async
-// from one lone SM stalls the very threads that issue it), the
-// block's Gram by cp.async from its first step: where two whole blocks fit
-// (D up to ~870, Fig 3's 784 among them), each buffer holds a whole 32-row
-// block, copied a block ahead and read by both passes; else (BN, SDC)
-// chunks, each copied one step ahead. Per block: the g pass over
+// runs beside it: a pre-pass kernel (csrc/signed_gram.cuh) computes every
+// block's Gram of the signed rows, G_jk = <y_j x_j, y_k x_k>, over the whole
+// card, into global memory. The CTA keeps the model's w row in shared
+// memory where it fits (else it works on w in device memory) and stages
+// the stream two buffers deep, each staged row one bulk copy of the tensor
+// memory accelerator (cp.async.bulk onto the buffer's mbarrier: per-thread
+// 16-byte cp.async from one lone SM stalls the very threads that issue
+// it), the block's Gram by cp.async from its first step: where two whole
+// blocks fit (D up to ~870, Fig 3's 784 among them), each buffer holds a
+// whole 32-row block, copied a block ahead and read by both passes; else
+// (BN, SDC) chunks, each copied one step ahead. Per block: the g pass over
 // the chunks on all 8 warps (4 rows a warp; the 8 lanes of a row take
 // interleaved 4-column pieces, each lane one fmaf chain, combined by a
 // fixed xor tree at the block's end); then the rows, as in the TPU kernel:
@@ -89,12 +89,13 @@
 // reduction a block), so the recursion's drift stays within a block.
 #include <cuda_runtime.h>
 
+#include "signed_gram.cuh"
+
 namespace {
 
 constexpr int BN = 32;        // rows per internal block
 constexpr int THREADS = 256;  // one CTA
 constexpr int WARPS = THREADS / 32;
-constexpr int DC = 128;       // feature columns staged per chunk (Gram pre-pass)
 constexpr int SDC = 256;      // feature columns of a staged chunk where no whole block fits
 constexpr unsigned FULL = 0xffffffffu;
 // The rule single_kernel walks: Algorithm 1, the perceptron, Pegasos.
@@ -171,41 +172,6 @@ constexpr int PEG_STATE = 2 * WARPS + 3 * BN;
 size_t single_dyn_bytes(int d, int w_smem, int cw, bool peg) {
   return sizeof(float) * ((size_t)2 * BN * (cw + 4) + BN * BN + 2 * BN + 4 +
                           (peg ? PEG_STATE : 0) + (w_smem ? wpitch(d) : 0));
-}
-
-// G[blk][j][k] = <y_j x_j, y_k x_k> for the rows of block blk, whose rows
-// start at blk rb (rb <= BN rows a block); rows >= n and lanes >= rb read
-// as zero.
-__global__ void __launch_bounds__(THREADS)
-signed_gram_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                   float* __restrict__ G, int n, int d, int rb) {
-  __shared__ float xs[BN][DC + 1];
-  __shared__ float ys[BN];
-  const int tid = threadIdx.x;
-  const int k = tid & 31;
-  const int jb = tid >> 5;
-  const long row0 = (long)blockIdx.x * rb;
-  const long g0 = (long)blockIdx.x * BN;
-  if (tid < BN) ys[tid] = tid < rb && row0 + tid < n ? Y[row0 + tid] : 0.f;
-  __syncthreads();
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int d0 = 0; d0 < d; d0 += DC) {
-    for (int e = tid; e < BN * DC; e += THREADS) {
-      const int j = e / DC, c = e % DC;
-      const long row = row0 + j;
-      const int col = d0 + c;
-      xs[j][c] = (j < rb && row < n && col < d) ? X[row * d + col] * ys[j] : 0.f;
-    }
-    __syncthreads();
-    for (int c = 0; c < DC; ++c) {
-      const float xk = xs[k][c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(xs[jb + 8 * i][c], xk, acc[i]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) G[(g0 + jb + 8 * i) * BN + k] = acc[i];
 }
 
 // ALG1: S = [r, xi2, 1/C, gain] and M = [m] are read at the start and r,
@@ -588,10 +554,7 @@ int launch(const void* X, const void* Y, void* G, void* W, void* S, void* M, voi
   cudaError_t err = cudaFuncSetAttribute((const void*)single_kernel<WS, RULE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return (int)err;
-  const int nblocks = (n + rb - 1) / rb;
-  signed_gram_kernel<<<nblocks, THREADS, 0, s>>>((const float*)X, (const float*)Y, (float*)G, n,
-                                                 d, rb);
-  err = cudaGetLastError();
+  err = signed_gram::launch((const float*)X, (const float*)Y, (float*)G, n, d, rb, BN, s);
   if (err != cudaSuccess) return (int)err;
   single_kernel<WS, RULE><<<1, THREADS, dyn, s>>>(
       (const float*)X, (const float*)Y, (const float*)G, (float*)W, (float*)S, (int*)M,

@@ -76,7 +76,9 @@ def pegasos_parting(X, y, lam, k, flags_a, flags_b, states, walk_rows=None):
     roundings: f w, coef s, their sum, the scale) lies within 4 BN u T of
     that state along x_j. Run a's bound is then |y (w32 - w64) . x| +
     (D + k + 9 BN + 4) u T, where B4's walk counts 3 * 32
-    (``stream_parting``). Run b's stays the dot's."""
+    (``stream_parting``). Run b's stays the dot's. For the walk over blocks
+    (``walk_rows`` above 32) BN is the block's rows: its rounds, its product
+    of factors and its replay's roundings are each at most one a row."""
     diff = (flags_a != flags_b).nonzero().flatten()
     if diff.numel() == 0:
         return None
@@ -106,7 +108,7 @@ def pegasos_parting(X, y, lam, k, flags_a, flags_b, states, walk_rows=None):
             torch.arange(r0, j, device=X.device) // k]
         terms = float(w_b.abs() @ x.abs()) + float((viol * a) @ (X64[r0:j].abs() @ x.abs()))
         bounds[0] = (float((runs[0].double() - w).abs() @ x.abs())
-                     + (d + k + 9 * _BN + 4) * _U32 * terms)
+                     + (d + k + 9 * max(_BN, walk_rows) + 4) * _U32 * terms)
     bound = max(bounds)
     return dict(row=j, step=t, margin=margin, bound=bound, tie=abs(margin - 1.0) <= bound)
 

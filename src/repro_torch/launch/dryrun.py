@@ -23,12 +23,19 @@ reads XLA's memory and cost analyses. Here, for each cell:
      bytes of its local operand. Train runs one of ``microbatches_for``'s
      microbatches and scales that step's flops and collectives by their
      count (the microbatches are identical; the update's few collectives,
-     the global norm's all-reduces, are so counted once a microbatch);
-  5. one JSON record per cell goes to ``--out`` (a results cache: cells
+     the global norm's all-reduces, are so counted once a microbatch). A
+     token recurrence (``models._scan.scan``: the xLSTM's and Mamba2's) runs
+     three of its steps and counts the middle one for the rest, forward and
+     backward; the record says ``"scan_counted_once": true`` and gives the
+     trip counts (``run_cell(..., scan_once=False)`` walks every step). The
+     reference's compile traces a scan's body once too, but XLA's
+     ``cost_analysis`` then counts that body once, not once a trip;
+  5. where DTensor cannot propagate an op's sharding, ``fallback_rule``
+     lets the ops of FALLBACK_OPS run replicated (counted under
+     ``fallbacks``) and fails the cell on any other;
+  6. one JSON record per cell goes to ``--out`` (a results cache: cells
      already there are skipped unless ``--force``); a cell whose step runs
-     past ``--cell-timeout`` seconds is recorded as a TIMEOUT (the eager
-     stand-in walks a recurrence token by token where the reference's
-     compile scans it once).
+     past ``--cell-timeout`` seconds is recorded as a TIMEOUT.
 
 What the stand-in cannot see is ``null`` in the record: XLA's temp and
 generated-code sizes (``temp_size_in_bytes``,
@@ -42,6 +49,8 @@ Usage:
       --shape train_4k --mesh single,multi --out results/dryrun_torch
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --smoke --world 8   # small
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-moe-30b-a3b,whisper-base,xlstm-125m \\
+      --shape train_4k,prefill_32k --mesh single,multi --cell-timeout 600 --force
 """
 from __future__ import annotations
 
@@ -55,14 +64,17 @@ from pathlib import Path
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch._device import inference_as
 from repro_torch.configs import SHAPES, SMOKE_SHAPES, applicable, get_config, list_archs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
+from repro_torch.models._scan import count_once
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules as R
 from repro_torch.sharding.hints import use_mesh
@@ -82,16 +94,68 @@ def microbatches_for(cfg: ArchConfig, shape) -> int:
     return 16 if cfg.n_params() > 20e9 else 8
 
 
+#: The ops that run replicated where DTensor cannot propagate their
+#: sharding (``fallback_rule``): the views that split or merge a sharded
+#: dim unevenly (attention's head reshapes of sequence-sharded
+#: activations), and the sLSTM's gate backward, which has no sharding
+#: strategy. Any other op that DTensor refuses fails the cell.
+FALLBACK_OPS = frozenset({
+    "aten.view",
+    "aten.log_sigmoid_backward",
+})
+
+#: The modules of DTensor's sharding propagation: an error raised in one of
+#: them is DTensor refusing the op's layout, not the op failing.
+_PROPAGATION = ("torch/distributed/tensor/_sharding_prop.py", "torch/distributed/tensor/_ops/")
+
+
+def fallback_rule(func, exc: BaseException) -> str:
+    """Whether the op ``func``, which raised ``exc`` under DTensor, runs
+    replicated: returns the op's name where DTensor's sharding propagation
+    refused it (a ``RuntimeError``, or the ``NotImplementedError`` of an op
+    without a strategy, raised in the propagation's own code) and the op is
+    in FALLBACK_OPS; else raises ``exc`` (an error of the op itself on its
+    local shards, or a refusal of an op outside the list)."""
+    name = str(func._overloadpacket)
+    refused = isinstance(exc, (RuntimeError, NotImplementedError)) and any(
+        m in _raised_in(e) for e in _causes(exc) for m in _PROPAGATION)
+    if refused and name in FALLBACK_OPS:
+        return name
+    raise exc
+
+
+def _causes(exc):
+    """``exc`` and the exceptions it was raised from (DTensor re-raises a
+    propagation error as a ``RuntimeError`` from it)."""
+    while exc is not None:
+        yield exc
+        exc = exc.__cause__
+
+
+def _raised_in(exc) -> str:
+    """The file of the innermost frame of ``exc``'s traceback."""
+    tb = exc.__traceback__
+    while tb is not None and tb.tb_next is not None:
+        tb = tb.tb_next
+    return "" if tb is None else tb.tb_frame.f_code.co_filename.replace("\\", "/")
+
+
 class CellCounter(TorchDispatchMode):
     """Counts, under a step on DTensors: the products' flops at their global
     shapes (the DTensor-level ops) and on the local shards (one device's
-    share), and each collective with its local operand's bytes.
+    share, also by op in ``flops_by_op``), and each collective with its
+    local operand's bytes.
 
-    Where DTensor cannot propagate an op's sharding (a view that merges a
-    sharded dim, an op with no sharding strategy), the op's DTensor inputs
-    are replicated (the all-gathers and all-reduces counted) and the op runs
-    replicated, as an SPMD partitioner falls back; ``fallbacks`` counts them
-    by op."""
+    Where DTensor cannot propagate an op's sharding, ``fallback_rule``
+    decides: an op it lets through has its DTensor inputs replicated (the
+    all-gathers and all-reduces counted) and runs replicated, as an SPMD
+    partitioner falls back, and ``fallbacks`` counts it by op.
+
+    ``scaled(n)`` multiplies what is counted inside it by n (nested: the
+    product), and ``scale_nodes`` what the backward of a range of autograd
+    nodes runs; ``models._scan.scan`` counts a recurrence's steps so
+    (``scanned``: its trip counts by name; ``walked``: the recurrences
+    walked step by step, their carry not shape-stable)."""
 
     def __init__(self):
         super().__init__()
@@ -99,15 +163,44 @@ class CellCounter(TorchDispatchMode):
 
         self._registry = flop_registry
         self._inside = False
+        self._mult = [1]
+        self._nodes = []  # (first, stop, n): autograd nodes whose backward counts n times
         self.flops = 0
         self.flops_global = 0
+        self.flops_by_op = {}
         self.coll_counts = {k: 0 for k in COLLECTIVES}
         self.coll_bytes = {k: 0 for k in COLLECTIVES}
         self.fallbacks = {}
+        self.scans = {}
+        self.walked = {}
 
-    def _fallback(self, func):
-        name = str(func._overloadpacket)
-        self.fallbacks[name] = self.fallbacks.get(name, 0) + 1
+    @contextlib.contextmanager
+    def scaled(self, n: int):
+        self._mult.append(self._mult[-1] * n)
+        try:
+            yield
+        finally:
+            self._mult.pop()
+
+    def scale_nodes(self, first: int, stop: int, n: int) -> None:
+        """What runs while the autograd engine runs a node of sequence
+        number in [first, stop) counts n times (nested: the product)."""
+        self._nodes.append((first, stop, n))
+
+    def _multiplier(self) -> int:
+        mult = self._mult[-1]
+        if self._nodes:
+            node = torch._C._current_autograd_node()
+            if node is not None:
+                seq = node._sequence_nr()
+                for first, stop, n in self._nodes:
+                    if first <= seq < stop:
+                        mult *= n
+        return mult
+
+    def scanned(self, name: str, n: int) -> None:
+        calls = self.scans.setdefault(name, {})
+        calls[n] = calls.get(n, 0) + self._mult[-1]
 
     def _flops(self, func, args, kwargs, out):
         count = self._registry.get(func._overloadpacket)
@@ -117,60 +210,42 @@ class CellCounter(TorchDispatchMode):
         from torch.distributed.tensor import DTensor
 
         kwargs = kwargs or {}
-        if isinstance(func, torch._ops.HigherOrderOperator):
+        if isinstance(func, torch._ops.HigherOrderOperator) or any(
+                isinstance(x, FakeTensor) for x in tree_leaves((args, kwargs))):
+            # DTensor's sharding propagation runs an op on fake tensors at
+            # global shapes, once per new input layout, for its output's
+            # metadata: no device runs it, and counting it made the first
+            # cell of a process count more than the same cell run again
             return func(*args, **kwargs)
+        mult = self._multiplier()
         if any(issubclass(t, DTensor) for t in types):
             if self._inside:  # re-entered below: DTensor desugars the op
                 return NotImplemented
             self._inside = True
             try:
                 with self:  # the local ops and collectives come back through this mode
-                    if func is torch.ops.aten.gather.default and _sharded_on(args[0], args[1]):
-                        # DTensor's gather along a sharded dim masks on the local
-                        # values (torch.equal), which the meta device cannot run
-                        self._fallback(func)
-                        args, kwargs = _replicated((args, kwargs))
                     try:
                         out = func(*args, **kwargs)
                     except (RuntimeError, NotImplementedError) as e:
-                        msg = str(e)
-                        if "harding" not in msg and "redistribut" not in msg:
-                            raise
-                        self._fallback(func)
+                        name = fallback_rule(func, e)
+                        self.fallbacks[name] = self.fallbacks.get(name, 0) + mult
                         out = _run_replicated(func, args, kwargs)
             finally:
                 self._inside = False
-            self.flops_global += self._flops(func, args, kwargs, out)
+            self.flops_global += mult * self._flops(func, args, kwargs, out)
             return out
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         if func.namespace == "_c10d_functional" and packet.__name__ in COLLECTIVES:
             kind = packet.__name__
-            self.coll_counts[kind] += 1
-            self.coll_bytes[kind] += args[0].numel() * args[0].element_size()
+            self.coll_counts[kind] += mult
+            self.coll_bytes[kind] += mult * args[0].numel() * args[0].element_size()
         else:
-            self.flops += self._flops(func, args, kwargs, out)
+            flops = self._flops(func, args, kwargs, out)
+            if flops:
+                self.flops += mult * flops
+                self.flops_by_op[str(packet)] = self.flops_by_op.get(str(packet), 0) + mult * flops
         return out
-
-
-def _sharded_on(x, dim):
-    from torch.distributed.tensor import Shard
-
-    dim = dim % x.ndim
-    return any(isinstance(p, Shard) and p.dim == dim for p in getattr(x, "placements", ()))
-
-
-@contextlib.contextmanager
-def _inference_as_no_grad():
-    """The models' ``prefill`` and ``decode_step`` enter
-    ``torch.inference_mode()``, in which DTensors cannot be made; inside this
-    block it is ``torch.no_grad()`` (the same values, no graph either)."""
-    saved = torch.inference_mode
-    torch.inference_mode = torch.no_grad
-    try:
-        yield
-    finally:
-        torch.inference_mode = saved
 
 
 def _run_replicated(func, args, kwargs):
@@ -306,9 +381,10 @@ def _decode(cfg, model, mesh, shape, rec):
     return lambda: model.decode_step(params, cache, tokens), 1
 
 
-def step_cell(cfg: ArchConfig, shape, mesh, mesh_name: str):
+def step_cell(cfg: ArchConfig, shape, mesh, mesh_name: str, scan_once: bool = True):
     """Lay out one cell on ``mesh`` (a ``Layout``), run its step once under
-    the counter, and return its record."""
+    the counter, and return its record. ``scan_once``: each recurrence's
+    steps counted from three of them (``models._scan``); else walked."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     model = build_model(cfg, remat="full" if shape.kind == "train" else "none")
@@ -319,11 +395,19 @@ def step_cell(cfg: ArchConfig, shape, mesh, mesh_name: str):
     rec["layout_s"] = round(time.perf_counter() - t0, 1)
     t1 = time.perf_counter()
     counter = CellCounter()
-    with use_mesh(mesh.dt), implicit_replication(), _inference_as_no_grad(), counter:
+    once = count_once(counter) if scan_once else contextlib.nullcontext()
+    # DTensors cannot be made in inference mode: prefill and decode run
+    # under no_grad here (the same values, no graph either)
+    with use_mesh(mesh.dt), implicit_replication(), inference_as(torch.no_grad), once, counter:
         run()
     rec["step_s"] = round(time.perf_counter() - t1, 1)
+    rec["scan_counted_once"] = bool(scan_once)
+    rec["scan_trips"] = {k: {str(n): c * scale for n, c in v.items()}
+                         for k, v in counter.scans.items()}
+    rec["scan_walked"] = {k: v * scale for k, v in counter.walked.items()}
     rec["flops"] = float(counter.flops * scale)
     rec["flops_global"] = float(counter.flops_global * scale)
+    rec["flops_by_op"] = {k: float(v * scale) for k, v in sorted(counter.flops_by_op.items())}
     rec["collective_counts"] = {k: v * scale for k, v in counter.coll_counts.items()}
     rec["collective_bytes"] = {k: v * scale for k, v in counter.coll_bytes.items()}
     rec["fallbacks"] = {k: v * scale for k, v in counter.fallbacks.items()}
@@ -346,7 +430,7 @@ def _on_alarm(signum, frame):
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path, force=False,
-             smoke=False, world=None, timeout=0):
+             smoke=False, world=None, timeout=0, scan_once=True):
     cell_id = f"{arch}__{shape_name}__{mesh_name}" + ("__smoke" if smoke else "")
     out_path = out_dir / f"{cell_id}.json"
     if out_path.exists() and not force:
@@ -370,7 +454,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path, force=Fa
             else:
                 _world(world)
                 mesh = small_mesh(world, multi)
-            rec.update(step_cell(cfg, shape, Layout(mesh), mesh_name))
+            rec.update(step_cell(cfg, shape, Layout(mesh), mesh_name, scan_once=scan_once))
             rec["status"] = "OK"
             tokens = shape.global_batch * (1 if shape.kind == "decode" else shape.seq_len)
             rec["model_flops_6nd"] = 6.0 * cfg.active_params() * tokens

@@ -8,14 +8,15 @@ audio frontend is a stub, ``frames`` arrive as precomputed (B,
 encoder_seq, d_model) embeddings). ``loss`` is differentiable; ``remat``
 other than ``"none"`` recomputes each checkpointed layer whole in the
 backward pass, as the reference's ``jax.checkpoint`` without a policy.
-``prefill`` and ``decode_step`` run under ``torch.inference_mode()`` and
-write attention caches in place (clone a cache that is still needed).
+``prefill`` and ``decode_step`` run under ``_device.inference()`` (by
+default ``torch.inference_mode()``) and write attention caches in place
+(clone a cache that is still needed).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch._device import pick_device
+from repro_torch._device import inference, pick_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.sharding.hints import cache_hint, shard_hint
 from .layers import attn_apply, attn_init, cross_entropy, init_dense, mlp_apply, mlp_init, rmsnorm
@@ -158,7 +159,7 @@ class Zamba2Model:
     def prefill(self, params, batch):
         """``batch["max_len"]`` (default: the prompt's length) sizes the KV
         buffer. Returns (last logits (B, V), {"c": caches, "pos": S})."""
-        with torch.inference_mode():
+        with inference():
             tokens = batch["tokens"]
             B, S = tokens.shape
             h = _embed(params, tokens)
@@ -168,7 +169,7 @@ class Zamba2Model:
         return logits[:, 0], {"c": caches, "pos": S}
 
     def decode_step(self, params, cache, tokens):
-        with torch.inference_mode():
+        with inference():
             h = _embed(params, tokens)
             h, caches = self._forward(params, h, caches=cache["c"], cache_pos=cache["pos"])
             logits = self._logits(params, h)
@@ -270,7 +271,7 @@ class XLSTMModel:
         return cache_hint(states)
 
     def prefill(self, params, batch):
-        with torch.inference_mode():
+        with inference():
             tokens = batch["tokens"]
             B, S = tokens.shape
             h = _embed(params, tokens)
@@ -280,7 +281,7 @@ class XLSTMModel:
         return logits[:, 0], {"c": states, "pos": S}
 
     def decode_step(self, params, cache, tokens):
-        with torch.inference_mode():
+        with inference():
             h = _embed(params, tokens)
             h, states = self._forward(params, h, states=cache["c"])
             logits = self._logits(params, h)
@@ -426,7 +427,7 @@ class EncDecModel:
     def prefill(self, params, batch):
         """Encodes ``batch["frames"]`` and prefills the decoder's cache of
         ``batch["max_len"]`` (default: the prompt's length) positions."""
-        with torch.inference_mode():
+        with inference():
             tokens = batch["tokens"]
             B, S = tokens.shape
             enc_out = self.encode(params, batch["frames"])
@@ -437,7 +438,7 @@ class EncDecModel:
         return logits[:, 0], {"kv": kv, "enc": enc_out, "pos": S}
 
     def decode_step(self, params, cache, tokens):
-        with torch.inference_mode():
+        with inference():
             h = _embed(params, tokens)
             h = self._decoder(params, h, cache["enc"], caches=cache["kv"], cache_pos=cache["pos"])
             logits = self._logits(params, h)

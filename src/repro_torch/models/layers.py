@@ -271,11 +271,17 @@ def mlp_apply(p, x, kind: str):
 
 
 def cross_entropy(logits, targets, ignore_index: int = -1):
-    """Mean CE over valid targets. logits: (..., V) any float dtype."""
+    """Mean CE over valid targets. logits: (..., V) any float dtype.
+
+    The target logit is picked by a one-hot contraction, as the reference's:
+    with the vocab dim sharded over ``model``, a gather would all-gather the
+    f32 logits, where the contraction reduces locally. Its value is the
+    gather's to the bit (x + 0 is x in f32)."""
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     tgt = torch.clamp(targets, min=0).long()
-    picked = torch.gather(logits32, -1, tgt[..., None])[..., 0]
+    eq = torch.arange(logits.shape[-1], device=logits.device) == tgt[..., None]
+    picked = torch.where(eq, logits32, 0.0).sum(-1)
     nll = lse - picked
     mask = (targets != ignore_index).float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._scan import scan
 from .layers import init_dense, rmsnorm
 
 
@@ -117,13 +118,15 @@ def _ssd_sequential(x, dt, A_log, B, C, state=None):
     A = -torch.exp(A_log)
     st = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
           if state is None else state.float())
-    ys = []
-    for t in range(s):
+
+    def step(st, t):
         dtt = dt[:, t]  # (b,h)
         dA = torch.exp(dtt * A)
         st = st * dA[..., None, None] + (x[:, t] * dtt[..., None])[..., None] * B[:, t, None, None, :]
-        ys.append(st @ C[:, t, None, :, None])  # (b,h,p,1)
-    return torch.cat(ys, dim=-1).permute(0, 3, 1, 2), st
+        return st, st @ C[:, t, None, :, None]  # (b,h,p,1)
+
+    st, ys = scan(step, st, s, name="mamba2", dim=-1, join=torch.cat)
+    return ys.permute(0, 3, 1, 2), st
 
 
 def mamba_apply(p, x, ssm, *, state=None, conv_state=None):

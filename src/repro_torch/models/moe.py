@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .._ops import top_k
+from ..sharding.hints import shard_hint
 from .layers import init_dense
 
 
@@ -51,7 +52,11 @@ def moe_apply(p, x, moe_cfg, stats=None):
     T = B * S
     E, K = moe_cfg.n_experts, moe_cfg.top_k
     C = capacity(moe_cfg, T)
-    xt = x.reshape(T, D)
+    # The tokens over the data-parallel dims (the identity without a mesh):
+    # the sequence-parallel (dp, tp, None) x merges into one token dim whose
+    # gradient DTensor otherwise lays out as nested shards it cannot view
+    # back to (B, S, D)
+    xt = shard_hint(x.reshape(T, D), ("dp", None))
     dev = x.device
 
     logits = xt.float() @ p["router"]  # (T, E) f32

@@ -22,7 +22,8 @@ differentiable forward (``"none"`` saves every activation, ``"full"``
 recomputes the whole layer in the backward pass, any other value keeps the
 outputs of the products without batch dimensions and recomputes the rest,
 the reference's ``dots_with_no_batch_dims_saveable``). ``prefill`` and
-``decode_step`` run under ``torch.inference_mode()``. Everything runs on
+``decode_step`` run under ``_device.inference()`` (by default
+``torch.inference_mode()``). Everything runs on
 the device of the params: CUDA unless they were made on the CPU
 (``init(device="cpu")``). ``moe_stats``: set it to a list and each MoE
 layer of a forward appends its capacity and dropped assignments
@@ -35,7 +36,7 @@ import functools
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from repro_torch._device import pick_device
+from repro_torch._device import inference, pick_device
 from repro_torch._tree import map_tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.sharding.hints import cache_hint, shard_hint
@@ -245,7 +246,7 @@ class DecoderLM:
     def prefill(self, params, batch):
         """Full forward building the cache; returns (last_logits, cache).
         ``batch["max_len"]`` (default: the prompt's length) sizes the cache."""
-        with torch.inference_mode():
+        with inference():
             tokens = batch["tokens"]
             B, S = tokens.shape
             h = self._embed(params, batch)
@@ -260,7 +261,7 @@ class DecoderLM:
         Consumes ``cache``: its buffers are written in place and returned in
         the new cache (the reference's callers donate it), so clone a cache
         that is still needed."""
-        with torch.inference_mode():
+        with inference():
             h = self._embed(params, {"tokens": tokens})
             h, _ = self._stack(params, h, cache=cache["kv"], cache_pos=cache["pos"])
             logits = self._unembed(params, h)

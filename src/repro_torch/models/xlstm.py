@@ -6,6 +6,7 @@ The port of the reference's ``models/xlstm.py``. mLSTM without a state
 over more than one token takes the quadratic stabilized parallel form;
 with a state (prefill and decode) it runs the O(1) recurrence token by
 token, as the reference's scan does. sLSTM always loops over time. Both
+loops go through ``_scan.scan``. Both
 are constant-state in decode.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._scan import scan
 from .layers import init_dense, rmsnorm
 
 _NEG = -1e30
@@ -127,12 +129,12 @@ def mlstm_block(p, x, n_heads: int, *, state=None, conv_state=None):
                 torch.zeros((B, n_heads, hd), dtype=torch.float32, device=x.device),
                 torch.zeros((B, n_heads), dtype=torch.float32, device=x.device),
             )
-        ys = []
-        for t in range(S):
+
+        def step(st, t):
             yt, st = mlstm_step(st, q[:, t], k[:, t], v[:, t], i_pre[:, t], f_pre[:, t])
-            ys.append(yt)
-        new_state = st
-        y = torch.stack(ys, dim=1)
+            return st, yt
+
+        new_state, y = scan(step, st, S, name="mlstm")
     y = y.reshape(B, S, d_in) * F.silu(g)
     return x + y @ p["w_down"], (new_state, new_conv)
 
@@ -170,8 +172,9 @@ def slstm_block(p, x, n_heads: int, *, state=None):
         c, n, m, h = state
 
     R = p["R"].float()
-    hs = []
-    for t in range(S):
+
+    def step(carry, t):
+        c, n, m, h = carry
         hh = h.reshape(B, n_heads, dh)
         rec = torch.einsum("bhd,hde->bhe", hh, R).reshape(B, 4 * D)
         z_, i_, f_, o_ = (wx[:, t] + rec).chunk(4, dim=-1)  # (B,D) each
@@ -187,7 +190,8 @@ def slstm_block(p, x, n_heads: int, *, state=None):
         c = fprime * c + iprime * z
         n = fprime * n + iprime
         h = o * c / torch.clamp(n, min=1e-6)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)  # (B,S,D)
+        return (c, n, m_new, h), h
+
+    (c, n, m, h), hs = scan(step, (c, n, m, h), S, name="slstm")
+    y = hs.to(x.dtype)  # (B,S,D)
     return x + y @ p["w_out"], (c, n, m, h)

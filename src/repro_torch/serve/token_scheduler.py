@@ -31,6 +31,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch._device import inference
+
 
 @dataclasses.dataclass
 class Request:
@@ -103,7 +105,7 @@ class ContinuousBatcher:
         slot = slots[0]
         tokens = torch.as_tensor(req.prompt[None, :].astype(np.int32), device=self.device)
         logits, st = self.model.prefill(self.params, {"tokens": tokens, "max_len": self.max_len})
-        with torch.inference_mode():
+        with inference():
             self.state = {
                 **_scatter_slot({k: v for k, v in self.state.items() if k != "pos"},
                                 {k: v for k, v in st.items() if k != "pos"}, slot),

@@ -188,21 +188,35 @@ def _walk_emulation(X, y, lam, k, dtype=np.float64):
     return w, flags, margins, projected
 
 
-WALK_CASES = {"d2": (2048, 2), "d23": (1600, 23), "ragged": (1001, 23)}  # 1001: not 32k rows
+# 1001: not 32k rows; d32: a width of whole 16-byte pieces, the others not
+WALK_CASES = {"d2": (2048, 2), "d23": (1600, 23), "ragged": (1001, 23), "d32": (1536, 32)}
+
+
+def _blocks_emulation(X, y, lam, k):
+    """The walk over blocks' algebra: ``pegasos_blocks_plain`` in float64 at
+    the plan's blocks (PEGASOS_BLOCKS_R rows asked for). Returns w,
+    each row's violation, and the steps whose round projected."""
+    nk = X.shape[0] // k * k
+    flags, projected = torch.zeros(nk, dtype=torch.uint8), []
+    w = kb.pegasos_blocks_plain(torch.as_tensor(X[:nk]), torch.as_tensor(y[:nk]), lam, k,
+                                kb.blocks_rows(k, kb.PEGASOS_BLOCKS_R), flags=flags,
+                                dtype=torch.float64, projected=projected)
+    return w.numpy(), flags.numpy().astype(bool), projected
 
 
 @pytest.mark.parametrize("lam", ["table1", "large"])
-@pytest.mark.parametrize("k", [1, 3, 20])
+@pytest.mark.parametrize("k", [1, 3, 20, 9, 32, 64])
 @pytest.mark.parametrize("case", sorted(WALK_CASES))
 def test_pegasos_walk_algebra_matches_the_reference(case, k, lam):
-    """The walk's algebra (P2's kernel at k <= 32) against the reference:
-    the same violations row for row as the reference's step loop (the plain
-    version's flags; its w is the reference's), w within rtol 1e-5 of the
-    reference's f32 w (atol 1e-5 max|w|: the f32 sweep's own rounding), and
-    within 1e-12 of the float64 replay of the reference's steps on those
-    decisions. Table 1's lambda (1 / (10 N)) projects at step 0 and on most
-    later violations; 5e-4 projects at step 0 and again in later blocks,
-    then no more."""
+    """The walk's algebra (P2's kernel at k <= 32), and the walk over blocks'
+    (P2's kernel above PEGASOS_WALK_MAX_K: k = 9 ... 64 here), against the
+    reference: the same violations row for row as the reference's step loop
+    (the plain version's flags; its w is the reference's), w within rtol
+    1e-5 of the reference's f32 w (atol 1e-5 max|w|: the f32 sweep's own
+    rounding), and within 1e-12 of the float64 replay of the reference's
+    steps on those decisions. Table 1's lambda (1 / (10 N)) projects at step
+    0 and on most later violations; 5e-4 projects at step 0 and again in
+    later blocks, then no more."""
     n, d = WALK_CASES[case]
     rng = np.random.default_rng(n + d)
     X = l2_normalize(rng.normal(size=(n, d)).astype(np.float32))
@@ -213,18 +227,25 @@ def test_pegasos_walk_algebra_matches_the_reference(case, k, lam):
     fp = torch.zeros(nk, dtype=torch.uint8)
     wp = kb.pegasos_scan_plain(torch.as_tensor(X[:nk]), torch.as_tensor(y[:nk]), lam, k, flags=fp)
     _close(wp, wr, RTOL_W, ATOL_W)
-    w, flags, _, projected = _walk_emulation(X, y, lam, k)
     fp = fp.numpy().astype(bool)
-    assert np.array_equal(flags, fp), np.flatnonzero(flags != fp)[:5]
-    _close(w, wr, 1e-5, 1e-5 * np.abs(wr).max())
     factor, coef, radius = kb.pegasos_scalars(lam, k, nk // k)
     w64 = np.zeros(d)
     for t in range(nk // k):
         s = (fp[t * k:(t + 1) * k] * y[t * k:(t + 1) * k])[:, None] * X[t * k:(t + 1) * k]
         w64 = float(factor[t]) * w64 - float(coef[t]) * s.astype(np.float64).sum(0)
         w64 *= min(1.0, float(radius) / max(np.linalg.norm(w64), 1e-12))
-    _close(w, w64, 1e-12, 1e-12 * np.abs(w64).max())
-    assert projected[0] == 0 and max(projected) * k >= kb.walk_rows(k)
+    runs = []
+    if k <= kb.BLOCK_ROWS:
+        w, flags, _, projected = _walk_emulation(X, y, lam, k)
+        runs.append((w, flags, projected))
+        assert projected[0] == 0 and max(projected) * k >= kb.walk_rows(k)
+    if k > kb.PEGASOS_WALK_MAX_K:
+        runs.append(_blocks_emulation(X, y, lam, k))
+        assert runs[-1][2][0] == 0 and len(runs[-1][2]) > 1  # rounds after the first project
+    for w, flags, projected in runs:
+        assert np.array_equal(flags, fp), np.flatnonzero(flags != fp)[:5]
+        _close(w, wr, 1e-5, 1e-5 * np.abs(wr).max())
+        _close(w, w64, 1e-12, 1e-12 * np.abs(w64).max())
 
 
 @pytest.mark.parametrize("case", ["overlapping", "imbalanced"])
@@ -444,48 +465,69 @@ def test_pegasos_scalars_are_the_references_f32_steps():
 
 
 @pytest.mark.parametrize("d,k", [(2, 1), (784, 1), (784, 20), (300, 20), (21, 7), (4096, 20),
-                                 (20_000, 1)])
+                                 (20_000, 1), (784, 9), (2, 20), (784, 64), (784, 100),
+                                 (20_000, 20), (60_000, 20), (64, 20), (300, 32)])
 def test_pegasos_plan_fits_the_budget(d, k):
     plan = kb.pegasos_plan(d, k)
     total = sum(plan["smem"].values())
     assert total <= kb.SMEM_PER_BLOCK
     staged = sum(kb.pegasos_smem(d, k, True).values())
     size = lambda p: sum(p["smem"].values())
+    rows = kb.blocks_rows(k, kb.PEGASOS_BLOCKS_R)
+    # the walk over blocks (split over a cluster) takes 16-byte rows (D a
+    # multiple of 4) where its bytes fit; the plan takes it on wide ones
+    fits = bool(rows) and d % 4 == 0 and size(
+        dict(smem=kb.blocks_smem(d, rows))) <= kb.SMEM_PER_BLOCK
     if k <= kb.PEGASOS_WALK_MAX_K:
         # The walk in B4's layout for D, with the warps' |w|^2 sums beside.
         b4 = single_plan(d)
         assert plan["layout"] == "walk" and plan["rows"] == 32 // k * k
         assert (plan["chunk"], plan["w_in_smem"]) == (b4["chunk"], b4["w_in_smem"])
         assert total == sum(b4["smem"].values()) + 8 * kb.PEGASOS_WARPS + 12 * 32
+    elif fits and k <= kb.PEGASOS_BLOCKS_MAX_K and d >= kb.PEGASOS_BLOCKS_D_PER_K * k:
+        # The walk over blocks of whole steps, R rows asked for: the block's
+        # Gram (rows padded to 32), w and the cluster's partials in shared
+        # memory.
+        assert plan["layout"] == "blocks" and plan["rows"] == rows and rows % k == 0
+        rp = -(-rows // 32) * 32
+        assert plan["smem"]["gram"] == rp * rp * 4
+        assert plan["smem"]["cluster_partials"] == 2 * kb.BLOCKS_CLUSTER * (2 + rp) * 4
+        assert rows // k <= kb.BLOCKS_MAX_STEPS and rows <= kb.BLOCKS_MAX_ROWS
     else:
         # Staged (a ring of two steps) wherever it fits, else in place.
         assert plan["staged"] == (plan["layout"] == "staged") == (staged <= kb.SMEM_PER_BLOCK)
         assert plan["smem"]["stream_ring"] == (kb.PEGASOS_RING * k * d * 4 if plan["staged"]
                                                else 0)
     # Every Table 1 width stages at both of the paper's k.
-    if d <= 784:
+    if d <= 784 and k <= 20:
         assert staged <= kb.SMEM_PER_BLOCK
-    # Every layout: the walk's three (B4's) where k <= 32, then the step form,
-    # each where it fits. A budget of a layout's own bytes takes the first
-    # layout the plan may take that fits it, so the staged layout's bytes
-    # keep it where no walk is planned below them, and a word less goes on.
+    # Every layout: the walk's three (B4's) where k <= 32, the walk over
+    # blocks where its R takes k, then the step form, each where it fits. A
+    # budget of a layout's own bytes takes the first layout the plan may
+    # take that fits it, so the staged layout's bytes keep it where no walk
+    # is planned below them, and a word less goes on.
     layouts = kb.pegasos_layouts(d, k)
-    assert [p["layout"] for p in layouts if p["layout"] != "walk"] == (
+    assert [p["rows"] for p in layouts if p["layout"] == "blocks"] == [rows] * fits
+    assert not any(p["layout"] == "blocks" for p in kb.pegasos_layouts(d, k, aligned=False))
+    assert [p["layout"] for p in layouts if p["layout"] not in ("walk", "blocks")] == (
         ["staged"] * (staged <= kb.SMEM_PER_BLOCK) + ["in place"])
     assert all(p["rows"] == 32 // k * k for p in layouts if p["layout"] == "walk")
     walks = [(-(-d // 4) * 4, True), (kb.SINGLE_DC, True), (kb.SINGLE_DC, False)]
     assert [(p["chunk"], p["w_in_smem"]) for p in layouts if p["layout"] == "walk"] == [
-        (c, ws) for c, ws in walks
+        (c, ws) for c, ws in walks if k <= 32
         if sum(kb.walk_smem(d, chunk=c, w_in_smem=ws).values()) <= kb.SMEM_PER_BLOCK]
-    takes = [p for p in layouts if p["layout"] != "walk" or k <= kb.PEGASOS_WALK_MAX_K]
+    takes = [p for p in layouts if kb._planned(p, d, k)]
     assert plan == takes[0]
     for budget in [size(p) for p in layouts] + [staged - 4]:
         want = next(p for p in takes if size(p) <= budget)
         assert kb.pegasos_plan(d, k, smem_budget=budget) == want
     if k > kb.PEGASOS_WALK_MAX_K:
-        if staged <= kb.SMEM_PER_BLOCK:
+        planned_blocks = [p for p in takes if p["layout"] == "blocks"]
+        if staged <= kb.SMEM_PER_BLOCK and not (
+                planned_blocks and min(map(size, planned_blocks)) <= staged):
             assert kb.pegasos_plan(d, k, smem_budget=staged)["staged"]
-        assert kb.pegasos_plan(d, k, smem_budget=staged - 4)["layout"] == "in place"
+        in_place = sum(kb.pegasos_smem(d, k, False).values())
+        assert kb.pegasos_plan(d, k, smem_budget=in_place)["layout"] == "in place"
 
 
 def test_pegasos_plan_refuses_a_step_beyond_shared_memory():

@@ -1,0 +1,271 @@
+"""The dry run's repairs, on small fake worlds (each world in a subprocess:
+torch's fake process group is global to its process).
+
+- The cells that failed or timed out before (a MoE train cell's gradient
+  view, Whisper's vocab-sharded gather on the multi-pod mesh, the xLSTM's
+  recurrences walked token by token) step OK at full width and cut depth on
+  the smallest fake worlds that reproduced them (64, 128 and 8 ranks).
+- A recurrence counted once and scaled (``models._scan``) gives, per op,
+  the counts of walking every step: flops by op, collectives and their
+  bytes, fallbacks. A cell's counts do not depend on the cells run before it
+  in the process.
+- The replication fallback is decided by ``fallback_rule`` alone: an op of
+  its pinned allow-list that DTensor's sharding propagation refuses runs
+  replicated; any other op, or an error of the op itself, raises.
+- No module of the port assigns to ``torch.inference_mode``.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from contextlib import nullcontext
+from pathlib import Path
+
+import pytest
+
+from repro_torch.launch import dryrun as D
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_FAULTS = r"""
+import dataclasses, json
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun as D
+
+out = {}
+for name, arch, shape, mesh_name, layers, world in (
+        ("C7", "qwen3-moe-30b-a3b", "train_4k", "single", 1, 64),
+        ("C8", "whisper-base", "train_4k", "multi", 1, 128),
+        ("C9", "xlstm-125m", "train_4k", "single", 4, 8)):
+    cfg = get_config(arch)
+    kw = {"n_layers": layers}
+    if cfg.n_encoder_layers:
+        kw["n_encoder_layers"] = layers
+    cfg = dataclasses.replace(cfg, **kw)
+    D._world(world)
+    try:
+        rec = D.step_cell(cfg, SHAPES[shape], D.Layout(D.small_mesh(world, mesh_name == "multi")),
+                          mesh_name)
+        out[name] = dict(status="OK", **{k: rec[k] for k in (
+            "step_s", "fallbacks", "scan_trips", "scan_counted_once", "flops", "devices")})
+    except Exception as e:
+        out[name] = dict(status="FAIL", error=f"{type(e).__name__}: {e}"[:500])
+print(json.dumps(out))
+"""
+
+_SCANS = r"""
+import json
+from pathlib import Path
+import tempfile
+import torch
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from repro_torch.launch import dryrun as D
+
+keys = ("flops", "flops_global", "flops_by_op", "collective_counts", "collective_bytes",
+        "fallbacks", "status")
+out = {}
+tmp = Path(tempfile.mkdtemp())
+for arch, shape in (("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
+                    ("zamba2-1.2b", "decode_32k")):
+    once = D.run_cell(arch, shape, "single", tmp / "once", force=True, smoke=True, world=8)
+    walk = D.run_cell(arch, shape, "single", tmp / "walk", force=True, smoke=True, world=8,
+                      scan_once=False)
+    out[f"{arch}/{shape}"] = dict(once={k: once.get(k) for k in keys + ("scan_trips",)},
+                                  walk={k: walk.get(k) for k in keys})
+again = D.run_cell("zamba2-1.2b", "decode_32k", "single", tmp / "again", force=True, smoke=True,
+                   world=8)
+out["again"] = {k: again.get(k) for k in keys}
+
+# A view DTensor's propagation refuses (it would split a dim sharded over 4
+# ranks into an outer dim of 2) falls back; the same refusal for an op
+# outside the allow-list, and the op failing on its own, raise.
+D._world(8)
+mesh = D.small_mesh(8, False)
+x = distribute_tensor(torch.empty((4, 8), device="meta"), mesh, [Replicate(), Shard(1)])
+rule = {}
+try:
+    x.view(4, 2, 4)
+    rule["refused"] = None
+except (RuntimeError, NotImplementedError) as e:
+    rule["refused"] = D.fallback_rule(torch.ops.aten.view.default, e)
+    try:
+        D.fallback_rule(torch.ops.aten.mm.default, e)
+        rule["outside"] = "fell back"
+    except type(e):
+        rule["outside"] = "raised"
+try:
+    torch.empty((3, 4), device="meta").view(5)
+except RuntimeError as e:
+    try:
+        D.fallback_rule(torch.ops.aten.view.default, e)
+        rule["own_error"] = "fell back"
+    except RuntimeError:
+        rule["own_error"] = "raised"
+out["rule"] = rule
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both subprocesses, started together; each one's JSON line."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {name: subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for name, code in (("faults", _FAULTS), ("scans", _SCANS))}
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=400)
+        assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
+        out[name] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+@pytest.fixture(scope="module")
+def faults(runs):
+    return runs["faults"]
+
+
+@pytest.fixture(scope="module")
+def scans(runs):
+    return runs["scans"]
+
+
+@pytest.mark.parametrize("fault", ["C7", "C8", "C9"])
+def test_repaired_cells_step_ok_on_small_fake_worlds(faults, fault):
+    """C7 (qwen3-moe-30b-a3b's train cell on a (16, 4) mesh: the MoE
+    tokens' gradient laid out as nested shards that DTensor viewed back to
+    (B, S, D) with a wrong local shape), C8 (whisper-base's on a (2, 16, 4)
+    mesh: the target logit's vocab-sharded gather) and C9 (xlstm-125m's,
+    whose sLSTM walked 4,096 tokens of DTensor ops) at full width and cut
+    depth step OK; C9's recurrence counted once, with its trip count."""
+    rec = faults[fault]
+    assert rec["status"] == "OK", rec
+    assert rec["flops"] > 0 and rec["scan_counted_once"] is True
+    if fault == "C9":
+        assert set(rec["scan_trips"]) == {"slstm"}
+        assert set(rec["scan_trips"]["slstm"]) == {"4096"}
+        assert rec["step_s"] < 120
+    assert set(rec["fallbacks"]) <= D.FALLBACK_OPS
+
+
+@pytest.mark.parametrize("cell", ["xlstm-125m/train_4k", "xlstm-125m/prefill_32k",
+                                  "zamba2-1.2b/decode_32k"])
+def test_scan_once_counts_equal_walking_every_step(scans, cell):
+    """Per op, the counts of a cell whose recurrences are counted once and
+    scaled equal those of walking every step: the xLSTM's train cell (the
+    sLSTM forward, its remat recompute and backward, 64 tokens), its prefill
+    (the mLSTM with a state and the sLSTM, 128 tokens), and Zamba2's decode
+    (one token: the recurrence is walked either way)."""
+    once, walk = scans[cell]["once"], scans[cell]["walk"]
+    assert once.pop("scan_trips") == ({} if cell.startswith("zamba2") else once_trips(cell))
+    assert once == walk
+    assert once["status"] == "OK" and sum(once["flops_by_op"].values()) == once["flops"]
+
+
+@pytest.mark.parametrize("s", [4, 7])
+def test_mamba2_recurrence_counted_once_equals_the_walk(s):
+    """Mamba2's token recurrence (``_ssd_sequential``: decode, and prefill
+    lengths not a multiple of the chunk) over s > 3 tokens, forward and
+    backward: counted once and scaled, its flops by op equal those of
+    walking every step, and its trips are recorded."""
+    import torch
+
+    from repro_torch.models._scan import count_once
+    from repro_torch.models.mamba2 import _ssd_sequential
+
+    g = torch.Generator().manual_seed(s)
+    shapes = {"x": (2, s, 3, 4), "dt": (2, s, 3), "A_log": (3,), "B": (2, s, 5), "C": (2, s, 5)}
+    counts = {}
+    for once in (True, False):
+        ins = {k: torch.randn(v, generator=g).requires_grad_() for k, v in shapes.items()}
+        counter = D.CellCounter()
+        with counter, count_once(counter) if once else nullcontext():
+            y, st = _ssd_sequential(ins["x"], ins["dt"].abs(), ins["A_log"], ins["B"], ins["C"])
+            (y.sum() + st.sum()).backward()
+        assert y.shape == (2, s, 3, 4) and st.shape == (2, 3, 4, 5)
+        counts[once] = (counter.flops_by_op, counter.flops, counter.scans, counter.walked)
+    assert counts[True][0] == counts[False][0] and counts[True][1] == counts[False][1] > 0
+    assert counts[True][2:] == ({"mamba2": {s: 1}}, {}) and counts[False][2:] == ({}, {})
+
+
+def once_trips(cell):
+    return {"xlstm-125m/train_4k": {"slstm": {"64": 4}},
+            "xlstm-125m/prefill_32k": {"mlstm": {"128": 2}, "slstm": {"128": 2}}}[cell]
+
+
+def test_cell_counts_do_not_depend_on_the_cells_before(scans):
+    """Zamba2's decode cell counts the same after five other cells in the
+    process as first: DTensor's sharding propagation runs each op on fake
+    tensors at global shapes for a new input layout, and the counter leaves
+    those out."""
+    assert scans["again"] == scans["zamba2-1.2b/decode_32k"]["walk"]
+
+
+def test_fallback_allow_list_is_pinned_and_decides(scans):
+    """The ops that may run replicated, pinned: the cells of the smoke and
+    production dry runs fall back on these and no others (PERF.md). A view
+    DTensor refuses falls back; the same refusal for an op outside the list,
+    and a view that fails on its own shards, raise."""
+    assert D.FALLBACK_OPS == frozenset({"aten.view", "aten.log_sigmoid_backward"})
+    assert scans["rule"] == {"refused": "aten.view", "outside": "raised", "own_error": "raised"}
+
+
+def _raise_in(filename, exc):
+    """Raise ``exc`` from a frame whose code lies in ``filename``."""
+    scope = {}
+    exec(compile("def boom(e):\n    raise e\n", filename, "exec"), scope)
+    try:
+        scope["boom"](exc)
+    except type(exc) as e:
+        return e
+
+
+@pytest.mark.parametrize("where,cause,op,want", [
+    ("torch/distributed/tensor/_ops/_view_ops.py", False, "aten.view", "aten.view"),
+    ("torch/distributed/tensor/_sharding_prop.py", False, "aten.log_sigmoid_backward",
+     "aten.log_sigmoid_backward"),
+    ("torch/distributed/tensor/_ops/_view_ops.py", True, "aten.view", "aten.view"),
+    ("torch/distributed/tensor/_ops/_view_ops.py", False, "aten.gather", None),
+    ("torch/_ops.py", False, "aten.view", None),
+])
+def test_fallback_rule_keys_on_the_raising_module_and_the_op(where, cause, op, want):
+    """``fallback_rule`` lets an op of FALLBACK_OPS through where the error
+    (or the one DTensor re-raised it from) was raised in DTensor's sharding
+    propagation, and raises it otherwise."""
+    import torch
+
+    exc = _raise_in(where, RuntimeError("refused"))
+    if cause:  # DTensor's dispatch re-raises a propagation error from it
+        outer = RuntimeError("Sharding propagation failed")
+        outer.__cause__ = exc
+        exc = _raise_in("torch/distributed/tensor/_dispatch.py", outer)
+    func = getattr(torch.ops.aten, op.split(".")[1]).default
+    if want is None:
+        with pytest.raises(RuntimeError):
+            D.fallback_rule(func, exc)
+    else:
+        assert D.fallback_rule(func, exc) == want
+
+
+def test_no_module_assigns_torch_inference_mode():
+    """The models reach inference mode through ``_device.inference()``; the
+    dry run swaps it with ``inference_as``, and nothing patches torch."""
+    hits = []
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target] if isinstance(node, (ast.AugAssign, ast.AnnAssign))
+                       else [])
+            for t in targets:
+                if (isinstance(t, ast.Attribute) and t.attr == "inference_mode"
+                        and isinstance(t.value, ast.Name) and t.value.id == "torch"):
+                    hits.append(f"{path}:{node.lineno}")
+            if isinstance(node, ast.With) and path.name != "_device.py":
+                for item in node.items:  # every inference block goes through the helper
+                    f = getattr(item.context_expr, "func", None)
+                    if isinstance(f, ast.Attribute) and f.attr == "inference_mode":
+                        hits.append(f"{path}:{node.lineno}")
+    assert hits == []

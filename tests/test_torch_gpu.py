@@ -1660,7 +1660,7 @@ def _check_pegasos(X, y, lam, k, budget=None, plan=None):
     used = plan or kb.pegasos_plan(X.shape[1], k, smem_budget=budget)
     states = lambda t: (run(t * k), kb.pegasos_scan_plain(X[: t * k], y[: t * k], lam, k))
     part = pegasos_parting(X, y, lam, k, fk, fp, states,
-                           walk_rows=used["rows"] if used["layout"] == "walk" else None)
+                           walk_rows=used.get("rows"))
     if part is not None:
         assert part["tie"], f"P2 ({used['layout']}) parts at an untied row: {part}"
         print(f"P2 ({used['layout']}): a certified f32 tie at {part}")
@@ -1670,23 +1670,32 @@ def _check_pegasos(X, y, lam, k, budget=None, plan=None):
 
 def _pegasos_plans(d, k, layout):
     """The layouts of ``pegasos_layouts(d, k)`` named ``layout`` (the walk
-    has B4's three)."""
-    from repro_torch.kernels.baselines import pegasos_layouts
+    has B4's three); none only where that layout does not take k (the walk
+    beyond 32 rows a step, the walk over blocks where its R holds no whole
+    step or more than 32 or the rows are not 16-byte pieces, the staged ring
+    beyond shared memory)."""
+    from repro_torch.kernels import baselines as kb
 
-    plans = [p for p in pegasos_layouts(d, k) if p["layout"] == layout]
-    assert plans, (d, k, layout)
+    plans = [p for p in kb.pegasos_layouts(d, k) if p["layout"] == layout]
+    if not plans:
+        assert {"walk": k > kb.BLOCK_ROWS,
+                "blocks": not kb.blocks_rows(k, kb.PEGASOS_BLOCKS_R) or d % 4 != 0,
+                "staged": sum(kb.pegasos_smem(d, k, True).values()) > kb.SMEM_PER_BLOCK,
+                }.get(layout, False), (d, k, layout)
     return plans
 
 
-@pytest.mark.parametrize("layout", ["walk", "staged", "in place"])
-@pytest.mark.parametrize("k", [1, 3, 7, 20])
-@pytest.mark.parametrize("d", [2, 33, 784])
+@pytest.mark.parametrize("layout", ["walk", "staged", "in place", "blocks"])
+@pytest.mark.parametrize("k", [1, 3, 7, 20, 9, 64])
+@pytest.mark.parametrize("d", [2, 33, 64, 784])
 def test_pegasos_kernel_matches_plain(cuda, d, k, layout):
-    """Every layout of P2 (the walk in each of B4's three layouts, staged,
-    in place) at k = 1, 3, 7 and 20 rows a step; 1003 rows are not whole
-    steps of 3, 7 or 20 nor whole blocks. Table 1's lambda (1 / (10 N))
-    projects at step 0 and on most later violations; 1e-2 at the first few
-    steps only."""
+    """Every layout of P2 (the walk in each of B4's three layouts, the walk
+    over blocks where the rows are 16-byte pieces, staged, in place) at
+    D = 2, 33, 64 and 784 and k = 1, 3, 7, 9, 20 and 64 rows a step: the same violations row for row as the plain version and w
+    within the engine tolerance, or a certified f32 tie; 1003 rows are not
+    whole steps of 3, 7, 9, 20 or 64 nor whole blocks. Table 1's lambda
+    (1 / (10 N)) projects at step 0 and on most later violations; 1e-2 at
+    the first few steps only."""
     X, y = _baseline_stream(1003, d, seed=7 * d + k)
     X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
     for plan in _pegasos_plans(d, k, layout):
@@ -1696,13 +1705,15 @@ def test_pegasos_kernel_matches_plain(cuda, d, k, layout):
 
 def test_pegasos_planned_layouts_launch_through_the_wrapper(cuda):
     """``pegasos_scan`` launches ``pegasos_plan``'s layout: the walk where k
-    <= PEGASOS_WALK_MAX_K, else the step form; a budget of the in-place
-    layout's bytes forces it."""
-    from repro_torch.kernels.baselines import PEGASOS_WALK_MAX_K, pegasos_smem
+    <= PEGASOS_WALK_MAX_K, the walk over blocks up to PEGASOS_BLOCKS_MAX_K,
+    else the step form; a budget of the in-place layout's bytes forces it."""
+    from repro_torch.kernels.baselines import (
+        PEGASOS_BLOCKS_MAX_K, PEGASOS_WALK_MAX_K, pegasos_smem)
 
     X, y = _baseline_stream(1003, 784, seed=11)
     X, y = torch.as_tensor(X, device=cuda), torch.as_tensor(y, device=cuda)
-    for k in sorted({1, 3, 20, PEGASOS_WALK_MAX_K}):
+    for k in sorted({1, 3, 20, PEGASOS_WALK_MAX_K, PEGASOS_WALK_MAX_K + 1,
+                     PEGASOS_BLOCKS_MAX_K, PEGASOS_BLOCKS_MAX_K + 1}):
         _check_pegasos(X, y, 1e-3, k)
         _check_pegasos(X, y, 1e-3, k, budget=sum(pegasos_smem(784, k, False).values()))
 
@@ -1727,17 +1738,26 @@ def test_pegasos_kernel_at_wide_rows_and_unaligned_rows(cuda):
 
 
 def test_pegasos_dyn_bytes_equal_the_byte_model(cuda):
-    from repro_torch.kernels.baselines import _pegasos_lib, _walk_lib, pegasos_layouts
+    from repro_torch.kernels.baselines import (
+        BLOCKS_CLUSTER, PEGASOS_BLOCKS_R, _blocks_lib, _pegasos_lib, _walk_lib, blocks_rows,
+        pegasos_layouts)
 
-    lib, slib = _pegasos_lib(), _walk_lib()
+    lib, slib, blib = _pegasos_lib(), _walk_lib(), _blocks_lib()
     assert _build.static_smem("baselines", "pegasos_kernel") == {0}
+    assert _build.static_smem("baselines", "pegasos_blocks_kernel") == {0}
+    assert blib.pegasos_blocks_cluster() == BLOCKS_CLUSTER
     assert _build.static_smem("streamsvm_single", "single_kernel") == {0}
-    for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (20_000, 1), (33, 7)):
+    for d, k in ((2, 1), (784, 1), (784, 20), (300, 20), (20_000, 1), (33, 7), (784, 9),
+                 (784, 64), (20_000, 20)):
+        for r in (PEGASOS_BLOCKS_R, 64, 224):
+            assert blib.pegasos_blocks_rows(k, r) == blocks_rows(k, r)
         for plan in pegasos_layouts(d, k):
             model = sum(plan["smem"].values())
             if plan["layout"] == "walk":
                 have = slib.pegasos_single_dyn_bytes(d, int(plan["w_in_smem"]), plan["chunk"])
                 assert slib.pegasos_single_block_rows(k) == plan["rows"]
+            elif plan["layout"] == "blocks":
+                have = blib.pegasos_blocks_dyn_bytes(d, plan["rows"])
             else:
                 have = lib.pegasos_dyn_bytes_c(d, k, plan["staged"])
             assert have == model, (d, k, plan)

@@ -183,6 +183,35 @@ def test_cross_entropy_with_ignored_targets():
            rl.cross_entropy(jnp.asarray(logits), jnp.asarray(tgt)))
 
 
+def _gather_cross_entropy(logits, targets, ignore_index=-1):
+    """The port's cross_entropy before its target logit became the one-hot
+    contraction: a gather along the vocab."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    tgt = torch.clamp(targets, min=0).long()
+    picked = torch.gather(logits32, -1, tgt[..., None])[..., 0]
+    mask = (targets != ignore_index).float()
+    return ((lse - picked) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+@pytest.mark.parametrize("shape,ignored,dtype", [
+    ((2, 9, 50), 4, torch.float32), ((3, 17, 1000), 0, torch.float32),
+    ((1, 33, 512), 33, torch.float32), ((2, 8, 256), 5, torch.bfloat16)])
+def test_cross_entropy_one_hot_equals_the_gather_bit_for_bit(shape, ignored, dtype):
+    """The one-hot contraction picks each target logit to the bit (x + 0 is
+    x in f32), with ignored targets (-1) and with every target ignored, in
+    f32 and from bf16 logits; and it stays within 1e-5 of the reference's."""
+    rng = np.random.default_rng(sum(shape) + ignored)
+    logits = (rng.normal(size=shape) * 4).astype(np.float32)
+    tgt = rng.integers(0, shape[-1], shape[:-1]).astype(np.int64)
+    tgt.reshape(-1)[:ignored] = -1
+    lt, tt = torch.from_numpy(logits).to(dtype), torch.from_numpy(tgt)
+    got = tl.cross_entropy(lt, tt)
+    assert torch.equal(got, _gather_cross_entropy(lt, tt))
+    want = rl.cross_entropy(jnp.asarray(lt.float().numpy()), jnp.asarray(tgt.astype(np.int32)))
+    _close(got, want)
+
+
 def _mlstm_inputs(seed, S=9, H=2, hd=8):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.normal(size=(2, S, H, hd)).astype(np.float32) for _ in range(3))
@@ -462,3 +491,108 @@ def test_preallocated_init_equals_the_stacked_init(arch):
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
         assert a.is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the recurrences through models._scan: the bits of the loops they replaced
+# ---------------------------------------------------------------------------
+
+
+def _loop_mlstm(p, x, H, st, conv):
+    """The stateful mLSTM block as its token loop was written before
+    ``_scan.scan``: the block's own projections, then mlstm_step token by
+    token, the outputs stacked."""
+    B, S, D = x.shape
+    d_in, hd = 2 * D, 2 * D // H
+    ug = tl.rmsnorm(x, p["ln"]) @ p["w_up"]
+    u, g = ug.chunk(2, dim=-1)
+    hist = torch.cat([conv, u], dim=1)
+    c_act = torch.nn.functional.silu(tx._conv4(hist, p["conv_w"], p["conv_b"])[:, -S:, :])
+    q = (c_act @ p["wq"]).reshape(B, S, H, hd)
+    k = (c_act @ p["wk"]).reshape(B, S, H, hd)
+    v = (u @ p["wv"]).reshape(B, S, H, hd)
+    i_pre, f_pre = (c_act @ p["w_if"] + p["if_bias"]).chunk(2, dim=-1)
+    ys = []
+    for t in range(S):
+        yt, st = tx.mlstm_step(st, q[:, t], k[:, t], v[:, t], i_pre[:, t], f_pre[:, t])
+        ys.append(yt)
+    y = torch.stack(ys, dim=1).reshape(B, S, d_in) * torch.nn.functional.silu(g)
+    return x + y @ p["w_down"], st
+
+
+def _loop_slstm(p, x, H, state):
+    """The sLSTM block's token loop as it was written before ``_scan.scan``."""
+    F = torch.nn.functional
+    B, S, D = x.shape
+    dh = D // H
+    wx = (tl.rmsnorm(x, p["ln"]) @ p["W"] + p["bias"]).float()
+    c, n, m, h = state
+    R = p["R"].float()
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh), R).reshape(B, 4 * D)
+        z_, i_, f_, o_ = (wx[:, t] + rec).chunk(4, dim=-1)
+        ih, fh = i_.reshape(B, H, dh), f_.reshape(B, H, dh)
+        logf = F.logsigmoid(fh)
+        m_new = torch.maximum(logf.amax(-1) + m, ih.amax(-1))
+        iprime = torch.exp(ih - m_new[..., None]).reshape(B, D)
+        fprime = torch.exp(logf + (m - m_new)[..., None]).reshape(B, D)
+        c = fprime * c + iprime * torch.tanh(z_)
+        n = fprime * n + iprime
+        h = torch.sigmoid(o_) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    return x + torch.stack(hs, dim=1).to(x.dtype) @ p["w_out"], (c, n, m, h)
+
+
+def _loop_ssd(x, dt, A_log, B, C, state):
+    """Mamba2's sequential recurrence as it was written before
+    ``_scan.scan``."""
+    A = -torch.exp(A_log)
+    st = state.float()
+    ys = []
+    for t in range(x.shape[1]):
+        dtt = dt[:, t]
+        st = st * torch.exp(dtt * A)[..., None, None] + (
+            x[:, t] * dtt[..., None])[..., None] * B[:, t, None, None, :]
+        ys.append(st @ C[:, t, None, :, None])
+    return torch.cat(ys, dim=-1).permute(0, 3, 1, 2), st
+
+
+@pytest.mark.parametrize("tokens", [7, 1], ids=["prefill", "decode"])
+@pytest.mark.parametrize("recurrence", ["mlstm", "slstm", "mamba2"])
+def test_scanned_recurrences_keep_the_loops_bits(recurrence, tokens):
+    """xlstm.py's two recurrences and mamba2.py's, now through
+    ``_scan.scan``, give the bits of the loops they replaced, from a state:
+    7 tokens (a prefill) and 1 (a decode step), at the smoke widths."""
+    import repro_torch.models.mamba2 as tm
+
+    gen = torch.Generator().manual_seed(3)
+    rng = np.random.default_rng(4)
+    D, H = 128, 4
+    x = _t(rng.normal(size=(2, tokens, D)))
+    if recurrence == "mlstm":
+        p = tx.mlstm_init(gen, D, H, torch.float32)
+        hd = 2 * D // H
+        st = (_t(rng.normal(size=(2, H, hd, hd)) * 0.1), _t(rng.normal(size=(2, H, hd)) * 0.1),
+              torch.zeros(2, H))
+        conv = _t(rng.normal(size=(2, 3, 2 * D)))
+        got, (got_st, _) = tx.mlstm_block(p, x, H, state=st, conv_state=conv)
+        want, want_st = _loop_mlstm(p, x, H, st, conv)
+    elif recurrence == "slstm":
+        p = tx.slstm_init(gen, D, H, torch.float32)
+        st = (_t(rng.normal(size=(2, D))), _t(np.abs(rng.normal(size=(2, D))) + 1),
+              _t(rng.normal(size=(2, H))), _t(rng.normal(size=(2, D))))
+        got, got_st = tx.slstm_block(p, x, H, state=st)
+        want, want_st = _loop_slstm(p, x, H, st)
+    else:
+        h, pd, n = 4, 32, 16
+        args = (_t(rng.normal(size=(2, tokens, h, pd))), _t(np.abs(rng.normal(size=(2, tokens, h)))),
+                _t(rng.normal(size=(h,))), _t(rng.normal(size=(2, tokens, n))),
+                _t(rng.normal(size=(2, tokens, n))))
+        st = _t(rng.normal(size=(2, h, pd, n)))
+        got, got_st = tm._ssd_sequential(*args, state=st)
+        want, want_st = _loop_ssd(*args, st)
+        got_st, want_st = (got_st,), (want_st,)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got_st, want_st))

@@ -2,21 +2,25 @@
 """Time every layout of P2 (Pegasos) on Table 1's streams, in turns.
 
     PYTHONPATH=src python3 tools/pegasos_layouts.py      # on a machine with a CUDA card
+    PYTHONPATH=src python3 tools/pegasos_layouts.py --k 20 --datasets mnist89,w3a
 
-On mnist89 (11,800 x 784) and synthetic_a (20,000 x 2), each in Table 1's
-first stream order at seed 0 with Table 1's lambda there (1 / (C* N), C*
-the one-pass grid's pick in chip_smoke.py phase 11: 100 and 1), for k in K
-(1 and 20, the paper's, and the ones between, which set the plan's
-choice): every layout ``kernels.baselines.pegasos_layouts``
-lists (the walk in B4's three layouts where k <= 32; the step form staged
-and in place), each first held to the plain version (``chip_smoke.check_p2``:
+On mnist89 (11,800 x 784) and synthetic_a (20,000 x 2) by default, or
+w3a (44,837 x 300), each in Table 1's first stream order at seed 0 with
+Table 1's lambda there (1 / (C* N), C* the one-pass grid's pick in
+chip_smoke.py phase 11: 100, 1 and 1), for k in K (1 and 20, the paper's,
+and the ones between and above, which set the plan's choice): every layout
+``kernels.baselines.pegasos_layouts`` lists (the walk in B4's three
+layouts where k <= 32; the walk over blocks where it takes k and the rows
+are 16-byte pieces; the step form staged and in place), each first held to
+the plain version (``chip_smoke.check_p2``:
 the same violations row for row, w within the engine tolerance, or a
 certified f32 tie), then timed in turns over 3 rounds, each round a mean
 over 10 launches back to back, two ways: CUDA events around them (``ms``)
 and the same launches queued behind a spin (the card alone). Prints one
 line a layout with the rounds' median and range, which layout the plan
 takes, and the card's name and power limit. This is the measured reason
-for ``PEGASOS_WALK_MAX_K``.
+for ``PEGASOS_WALK_MAX_K``, ``PEGASOS_BLOCKS_MAX_K`` and
+``PEGASOS_BLOCKS_D_PER_K``.
 """
 import subprocess
 import sys
@@ -28,24 +32,30 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as smoke  # noqa: E402
 
-K = (1, 2, 4, 8, 12, 16, 20, 32)
-C_STAR = {"mnist89": 100.0, "synthetic_a": 1.0}
+K = (1, 2, 4, 8, 9, 12, 16, 20, 24, 32, 64)
+C_STAR = {"mnist89": 100.0, "synthetic_a": 1.0, "w3a": 1.0}
 ROUNDS, REPS = 3, 10
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     from repro_torch.data import load_dataset, permuted, preprocess_for
     from repro_torch.kernels import baselines as kbl
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k", default=",".join(map(str, K)), help="rows a step, comma-separated")
+    ap.add_argument("--datasets", default="mnist89,synthetic_a")
+    args = ap.parse_args(argv)
     dev = torch.device("cuda")
-    for name in ("mnist89", "synthetic_a"):
+    for name in args.datasets.split(","):
         Xtr, ytr, Xte, _ = load_dataset(name, seed=0)
         Xtr, _ = preprocess_for(name, Xtr, Xte)
         Xtr, ytr = permuted(Xtr, ytr, seed=0)  # Table 1's first stream order
         X, y = torch.as_tensor(Xtr, device=dev), torch.as_tensor(ytr, device=dev)
         n, d = X.shape
         lam = 1.0 / (C_STAR[name] * n)
-        for k in K:
+        for k in map(int, args.k.split(",")):
             nk = n // k * k
             Xk, yk = X[:nk].contiguous(), y[:nk].contiguous()
             plans = kbl.pegasos_layouts(d, k)
