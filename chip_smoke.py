@@ -140,7 +140,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      the seconds a pass; (c) examples/torch_quickstart.py's main at its
      default size; wall seconds of each;
   12. the LLM zoo's serving path (repro_torch.configs, models, serve's
-     ContinuousBatcher), with B4's launches read around (c): (a)
+     ContinuousBatcher), with B4's launches read around (c); in (a), (d)
+     and 13 (a), (d) one step (a prefill; the A = 1 train step; one more
+     launcher step) runs untimed against the dry run's memory count on
+     meta tensors of its shapes (memory_check: its peak above the
+     arguments within MEMORY_RTOL of max_memory_allocated's): (a)
      examples/torch_serve.py's path with internlm2-1.8b at its published
      widths (24 layers, d_model 2,048, 16 / 8 heads x 128, SwiGLU 8,192,
      vocab 92,544, bf16; 1,889,110,016 parameters drawn on the card from
@@ -3723,6 +3727,89 @@ def rel_gap(logits):
     return (top2[..., 0] - top2[..., 1]) / logits.float().abs().amax(-1)
 
 
+MEMORY_RTOL = 0.05  # 12a, 12d, 13a, 13d: the dry run's counted peak against the allocator's
+
+
+def meta_like(tree):
+    """``tree`` with every tensor an empty meta tensor of its shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: meta_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(*(meta_like(v) for v in tree)) if hasattr(tree, "_fields") else \
+            type(tree)(meta_like(v) for v in tree)
+    return torch.empty_like(tree, device="meta") if isinstance(tree, torch.Tensor) else tree
+
+
+def memory_check(label, dev, count, step):
+    """The dry run's memory analysis against the card's allocator for one
+    step: ``count()`` runs the dry run's live-bytes count
+    (``launch.dryrun.step_memory`` / ``train_memory``) on meta tensors of
+    the step's shapes, one rank, no DTensor; ``step()`` runs the step on the
+    card once, untimed, between reset_peak_memory_stats and
+    max_memory_allocated, less what was allocated before it. The count's
+    peak above the arguments must lie within MEMORY_RTOL of the
+    allocator's; the allocator's requested bytes (its sizes before its
+    512-byte rounding and block reuse) are printed beside it. Returns (the
+    numbers, the step's outputs)."""
+    t0 = time.perf_counter()
+    got = count()
+    t_count = time.perf_counter() - t0
+    rec = dict(predicted=got["peak_bytes"], temp=got["temp_size_in_bytes"],
+               output=got["output_size_in_bytes"], count_s=t_count)
+    said = (f"the dry run's count on meta, one rank, {got['peak_bytes']:,} B above the arguments "
+            f"(temp {got['temp_size_in_bytes']:,}, output {got['output_size_in_bytes']:,}; "
+            f"{t_count:.2f} s)")
+    if dev.type != "cuda":
+        print(f"  {label} memory: {said}; no card to hold it to")
+        return rec, step()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    sync(dev)
+    before = torch.cuda.memory_allocated(dev)
+    req_before = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = step()
+    sync(dev)
+    t_step = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated(dev) - before
+    requested = torch.cuda.memory_stats(dev)["requested_bytes.all.peak"] - req_before
+    gap = got["peak_bytes"] / measured - 1.0
+    rec.update(measured=measured, requested=requested, gap=gap, step_s=t_step)
+    print(f"  {label} memory ({smi}): {said} against the card's max_memory_allocated "
+          f"{measured:,} B above what was allocated before the step (requested {requested:,} B): "
+          f"{gap:+.3%} (bound {MEMORY_RTOL:.0%}; the step {t_step:.2f} s, untimed)")
+    if abs(gap) > MEMORY_RTOL:
+        raise AssertionError(f"{label}: the dry run's count {got['peak_bytes']:,} B lies "
+                             f"{gap:+.3%} from the allocator's {measured:,} B (bound {MEMORY_RTOL})")
+    return rec, out
+
+
+def prefill_memory(label, dev, model, params, batch):
+    """``memory_check`` of one prefill of ``batch`` (with its max_len)."""
+    from repro_torch.launch.dryrun import step_memory
+
+    meta_params, meta_batch = model.init(device="meta"), meta_like(batch)
+    count = lambda: step_memory(lambda: model.prefill(meta_params, meta_batch),
+                                (meta_params, meta_batch))
+    rec, out = memory_check(label, dev, count, lambda: model.prefill(params, batch))
+    del out
+    return rec
+
+
+def train_memory_count(model, tcfg, batch):
+    """``count()`` of ``memory_check`` for ``make_train_step(model, tcfg)``
+    at one microbatch of ``batch``'s shapes, on meta."""
+    from repro_torch.launch.dryrun import train_memory
+    from repro_torch.optim import adamw
+
+    params = model.init(device="meta")
+    mdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[tcfg.moment_dtype]
+    state = {"params": params, "opt": adamw.init(params, mdt)}
+    mb = meta_like(batch)
+    return lambda: train_memory(model, tcfg, state, mb)
+
+
 def zoo_dense(dev, args):
     """Phase 12a: examples/torch_serve.py's path at the dense config's
     published widths. Returns the model and its params for 12c."""
@@ -3802,6 +3889,7 @@ def zoo_dense(dev, args):
           f"forward (bound {ZOO_TF_TOL}); greedy tokens equal at all {compared} of {B * G} "
           f"(row, step) pairs whose margins part by > {2 * ZOO_TF_TOL}; {parted} ties went "
           "either way")
+    mem = prefill_memory("12a", dev, model, params, {**batch, "max_len": T})
 
     # The card against the host's CPU: an f32 copy at full width and 2 layers,
     # on the first 2 layers of the weights just drawn.
@@ -3822,7 +3910,8 @@ def zoo_dense(dev, args):
     del small, tf, h, res
     return model, params, dict(prefill_ms=pf_ms, prefill_bound_ms=pf_bound, decode_ms=dec_ms,
                                decode_bound_ms=dec_bound, peak_bytes=peak,
-                               mem_bound_bytes=w_bytes + kv_bytes, tf_err=worst, cpu_err=err)
+                               mem_bound_bytes=w_bytes + kv_bytes, tf_err=worst, cpu_err=err,
+                               memory=mem)
 
 
 def zoo_solo(model, params, prompt, n_new, dev, feed=None):
@@ -4167,6 +4256,7 @@ def zoo_moe(dev, args):
     torch_serve.serve(model, params, batch, G)
     routed = moe_routed(model.moe_stats, cfg.n_layers)
     model.moe_stats = None
+    mem = prefill_memory("12d", dev, model, params, {**batch, "max_len": T})
 
     # Bounds. Prefill, by its operations at the bf16 peak: the layers' dense
     # products (attention projections, the router) for every token, the E x C
@@ -4263,7 +4353,7 @@ def zoo_moe(dev, args):
     return dict(prefill_ms=pf_ms, prefill_bound_ms=pf_bound, decode_ms=dec_ms,
                 decode_bound_ms=dec_bound, gathered_bound_ms=gathered_bound, peak_bytes=peak,
                 mem_bound_bytes=w_bytes + kv_bytes, cpu_err=err, aux_err=aux_err,
-                dropped=[r["dropped"] for r in routed])
+                dropped=[r["dropped"] for r in routed], memory=mem)
 
 
 ZOO_HYBRID = "zamba2-1.2b"  # phases 12e, 12f, 13d: the hybrid family at its published widths
@@ -4782,7 +4872,13 @@ def train_dense(dev, args):
     for A in (1, 4):
         st = fresh()
         st["opt"] = st["opt"]._replace(step=st["opt"].step + 1)
-        st, m = make_train_step(model, dataclasses.replace(tcfg, microbatches=A))(st, batch(0))
+        b0 = batch(0)
+        step = make_train_step(model, dataclasses.replace(tcfg, microbatches=A))
+        if A == 1:  # this step's memory against the dry run's count
+            mem, (st, m) = memory_check("13a", dev, train_memory_count(model, tcfg, b0),
+                                        lambda: step(st, b0))
+        else:
+            st, m = step(st, b0)
         res[A] = (float(m["loss"]), float(m["grad_norm"]), st["params"])
         del st
     (l1, g1, p1), (l4, g4, p4) = res[1], res[4]
@@ -4878,7 +4974,7 @@ def train_dense(dev, args):
     return model, params, dict(losses=losses, first=first, last=last, ms=ms,
                                bound_ms=max(flops_ms, bytes_ms), flops_ms=flops_ms,
                                bytes_ms=bytes_ms, peak_bytes=peak, n_params=n_params,
-                               tokens_per_s=tokens * 1e3 / ms)
+                               tokens_per_s=tokens * 1e3 / ms, memory=mem)
 
 
 def train_resume(dev, args):
@@ -4975,6 +5071,8 @@ def train_launcher(dev, args):
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import token_batches
     from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainCfg, make_train_step
 
     steps, B = LAUNCH_STEPS, args.launch_batch
     seq_h, seq_e = args.launch_seq
@@ -5042,6 +5140,12 @@ def train_launcher(dev, args):
             print(f"    remat \"full\" against \"none\" on the trained params and the first "
                   f"batch: the loss bit for bit, grad norm {gf:.6f} / {gn:.6f} (bound rtol "
                   f"{TRAIN_REMAT_GN_RTOL})")
+            if arch == ZOO_HYBRID:  # one more step, as the launcher runs it, against the count
+                model = build_model(cfg, remat="full")
+                tcfg = TrainCfg(moment_dtype=cfg.moment_dtype)
+                step = make_train_step(model, tcfg)
+                extra["memory"], _ = memory_check("13d", dev, train_memory_count(model, tcfg, batch),
+                                                  lambda: step(out["state"], batch))
             res[arch] = dict(r, peak_bytes=peak, **extra)
             del out, batch
     finally:

@@ -30,25 +30,42 @@ reads XLA's memory and cost analyses. Here, for each cell:
      trip counts (``run_cell(..., scan_once=False)`` walks every step). The
      reference's compile traces a scan's body once too, but XLA's
      ``cost_analysis`` then counts that body once, not once a trip;
-  5. where DTensor cannot propagate an op's sharding, ``fallback_rule``
+  5. the same mode counts one device's live bytes (``launch/memory.py``):
+     each new storage a local op makes, until it dies. From it come the
+     reference's ``output_size_in_bytes`` (what the step returns, the
+     params, moments and cache it writes in place among them) and
+     ``temp_size_in_bytes`` (the most step-made bytes live at once that are
+     not outputs), and ``peak_above_arguments_in_bytes`` (the most
+     step-made bytes live at once). A recurrence counted once weighs what
+     its middle step leaves live for the steps it stands for; a train cell
+     of A > 1 microbatches is reckoned from its one microbatch and an
+     update on f32 accumulators (``reckon_train``). Ops that fall back run
+     on full tensors, which count as the stand-in makes them;
+  6. where DTensor cannot propagate an op's sharding, ``fallback_rule``
      lets the ops of FALLBACK_OPS run replicated (counted under
      ``fallbacks``) and fails the cell on any other;
-  6. one JSON record per cell goes to ``--out`` (a results cache: cells
+  7. one JSON record per cell goes to ``--out`` (a results cache: cells
      already there are skipped unless ``--force``); a cell whose step runs
      past ``--cell-timeout`` seconds is recorded as a TIMEOUT.
 
-What the stand-in cannot see is ``null`` in the record: XLA's temp and
-generated-code sizes (``temp_size_in_bytes``,
-``generated_code_size_in_bytes``), its ``bytes accessed``, and collectives
-that a compiler would insert or fuse beyond the DTensors' own.
-``argument_size_in_bytes`` is one device's shards of every input (params,
-moments and batch; params, batch; or params, cache and tokens).
+Decode cells lay the cache and tokens out by ``cache_spec`` /
+``batch_spec``, or with ``REPRO_SERVE_SHARDING=v2`` by the weight-stationary
+``serve_cache_spec`` / ``serve_batch_spec``, and record ``serve_sharding``
+as the reference does.
+
+What the stand-in cannot see is ``null`` in the record: XLA's
+generated-code size (``generated_code_size_in_bytes``) and ``bytes
+accessed`` (no compiler runs), and collectives that a compiler would insert
+or fuse beyond the DTensors' own. ``argument_size_in_bytes`` is one
+device's shards of every input (params, moments and batch; params, batch;
+or params, cache and tokens).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch internlm2-1.8b \\
       --shape train_4k --mesh single,multi --out results/dryrun_torch
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --smoke --world 8   # small
+  REPRO_SERVE_SHARDING=v2 PYTHONPATH=src python -m repro_torch.launch.dryrun --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-moe-30b-a3b,whisper-base,xlstm-125m \\
       --shape train_4k,prefill_32k --mesh single,multi --cell-timeout 600 --force
 """
@@ -57,10 +74,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import signal
 import time
 import traceback
 from pathlib import Path
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -72,13 +91,15 @@ from repro_torch._device import inference_as
 from repro_torch.configs import SHAPES, SMOKE_SHAPES, applicable, get_config, list_archs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import specs as S
+from repro_torch.launch.memory import LiveBytes, reckon_microbatches
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
 from repro_torch.models._scan import count_once
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules as R
 from repro_torch.sharding.hints import use_mesh
-from repro_torch.train import TrainCfg, make_train_step
+from repro_torch.train import TrainCfg
+from repro_torch.train.train_loop import accumulators, apply_update, grads_of
 
 COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
                "all_to_all_single", "broadcast")
@@ -173,6 +194,7 @@ class CellCounter(TorchDispatchMode):
         self.fallbacks = {}
         self.scans = {}
         self.walked = {}
+        self.live = LiveBytes()
 
     @contextlib.contextmanager
     def scaled(self, n: int):
@@ -186,6 +208,12 @@ class CellCounter(TorchDispatchMode):
         """What runs while the autograd engine runs a node of sequence
         number in [first, stop) counts n times (nested: the product)."""
         self._nodes.append((first, stop, n))
+
+    def mark(self):
+        return self.live.mark()
+
+    def persist(self, start, end, n: int, nodes=None) -> None:
+        self.live.persist(start, end, n, nodes)
 
     def _multiplier(self) -> int:
         mult = self._mult[-1]
@@ -235,6 +263,7 @@ class CellCounter(TorchDispatchMode):
             self.flops_global += mult * self._flops(func, args, kwargs, out)
             return out
         out = func(*args, **kwargs)
+        self.live.made(out)
         packet = func._overloadpacket
         if func.namespace == "_c10d_functional" and packet.__name__ in COLLECTIVES:
             kind = packet.__name__
@@ -341,6 +370,41 @@ def _place(tree, lay: Layout, spec_fn):
     return R.map_with_path(one, tree), nbytes[0]
 
 
+class Step(NamedTuple):
+    """A cell's step: ``run(counter)`` runs it once and returns its outputs;
+    ``arguments`` the tree of its inputs; ``scale`` what the counts are
+    multiplied by (the microbatches); ``reckon(counter, out, context)`` the
+    memory fields where the step run stands for another (else ``None``)."""
+    run: Callable
+    arguments: Any
+    scale: int = 1
+    reckon: Optional[Callable] = None
+
+
+def train_halves(model, tcfg, state, mb, counter):
+    """``make_train_step(model, tcfg)(state, mb)`` at one microbatch, run as
+    its two halves (``grads_of``, ``apply_update``); the live-bytes log's
+    mark between them is kept in ``counter.micro_end``."""
+    loss, grads = grads_of(model, state["params"], mb)
+    counter.micro_end = counter.mark()
+    return apply_update(tcfg, state, loss, grads)
+
+
+def reckon_train(tcfg, state, counter, out, context=contextlib.nullcontext):
+    """The memory fields of the train step at A > 1 microbatches from
+    ``counter``'s run of ``train_halves`` at one (``out`` what it returned,
+    still live): the f32 accumulators (``accumulators``) and the update on
+    them run under ``context()`` and a count of their own, and one
+    microbatch's log is set between them (``memory.reckon_microbatches``)."""
+    upd = CellCounter()
+    upd.live.arguments(state)
+    with context(), upd:
+        loss, grads = accumulators(state["params"])
+        start = upd.mark()[0]
+        upd_out = apply_update(tcfg, state, loss, grads)
+    return reckon_microbatches(counter.live, counter.micro_end, out, upd.live, start, upd_out)
+
+
 def _train(cfg, model, mesh, shape, rec):
     A = microbatches_for(cfg, shape)
     if shape.global_batch % A:  # the smoke shapes' batch of 2
@@ -362,23 +426,38 @@ def _train(cfg, model, mesh, shape, rec):
     mb, _ = _place(mb, mesh, R.batch_spec)
     rec["microbatches"] = A
     rec["argument_size_in_bytes"] = p_bytes + m_bytes + v_bytes + batch_bytes
-    return lambda: make_train_step(model, tcfg)(state, mb), A
+    return Step(run=lambda counter: train_halves(model, tcfg, state, mb, counter),
+                arguments=(state, mb), scale=A,
+                reckon=None if A == 1 else (
+                    lambda counter, out, context: reckon_train(tcfg, state, counter, out,
+                                                               context)))
 
 
 def _prefill(cfg, model, mesh, shape, rec):
     params, p_bytes = _place(S.params_specs(model), mesh, R.param_spec)
     batch, b_bytes = _place(S.prefill_batch_specs(cfg, shape), mesh, R.batch_spec)
     rec["argument_size_in_bytes"] = p_bytes + b_bytes
-    return lambda: model.prefill(params, batch), 1
+    return Step(run=lambda counter: model.prefill(params, batch), arguments=(params, batch))
+
+
+def serve_layout() -> str:
+    """``REPRO_SERVE_SHARDING``: "v2" lays a decode cell's cache and tokens
+    out weight-stationary (``serve_cache_spec``, ``serve_batch_spec``: the
+    batch on the model dim, the cache's sequence on the data dims), else
+    "v1" (``cache_spec``, ``batch_spec``), as the reference's dry run reads it."""
+    return "v2-weight-stationary" if os.environ.get("REPRO_SERVE_SHARDING", "v1") == "v2" else "v1"
 
 
 def _decode(cfg, model, mesh, shape, rec):
+    rec["serve_sharding"] = serve_layout()
+    v2 = rec["serve_sharding"] != "v1"
     params, p_bytes = _place(S.params_specs(model), mesh, R.param_spec)
     cache_meta, tokens_meta = S.decode_specs(model, cfg, shape)
-    cache, c_bytes = _place(cache_meta, mesh, R.cache_spec)
-    tokens, t_bytes = _place(tokens_meta, mesh, R.batch_spec)
+    cache, c_bytes = _place(cache_meta, mesh, R.serve_cache_spec if v2 else R.cache_spec)
+    tokens, t_bytes = _place(tokens_meta, mesh, R.serve_batch_spec if v2 else R.batch_spec)
     rec["argument_size_in_bytes"] = p_bytes + c_bytes + t_bytes
-    return lambda: model.decode_step(params, cache, tokens), 1
+    return Step(run=lambda counter: model.decode_step(params, cache, tokens),
+                arguments=(params, cache, tokens))
 
 
 def step_cell(cfg: ArchConfig, shape, mesh, mesh_name: str, scan_once: bool = True):
@@ -391,16 +470,26 @@ def step_cell(cfg: ArchConfig, shape, mesh, mesh_name: str, scan_once: bool = Tr
     rec = {}
     t0 = time.perf_counter()
     build = {"train": _train, "prefill": _prefill, "decode": _decode}[shape.kind]
-    run, scale = build(cfg, model, mesh, shape, rec)
+    step = build(cfg, model, mesh, shape, rec)
+    scale = step.scale
     rec["layout_s"] = round(time.perf_counter() - t0, 1)
     t1 = time.perf_counter()
     counter = CellCounter()
+    counter.live.arguments(step.arguments)
     once = count_once(counter) if scan_once else contextlib.nullcontext()
+
     # DTensors cannot be made in inference mode: prefill and decode run
     # under no_grad here (the same values, no graph either)
-    with use_mesh(mesh.dt), implicit_replication(), inference_as(torch.no_grad), once, counter:
-        run()
+    @contextlib.contextmanager
+    def context():
+        with use_mesh(mesh.dt), implicit_replication(), inference_as(torch.no_grad):
+            yield
+
+    with context(), once, counter:
+        out = step.run(counter)
     rec["step_s"] = round(time.perf_counter() - t1, 1)
+    mem = counter.live.summary(out) if step.reckon is None else step.reckon(counter, out, context)
+    del out
     rec["scan_counted_once"] = bool(scan_once)
     rec["scan_trips"] = {k: {str(n): c * scale for n, c in v.items()}
                          for k, v in counter.scans.items()}
@@ -411,14 +500,41 @@ def step_cell(cfg: ArchConfig, shape, mesh, mesh_name: str, scan_once: bool = Tr
     rec["collective_counts"] = {k: v * scale for k, v in counter.coll_counts.items()}
     rec["collective_bytes"] = {k: v * scale for k, v in counter.coll_bytes.items()}
     rec["fallbacks"] = {k: v * scale for k, v in counter.fallbacks.items()}
-    for k in ("output_size_in_bytes", "temp_size_in_bytes", "generated_code_size_in_bytes",
-              "bytes_accessed"):
-        rec[k] = None
+    rec["output_size_in_bytes"] = mem["output_size_in_bytes"]
+    rec["temp_size_in_bytes"] = mem["temp_size_in_bytes"]
+    rec["peak_above_arguments_in_bytes"] = mem["peak_bytes"]
+    rec["generated_code_size_in_bytes"] = None
+    rec["bytes_accessed"] = None
     rec["mesh"] = mesh_name
     rec["mesh_shape"] = dict(R.mesh_axes(mesh.rules))
     rec["dtensor_mesh_shape"] = dict(R.mesh_axes(mesh.dt))
     rec["devices"] = int(mesh.dt.size())
     return rec
+
+
+def step_memory(run, arguments) -> dict:
+    """The memory fields of ``run()`` on one rank with no DTensor (meta, CPU
+    or CUDA tensors), ``arguments`` the tree of its inputs: the count that
+    predicts a step's peak above its arguments on a card."""
+    counter = CellCounter()
+    counter.live.arguments(arguments)
+    with counter:
+        out = run()
+    return counter.live.summary(out)
+
+
+def train_memory(model, tcfg, state, mb, microbatches: int = 1) -> dict:
+    """The memory fields of ``make_train_step(model, tcfg)``'s step on
+    ``microbatches`` microbatches of ``mb``'s size, from one microbatch run
+    (``train_halves``, then ``reckon_train`` where there are more), on one
+    rank with no DTensor."""
+    counter = CellCounter()
+    counter.live.arguments((state, mb))
+    with counter:
+        out = train_halves(model, tcfg, state, mb, counter)
+    if microbatches == 1:
+        return counter.live.summary(out)
+    return reckon_train(tcfg, state, counter, out)
 
 
 class CellTimeout(Exception):
@@ -475,7 +591,9 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: Path, force=Fa
     out_path.write_text(json.dumps(rec, indent=1))
     extra = "" if rec["status"] != "OK" else (
         f" step={rec['step_s']}s flops/device={rec['flops']:.3g} "
-        f"args/device={rec['argument_size_in_bytes'] / 1e9:.3f} GB")
+        f"args/device={rec['argument_size_in_bytes'] / 1e9:.3f} GB "
+        f"temp/device={rec['temp_size_in_bytes'] / 1e9:.3f} GB "
+        f"out/device={rec['output_size_in_bytes'] / 1e9:.3f} GB")
     if rec["status"] in ("FAIL", "TIMEOUT"):
         extra = " " + rec["error"].splitlines()[0][:300]
     print(f"[{rec['status']}] {cell_id}{extra}", flush=True)

@@ -15,7 +15,11 @@ middle step's is). ``counter.scaled(n)`` is a context manager that
 multiplies what the counter counts inside it by n;
 ``counter.scale_nodes(first, stop, n)`` does the same for what runs while
 the autograd engine runs a node of sequence number in [first, stop): the
-backward of the nodes the middle step made. A carry that changes its
+backward of the nodes the middle step made. ``counter.mark()`` and
+``counter.persist(start, end, n, nodes)`` bound the middle step for the
+live-bytes count: what it made and what outlives the last step counts n
+times, one set a step standing, as in the walk (``nodes``: the sequence
+numbers of the autograd nodes of steps 1..n-1, whose backward frees it). A carry that changes its
 shapes over a step is walked step by step, and the counter's ``walked``
 records the recurrence. The reference's compile traces a ``lax.scan`` body
 once too, but its cost analysis leaves out the trip count; here it is kept.
@@ -26,6 +30,7 @@ import contextlib
 import contextvars
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils._pytree import tree_leaves
 
 _ONCE = contextvars.ContextVar("repro_torch_scan_once", default=None)
@@ -35,7 +40,9 @@ _ONCE = contextvars.ContextVar("repro_torch_scan_once", default=None)
 def count_once(counter):
     """Inside the block, ``scan`` steps a recurrence three times and has
     ``counter`` (``scaled(n)``, ``scale_nodes(first, stop, n)``,
-    ``scanned(name, n)``, ``walked``) count the rest."""
+    ``scanned(name, n)``, ``walked``, ``mark()``, ``persist(start, end, n,
+    nodes)``)
+    count the rest."""
     token = _ONCE.set(counter)
     try:
         yield counter
@@ -64,16 +71,20 @@ def scan(step, carry, n: int, *, name: str, dim: int = 1, join=torch.stack):
         ys.append(y0)
         return walk(carry, 1)
     counter.scanned(name, n)
-    mark = _sequence_nr()
+    mark, start = _sequence_nr(), counter.mark()
     with counter.scaled(n - 2):
         carry, y1 = step(carry, 1)
-    if torch.is_grad_enabled():
+    end = counter.mark()
+    graph = torch.is_grad_enabled()
+    if graph:
         counter.scale_nodes(mark, _sequence_nr(), n - 2)
     carry, y2 = step(carry, n - 1)
+    counter.persist(start, end, n - 2, (mark, _sequence_nr()) if graph else None)
     return carry, join([y0, y1] + [y1.detach()] * (n - 3) + [y2], dim)
 
 
 def _sequence_nr() -> int:
-    """The sequence number the next autograd node of this thread gets."""
-    with torch.enable_grad():
+    """The sequence number the next autograd node of this thread gets (its
+    probe made outside any dispatch mode, so that no count sees it)."""
+    with _disable_current_modes(), torch.enable_grad():
         return torch.ones((), requires_grad=True).mul(1).grad_fn._sequence_nr() + 1

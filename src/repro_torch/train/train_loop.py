@@ -2,13 +2,15 @@
 
 The port of the reference's ``train/train_loop.py``. ``make_train_step``
 returns a ``(state, batch) -> (state, metrics)`` function: the loss's
-gradients by ``torch.autograd`` on the params, accumulated in f32 over
-``microbatches`` equal splits of the batch (the reference's ``lax.scan``)
-and divided by their count, then one AdamW update at the schedule's lr for
-the steps taken so far (0 at the first step, as the reference reads it
-before the increment). Remat is configured on the model (``build_model(cfg,
+gradients by ``torch.autograd`` on the params (``grads_of``), accumulated in
+f32 over ``microbatches`` equal splits of the batch (``accumulate``; the
+reference's ``lax.scan``) and divided by their count in place, then one
+AdamW update at the schedule's lr for the steps taken so far (0 at the
+first step, as the reference reads it before the increment;
+``apply_update``). Remat is configured on the model (``build_model(cfg,
 remat=...)``). The step writes the params and moments in place and returns
-them (the reference's callers donate the state).
+them (the reference's callers donate the state). The dry run runs the
+halves apart to read the memory of each.
 """
 from __future__ import annotations
 
@@ -55,53 +57,76 @@ def _rebuild(tree, values):
     return map_tree(lambda _: next(it), tree)
 
 
+def grads_of(model, params, mb):
+    """(loss, the grads of the loss in the params' dtypes, as a list in
+    ``map_tree``'s order) of one microbatch."""
+    leaves = [p.detach().requires_grad_() for p in _tree_leaves(params)]
+    with torch.enable_grad():
+        loss, _ = model.loss(_rebuild(params, leaves), mb)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    return loss.detach(), grads
+
+
+def accumulators(params):
+    """(the loss's sum, the grads' sums): f32 zeros, a leaf per param."""
+    grads = [torch.zeros_like(p, dtype=torch.float32) for p in _tree_leaves(params)]
+    return torch.zeros((), dtype=torch.float32, device=grads[0].device), grads
+
+
+def _add_into(sums, grads):
+    for s, g in zip(sums, grads):
+        s.add_(g)
+
+
+def accumulate(model, params, batch, A: int):
+    """(loss, grads) of ``batch`` in ``A`` equal microbatches: the f32 sums
+    over them divided by A, in place. One microbatch's grads are released
+    before the next one runs."""
+    b = batch["tokens"].shape[0]
+    if b % A:
+        raise ValueError(f"batch {b} does not split into {A} microbatches")
+    s = b // A
+    loss, grads = accumulators(params)
+    for a in range(A):
+        l, g = grads_of(model, params, {k: v[a * s : (a + 1) * s] for k, v in batch.items()})
+        _add_into(grads, g)
+        loss.add_(l)
+        del l, g
+    for g in grads:
+        g.div_(A)
+    return loss.div_(A), grads
+
+
+def apply_update(tcfg: TrainCfg, state, loss, grads):
+    """One AdamW update of ``state`` by ``grads`` (a list in ``map_tree``'s
+    order) at the schedule's lr: (the new state, the step's metrics)."""
+    params = state["params"]
+    lr = schedule.warmup_cosine(
+        state["opt"].step,
+        peak_lr=tcfg.peak_lr,
+        warmup_steps=tcfg.warmup_steps,
+        total_steps=tcfg.total_steps,
+    )
+    new_params, new_opt, opt_metrics = adamw.update(
+        _rebuild(params, grads),
+        state["opt"],
+        params,
+        lr=lr,
+        weight_decay=tcfg.weight_decay,
+        grad_clip=tcfg.grad_clip,
+    )
+    return {"params": new_params, "opt": new_opt}, {"loss": loss, "lr": lr, **opt_metrics}
+
+
 def make_train_step(model, tcfg: TrainCfg):
     A = tcfg.microbatches
 
-    def grads_of(params, mb):
-        """(loss, the grads of the loss in the params' dtypes, as a list in
-        ``map_tree``'s order)."""
-        leaves = [p.detach().requires_grad_() for p in _tree_leaves(params)]
-        with torch.enable_grad():
-            loss, _ = model.loss(_rebuild(params, leaves), mb)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-        return loss.detach(), grads
-
     def train_step(state, batch):
-        params = state["params"]
         if A == 1:
-            loss, grads = grads_of(params, batch)
+            loss, grads = grads_of(model, state["params"], batch)
         else:
-            b = batch["tokens"].shape[0]
-            if b % A:
-                raise ValueError(f"batch {b} does not split into {A} microbatches")
-            s = b // A
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in _tree_leaves(params)]
-            loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-            for a in range(A):
-                l, g = grads_of(params, {k: v[a * s : (a + 1) * s] for k, v in batch.items()})
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi)
-                loss = loss + l
-            grads = [g / A for g in grads]
-            loss = loss / A
-
-        lr = schedule.warmup_cosine(
-            state["opt"].step,
-            peak_lr=tcfg.peak_lr,
-            warmup_steps=tcfg.warmup_steps,
-            total_steps=tcfg.total_steps,
-        )
-        new_params, new_opt, opt_metrics = adamw.update(
-            _rebuild(params, grads),
-            state["opt"],
-            params,
-            lr=lr,
-            weight_decay=tcfg.weight_decay,
-            grad_clip=tcfg.grad_clip,
-        )
-        return {"params": new_params, "opt": new_opt}, {"loss": loss, "lr": lr, **opt_metrics}
+            loss, grads = accumulate(model, state["params"], batch, A)
+        return apply_update(tcfg, state, loss, grads)
 
     return train_step

@@ -7,8 +7,10 @@ torch's fake process group is global to its process).
   the smallest fake worlds that reproduced them (64, 128 and 8 ranks).
 - A recurrence counted once and scaled (``models._scan``) gives, per op,
   the counts of walking every step: flops by op, collectives and their
-  bytes, fallbacks. A cell's counts do not depend on the cells run before it
-  in the process.
+  bytes, fallbacks, and one device's output, temp and peak bytes. A cell's
+  counts do not depend on the cells run before it in the process.
+- ``REPRO_SERVE_SHARDING=v2`` lays a decode cell's cache and tokens out by
+  the serve rules (weight-stationary) and records it.
 - The replication fallback is decided by ``fallback_rule`` alone: an op of
   its pinned allow-list that DTensor's sharding propagation refuses runs
   replicated; any other op, or an error of the op itself, raises.
@@ -63,7 +65,8 @@ from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 from repro_torch.launch import dryrun as D
 
 keys = ("flops", "flops_global", "flops_by_op", "collective_counts", "collective_bytes",
-        "fallbacks", "status")
+        "fallbacks", "status", "output_size_in_bytes", "temp_size_in_bytes",
+        "peak_above_arguments_in_bytes")
 out = {}
 tmp = Path(tempfile.mkdtemp())
 for arch, shape in (("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
@@ -106,14 +109,54 @@ out["rule"] = rule
 print(json.dumps(out))
 """
 
+_SERVE_V2 = r"""
+import json, os, tempfile
+from pathlib import Path
+from repro_torch.configs import SMOKE_SHAPES, get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.models import build_model
+from repro_torch.sharding import rules as R
+from repro_torch.sharding.rules import map_with_path
+
+out = {}
+tmp = Path(tempfile.mkdtemp())
+for layout in ("v1", "v2"):
+    os.environ["REPRO_SERVE_SHARDING"] = layout
+    for arch in ("internlm2-1.8b", "zamba2-1.2b"):
+        for mesh_name in ("single", "multi"):
+            rec = D.run_cell(arch, "decode_32k", mesh_name, tmp / layout, force=True, smoke=True,
+                             world=8)
+            cfg = get_config(arch, smoke=True)
+            lay = D.Layout(D.small_mesh(8, mesh_name == "multi"))
+            step = D._decode(cfg, build_model(cfg), lay, SMOKE_SHAPES["decode_32k"], {})
+            _, cache, tokens = step.arguments
+            cspec = R.serve_cache_spec if layout == "v2" else R.cache_spec
+            bspec = R.serve_batch_spec if layout == "v2" else R.batch_spec
+            mapping = R.mesh_mapping(lay.rules)
+            placed = []
+            def check(path, x, spec_fn):
+                if hasattr(x, "placements"):
+                    want = lay.placements(spec_fn(path, x, lay.rules, mapping))
+                    placed.append([str(p) for p in x.placements] == [str(p) for p in want])
+                return x
+            map_with_path(lambda p, x: check(p, x, cspec), cache)
+            check((), tokens, bspec)
+            out[f"{layout}/{arch}/{mesh_name}"] = dict(
+                status=rec["status"], serve_sharding=rec.get("serve_sharding"),
+                placed=placed, temp=rec.get("temp_size_in_bytes"),
+                sharded_batch=[str(p) for p in tokens.placements])
+print(json.dumps(out))
+"""
+
 
 @pytest.fixture(scope="module")
 def runs():
-    """Both subprocesses, started together; each one's JSON line."""
+    """The subprocesses, started together; each one's JSON line."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_SERVE_SHARDING", None)
     procs = {name: subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT, text=True,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-             for name, code in (("faults", _FAULTS), ("scans", _SCANS))}
+             for name, code in (("faults", _FAULTS), ("scans", _SCANS), ("serve", _SERVE_V2))}
     out = {}
     for name, proc in procs.items():
         stdout, stderr = proc.communicate(timeout=400)
@@ -154,14 +197,16 @@ def test_repaired_cells_step_ok_on_small_fake_worlds(faults, fault):
                                   "zamba2-1.2b/decode_32k"])
 def test_scan_once_counts_equal_walking_every_step(scans, cell):
     """Per op, the counts of a cell whose recurrences are counted once and
-    scaled equal those of walking every step: the xLSTM's train cell (the
-    sLSTM forward, its remat recompute and backward, 64 tokens), its prefill
-    (the mLSTM with a state and the sLSTM, 128 tokens), and Zamba2's decode
-    (one token: the recurrence is walked either way)."""
+    scaled equal those of walking every step, and so do one device's
+    output, temp and peak bytes: the xLSTM's train cell (the sLSTM forward,
+    its remat recompute and backward, 64 tokens), its prefill (the mLSTM
+    with a state and the sLSTM, 128 tokens), and Zamba2's decode (one
+    token: the recurrence is walked either way)."""
     once, walk = scans[cell]["once"], scans[cell]["walk"]
     assert once.pop("scan_trips") == ({} if cell.startswith("zamba2") else once_trips(cell))
     assert once == walk
     assert once["status"] == "OK" and sum(once["flops_by_op"].values()) == once["flops"]
+    assert once["output_size_in_bytes"] > 0 and once["temp_size_in_bytes"] > 0
 
 
 @pytest.mark.parametrize("s", [4, 7])
@@ -201,6 +246,23 @@ def test_cell_counts_do_not_depend_on_the_cells_before(scans):
     tensors at global shapes for a new input layout, and the counter leaves
     those out."""
     assert scans["again"] == scans["zamba2-1.2b/decode_32k"]["walk"]
+
+
+@pytest.mark.parametrize("cell", ["internlm2-1.8b/single", "internlm2-1.8b/multi",
+                                  "zamba2-1.2b/single", "zamba2-1.2b/multi"])
+def test_serve_v2_decode_cells_lay_out_cache_and_tokens_by_the_serve_rules(runs, cell):
+    """With ``REPRO_SERVE_SHARDING=v2`` a dense and a hybrid arch's decode
+    cells on 8 fake ranks step OK, record ``"v2-weight-stationary"``, and
+    every cache leaf and the tokens carry the placements of
+    ``serve_cache_spec`` / ``serve_batch_spec`` (the tokens' batch on the
+    model dim); without it, ``"v1"`` and ``cache_spec`` / ``batch_spec``."""
+    serve = runs["serve"]
+    v1, v2 = serve[f"v1/{cell}"], serve[f"v2/{cell}"]
+    assert v1["status"] == v2["status"] == "OK"
+    assert (v1["serve_sharding"], v2["serve_sharding"]) == ("v1", "v2-weight-stationary")
+    for rec in (v1, v2):
+        assert rec["placed"] and all(rec["placed"]) and rec["temp"] > 0
+    assert v1["sharded_batch"] != v2["sharded_batch"]
 
 
 def test_fallback_allow_list_is_pinned_and_decides(scans):

@@ -84,8 +84,9 @@ def test_launcher_resumes_a_preempted_run_bit_for_bit(arch, tmp_path):
 def test_dryrun_on_a_small_fake_world(tmp_path):
     """The dry run over smoke cells on 8 fake ranks, both meshes' dims
     ((2, 4) and (2, 1, 4)), in its own process: every cell OK, products
-    counted per device below their global count, collectives launched, and
-    the argument bytes one device's shards."""
+    counted per device below their global count, collectives launched, the
+    argument bytes one device's shards, and the output and temp bytes of the
+    live-bytes count positive."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke", "--world", "8",
            "--arch", "internlm2-1.8b,zamba2-1.2b", "--shape", "train_4k,decode_32k",
@@ -97,6 +98,7 @@ def test_dryrun_on_a_small_fake_world(tmp_path):
     for r in recs:
         assert 0 < r["flops"] < r["flops_global"]
         assert r["devices"] == 8 and sum(r["collective_counts"].values()) > 0
-        assert r["argument_size_in_bytes"] > 0 and r["temp_size_in_bytes"] is None
+        assert r["argument_size_in_bytes"] > 0
+        assert r["output_size_in_bytes"] > 0 and r["temp_size_in_bytes"] > 0
     again = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
     assert again.returncode == 0 and again.stdout.count("[skip cached]") == 8
