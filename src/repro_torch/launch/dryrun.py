@@ -43,7 +43,12 @@ reads XLA's memory and cost analyses. Here, for each cell:
      on full tensors, which count as the stand-in makes them;
   6. where DTensor cannot propagate an op's sharding, ``fallback_rule``
      lets the ops of FALLBACK_OPS run replicated (counted under
-     ``fallbacks``) and fails the cell on any other;
+     ``fallbacks``) and fails the cell on any other. A fallback replicates
+     the fewest mesh dims it must, as XLA's GSPMD gathers only the dim that
+     blocks a reshape: first one dim of its inputs (``model``, then
+     ``data``: a head view of a model-sharded activation keeps its batch
+     shard), where DTensor then accepts the op, else every dim; the record's
+     ``fallback_replicated`` counts, per op, the fallbacks of each kind;
   7. one JSON record per cell goes to ``--out`` (a results cache: cells
      already there are skipped unless ``--force``); a cell whose step runs
      past ``--cell-timeout`` seconds is recorded as a TIMEOUT.
@@ -168,9 +173,10 @@ class CellCounter(TorchDispatchMode):
     local operand's bytes.
 
     Where DTensor cannot propagate an op's sharding, ``fallback_rule``
-    decides: an op it lets through has its DTensor inputs replicated (the
-    all-gathers and all-reduces counted) and runs replicated, as an SPMD
-    partitioner falls back, and ``fallbacks`` counts it by op.
+    decides: an op it lets through has the fewest mesh dims of its DTensor
+    inputs replicated (``_run_replicated``; the all-gathers and all-reduces
+    counted), as an SPMD partitioner falls back, and ``fallbacks`` counts it
+    by op, ``fallback_replicated`` by op and the dim replicated.
 
     ``scaled(n)`` multiplies what is counted inside it by n (nested: the
     product), and ``scale_nodes`` what the backward of a range of autograd
@@ -192,6 +198,7 @@ class CellCounter(TorchDispatchMode):
         self.coll_counts = {k: 0 for k in COLLECTIVES}
         self.coll_bytes = {k: 0 for k in COLLECTIVES}
         self.fallbacks = {}
+        self.fallback_replicated = {}
         self.scans = {}
         self.walked = {}
         self.live = LiveBytes()
@@ -257,7 +264,9 @@ class CellCounter(TorchDispatchMode):
                     except (RuntimeError, NotImplementedError) as e:
                         name = fallback_rule(func, e)
                         self.fallbacks[name] = self.fallbacks.get(name, 0) + mult
-                        out = _run_replicated(func, args, kwargs)
+                        out, dims = _run_replicated(func, args, kwargs)
+                        how = self.fallback_replicated.setdefault(name, {})
+                        how[dims] = how.get(dims, 0) + mult
             finally:
                 self._inside = False
             self.flops_global += mult * self._flops(func, args, kwargs, out)
@@ -277,19 +286,61 @@ class CellCounter(TorchDispatchMode):
         return out
 
 
+#: The mesh dims a fallback replicates alone, in the order tried.
+FALLBACK_DIMS = ("model", "data")
+
+
 def _run_replicated(func, args, kwargs):
-    """``func`` on the full (replicated) values of its DTensor inputs, run on
-    their local tensors, its tensor outputs replicated DTensors."""
+    """``func`` run with the fewest mesh dims of its DTensor inputs
+    replicated: one dim of ``FALLBACK_DIMS``, the first whose replication
+    DTensor's sharding propagation accepts (the op then runs under DTensor,
+    every other placement kept), else every dim (the op runs on the full
+    values, its tensor outputs replicated DTensors). Returns the output and
+    the dim replicated, or ``"all"``."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.utils._pytree import tree_map
 
     mesh = next(x.device_mesh for x in tree_leaves((args, kwargs)) if isinstance(x, DTensor))
+    names = mesh.mesh_dim_names or ()
+    for name in FALLBACK_DIMS:
+        if name not in names:
+            continue
+        dim = names.index(name)
+
+        def moved(x, dim=dim):
+            return tuple(Replicate() if i == dim else p for i, p in enumerate(x.placements))
+
+        if not any(isinstance(x, DTensor) and not x.placements[dim].is_replicate()
+                   for x in tree_leaves((args, kwargs))):
+            continue
+        probe = tree_map(lambda x: DTensor.from_local(
+            x._local_tensor, x.device_mesh, moved(x), run_check=False, shape=x.shape,
+            stride=x.stride()) if isinstance(x, DTensor) else x, (args, kwargs))
+        if _propagates(func, *probe):
+            a, k = tree_map(lambda x: x.redistribute(x.device_mesh, moved(x))
+                            if isinstance(x, DTensor) else x, (args, kwargs))
+            return func(*a, **k), name
     args, kwargs = tree_map(lambda x: x.to_local() if isinstance(x, DTensor) else x,
                             _replicated((args, kwargs)))
     out = func(*args, **kwargs)
     rep = [Replicate()] * mesh.ndim
     return tree_map(lambda x: DTensor.from_local(x, mesh, rep, run_check=False)
-                    if isinstance(x, torch.Tensor) else x, out)
+                    if isinstance(x, torch.Tensor) else x, out), "all"
+
+
+def _propagates(func, args, kwargs) -> bool:
+    """Whether DTensor's sharding propagation accepts ``func`` on the
+    layouts of its DTensor inputs (asked, not run: no collective, no local
+    op). A refusal is ``fallback_rule``'s to judge."""
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    try:
+        dispatcher.sharding_propagator.propagate(dispatcher.unwrap_to_op_info(func, args, kwargs))
+    except (RuntimeError, NotImplementedError) as e:
+        fallback_rule(func, e)
+        return False
+    return True
 
 
 def _replicated(tree):
@@ -500,6 +551,8 @@ def step_cell(cfg: ArchConfig, shape, mesh, mesh_name: str, scan_once: bool = Tr
     rec["collective_counts"] = {k: v * scale for k, v in counter.coll_counts.items()}
     rec["collective_bytes"] = {k: v * scale for k, v in counter.coll_bytes.items()}
     rec["fallbacks"] = {k: v * scale for k, v in counter.fallbacks.items()}
+    rec["fallback_replicated"] = {k: {d: n * scale for d, n in v.items()}
+                                  for k, v in counter.fallback_replicated.items()}
     rec["output_size_in_bytes"] = mem["output_size_in_bytes"]
     rec["temp_size_in_bytes"] = mem["temp_size_in_bytes"]
     rec["peak_above_arguments_in_bytes"] = mem["peak_bytes"]

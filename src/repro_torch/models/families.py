@@ -18,7 +18,7 @@ import torch
 
 from repro_torch._device import inference, pick_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.sharding.hints import cache_hint, shard_hint
+from repro_torch.sharding.hints import Blank, cache_hint, shard_hint
 from .layers import attn_apply, attn_init, cross_entropy, init_dense, mlp_apply, mlp_init, rmsnorm
 from .mamba2 import mamba_apply, mamba_init
 from .transformer import _dtype, _generator, remat_layer
@@ -146,15 +146,13 @@ class Zamba2Model:
         nh = d_in // cfg.ssm.head_dim
         kv_shape = (self.n_shared, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
         return cache_hint({
-            "kv": {"k": torch.zeros(kv_shape, dtype=self.dtype, device=dev),
-                   "v": torch.zeros(kv_shape, dtype=self.dtype, device=dev)},
-            "ssm": [torch.zeros((batch_size, nh, cfg.ssm.head_dim, cfg.ssm.d_state),
-                                dtype=torch.float32, device=dev)
+            "kv": {"k": Blank(kv_shape, self.dtype), "v": Blank(kv_shape, self.dtype)},
+            "ssm": [Blank((batch_size, nh, cfg.ssm.head_dim, cfg.ssm.d_state), torch.float32)
                     for _ in range(cfg.n_layers)],
-            "conv": [torch.zeros((batch_size, cfg.ssm.d_conv - 1, d_in + 2 * cfg.ssm.d_state),
-                                 dtype=self.dtype, device=dev)
+            "conv": [Blank((batch_size, cfg.ssm.d_conv - 1, d_in + 2 * cfg.ssm.d_state),
+                           self.dtype)
                      for _ in range(cfg.n_layers)],
-        })
+        }, dev)
 
     def prefill(self, params, batch):
         """``batch["max_len"]`` (default: the prompt's length) sizes the KV
@@ -251,14 +249,14 @@ class XLSTMModel:
         hd = d_in // cfg.n_heads
 
         def zeros(*shape, dtype=torch.float32):
-            return torch.zeros(shape, dtype=dtype, device=dev)
+            return Blank(shape, dtype)
 
         states = []
         for i in range(cfg.n_layers):
             if self._is_slstm(i):
                 states.append((
                     zeros(B, cfg.d_model),
-                    torch.ones((B, cfg.d_model), dtype=torch.float32, device=dev),
+                    Blank((B, cfg.d_model), torch.float32, fill=1.0),
                     zeros(B, cfg.n_heads),
                     zeros(B, cfg.d_model),
                 ))
@@ -268,7 +266,7 @@ class XLSTMModel:
                      zeros(B, cfg.n_heads)),
                     zeros(B, 3, d_in, dtype=self.dtype),
                 ))
-        return cache_hint(states)
+        return cache_hint(states, dev)
 
     def prefill(self, params, batch):
         with inference():
@@ -421,8 +419,7 @@ class EncDecModel:
         cfg = self.cfg
         dev = pick_device(device)
         shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-        return cache_hint({"k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                           "v": torch.zeros(shape, dtype=self.dtype, device=dev)})
+        return cache_hint({"k": Blank(shape, self.dtype), "v": Blank(shape, self.dtype)}, dev)
 
     def prefill(self, params, batch):
         """Encodes ``batch["frames"]`` and prefills the decoder's cache of

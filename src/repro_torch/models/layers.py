@@ -116,9 +116,13 @@ def flash_attention(
     q_pos = q_offset + torch.arange(Sq, device=dev)
     kv_limit = Sk if kv_valid_len is None else kv_valid_len
 
-    m = torch.full((B, KV, G, Sq), _NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=dev)
+    # the carries take qg's layout: on a mesh, its shards (a plain tensor
+    # of the global shape would be replicated on every device)
+    like = qg.permute(0, 2, 3, 1, 4)  # (B, KV, G, Sq, hd)
+    dense = torch.contiguous_format
+    m = torch.full_like(like[..., 0], _NEG_INF, memory_format=dense)
+    l = torch.zeros_like(like[..., 0], memory_format=dense)
+    acc = torch.zeros_like(like, memory_format=dense)
     for blk in range(n_blocks):
         lo = blk * block_kv
         kblk, vblk = k[:, lo : lo + block_kv], v[:, lo : lo + block_kv]

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.hints import batch_full
 from ._scan import scan
 from .layers import init_dense, rmsnorm
 
@@ -94,7 +95,7 @@ def ssd_chunked(x, dt, A_log, B, C, chunk: int, init_state=None):
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(A_cs[..., -1])  # (b,c,h)
-    st = (torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+    st = (batch_full(x, (b, h, p, n), 0.0, x.dtype)
           if init_state is None else init_state.to(x.dtype))
     prev = []
     for i in range(c):
@@ -116,7 +117,7 @@ def _ssd_sequential(x, dt, A_log, B, C, state=None):
     b, s, h, p = x.shape
     n = B.shape[-1]
     A = -torch.exp(A_log)
-    st = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    st = (batch_full(x, (b, h, p, n), 0.0, torch.float32)
           if state is None else state.float())
 
     def step(st, t):

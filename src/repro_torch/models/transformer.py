@@ -39,7 +39,7 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch._device import inference, pick_device
 from repro_torch._tree import map_tree
 from repro_torch.configs.base import ArchConfig
-from repro_torch.sharding.hints import cache_hint, shard_hint
+from repro_torch.sharding.hints import Blank, cache_hint, shard_hint
 from .layers import (
     attn_apply,
     attn_init,
@@ -238,10 +238,7 @@ class DecoderLM:
         cfg = self.cfg
         dev = pick_device(device)
         shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-        return cache_hint({
-            "k": torch.zeros(shape, dtype=self.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-        })
+        return cache_hint({"k": Blank(shape, self.dtype), "v": Blank(shape, self.dtype)}, dev)
 
     def prefill(self, params, batch):
         """Full forward building the cache; returns (last_logits, cache).

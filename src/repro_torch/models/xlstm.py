@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sharding.hints import batch_full
 from ._scan import scan
 from .layers import init_dense, rmsnorm
 
@@ -125,9 +126,9 @@ def mlstm_block(p, x, n_heads: int, *, state=None, conv_state=None):
         st = state
         if st is None:
             st = (
-                torch.zeros((B, n_heads, hd, hd), dtype=torch.float32, device=x.device),
-                torch.zeros((B, n_heads, hd), dtype=torch.float32, device=x.device),
-                torch.zeros((B, n_heads), dtype=torch.float32, device=x.device),
+                batch_full(x, (B, n_heads, hd, hd), 0.0, torch.float32),
+                batch_full(x, (B, n_heads, hd), 0.0, torch.float32),
+                batch_full(x, (B, n_heads), 0.0, torch.float32),
             )
 
         def step(st, t):
@@ -163,11 +164,10 @@ def slstm_block(p, x, n_heads: int, *, state=None):
     wx = (hin @ p["W"] + p["bias"].to(hin.dtype)).float()  # (B,S,4D)
 
     if state is None:
-        dev = x.device
-        c = torch.zeros((B, D), dtype=torch.float32, device=dev)
-        n = torch.ones((B, D), dtype=torch.float32, device=dev)
-        m = torch.zeros((B, n_heads), dtype=torch.float32, device=dev)
-        h = torch.zeros((B, D), dtype=torch.float32, device=dev)
+        c = batch_full(x, (B, D), 0.0, torch.float32)
+        n = batch_full(x, (B, D), 1.0, torch.float32)
+        m = batch_full(x, (B, n_heads), 0.0, torch.float32)
+        h = batch_full(x, (B, D), 0.0, torch.float32)
     else:
         c, n, m, h = state
 

@@ -5,7 +5,11 @@ redistributes ``x`` to the placements its logical dims give when an
 ambient ``DeviceMesh`` with ``data`` and ``model`` dims is set (``with
 use_mesh(mesh):``) and ``x`` is a DTensor; otherwise it returns ``x``
 itself, so a run without a mesh (every single-card path) is unchanged.
-``cache_hint`` does the same for a new decode cache.
+``cache_hint`` makes a new decode cache from its leaves' shapes, dtypes and
+fill values (``Blank``): plain tensors without a mesh; on one, each device's
+shard alone, wrapped as a DTensor laid out by ``rules.cache_spec`` (as
+``jnp.zeros`` under ``jit`` with out-shardings allocates only the local
+shard), so no device holds a buffer of the global batch.
 Logical dims:
 
   "dp"  -> the data-parallel mesh dims ("pod", "data") or ("data",)
@@ -20,7 +24,10 @@ from __future__ import annotations
 import contextlib
 import contextvars
 
-from .rules import cache_spec, map_with_path, mesh_axes, mesh_mapping, to_placements
+import torch
+
+from .rules import (cache_spec, local_shape, map_with_path, mesh_axes, mesh_mapping,
+                    to_placements)
 
 _AMBIENT = contextvars.ContextVar("repro_torch_mesh", default=None)
 
@@ -65,18 +72,61 @@ def shard_hint(x, dims):
     return x.redistribute(mesh, to_placements(tuple(spec), mesh))
 
 
-def cache_hint(cache):
-    """A new cache's tensors laid out by ``rules.cache_spec`` on the ambient
-    mesh (as the reference's prefill gives its cache out-shardings); the
-    cache itself without one."""
+class Blank:
+    """A cache leaf to make: its global ``shape``, ``dtype`` and ``fill``."""
+
+    __slots__ = ("shape", "dtype", "fill")
+
+    def __init__(self, shape, dtype, fill: float = 0.0):
+        self.shape, self.dtype, self.fill = torch.Size(shape), dtype, fill
+
+
+def cache_hint(blanks, device):
+    """The tensors of a tree of ``Blank`` leaves on ``device``: without an
+    ambient mesh, the plain tensors; on one, each made at its local shape
+    under ``rules.cache_spec`` (the reference's prefill gives its cache
+    out-shardings) and wrapped as a DTensor of the global shape."""
+
+    def filled(shape, b):
+        return torch.full(shape, b.fill, dtype=b.dtype, device=device)
+
     mesh = _AMBIENT.get()
     if mesh is None:
-        return cache
-    from torch.distributed.tensor import distribute_tensor
+        return map_with_path(lambda path, b: filled(b.shape, b), blanks)
+    from torch.distributed.tensor import DTensor
 
     mapping = mesh_mapping(mesh)
 
-    def one(path, x):
-        return distribute_tensor(x, mesh, to_placements(cache_spec(path, x, mesh, mapping), mesh))
+    def one(path, b):
+        spec = cache_spec(path, b, mesh, mapping)
+        local = filled(local_shape(b.shape, spec, mesh), b)
+        return DTensor.from_local(local, mesh, to_placements(spec, mesh), run_check=False,
+                                  shape=b.shape, stride=_strides(b.shape))
 
-    return map_with_path(one, cache)
+    return map_with_path(one, blanks)
+
+
+def batch_full(like, shape, fill: float, dtype):
+    """A new ``shape`` tensor of ``fill`` whose dim 0 is ``like``'s (the
+    batch): a plain tensor on ``like``'s device; for a DTensor ``like``,
+    each device's shard alone, dim 0 laid out as ``like``'s and every other
+    dim replicated (a plain tensor of the global shape would be replicated
+    whole on every device)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(like, DTensor):
+        return torch.full(shape, fill, dtype=dtype, device=like.device)
+    placements = [p if p == Shard(0) else Replicate() for p in like.placements]
+    local = torch.full((like._local_tensor.shape[0], *shape[1:]), fill, dtype=dtype,
+                       device=like.device)
+    return DTensor.from_local(local, like.device_mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=_strides(shape))
+
+
+def _strides(shape):
+    """A contiguous tensor's strides."""
+    out, n = [], 1
+    for d in reversed(shape):
+        out.append(n)
+        n *= d
+    return tuple(reversed(out))

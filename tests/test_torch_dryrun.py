@@ -13,18 +13,29 @@ torch's fake process group is global to its process).
   the serve rules (weight-stationary) and records it.
 - The replication fallback is decided by ``fallback_rule`` alone: an op of
   its pinned allow-list that DTensor's sharding propagation refuses runs
-  replicated; any other op, or an error of the op itself, raises.
+  replicated; any other op, or an error of the op itself, raises. It
+  replicates the fewest mesh dims it must: a head view refused on the
+  model dim keeps its data shard (8 gloo ranks, CPU values).
+- A data-only mesh (4 data x 1 model fake ranks, global batch 8, every
+  param replicated: data parallelism without FSDP) counts per device what
+  one rank counts at batch 2 with no DTensor: no buffer is made at the
+  global batch (the caches, attention's carries, the recurrences' states).
+  The MoE's dispatch, global by its semantics, is the one pinned gap.
+- ``cache_hint`` on a mesh makes each device's shard alone.
 - No module of the port assigns to ``torch.inference_mode``.
 """
 import ast
 import json
+import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
 from contextlib import nullcontext
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.launch import dryrun as D
 
@@ -149,14 +160,125 @@ print(json.dumps(out))
 """
 
 
+_DATA_MESH = r"""
+import json, sys
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
+from repro_torch._device import inference_as
+from repro_torch.configs import get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun as D, specs as S
+from repro_torch.models import build_model
+from repro_torch.optim import adamw
+from repro_torch.sharding import rules as R
+from repro_torch.sharding.hints import use_mesh
+from repro_torch.train import TrainCfg
+from dryrun_peak import Tracer
+
+# data parallelism without FSDP (every param replicated) at one microbatch:
+# each device's share of the step is one rank's step on its batch shard
+D.microbatches_for = lambda cfg, shape: 1
+R.param_spec = lambda path, leaf, mesh, mapping=None: (None,) * leaf.ndim
+D._world(4)
+mesh = init_device_mesh("cpu", (4, 1), mesh_dim_names=("data", "model"))
+SEQ = {"prefill": 128, "decode": 128, "train": 64}
+mem = lambda m: [m["temp_size_in_bytes"], m["output_size_in_bytes"]]
+out = {}
+for arch in ("internlm2-1.8b", "qwen3-moe-30b-a3b", "zamba2-1.2b", "whisper-base", "xlstm-125m"):
+    cfg = get_config(arch, smoke=True)
+    for kind in ("prefill", "decode", "train"):
+        with Tracer() as tracer:
+            rec = D.step_cell(cfg, ShapeSpec(kind, kind, SEQ[kind], 8), D.Layout(mesh), "single")
+        peak = [[b, *made] for b, made in tracer.largest(12)]
+        model = build_model(cfg, remat="full" if kind == "train" else "none")
+        params = S.params_specs(model)
+        shape = ShapeSpec(kind, kind, SEQ[kind], 2)
+        if kind == "train":
+            mdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.moment_dtype]
+            state = {"params": params, "opt": adamw.init(params, mdt)}
+            one = D.train_memory(model, TrainCfg(moment_dtype=cfg.moment_dtype), state,
+                                 S.train_batch_specs(cfg, shape))
+        else:  # the dry run's own context: no_grad in place of inference mode
+            if kind == "prefill":
+                batch = S.prefill_batch_specs(cfg, shape)
+                run, args = (lambda: model.prefill(params, batch)), (params, batch)
+            else:
+                cache, tokens = S.decode_specs(model, cfg, shape)
+                run = lambda: model.decode_step(params, cache, tokens)
+                args = (params, cache, tokens)
+            with inference_as(torch.no_grad):
+                one = D.step_memory(run, args)
+        out[f"{arch}/{kind}"] = dict(
+            mesh=mem(rec), one=mem(one),
+            all_reduce=rec["collective_bytes"]["all_reduce"], fallbacks=rec["fallbacks"],
+            peak=peak)
+
+# cache_hint on a (2 data, 2 model) mesh: every leaf a DTensor of the
+# global shape laid out by cache_spec, its storage the local shard alone
+mesh2 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+mapping = R.mesh_mapping(mesh2)
+for arch in ("internlm2-1.8b", "zamba2-1.2b", "whisper-base", "xlstm-125m"):
+    model = build_model(get_config(arch, smoke=True))
+    plain = dict(R.tree_paths(model.init_cache(8, 16, device="meta")))
+    counter = D.CellCounter()
+    counter.live.arguments(torch.empty(0, device="meta"))  # the device counted
+    with use_mesh(mesh2), counter:
+        cache = model.init_cache(8, 16, device="meta")
+    leaves, shard_bytes = [], 0
+    for path, x in R.tree_paths(cache):
+        spec = R.cache_spec(path, x, mesh2, mapping)
+        local = R.local_shape(x.shape, spec, mesh2)
+        shard_bytes += x.element_size() * int(torch.Size(local).numel())
+        leaves.append(isinstance(x, DTensor) and x.shape == plain[path].shape
+                      and x.dtype == plain[path].dtype
+                      and tuple(x.placements) == R.to_placements(spec, mesh2)
+                      and tuple(x._local_tensor.shape) == tuple(local))
+    made = counter.live.summary(cache)
+    out[f"cache/{arch}"] = dict(leaves=leaves, shard_bytes=shard_bytes,
+                                largest=max(d for _, d in counter.live.deltas()), **made)
+print(json.dumps(out))
+"""
+
+
+def _view_rank(rank, path):
+    """One of 8 gloo ranks: a (4, S, 4, hd) tensor sharded (Shard(0),
+    Shard(2)) on a (2 data, 4 model) mesh, reshaped under the counter into
+    (4, S, 2, 2, hd): DTensor refuses the view (4 model-sharded heads split
+    2 x 2); the fallback replicates the model dim alone."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{path}/store", rank=rank, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        full = torch.randn((4, 6, 4, 8), generator=torch.Generator().manual_seed(0))
+        x = distribute_tensor(full, mesh, [Shard(0), Shard(2)])
+        counter = D.CellCounter()
+        with counter:
+            y = x.reshape(4, 6, 2, 2, 8)
+        got = y.full_tensor()
+        out = dict(local=tuple(y.to_local().shape), placements=[repr(p) for p in y.placements],
+                   fallbacks=counter.fallbacks, replicated=counter.fallback_replicated,
+                   gathers=counter.coll_counts["all_gather_into_tensor"],
+                   equal=torch.equal(got, full.reshape(4, 6, 2, 2, 8)))
+        with open(f"{path}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.fixture(scope="module")
 def runs():
     """The subprocesses, started together; each one's JSON line."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tools")]))
     env.pop("REPRO_SERVE_SHARDING", None)
     procs = {name: subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT, text=True,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-             for name, code in (("faults", _FAULTS), ("scans", _SCANS), ("serve", _SERVE_V2))}
+             for name, code in (("faults", _FAULTS), ("scans", _SCANS), ("serve", _SERVE_V2),
+                                ("data_mesh", _DATA_MESH))}
     out = {}
     for name, proc in procs.items():
         stdout, stderr = proc.communicate(timeout=400)
@@ -309,6 +431,95 @@ def test_fallback_rule_keys_on_the_raising_module_and_the_op(where, cause, op, w
             D.fallback_rule(func, exc)
     else:
         assert D.fallback_rule(func, exc) == want
+
+
+DATA_MESH_ARCHS = ["internlm2-1.8b", "qwen3-moe-30b-a3b", "zamba2-1.2b", "whisper-base",
+                   "xlstm-125m"]
+
+#: The MoE prefill's bytes above one rank's on the data-only mesh: its
+#: dispatch is global by its semantics (a stable sort of all T K
+#: assignments, a capacity of the global T), and DTensor runs it
+#: replicated: at the peak the gathered token rows (``aten.index``), their
+#: bf16 and f32 gate products (``aten._to_copy``, ``aten.mul``), each of
+#: the global T K = 2,048 rows where one rank has 512.
+MOE_PREFILL_GAP = 2_110_912
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", DATA_MESH_ARCHS)
+def test_data_only_mesh_counts_what_one_rank_counts(runs, arch, kind):
+    """On 4 data x 1 model fake ranks at global batch 8, every param
+    replicated, one device's temp and output bytes of a prefill and a
+    decode step equal one rank's at batch 2 with no DTensor (both under
+    no_grad, the dry run's context), exactly: the caches, attention's
+    carries and the recurrences' states are made as shards. The MoE
+    prefill's one gap is its global dispatch, pinned by op."""
+    rec = runs["data_mesh"][f"{arch}/{kind}"]
+    (mesh_temp, mesh_out), (one_temp, one_out) = rec["mesh"], rec["one"]
+    assert mesh_out == one_out > 0 and one_temp > 0
+    if (arch, kind) != ("qwen3-moe-30b-a3b", "prefill"):
+        assert mesh_temp == one_temp
+        return
+    assert mesh_temp - one_temp == MOE_PREFILL_GAP
+    rows = {op: b for b, shape, dtype, op, line in rec["peak"]
+            if line.startswith("models/moe.py") and shape[0] == 2 * 1024}
+    assert rows == {"aten.mul.Tensor": 1_048_576, "aten.index.Tensor": 524_288,
+                    "aten._to_copy.default": 524_288}
+    assert rec["peak"][0][4].startswith("models/moe.py")  # the peak is the dispatch's
+
+
+@pytest.mark.parametrize("arch", DATA_MESH_ARCHS)
+def test_data_only_mesh_train_step_counts_one_rank_and_its_all_reduces(runs, arch):
+    """A train step (one microbatch, remat "full", the AdamW update) on the
+    data-only mesh counts at most one rank's temp bytes plus one device's
+    all-reduce buffers (the gradients'), and the same output bytes."""
+    rec = runs["data_mesh"][f"{arch}/train"]
+    (mesh_temp, mesh_out), (one_temp, one_out) = rec["mesh"], rec["one"]
+    assert mesh_out == one_out > 0
+    assert one_temp <= mesh_temp <= one_temp + rec["all_reduce"]
+    assert rec["all_reduce"] > 0
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b", "whisper-base",
+                                  "xlstm-125m"])
+def test_cache_hint_on_a_mesh_makes_each_devices_shard_alone(runs, arch):
+    """``init_cache`` under a (2 data, 2 model) mesh: every leaf is a
+    DTensor of the plain cache's global shape and dtype laid out by
+    ``cache_spec``, and the only storages made are the local shards: no
+    storage of a global shape, nothing temporary."""
+    rec = runs["data_mesh"][f"cache/{arch}"]
+    assert rec["leaves"] and all(rec["leaves"])
+    assert rec["output_size_in_bytes"] == rec["peak_bytes"] == rec["shard_bytes"]
+    assert rec["temp_size_in_bytes"] == 0 and rec["largest"] <= rec["shard_bytes"]
+
+
+def test_refused_head_view_keeps_its_data_shard(tmp_path):
+    """A (4, S, 4, hd) tensor sharded (Shard(0), Shard(2)) on a (2 data, 4
+    model) mesh of 8 gloo ranks, reshaped into (4, S, 2, 2, hd): DTensor
+    refuses the view, and the fallback replicates the model dim alone (one
+    all-gather), keeping the data shard: a local batch of 2 on every rank,
+    ``fallback_replicated`` {"model": 1}, and the gathered result equal to
+    the plain reshape bit for bit."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_view_rank, args=(r, str(tmp_path))) for r in range(8)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(240)
+    hung = [proc.pid for proc in procs if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(10)
+    assert not hung and [proc.exitcode for proc in procs] == [0] * 8
+    for r in range(8):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            out = pickle.load(f)
+        assert out["local"] == (2, 6, 2, 2, 8)
+        assert out["placements"] == ["Shard(dim=0)", "Replicate()"]
+        assert out["fallbacks"] == {"aten.view": 1}
+        assert out["replicated"] == {"aten.view": {"model": 1}}
+        assert out["gathers"] == 1 and out["equal"]
 
 
 def test_no_module_assigns_torch_inference_mode():

@@ -8,6 +8,7 @@ state; the port's from the meta device. A reference spec shorter than its
 leaf's rank is padded with ``None`` (the port's spec has one entry a dim).
 """
 import jax
+import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec
@@ -22,7 +23,7 @@ import repro_torch.launch.specs as TS
 import repro_torch.sharding.rules as TR
 from repro_torch.models import build_model
 from repro_torch.sharding import shard_hint, use_mesh
-from repro_torch.sharding.hints import cache_hint
+from repro_torch.sharding.hints import Blank, batch_full, cache_hint
 
 
 class _FakeMesh:
@@ -130,12 +131,42 @@ def test_to_placements_nests_pod_and_data():
 
 
 def test_hints_are_the_identity_without_a_mesh_or_a_dtensor():
+    """``shard_hint`` returns a plain tensor itself; ``cache_hint`` without
+    a mesh makes the plain tensors of its blanks, and ``batch_full`` of a
+    plain tensor a plain tensor on its device."""
     x = torch.randn(4, 6, 8)
     assert shard_hint(x, ("dp", None, "tp")) is x
-    cache = {"k": torch.zeros(2, 3), "ssm": [torch.zeros(1)]}
-    assert cache_hint(cache) is cache
+    cache = cache_hint({"k": Blank((2, 3), torch.bfloat16),
+                        "ssm": [Blank((1,), torch.float32, fill=1.0)]}, "cpu")
+    assert set(cache) == {"k", "ssm"} and type(cache["k"]) is torch.Tensor
+    assert torch.equal(cache["k"], torch.zeros((2, 3), dtype=torch.bfloat16))
+    assert torch.equal(cache["ssm"][0], torch.ones(1))
+    full = batch_full(x, (4, 2), 0.0, torch.float32)
+    assert type(full) is torch.Tensor and torch.equal(full, torch.zeros(4, 2))
     with use_mesh(MESHES["single"]):  # a plain tensor under a mesh: still itself
         assert shard_hint(x, ("dp", "tp", None)) is x
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "zamba2-1.2b", "whisper-base",
+                                  "xlstm-125m"])
+def test_init_cache_without_a_mesh_is_the_plain_zeros(arch):
+    """Each family's ``init_cache`` with no mesh: plain tensors on the
+    device asked, equal to the reference's cache leaf for leaf in shape,
+    dtype and value (zeros; the sLSTM's normaliser n ones), as before the
+    caches were made from blanks."""
+    from repro_torch.sharding.rules import tree_paths
+
+    cfg = tcfg.get_config(arch, smoke=True)
+    model = build_model(cfg)
+    leaves = tree_paths(model.init_cache(2, 8, device="cpu"))
+    assert leaves
+    ref = dict(tree_paths(ref_build(rcfg.get_config(arch, smoke=True)).init_cache(2, 8)))
+    assert set(ref) == {path for path, _ in leaves}
+    for path, x in leaves:
+        assert type(x) is torch.Tensor and x.device.type == "cpu"
+        want = np.asarray(ref[path].astype(jax.numpy.float32))
+        assert str(x.dtype).split(".")[-1] == str(ref[path].dtype)
+        assert np.array_equal(x.float().numpy(), want) and want.size
 
 
 def test_reference_spec_form_is_a_partition_spec():
